@@ -1,0 +1,20 @@
+"""raytrace_tpu_torch: the PyTorch and CUDA port of raytrace_tpu.
+
+The frame path of ``raytrace_tpu`` (region tables, the whole-path lighting
+march, denoise and finalize) on PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper in ``csrc/``.  It imports no JAX; of the JAX package it uses
+only the JAX-free host modules ``constants``, ``materials`` and
+``utils.blue_noise``.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+
+def create_instance(**pipeline_kwargs):
+    """Build the renderer and return its ``Pipeline`` (the counterpart of
+    ``raytrace_tpu.create_instance``, ``raytrace_tpu/__init__.py:14-23``)."""
+    from .render.pipeline import Pipeline
+
+    return Pipeline(**pipeline_kwargs)

@@ -1,0 +1,119 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use and again whenever a source (or the flags) changes: the
+library's name carries a hash of both.  It lands in ``build/`` beside this
+file, which ``.gitignore`` lists.  Nothing includes PyTorch's headers, so a
+build takes seconds.
+
+``--fmad=false`` keeps every multiply and add a separate rounding, as the
+plain PyTorch versions compute them, so K1's march agrees with its plain
+version step for step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_ROOT = Path(__file__).parent
+_CSRC = _ROOT / "csrc"
+BUILD_DIR = _ROOT / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # origin, direction, nw, iscal, fscal, hsub, h3, cA, cB, cC, cD,
+    # meta, pd, n, max_steps, seed, legs, stream
+    "rt_march_paths": [_P] * 13 + [_I] * 4 + [_P],
+    # in, geom, out, h, w, size, albedo, emission, fog, noise, nh, nw, nch,
+    # stream
+    "rt_denoise_pass": [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libraytrace_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
+    return out
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the only layout a kernel's raw pointer can take."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want {dtype} {tuple(shape)} contiguous on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}"
+        )
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

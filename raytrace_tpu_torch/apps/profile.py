@@ -1,0 +1,102 @@
+"""Profiling harness: where the steady frame's time goes on the GPU.
+
+Port of ``raytrace_tpu/apps/profile.py`` with ``torch.profiler`` in place of
+``jax.profiler``.  It drives ``Pipeline.draw_frame`` at the bench camera
+(origin (-30,-100,60), pitch -0.3, sun 0.6 + 0.01·i) after a warm-up, and
+prints for the steady frame:
+
+- host ms/frame with a sync after every frame (median, p10, p90);
+- host ms/frame over a train of frames with one sync at its end, and the
+  host's enqueue time per frame within it;
+- device ms/frame (the sum of the profiled device activities), device
+  activities per frame, and the idle share ``1 - device / train``;
+- the device activities that take the most time.
+
+Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
+(needs a CUDA GPU)
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+from ..render.camera import Camera
+from ..render.pipeline import Pipeline
+
+PROFILED_FRAMES = 10
+TOP = 12  # device activities listed
+
+
+def run(frames: int = 30, width: int = 1024, height: int = 1024) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the profile needs a CUDA GPU")
+    pipe = Pipeline(width=width, height=height)
+    cam = Camera(origin=[-30.0, -100.0, 60.0])
+    cam.pitch = -0.3
+    pipe.teleport(cam)
+    sun = lambda i: 0.6 + 0.01 * i
+    # Warm-up: kernel build and load, region tables, allocator.
+    for i in range(3):
+        pipe.draw_frame(cam, sun(i))
+    torch.cuda.synchronize()
+
+    synced = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        pipe.draw_frame(cam, sun(i))
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for i in range(frames):
+        pipe.draw_frame(cam, sun(i))
+    t_enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / frames
+    enqueue_ms = (t_enqueued - t0) * 1e3 / frames
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(PROFILED_FRAMES):
+            pipe.draw_frame(cam, sun(i))
+        torch.cuda.synchronize()
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            entry = per_name.setdefault(e.name, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    device_ms = sum(ms for ms, _ in per_name.values()) / PROFILED_FRAMES
+    launches = sum(n for _, n in per_name.values()) / PROFILED_FRAMES
+
+    deciles = statistics.quantiles(synced, n=10)
+    res = dict(
+        size=[width, height], frames=frames,
+        synced_ms_median=statistics.median(synced),
+        synced_ms_p10=deciles[0], synced_ms_p90=deciles[-1],
+        train_ms=train_ms, enqueue_ms=enqueue_ms,
+        device_ms=device_ms, device_activities_per_frame=launches,
+        idle_share=1.0 - device_ms / train_ms,
+        mrays_per_s=width * height * (1 + 2 * pipe.bounces) / (train_ms * 1e3),
+    )
+    for key, val in res.items():
+        print(f"{key} {val}")
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in ranked[:TOP]:
+        print(f"  {ms / PROFILED_FRAMES:8.4f} ms/frame  x {n / PROFILED_FRAMES:5.1f}"
+              f"  {name[:100]}")
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--frames", type=int, default=30)
+    run(ap.parse_args().frames)
+
+
+if __name__ == "__main__":
+    main()

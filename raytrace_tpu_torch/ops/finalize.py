@@ -1,0 +1,36 @@
+"""Frame finalization: composite, fog, filmic tone curve, dither.
+
+Port of ``raytrace_tpu/ops/finalize.py`` (``finalize_frame``).  Finalize
+runs only fused into K2's last pass (``csrc/denoise.cu``):
+``finalize_planar`` is that pass's per-pixel math, which the plain pass in
+``ops/denoise.py`` calls; ``denoise_finalize`` does the vertical flip.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytrace_tpu.constants import LIGHTING_SCALE
+
+from .shading import filmic_curve
+
+FOG_SCALE = 32.0 * 128.0 * 8.0  # finalize.comp:46
+
+
+def dither_planes(blue_noise: torch.Tensor, height: int, width: int):
+    """(3, H, W) dither: ``blue_noise[y % nh, x % nw, :3]``."""
+    nh, nw = blue_noise.shape[0], blue_noise.shape[1]
+    rows = torch.arange(height, device=blue_noise.device) % nh
+    cols = torch.arange(width, device=blue_noise.device) % nw
+    return blue_noise[rows[:, None], cols[None, :], :3].permute(2, 0, 1)
+
+
+def finalize_planar(albedo, emission, fog, lighting, depth_f, dither):
+    """Final (3, H, W) colour from channel-planar inputs; ``depth_f`` is the
+    u16 depth as float32 (65535 means sky)."""
+    final = albedo * (lighting * LIGHTING_SCALE) + emission * 4.0
+    fog_amount = torch.clamp(depth_f * (1.0 / FOG_SCALE), max=1.0)
+    is_terrain = depth_f < 65535.0
+    final = torch.where(is_terrain, final + (fog * 2.0 - final) * fog_amount, final)
+    return filmic_curve(final) + dither * (1.0 / 128.0)
+

@@ -1,0 +1,89 @@
+"""Region tables of the heightfield march: column-height pyramid and
+lattice-corner words.
+
+Port of ``raytrace_tpu/ops/trace_pallas.py:60-133`` (``build_hf_tables``)
+and ``:172-200`` (``_height_from_corners``).  Plain PyTorch: the tables are
+rebuilt only when the streamed region moves.  Tables are flat (1024,) int32
+tensors, one word per 8x8-column block at ``by * 32 + bx``; the JAX package
+holds the same words as (8, 128).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytrace_tpu.constants import ROOT_BLOCK_SIZE, WORLDGEN_SCALE
+
+from .._f32 import fdiv
+from ..world.heightmap import (
+    LATTICE_SPACING,
+    dequant_lattice,
+    height_from_lattice,
+    heightmap_grid,
+    lattice_fields_q,
+)
+
+_HALF = ROOT_BLOCK_SIZE // 2
+TABLE_KEYS = ("hsub", "h3", "cA", "cB", "cC", "cD")
+
+
+def build_hf_tables(lr, seed: int = 0, device=None) -> dict:
+    """Tables for the region centred at integer ``lr`` (x, y, z).
+
+    Returns ``h3`` (8/16/32-block maxima, +1 margin, packed 9 bits each),
+    ``hsub`` (four 4-block deltas, one byte each), ``cA``..``cD`` (the
+    block's lattice-corner words ``r16 | e16 << 16``) and ``r0`` (2,) int32,
+    the region origin ``lr[:2] - 128``.
+    """
+    r0x, r0y = int(lr[0]) - _HALF, int(lr[1]) - _HALF
+    n = ROOT_BLOCK_SIZE
+    h = heightmap_grid(r0x, r0y, (n, n), seed=seed, device=device)
+    hs = torch.clamp(h, min=0) + 1
+
+    def pool(x, k):
+        m = n >> k
+        return x.reshape(m, 1 << k, m, 1 << k).amax(dim=(1, 3))
+
+    h2, h3v, h4v, h5v = pool(hs, 2), pool(hs, 3), pool(hs, 4), pool(hs, 5)
+    up = lambda x, r: x.repeat_interleave(r, 0).repeat_interleave(r, 1)
+    h3 = h3v | (up(h4v, 2) << 9) | (up(h5v, 4) << 18)
+
+    sub = h2.reshape(32, 2, 32, 2).permute(0, 2, 1, 3)
+    delta = torch.clamp(h3v[:, :, None, None] - sub, 0, 255)
+    hsub = (delta[..., 0, 0] | (delta[..., 0, 1] << 8)
+            | (delta[..., 1, 0] << 16) | (delta[..., 1, 1] << 24))
+
+    nl = n // LATTICE_SPACING
+    k = torch.arange(nl + 1, dtype=torch.int32, device=device) * LATTICE_SPACING
+    lx = (r0x + k)[None, :].expand(nl + 1, nl + 1)
+    ly = (r0y + k)[:, None].expand(nl + 1, nl + 1)
+    r16, e16 = lattice_fields_q(lx, ly, seed)
+    w = r16 | (e16 << 16)
+    tables = {
+        "cA": w[:nl, :nl], "cB": w[:nl, 1:], "cC": w[1:, :nl], "cD": w[1:, 1:],
+        "hsub": hsub, "h3": h3,
+    }
+    tables = {k: v.to(torch.int32).contiguous().reshape(-1) for k, v in tables.items()}
+    tables["r0"] = torch.tensor([r0x, r0y], dtype=torch.int32, device=device)
+    return tables
+
+
+def height_from_corners(ca, cb, cc, cd, xi, yi, seed: int):
+    """Exact column height from the block's four lattice-corner words."""
+    tx = (xi & 7).to(torch.float32) * (1.0 / LATTICE_SPACING)
+    ty = (yi & 7).to(torch.float32) * (1.0 / LATTICE_SPACING)
+
+    def dq(word):
+        return dequant_lattice(word & 0xFFFF, (word >> 16) & 0xFFFF)
+
+    (r00, e00), (r10, e10), (r01, e01), (r11, e11) = dq(ca), dq(cb), dq(cc), dq(cd)
+
+    def bil(v00, v10, v01, v11):
+        top = v00 + tx * (v10 - v00)
+        bot = v01 + tx * (v11 - v01)
+        return top + ty * (bot - top)
+
+    fx = fdiv(xi.to(torch.float32), WORLDGEN_SCALE)
+    fy = fdiv(yi.to(torch.float32), WORLDGEN_SCALE)
+    return height_from_lattice(bil(r00, r10, r01, r11), bil(e00, e10, e01, e11),
+                               fx, fy, seed)

@@ -1,0 +1,492 @@
+"""The fused G-buffer pass: the whole light path per pixel, then a planar
+shade.
+
+Port of ``raytrace_tpu/ops/lighting_pallas.py``: ``render_gbuffers_fused``
+(``:807-1082``), ``check_material_codes`` (``:80-126``) and ``_mat_code``
+(``:129-140``).  The march is kernel K1, ``_make_kernel`` (``:143-796``),
+written for Hopper in ``csrc/lighting.cu`` as one thread per pixel that
+walks its own path; ``march_paths_plain`` below is the same function in
+plain PyTorch.
+
+Each pixel walks primary -> sun1 -> dif1 -> sun2 -> dif2, capped at
+``1 + 2 * bounces`` legs, over the region tables of ``ops/hf_tables.py``.
+One step is the JAX unified body ``body_u`` (``:495-572``): classify the
+position from the pyramid, detect completion statelessly (out of region or
+the sky-escape rule means air, inside a column means hit), start the next
+leg on completion, else move to the next boundary.  The whole path has a
+budget of ``max_steps`` steps; the JAX cascade budgets per level instead,
+so the two agree on every path that completes within budget.
+
+Meta word layout (int32), as in JAX (``:31-39``):
+  bits 0-2   leg (0 primary, 1 sun1, 2 dif1, 3 sun2, 4 dif2, 5 done)
+  bits 3-5   current ray's entry-face normal id
+  bits 6-8   primary hit normal id
+  bits 9-11  dif1 hit normal id
+  bit  12    primary reached sky
+  bits 13-16 sun1 / dif1 / sun2 / dif2 reached sky
+  bits 17-18 primary hit material code (0 none, 1 grass, 2 rock, 3 snow)
+  bits 19-20 dif1 hit material code
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytrace_tpu import materials
+from raytrace_tpu.constants import (
+    LIGHTING_SCALE,
+    MAX_TRACE_STEPS,
+    NORMAL_SKY,
+    ROOT_BLOCK_SIZE,
+)
+
+from .._f32 import fdiv
+from ..world.generate import material_band
+from ..world.noise import hash3_u32
+from . import shading
+from .hf_tables import TABLE_KEYS, height_from_corners
+from .rays import camera_rays, frame_noise, normalize
+
+_HALF = ROOT_BLOCK_SIZE // 2
+LEG_DONE = 5
+# Depth written for a pixel whose primary ray never resolved (the JAX
+# package's REPORT_ERROR pink case): 256 * 254.
+EXHAUSTED_DEPTH = 256 * 254
+_EPS = 1e-4
+
+_MAT_CODES_CHECKED = False
+
+
+def check_material_codes() -> None:
+    """Fail loudly if the 2-bit material codes stop covering the bands.
+
+    The march compresses terrain materials to 2-bit codes (band id 2 -> 1,
+    5 -> 2, 6 -> 3) and the shade rebuilds packed materials from them, which
+    holds only while ``material_band`` emits exactly {2, 5, 6} and the CSV
+    keeps those ids solid.  Runs once per process.
+    """
+    global _MAT_CODES_CHECKED
+    if _MAT_CODES_CHECKED:
+        return
+    z = torch.arange(-64, 320, dtype=torch.int32)
+    for bits in (0, 1, 17, 59, 0x7FFFFFFF, 0xFFFFFFFF):
+        bands = material_band(z, torch.full(z.shape, bits, dtype=torch.int64))
+        extra = set(torch.unique(bands).tolist()) - {2, 5, 6}
+        if extra:
+            raise AssertionError(
+                f"material_band emits ids {sorted(extra)} outside the march's "
+                "2-bit code table {2,5,6}; update mat_code"
+            )
+    if len(materials.MATERIALS) <= 6:
+        raise AssertionError(
+            "materials table no longer contains ids 2/5/6 used by the march "
+            f"(len={len(materials.MATERIALS)})"
+        )
+    for mid in (2, 5, 6):
+        if not materials.SOLID_TABLE[mid]:
+            raise AssertionError(
+                f"material id {mid} is no longer solid in materials.csv but "
+                "the march shades it as terrain"
+            )
+        if int(materials.PACKED_MATERIALS[mid]) != materials.MATERIALS[mid].pack():
+            raise AssertionError(f"PACKED_MATERIALS[{mid}] out of sync")
+    _MAT_CODES_CHECKED = True
+
+
+def mat_code(xi, yi, zi, seed: int) -> torch.Tensor:
+    """Material band at a solid voxel as a 2-bit code (1 grass 2 rock 3 snow)."""
+    band = material_band(zi, hash3_u32(xi, yi, zi, seed + 1))
+    return torch.where(band == 2, 1, torch.where(band == 5, 2, 3)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The march, plain PyTorch (the CPU path, and the reference for K1)
+# ---------------------------------------------------------------------------
+
+
+def _noise_terms(nw, fscal):
+    """Per-pixel jittered sun directions and sphere points from the noise
+    word; pure functions of the noise, so both versions compute them once."""
+    byte = lambda k: fdiv(((nw >> (8 * k)) & 255).to(torch.float32), 255.0)
+    n1r, n1g, n2r, n2g = byte(0), byte(1), byte(2), byte(3)
+    sun = fscal[0], fscal[1], fscal[2]
+    sz = torch.zeros_like(n1r) + sun[2]
+    sj1 = normalize(sun[0] + n1r * 0.05, sun[1] + n1g * 0.05, sz)
+    sj2 = normalize(sun[0] + n2r * 0.05, sun[1] + n2g * 0.05, sz)
+    return sj1, sj2, shading.sphere_point(n1r, n1g), shading.sphere_point(n2r, n2g)
+
+
+class _Ctx:
+    """Per-launch constants of the plain march."""
+
+    def __init__(self, iscal, tables, seed, legs):
+        iv = iscal.tolist()
+        self.r0x, self.r0y = iv[0], iv[1]
+        self.lrf = [float(v) for v in iv[2:5]]
+        self.maxh = iv[5]
+        self.t = {k: tables[k] for k in TABLE_KEYS}
+        self.seed = seed
+        self.legs = legs
+
+
+def _detect(s, c: _Ctx):
+    """Classification and stateless completion at the current position."""
+    live = s["leg"] < LEG_DONE
+    px, py, pz = s["px"], s["py"], s["pz"]
+    xi = torch.floor(px).to(torch.int32)
+    yi = torch.floor(py).to(torch.int32)
+    zi = torch.floor(pz).to(torch.int32)
+    rx = torch.clamp(xi - c.r0x, 0, ROOT_BLOCK_SIZE - 1)
+    ry = torch.clamp(yi - c.r0y, 0, ROOT_BLOCK_SIZE - 1)
+    i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
+    w = c.t["h3"][i3]
+    word = c.t["hsub"][i3]
+    h8 = w & 511
+    up = s["dz"] >= 0
+    z32 = torch.where(up, zi, zi & ~31)
+    z16 = torch.where(up, zi, zi & ~15)
+    z8 = torch.where(up, zi, zi & ~7)
+    z4 = torch.where(up, zi, zi & ~3)
+    zero = torch.zeros_like(zi)
+    step = torch.where(
+        z32 >= ((w >> 18) & 511), 32,
+        torch.where(z16 >= ((w >> 9) & 511), 16, torch.where(z8 >= h8, 8, zero)),
+    )
+    quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1)
+    delta = (word >> (quad << 3)) & 255
+    step = torch.where((step == 0) & (z4 >= h8 - delta), 4, step)
+    fine = step == 0
+    hcol = torch.clamp(
+        height_from_corners(c.t["cA"][i3], c.t["cB"][i3], c.t["cC"][i3],
+                            c.t["cD"][i3], xi, yi, c.seed),
+        min=0,
+    )
+    oob = (
+        (torch.abs(px - c.lrf[0]) >= _HALF)
+        | (torch.abs(py - c.lrf[1]) >= _HALF)
+        | (torch.abs(pz - c.lrf[2]) >= _HALF)
+        | ((s["dz"] >= 0) & (zi >= c.maxh))
+    )
+    air = live & oob
+    # `fine` is implied for a real hit (the pyramid never reports a solid
+    # voxel empty); keeping it makes the kernel's hcol-only-when-fine exact.
+    hit = live & ~oob & fine & (zi < hcol)
+    return dict(xi=xi, yi=yi, zi=zi, step=step, fine=fine, hcol=hcol,
+                air=air, hit=hit)
+
+
+def _transition(s, d, c: _Ctx, hoisted):
+    """Start the next leg for lanes whose current ray completed."""
+    sj1, sj2, sp1, sp2 = hoisted
+    air, hit = d["air"], d["hit"]
+    leg = s["leg"]
+    completed = air | hit
+    nxv, nyv, nzv = shading.face_normal_vector(s["cn"])
+    hx = s["px"] + 0.001 * nxv
+    hy = s["py"] + 0.001 * nyv
+    hz = s["pz"] + 0.001 * nzv
+    is0, is1, is2, is3, is4 = (leg == k for k in range(5))
+    c0h = hit & is0
+    c2h = hit & is2
+    pn = torch.where(c0h, s["cn"], s["pn"])
+    nn = torch.where(c2h, s["cn"], s["nn"])
+    matc = mat_code(d["xi"], d["yi"], d["zi"], c.seed)
+    acc = s["acc"]
+    for k, isk in enumerate((is0, is1, is2, is3, is4)):
+        acc = acc | ((air & isk).to(torch.int32) << k)
+    acc = acc | torch.where(c0h, matc << 5, 0) | torch.where(c2h, matc << 7, 0)
+    done = torch.full_like(leg, LEG_DONE)
+    next_leg = torch.where(
+        is0, torch.where(hit, 1, done),
+        torch.where(is1, 2,
+                    torch.where(is2, torch.where(hit, 3, done),
+                                torch.where(is3, 4, done))),
+    )
+    next_leg = torch.where(next_leg >= c.legs, done, next_leg)
+    leg_new = torch.where(completed, next_leg, leg)
+    new_base = c0h | c2h
+    qx = torch.where(new_base, hx, s["qx"])
+    qy = torch.where(new_base, hy, s["qy"])
+    qz = torch.where(new_base, hz, s["qz"])
+    starts1 = c0h
+    starts2 = completed & is1
+    starts3 = c2h
+    starts4 = completed & is3
+    starting = starts1 | starts2 | starts3 | starts4
+    df = shading.diffuse_from_sphere(sp1, pn)
+    gf = shading.diffuse_from_sphere(sp2, nn)
+    out = dict(s, qx=qx, qy=qy, qz=qz, leg=leg_new, pn=pn, nn=nn, acc=acc)
+    for k, a in enumerate("xyz"):
+        out["p" + a] = torch.where(starting, (qx, qy, qz)[k], s["p" + a])
+        out["d" + a] = torch.where(
+            starts1, sj1[k],
+            torch.where(starts2, df[k],
+                        torch.where(starts3, sj2[k],
+                                    torch.where(starts4, gf[k], s["d" + a]))),
+        )
+    return out
+
+
+def _bdist(p, mul, lp, step_f, inv_step):
+    shifted = (p + float(_HALF)) * mul
+    m = shifted - torch.floor(shifted * inv_step) * step_f
+    return (_EPS + m) * lp
+
+
+def _move(s, d, act):
+    """Advance ``act`` lanes to the nearest step-aligned boundary."""
+    step, fine = d["step"], d["fine"]
+    step_f = torch.clamp(step, min=1).to(torch.float32)
+    inv_step = torch.where(
+        step == 32, 1 / 32,
+        torch.where(step == 16, 1 / 16,
+                    torch.where(step == 8, 1 / 8,
+                                torch.where(step == 4, 1 / 4, 1.0)))).to(torch.float32)
+    one = torch.ones_like(step_f)
+    lims = []
+    for a in "xyz":
+        dv = s["d" + a]
+        mul = torch.where(dv > 0, -one, one)
+        lp = 1.0 / torch.abs(dv)
+        lims.append((s["p" + a], mul, lp))
+    (px, mulx, lpx), (py, muly, lpy), (pz, mulz, lpz) = lims
+    lxf = _bdist(px, mulx, lpx, one, one)
+    lyf = _bdist(py, muly, lpy, one, one)
+    ztop = d["hcol"].to(torch.float32)
+    lzf = torch.where(
+        (s["dz"] < 0) & (pz >= ztop),
+        (_EPS + (pz - ztop)) * lpz,
+        torch.full_like(pz, float("inf")),
+    )
+    lx = torch.where(fine, lxf, _bdist(px, mulx, lpx, step_f, inv_step))
+    ly = torch.where(fine, lyf, _bdist(py, muly, lpy, step_f, inv_step))
+    lz = torch.where(fine, lzf, _bdist(pz, mulz, lpz, step_f, inv_step))
+    use_x = (lx < ly) & (lx < lz)
+    use_y = ~(lx < ly) & (ly < lz)
+    lmin = torch.where(use_x, lx, torch.where(use_y, ly, lz))
+    dx, dy, dz = s["dx"], s["dy"], s["dz"]
+    nrm = torch.where(
+        use_x, torch.where(dx > 0, 1, 0),
+        torch.where(use_y, torch.where(dy > 0, 3, 2), torch.where(dz > 0, 5, 4)),
+    ).to(torch.int32)
+    return dict(
+        s,
+        px=torch.where(act, px + dx * lmin, px),
+        py=torch.where(act, py + dy * lmin, py),
+        pz=torch.where(act, pz + dz * lmin, pz),
+        cn=torch.where(act, nrm, s["cn"]),
+        pd=s["pd"] + torch.where(act & (s["leg"] == 0), lmin, torch.zeros_like(lmin)),
+    )
+
+
+def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
+                      max_steps: int, seed: int, legs: int):
+    """K1's plain PyTorch version: one step of every path per iteration.
+
+    origin, direction: (N, 3) f32; nw: (N,) int32 packed noise bytes;
+    iscal: (8,) int32 (r0x, r0y, lr xyz, maxh); fscal: (8,) f32 (sun xyz).
+    Returns ``(meta (N,) int32, pd (N,) f32)``.  Lanes whose path is done
+    are compacted away every few steps (a speed device only: a done lane's
+    step changes nothing).
+    """
+    c = _Ctx(iscal, tables, seed, legs)
+    n = origin.shape[0]
+    dev = origin.device
+    zf = torch.zeros(n, dtype=torch.float32, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
+    s = dict(px=origin[:, 0], py=origin[:, 1], pz=origin[:, 2],
+             dx=direction[:, 0], dy=direction[:, 1], dz=direction[:, 2],
+             qx=zf, qy=zf, qz=zf, pd=zf,
+             leg=zi, cn=zi, pn=zi, nn=zi, acc=zi)
+    hoisted = _noise_terms(nw, fscal)
+    meta = torch.empty(n, dtype=torch.int32, device=dev)
+    pd = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+
+    def flush(s, idx):
+        meta[idx] = (s["leg"] | (s["cn"] << 3) | (s["pn"] << 6)
+                     | (s["nn"] << 9) | (s["acc"] << 12))
+        pd[idx] = s["pd"]
+
+    def take(s, hoisted, keep):
+        s = {k: v[keep] for k, v in s.items()}
+        hoisted = tuple(tuple(t[keep] for t in h) for h in hoisted)
+        return s, hoisted
+
+    for i in range(max_steps):
+        if i % 16 == 0:
+            live = s["leg"] < LEG_DONE
+            flush({k: v[~live] for k, v in s.items()}, idx[~live])
+            if not bool(live.any()):
+                return meta, pd
+            s, hoisted = take(s, hoisted, live)
+            idx = idx[live]
+        d = _detect(s, c)
+        act = (s["leg"] < LEG_DONE) & ~(d["air"] | d["hit"])
+        s = _move(_transition(s, d, c, hoisted), d, act)
+    # Budget spent: apply completions from the last move, then pack.
+    s = _transition(s, _detect(s, c), c, hoisted)
+    flush(s, idx)
+    return meta, pd
+
+
+# ---------------------------------------------------------------------------
+# The wrapper: plain version on the CPU, kernel K1 on the card
+# ---------------------------------------------------------------------------
+
+
+def march_paths(origin, direction, nw, iscal, fscal, tables,
+                max_steps: int, seed: int, legs: int):
+    """Walk every pixel's light path -> ``(meta, pd)``.
+
+    CPU tensors take ``march_paths_plain``; CUDA tensors launch K1
+    (``csrc/lighting.cu``) on the current stream, and ``march_paths.launches``
+    counts those launches.  Any other device raises.
+    """
+    if origin.device.type == "cpu":
+        return march_paths_plain(origin, direction, nw, iscal, fscal, tables,
+                                 max_steps, seed, legs)
+    if origin.device.type != "cuda":
+        raise RuntimeError(f"march_paths: no kernel for device {origin.device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    n = origin.shape[0]
+    ins = [origin, direction, nw, iscal, fscal] + [tables[k] for k in TABLE_KEYS]
+    want = [(torch.float32, (n, 3)), (torch.float32, (n, 3)), (torch.int32, (n,)),
+            (torch.int32, (8,)), (torch.float32, (8,))] + [(torch.int32, (1024,))] * 6
+    for t, (dtype, shape) in zip(ins, want):
+        check_tensor("march_paths", t, dtype, shape, origin.device)
+    meta = torch.empty(n, dtype=torch.int32, device=origin.device)
+    pd = torch.empty(n, dtype=torch.float32, device=origin.device)
+    stream = torch.cuda.current_stream(origin.device).cuda_stream
+    err = kernels().rt_march_paths(
+        *(t.data_ptr() for t in ins), meta.data_ptr(), pd.data_ptr(),
+        n, max_steps, seed, legs, stream,
+    )
+    check_launch("rt_march_paths", err)
+    march_paths.launches += 1
+    return meta, pd
+
+
+march_paths.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The frame's G-buffer pass
+# ---------------------------------------------------------------------------
+
+
+def _byte(img):
+    return torch.round(img * 255.0).to(torch.int32)
+
+
+def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
+                          uniforms: dict, width: int, height: int,
+                          max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
+                          bounces: int = 2) -> dict:
+    """G-buffers of one frame: march every pixel's path, then shade.
+
+    ``tables`` from ``build_hf_tables``; ``blue_noise`` (nh, nw, 4) f32 whose
+    values are exact k/255 (the march traces from the u8-requantized noise,
+    the shade from the float texture); ``uniforms`` holds tensors origin,
+    forward, up, right (3,) f32, sun_angle () f32, seed () int32 and
+    lr (3,) f32, all on one device.  Returns lighting, albedo, emission and
+    fog (H, W, 3) f32, depth (H, W) uint16 and normal (H, W) uint8.
+    """
+    check_material_codes()
+    frame = march_inputs(tables, blue_noise, uniforms, width, height)
+    meta, pdist = march_paths(*frame["march"], max_steps, seed, 1 + 2 * bounces)
+    return shade(meta, pdist, **frame["shade"])
+
+
+def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
+                 width: int, height: int) -> dict:
+    """The march's inputs for one frame and what the shade reads besides.
+
+    ``march``: the positional arguments of ``march_paths`` up to the
+    budget (origin and direction (N, 3) f32, the packed noise word (N,)
+    int32, iscal (8,) int32 = r0x, r0y, lr xyz, maxh, fscal (8,) f32 =
+    sun xyz, and the tables).  ``shade``: keyword arguments of ``shade``
+    other than the march's outputs.
+    """
+    dev = blue_noise.device
+    origin, ray_dir = camera_rays(uniforms, width, height)
+    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height)
+    sun = shading.sun_direction(uniforms["sun_angle"])
+    sunlight = shading.sun_color(sun)
+    fscal = torch.cat([torch.stack(sun), torch.zeros(5, device=dev)])
+    # Region-wide max column height for the sky-escape rule, from the
+    # pyramid's 8-block level, so it keeps the +1 margin.
+    maxh = (tables["h3"] & 511).max()
+    iscal = torch.cat([
+        tables["r0"], uniforms["lr"].to(torch.int32), maxh.reshape(1),
+        torch.zeros(2, dtype=torch.int32, device=dev),
+    ]).to(torch.int32)
+    nw = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
+          | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24))
+    n = width * height
+    return {
+        "march": (origin.reshape(n, 3), ray_dir.reshape(n, 3).contiguous(),
+                  nw.reshape(n), iscal, fscal.to(torch.float32), tables),
+        "shade": dict(ray_dir=ray_dir, noise1=noise1, noise2=noise2, sun=sun,
+                      sunlight=sunlight),
+    }
+
+
+def _mat_albedo(code):
+    packed = torch.zeros_like(code)
+    for c, mid in ((1, 2), (2, 5), (3, 6)):
+        packed = torch.where(code == c, int(materials.PACKED_MATERIALS[mid]), packed)
+    return [
+        fdiv(((packed >> sh) & 0x7F).to(torch.float32), 127.0) for sh in (14, 7, 0)
+    ]
+
+
+def shade(meta, pdist, ray_dir, noise1, noise2, sun, sunlight) -> dict:
+    """Planar shade: radiance, depth, normal, albedo and fog from the path
+    bits (lighting_pallas.py:1007-1073).  ``meta``/``pdist`` are the
+    march's (N,) outputs for the (H, W) frame of ``ray_dir``."""
+    meta = meta.reshape(ray_dir.shape[:2])
+    pdist = pdist.reshape(ray_dir.shape[:2])
+    leg = meta & 7
+    pn = (meta >> 6) & 7
+    nn = (meta >> 9) & 7
+    acc = meta >> 12
+    p_air = (acc & 1) != 0
+    a1, a2, a3, a4 = (((acc >> k) & 1).to(torch.float32) for k in (1, 2, 3, 4))
+    alb_p = _mat_albedo((acc >> 5) & 3)
+    alb_d = _mat_albedo((acc >> 7) & 3)
+    d1 = shading.diffuse_direction(noise1[..., 0], noise1[..., 1], pn)
+    d2 = shading.diffuse_direction(noise2[..., 0], noise2[..., 1], nn)
+    rd = (ray_dir[..., 0], ray_dir[..., 1], ray_dir[..., 2])
+    sky0 = shading.sample_sky(rd, sun, sunlight, True)
+    sky1 = shading.sample_sky(d1, sun, sunlight, True)
+    sky2 = shading.sample_sky(d2, sun, sunlight, True)
+    fog0 = shading.sample_sky(rd, sun, sunlight, False)
+    light = []
+    for c in range(3):
+        lh = a1 * sunlight[c] + a2 * sky1[c] + (a3 * sunlight[c] + a4 * sky2[c]) * alb_d[c]
+        light.append(torch.where(p_air, sky0[c] + torch.zeros_like(lh), lh))
+    lighting = torch.stack(light, -1) / LIGHTING_SCALE
+
+    exhausted = leg == 0
+    depth = torch.where(
+        p_air, 0xFFFF,
+        torch.clamp(pdist * 32.0, max=float(0xFFFF)).to(torch.int32),
+    )
+    depth = torch.where(exhausted, EXHAUSTED_DEPTH, depth)
+    # Exhausted pixels fog to pink (1, 0, 1), the REPORT_ERROR colour.
+    fog = torch.stack([
+        torch.where(exhausted, pink, f.expand(leg.shape) / 2.0)
+        for f, pink in zip(fog0, (1.0, 0.0, 1.0))
+    ], -1)
+    albedo = torch.stack([torch.where(p_air, 1.0, a) for a in alb_p], -1)
+    normal = torch.where(p_air, NORMAL_SKY, pn)
+    return {
+        "lighting": lighting,
+        "depth": depth.to(torch.uint16),
+        "normal": normal.to(torch.uint8),
+        "albedo": albedo,
+        "emission": torch.zeros_like(lighting),
+        "fog": fog,
+    }

@@ -1,0 +1,73 @@
+"""Primary camera rays and per-frame blue-noise planes.
+
+Port of ``raytrace_tpu/ops/trace_jax.py:55-56`` (``_normalize``, here
+``normalize``),
+``:168-191`` (``camera_rays``, including the ``below`` clause) and
+``:220-265`` (``frame_noise``, full-frame form).  The JAX roll + tile of the
+noise texture is the same modular lookup written as one gather, so the
+per-frame offset can stay a device tensor and no value syncs to the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytrace_tpu.constants import ROOT_BLOCK_SIZE
+
+from .._f32 import fdiv
+
+_HALF = ROOT_BLOCK_SIZE // 2
+
+
+def normalize(x, y, z):
+    """Unit vector of (x, y, z) tensors, ``v / sqrt(max(|v|^2, 1e-20))``."""
+    inv = 1.0 / torch.sqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    return x * inv, y * inv, z * inv
+
+
+def camera_rays(uniforms: dict, width: int, height: int):
+    """Per-pixel primary ray origins and directions, each (H, W, 3) f32.
+
+    ``uniforms`` holds (3,) float32 tensors ``origin``, ``forward``, ``up``
+    and ``right`` (up/right already scaled by the 0.4 FOV factor).
+    """
+    dev = uniforms["origin"].device
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    sx = fdiv(px, float(width)) * 2.0 - 1.0
+    sy = fdiv(py, float(height)) * 2.0 - 1.0
+    f, r, u = uniforms["forward"], uniforms["right"], uniforms["up"]
+    d = [f[k] + sx * r[k] + sy * u[k] for k in range(3)]
+    ray_dir = torch.stack(normalize(*d), -1)
+    o = uniforms["origin"]
+    origin = o.expand(height, width, 3)
+    below = -o[1] > _HALF
+    space = -o[1] - _HALF
+    t = space / ray_dir[..., 1] + 1e-4
+    origin = torch.where(below, origin + t[..., None] * ray_dir, origin)
+    return origin.contiguous(), ray_dir
+
+
+def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
+                height: int):
+    """Per-pixel noise planes (noise1, noise2), each (H, W, C) f32.
+
+    ``noise1[y, x] = blue_noise[(y + oy) % nh, (x + ox) % nw]`` with the
+    per-frame offset read from the texture at ``seed``; ``noise2`` is
+    shifted by two more texels on both axes (trace_jax.py:220-265).
+    """
+    nh, nw = blue_noise.shape[0], blue_noise.shape[1]
+    dev = blue_noise.device
+    seed = seed.to(torch.int32)
+    texel = blue_noise[seed // nw % nh, seed % nw]
+    off_x = torch.floor(texel[0] * 255.0 + 0.5).to(torch.int64)
+    off_y = torch.floor(texel[1] * 255.0 + 0.5).to(torch.int64)
+    ys = torch.arange(height, device=dev)
+    xs = torch.arange(width, device=dev)
+
+    def plane(shift):
+        rows = torch.remainder(ys + off_y + shift, nh)
+        cols = torch.remainder(xs + off_x + shift, nw)
+        return blue_noise[rows[:, None], cols[None, :]]
+
+    return plane(0), plane(2)

@@ -1,0 +1,186 @@
+"""Frame pipeline: streaming control, uniforms, and the frame program.
+
+Port of ``raytrace_tpu/render/pipeline.py``: ``FrameUniforms`` (``:37-60``),
+the packed frame program ``_rffp_impl`` (``:198-238``) and ``Pipeline``
+(``:252-392``) for ``tracer="fused"``.  A frame is the region tables, the
+path march K1 and its shade, then the denoise chain K2 with finalize fused
+into its last pass.  The tables are rebuilt whenever the region offset
+``lr`` changes.  Everything runs on the pipeline's ``device``: CUDA
+tensors go through the kernels, CPU tensors through their plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raytrace_tpu.constants import (
+    BLUE_NOISE_SIZE,
+    DEFAULT_HEIGHT,
+    DEFAULT_WIDTH,
+    MAX_TRACE_STEPS,
+)
+from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
+
+from ..ops.denoise import denoise_finalize
+from ..ops.hf_tables import build_hf_tables
+from ..ops.lighting import render_gbuffers_fused
+from .camera import Camera
+from .streaming import TerrainStreamer
+
+# Tracers of the JAX package that the port does not have yet, with the
+# ROADMAP queue-1 item that brings each.
+_LATER_TRACERS = {
+    "volume": "ROADMAP queue 1 item 10 (exact-DDA general path)",
+    "volume_fast": "ROADMAP queue 1 item 11 (volume_fast path)",
+    "hf": "ROADMAP queue 1 item 12 (staged heightfield path)",
+}
+
+
+@dataclasses.dataclass
+class FrameUniforms:
+    """Per-frame uniform state (reference structs.rs:5-31 + pipeline.rs:195-227)."""
+
+    sun_angle: float = 0.0
+    seed: int = 0
+    origin: tuple = (0.0, 0.0, 0.0)
+    forward: tuple = (0.0, 1.0, 0.0)
+    up: tuple = (0.0, 0.0, 0.4)
+    right: tuple = (0.4, 0.0, 0.0)
+    lr: tuple = (0, 0, 0)
+
+    def packed(self) -> np.ndarray:
+        """(16,) f32: origin 0:3, forward 3:6, up 6:9, right 9:12, sun 12,
+        seed 13, lr.x 14, lr.z 15 (lr.y is always 0: the streamer never
+        recenters along Y, pipeline.rs:175-179)."""
+        if self.lr[1] != 0:
+            raise ValueError(f"packed uniforms need lr.y == 0, got {self.lr}")
+        return np.array(
+            [*self.origin, *self.forward, *self.up, *self.right, self.sun_angle,
+             float(self.seed), float(self.lr[0]), float(self.lr[2])],
+            np.float32,
+        )
+
+
+def unpack_uniforms(packed: torch.Tensor) -> dict:
+    """The uniforms dict from the packed (16,) f32 vector, on its device."""
+    zero = torch.zeros((), dtype=torch.float32, device=packed.device)
+    return dict(
+        origin=packed[0:3], forward=packed[3:6], up=packed[6:9],
+        right=packed[9:12], sun_angle=packed[12],
+        seed=packed[13].to(torch.int32),
+        lr=torch.stack([packed[14], zero, packed[15]]),
+    )
+
+
+def render_frame(tables: dict, blue_noise: torch.Tensor, packed: torch.Tensor,
+                 width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
+                 seed: int = 0, bounces: int = 2):
+    """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
+
+    The counterpart of the JAX package's single-dispatch program
+    ``_rffp_impl``: one host-to-device copy of uniforms per frame, then the
+    march and shade, then the denoise chain with finalize.
+    """
+    gb = render_gbuffers_fused(
+        tables, blue_noise, unpack_uniforms(packed), width, height, max_steps,
+        seed, bounces,
+    )
+    return denoise_finalize(gb, blue_noise), gb
+
+
+class Pipeline:
+    """Stateful frame loop: streaming + uniforms + the frame program."""
+
+    def __init__(
+        self,
+        width: int = DEFAULT_WIDTH,
+        height: int = DEFAULT_HEIGHT,
+        seed: int = 0,
+        max_steps: int = MAX_TRACE_STEPS,
+        tracer: str = "fused",
+        bounces: int = 2,
+        device="cuda",
+    ):
+        """``tracer``: only "fused" (the whole-path heightfield march) is
+        ported; the others raise ``NotImplementedError`` naming the ROADMAP
+        item that brings them.  ``device``: "cuda" runs the kernels and
+        raises when no GPU is present; "cpu" runs the plain versions."""
+        if tracer in _LATER_TRACERS:
+            raise NotImplementedError(
+                f"tracer={tracer!r} is not ported yet: {_LATER_TRACERS[tracer]}"
+            )
+        if tracer != "fused":
+            raise ValueError(f"unknown tracer {tracer!r}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Pipeline(device='cuda') needs a CUDA GPU")
+        self.width = width
+        self.height = height
+        self.max_steps = max_steps
+        self.seed = seed
+        self.tracer = tracer
+        self.bounces = bounces
+        self.uniforms = FrameUniforms()
+        self.streamer = TerrainStreamer()
+        self.blue_noise = torch.from_numpy(get_blue_noise_f32()).to(self.device)
+        self._tables = None
+        self._tables_lr = None
+        # G-buffers of the last frame drawn (depth, normal, ... on device).
+        self.gbuffers = None
+
+    def teleport(self, camera: Camera) -> None:
+        """Recenter the region on the camera, then drain residual drift."""
+        self.streamer.teleport((camera.origin[0], 0.0, camera.origin[2]))
+        self.converge_streaming(
+            (camera.origin[0], 0, camera.origin[2]), max_moves=8
+        )
+
+    def converge_streaming(self, target, max_moves: int = 32) -> None:
+        """Repeat draw_frame's one-slice streaming step until no request is
+        pending (at most ``max_moves``)."""
+        for _ in range(max_moves):
+            self.streamer.request_move_towards(target)
+            if not self.streamer.setup_next_request():
+                break
+
+    def fill_uniforms(self, camera: Camera, sun_angle: float,
+                      bump_seed: bool = True) -> None:
+        """The per-frame uniform fill draw_frame performs (pipeline.rs:198-210)."""
+        forward, up, right = camera.scaled_basis()
+        u = self.uniforms
+        u.origin = tuple(camera.origin)
+        u.forward, u.up, u.right = forward, up, right
+        if bump_seed:
+            u.seed = (u.seed + 1) % BLUE_NOISE_SIZE
+        u.sun_angle = sun_angle
+        u.lr = self.streamer.get_render_offset()
+
+    def tables(self) -> dict:
+        """Region tables for the current offset, rebuilt when it moved."""
+        lr = self.uniforms.lr
+        if self._tables_lr != lr:
+            self._tables = build_hf_tables(lr, seed=self.seed, device=self.device)
+            self._tables_lr = lr
+        return self._tables
+
+    def draw_frame(self, camera: Camera, sun_angle: float) -> torch.Tensor:
+        """One frame: stream one slice toward the camera, then render.
+        Returns the (H, W, 3) f32 frame on the device without waiting
+        for it."""
+        self.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
+        self.streamer.setup_next_request()
+        self.fill_uniforms(camera, sun_angle)
+        u = self.uniforms
+        packed = torch.from_numpy(u.packed())
+        if self.device.type == "cuda":
+            # Pinned and asynchronous: the host does not wait for the
+            # previous frame before queuing this one.
+            packed = packed.pin_memory().to(self.device, non_blocking=True)
+        frame, self.gbuffers = render_frame(
+            self.tables(), self.blue_noise, packed, self.width, self.height,
+            self.max_steps, self.seed, self.bounces,
+        )
+        return frame

@@ -1,0 +1,166 @@
+"""The port's whole frame and its pipeline glue, on the CPU.
+
+The 64² frame at the canonical view, from the port's own region tables,
+must match the committed golden and the live JAX frame; the streaming
+control must walk the same region positions as the JAX streamer; and the
+package must render without importing JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from raytrace_tpu.ops.denoise_pallas import denoise_finalize_pallas
+from raytrace_tpu.ops.lighting_pallas import render_gbuffers_fused
+from raytrace_tpu.ops.trace_pallas import build_hf_tables as jax_build_hf_tables
+from raytrace_tpu.render import pipeline as jax_pipeline
+from raytrace_tpu.render.streaming import TerrainStreamer as JaxStreamer
+from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
+from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+from raytrace_tpu_torch.render import pipeline
+from raytrace_tpu_torch.render.camera import Camera
+from raytrace_tpu_torch.render.streaming import TerrainStreamer
+from raytrace_tpu_torch.testing.golden import compare_images
+
+ROOT = Path(__file__).parent.parent
+
+
+def _canonical(cls):
+    pitch = -0.3
+    return cls(
+        origin=(-30.0, -100.0, 60.0),
+        sun_angle=0.6,
+        forward=(0.0, float(np.cos(pitch)), float(np.sin(pitch))),
+        up=(0.0, -0.4 * float(np.sin(pitch)), 0.4 * float(np.cos(pitch))),
+        right=(0.4, 0.0, 0.0),
+    )
+
+
+@pytest.fixture(scope="module")
+def port_frame():
+    u = _canonical(pipeline.FrameUniforms)
+    frame, gb = pipeline.render_frame(
+        build_hf_tables((0, 0, 0), seed=0),
+        torch.from_numpy(get_blue_noise_f32()), torch.from_numpy(u.packed()),
+        64, 64,
+    )
+    return frame.numpy(), gb
+
+
+def test_frame_matches_committed_golden(port_frame):
+    frame, gb = port_frame
+    want = np.load(ROOT / "tests" / "goldens" / "terrain_frame_64.npz")["frame"]
+    stats = compare_images(frame, want)
+    print(stats)
+    assert stats["ok"], stats
+    assert int((gb["depth"] == 65024).sum()) == 0
+
+
+def test_frame_matches_live_jax_frame(port_frame):
+    frame, _ = port_frame
+    bn = jnp.asarray(get_blue_noise_f32())
+    u = _canonical(jax_pipeline.FrameUniforms).as_device_dict()
+    tables = jax_build_hf_tables(jnp.zeros(3, jnp.int32), seed=0)
+    gb = render_gbuffers_fused(tables, bn, u, 64, 64, max_steps=2048, seed=0,
+                               interpret=True)
+    want = np.asarray(denoise_finalize_pallas(gb, bn, interpret=True))
+    stats = compare_images(frame, want)
+    print(stats)
+    assert stats["ok"], stats
+
+
+def test_unpack_uniforms_reads_the_packed_vector():
+    """unpack_uniforms gives the march the fields FrameUniforms packs."""
+    u = _canonical(pipeline.FrameUniforms)
+    u.seed, u.lr = 37, (16, 0, -32)
+    got = pipeline.unpack_uniforms(torch.from_numpy(u.packed()))
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    for name in ("origin", "forward", "up", "right", "sun_angle", "lr"):
+        torch.testing.assert_close(got[name], f32(getattr(u, name)), rtol=0, atol=0)
+    assert got["seed"].dtype == torch.int32 and int(got["seed"]) == 37
+    u.lr = (16, 8, -32)
+    with pytest.raises(ValueError, match="lr.y == 0"):
+        u.packed()
+
+
+def test_streamer_positions_match_jax():
+    """request_move_towards walks the same region positions (the JAX
+    streamer's request methods only: no volume is generated)."""
+    ours, theirs = TerrainStreamer(), JaxStreamer(seed=0)
+    targets = [(300, 0, -200)] * 30 + [(-500, 40, 90)] * 40 + [(0, 0, 0)] * 40
+    for target in targets:
+        ours.request_move_towards(target)
+        theirs.request_move_towards(target)
+        pos = lambda s: (s.cpu_position.origin, s.cpu_position.num_loaded_slices)
+        assert pos(ours) == pos(theirs)
+        assert [(r.origin, r.num_slices, r.axis) for r in ours.request_queue] == \
+            [(r.origin, r.num_slices, r.axis) for r in theirs.request_queue]
+    while ours.setup_next_request():
+        pass
+    assert ours.get_render_offset() == theirs.cpu_position.render_offset()
+
+
+def test_draw_frame_streams_and_advances_seed():
+    p = pipeline.Pipeline(width=16, height=16, device="cpu")
+    cam = Camera(origin=[40.0, 0.0, 60.0], heading=1.5708, pitch=-0.3)
+    p.draw_frame(cam, 0.6)
+    assert p.streamer.get_render_offset() == (16, 0, 0)
+    frame = p.draw_frame(cam, 0.6)
+    assert p.streamer.get_render_offset() == (32, 0, 0)
+    assert p._tables_lr == (32, 0, 0)
+    assert frame.shape == (16, 16, 3) and torch.isfinite(frame).all()
+    assert p.uniforms.seed == 2
+    p.uniforms.seed = 512 * 512 * 4 - 1
+    p.draw_frame(cam, 0.0)
+    assert p.uniforms.seed == 0
+
+
+def test_pipeline_refuses_what_it_cannot_run():
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        pipeline.Pipeline(tracer="volume_fast", device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        pipeline.Pipeline(width=16, height=16)
+
+
+def test_profile_app_needs_a_gpu():
+    from raytrace_tpu_torch.apps import profile
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        profile.run(frames=2, width=16, height=16)
+
+
+def test_package_renders_without_jax():
+    code = (
+        "import sys, torch\n"
+        "import raytrace_tpu_torch as rt\n"
+        "from raytrace_tpu_torch.render.camera import Camera\n"
+        "p = rt.create_instance(width=16, height=16, device='cpu')\n"
+        "cam = Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3)\n"
+        "p.teleport(cam)\n"
+        "f = p.draw_frame(cam, 0.6)\n"
+        "assert f.shape == (16, 16, 3) and bool(torch.isfinite(f).all())\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+        # The three host modules, their packages, and the two JAX-free
+        # modules raytrace_tpu/utils/__init__.py imports with them.
+        "allowed = {'raytrace_tpu', 'raytrace_tpu.constants', 'raytrace_tpu.materials',\n"
+        "           'raytrace_tpu.utils', 'raytrace_tpu.utils.blue_noise',\n"
+        "           'raytrace_tpu.utils.coords', 'raytrace_tpu.utils.perf'}\n"
+        "ref = {m for m in sys.modules if m.split('.')[0] == 'raytrace_tpu'}\n"
+        "assert ref <= allowed, sorted(ref - allowed)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

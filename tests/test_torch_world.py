@@ -1,0 +1,106 @@
+"""World math of the PyTorch port against the JAX package.
+
+The integer hashes, material bands, lattice words, heights and region
+tables must be bit-exact with the JAX functions run op by op (eagerly, or
+under ``jax.disable_jit`` where the JAX function is jitted).  Under ``jit``
+XLA's CPU compiler contracts multiply-adds and turns divisions by constants
+into reciprocal multiplies, so a jitted JAX builder can differ from the op-
+by-op one in the last quantum; those comparisons carry their own bounds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from raytrace_tpu.ops import trace_pallas as jax_tables
+from raytrace_tpu.world import generate as jax_gen
+from raytrace_tpu.world import heightmap as jax_hm
+from raytrace_tpu.world import noise as jax_noise
+from raytrace_tpu_torch.ops import hf_tables
+from raytrace_tpu_torch.world import generate, heightmap, noise
+
+OFFSETS = [(0, 0), (-96, -96), (-32, 64), (1024, -2048), (40960, -37888)]
+
+
+def _ints(seed, n, lo, hi):
+    return np.random.default_rng(seed).integers(lo, hi, n).astype(np.int32)
+
+
+def test_mix_and_hashes_equal():
+    h = _ints(0, 4096, -(2**31), 2**31 - 1)
+    got = noise._mix(torch.from_numpy(h)).numpy()
+    want = np.asarray(jax_noise._mix(jnp.asarray(h)))
+    np.testing.assert_array_equal(got, want)
+    x, y, z = _ints(1, 4096, -10**6, 10**6), _ints(2, 4096, -10**6, 10**6), \
+        _ints(3, 4096, -64, 400)
+    for seed in (0, 1, 7, 2**31 - 1):
+        got = noise._hash2(torch.from_numpy(x), torch.from_numpy(y), seed)
+        want = np.asarray(jax_noise._hash2(jnp.asarray(x), jnp.asarray(y), seed))
+        np.testing.assert_array_equal(got.numpy(), want)
+        got = noise.hash3_u32(*map(torch.from_numpy, (x, y, z)), seed)
+        want = np.asarray(jax_noise.hash3_u32(*map(jnp.asarray, (x, y, z)), seed))
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_material_band_equal():
+    z = np.repeat(np.arange(-40, 240, dtype=np.int32), 64)
+    bits = np.random.default_rng(4).integers(0, 2**32, z.size, dtype=np.uint64)
+    bits[:6] = [0, 1, 59, 79, 0x7FFFFFFF, 0xFFFFFFFF]
+    want = np.asarray(jax_gen.material_band(jnp.asarray(z),
+                                            jnp.asarray(bits.astype(np.uint32))))
+    got = generate.material_band(torch.from_numpy(z),
+                                 torch.from_numpy(bits.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("off", [(0, 0), (-128, -128), (1024, -2048), (40960, -37888)])
+def test_lattice_fields_q_equal(off):
+    k = np.arange(33, dtype=np.int32) * 8
+    lx = np.broadcast_to(off[0] + k[None, :], (33, 33)).copy()
+    ly = np.broadcast_to(off[1] + k[:, None], (33, 33)).copy()
+    want = jax_hm.lattice_fields_q(jnp.asarray(lx), jnp.asarray(ly), 0)
+    got = heightmap.lattice_fields_q(torch.from_numpy(lx), torch.from_numpy(ly), 0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("lr", OFFSETS)
+def test_heightmap_grid(lr):
+    got = heightmap.heightmap_grid(lr[0], lr[1], (256, 256), seed=0).numpy()
+    with jax.disable_jit():
+        eager = np.asarray(jax_hm.heightmap_grid(lr[0], lr[1], (256, 256), seed=0))
+    np.testing.assert_array_equal(got, eager)
+    jitted = np.asarray(jax_hm.heightmap_grid(lr[0], lr[1], (256, 256), seed=0))
+    diff = np.abs(got.astype(np.int64) - jitted)
+    print(f"lr={lr}: {int((diff != 0).sum())} of {diff.size} columns differ "
+          "from the jitted JAX heights")
+    assert diff.max() <= 1
+    assert (diff != 0).mean() <= 0.001
+
+
+@pytest.fixture(scope="module")
+def tables_lr0():
+    lr = jnp.zeros(3, jnp.int32)
+    with jax.disable_jit():
+        eager = jax_tables.build_hf_tables(lr, seed=0)
+    jitted = jax_tables.build_hf_tables(lr, seed=0)
+    port = hf_tables.build_hf_tables((0, 0, 0), seed=0)
+    np_ = lambda t: {k: np.asarray(v).reshape(-1) for k, v in t.items()}
+    return np_(eager), np_(jitted), {k: v.numpy() for k, v in port.items()}
+
+
+@pytest.mark.parametrize("key", ["h3", "hsub", "cA", "cB", "cC", "cD", "r0"])
+def test_build_hf_tables_equal(tables_lr0, key):
+    eager, jitted, port = tables_lr0
+    np.testing.assert_array_equal(port[key], eager[key])
+    if key in ("h3", "hsub", "r0"):
+        np.testing.assert_array_equal(port[key], jitted[key])
+    else:
+        # Lattice words r16 | e16 << 16: the jitted builder may round a
+        # field one quantum apart.
+        for sh in (0, 16):
+            d = np.abs(((port[key] >> sh) & 0xFFFF) - ((jitted[key] >> sh) & 0xFFFF))
+            assert d.max() <= 1, key
