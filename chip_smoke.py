@@ -4,12 +4,14 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``raytrace_tpu_torch/csrc``, holds each kernel against its
 plain PyTorch version at the shapes the frame gives it, renders the 64²
-golden frame, then drives the main path (``create_instance`` ->
-``teleport`` -> 20 ``draw_frame`` calls at 1024²) and times the kernel path
-against the plain path.  It imports no JAX.  Any failure raises and the
-script exits non-zero; with no CUDA GPU, or outside a checkout, it exits
-non-zero before printing any result.  The last line is
-``{"ok": true, "device": {...}}``.
+golden frame, then drives both frame paths through ``create_instance`` ->
+``teleport`` -> 20 ``draw_frame`` calls at 1024²: the heightfield path
+(``tracer="fused"``: K1, K2) and the volume path (``tracer="volume_fast"``:
+the streamed volume, its occupancy tables, K3, K2), then an edit of the
+volume, and times the kernels against their plain versions.  It imports no
+JAX.  Any failure raises and the script exits non-zero; with no CUDA GPU,
+or outside a checkout, it exits non-zero before printing any result.  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ W = H = 1024
 FRAMES = 20
 CANON = dict(origin=(-30.0, -100.0, 60.0), pitch=-0.3, sun=0.6)
 K1_ATOL = 1e-5  # shaded lighting, kernel against plain
+VOL_DX = 1.2  # camera x step per frame on the volume path: crosses a slice
+WEIRD = dict(origin=(0.0, -80.0, 40.0), pitch=-0.4, sun=0.6)  # weird scene view
 
 
 def _card() -> str:
@@ -37,11 +41,12 @@ def _card() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def _canonical_uniforms(rt):
-    """The canonical terrain view of the JAX package's golden tests."""
-    p = CANON["pitch"]
+def _canonical_uniforms(rt, view=CANON, seed=0):
+    """The canonical terrain view of the JAX package's golden tests (or
+    another view looking along +y)."""
+    p = view["pitch"]
     return rt.render.pipeline.FrameUniforms(
-        origin=CANON["origin"], sun_angle=CANON["sun"],
+        origin=view["origin"], sun_angle=view["sun"], seed=seed,
         forward=(0.0, math.cos(p), math.sin(p)),
         up=(0.0, -0.4 * math.sin(p), 0.4 * math.cos(p)), right=(0.4, 0.0, 0.0),
     )
@@ -94,8 +99,140 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
     return ok, res
 
 
+def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces):
+    """K3 against its plain version on the march inputs the frame gives it.
+
+    Both are built without FMA contraction, so the four outputs (meta word,
+    primary and dif1 hit voxels, primary distance) must be equal on every
+    pixel, and neither may cut a primary."""
+    from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    legs = path_vol.legs_of(bounces)
+    frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
+    got = trace_vol.march_paths_vol(*frame["march"], max_steps, legs)
+    want = trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs)
+    gk = path_vol.shade(volume, *got, legs=legs, **frame["shade"])
+    gp = path_vol.shade(volume, *want, legs=legs, **frame["shade"])
+    names = ("meta", "prim_lin", "dif1_lin", "prim_dist")
+    res = dict(
+        size=size, bounces=bounces, lr=[int(v) for v in frame["march"][3][:3]],
+        equal={n: float((a == b).float().mean()) for n, a, b in zip(names, got, want)},
+        max_abs_err=float(torch.abs(gk["lighting"] - gp["lighting"]).max()),
+        sky_px=int((gk["depth"].to(torch.int32) == 0xFFFF).sum()),
+        exhausted_kernel=_exhausted(gk, torch, lighting),
+        exhausted_plain=_exhausted(gp, torch, lighting),
+    )
+    ok = (all(v == 1.0 for v in res["equal"].values()) and res["max_abs_err"] == 0.0
+          and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
+    return ok, res
+
+
+def _volumes(torch, dev):
+    """The weird scene (slab, floating box, cave tunnel; the JAX package's
+    volume tests) and the generated world around the origin, as fused
+    volumes at lr = 0."""
+    from raytrace_tpu_torch.ops.volume import fuse_volume
+    from raytrace_tpu_torch.world.chunk import minefield_from_solid
+    from raytrace_tpu_torch.world.generate import PACKED_ROCK, generate_box
+
+    solid = torch.zeros((256, 256, 256), dtype=torch.bool, device=dev)
+    solid[:100] = True
+    solid[140:150, 120:140, 120:140] = True
+    solid[90:100, 128:132, 128:132] = False
+    mats = torch.where(solid, PACKED_ROCK, 0).to(torch.int32)
+    weird = fuse_volume(mats, minefield_from_solid(solid))
+    box = generate_box((-128,) * 3, (256,) * 3, seed=0, device=dev)
+    return {"weird": (weird, WEIRD), "world": (fuse_volume(box["materials"],
+                                                         box["minefield"]), CANON)}
+
+
+def phase_volume_main(rt, torch):
+    """The volume path: 20 frames at 1024² through create_instance/
+    draw_frame with tracer="volume_fast", the camera moving +VOL_DX in x per
+    frame so that slices stream in and the occupancy tables update."""
+    from raytrace_tpu_torch.ops import denoise, lighting, trace_vol
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+    from raytrace_tpu_torch.render.camera import Camera
+
+    pipe = rt.create_instance(width=W, height=H, tracer="volume_fast")
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    pipe.teleport(cam)
+    base = list(cam.origin)
+    drained = []
+    drain = pipe.streamer.drain_slab_log
+
+    def counting_drain():
+        log = drain()
+        drained.append(log)
+        return log
+
+    pipe.streamer.drain_slab_log = counting_drain
+    pipe.vol_tables()  # the teleported volume's full build, outside the count
+    drained.clear()
+    torch.cuda.synchronize()
+    trace_vol.march_paths_vol.launches = 0
+    denoise.denoise_pass.launches = 0
+    finite, exhausted = [], []
+    t0 = time.perf_counter()
+    for t in range(FRAMES):
+        cam.origin = [base[0] + VOL_DX * t, base[1], base[2]]
+        frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
+        finite.append(torch.isfinite(frame).all())
+        exhausted.append((pipe.gbuffers["depth"].to(torch.int32)
+                          == lighting.EXHAUSTED_DEPTH).sum())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    k3, k2 = trace_vol.march_paths_vol.launches, denoise.denoise_pass.launches
+    rebuilt = build_vol_tables(pipe.streamer.volume)
+    tables = pipe.vol_tables()
+    res = dict(
+        frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
+        all_finite=bool(torch.stack(finite).all()),
+        exhausted_px=int(torch.stack(exhausted).sum()),
+        k3_launches=k3, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        slabs_drained=sum(len(log) for log in drained if log),
+        full_rebuilds=sum(log is None for log in drained),
+        tables_equal_rebuild={k: bool(torch.equal(tables[k], rebuilt[k])) for k in rebuilt},
+    )
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k3 >= FRAMES
+          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3)
+          and res["slabs_drained"] >= 1 and res["full_rebuilds"] == 0
+          and all(res["tables_equal_rebuild"].values()))
+    return ok, res, pipe
+
+
+def phase_volume_edit(torch, pipe):
+    """One edit of the resident volume, then a frame: the tables rebuild
+    and the primary depth changes where the new box stands."""
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+    from raytrace_tpu_torch.render.camera import Camera
+
+    cam = Camera(origin=list(pipe.uniforms.origin))
+    cam.pitch = CANON["pitch"]
+    before = pipe.gbuffers["depth"].to(torch.int32)
+    x, y, z = (int(v) for v in cam.origin)
+    # A snow wall 24 voxels ahead of the camera, over the right half of the
+    # view.
+    pipe.edit_box((x, y + 24, z - 40), (40, 4, 60), 6)
+    frame = pipe.draw_frame(cam, CANON["sun"])
+    after = pipe.gbuffers["depth"].to(torch.int32)
+    rebuilt = build_vol_tables(pipe.streamer.volume)
+    tables = pipe.vol_tables()
+    res = dict(
+        finite=bool(torch.isfinite(frame).all()),
+        nearer_px=int((after < before).sum()),
+        unchanged_px=int((after == before).sum()),
+        tables_equal_rebuild=all(torch.equal(tables[k], rebuilt[k]) for k in rebuilt),
+    )
+    ok = (res["finite"] and res["nearer_px"] > 0 and res["unchanged_px"] > 0
+          and res["tables_equal_rebuild"])
+    return ok, res
+
+
 def _blue_noise(torch, dev):
-    from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
+    from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32
 
     return torch.from_numpy(get_blue_noise_f32()).to(dev)
 
@@ -149,7 +286,6 @@ def phase_golden(rt, torch, dev):
 
 def phase_main(rt, torch):
     """The main path: 20 frames at 1024² through create_instance/draw_frame."""
-    from raytrace_tpu.constants import DENOISE_SIZES
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.camera import Camera
 
@@ -180,7 +316,7 @@ def phase_main(rt, torch):
         k1_launches=k1, k2_launches=k2, lr=list(pipe.uniforms.lr),
     )
     ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 >= FRAMES
-          and k2 == len(DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
+          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
     return ok, res, pipe
 
 
@@ -206,16 +342,39 @@ def phase_times(rt, torch, dev, pipe, gb_rand, blue):
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
     return dict(
-        frame_ms=frame_ms, plain_frame_ms=_cuda_ms(torch, plain_frame, reps=2),
+        frame_ms=frame_ms, plain_frame_ms=_cuda_ms(torch, plain_frame, reps=1),
         k1_ms=_cuda_ms(
             torch, lambda: lighting.march_paths(*inputs["march"], *budget), reps=10),
         k1_plain_ms=_cuda_ms(
             torch, lambda: lighting.march_paths_plain(*inputs["march"], *budget),
-            reps=2),
+            reps=1),
         k2_chain_ms=_cuda_ms(
             torch, lambda: denoise.denoise_finalize(gb_rand, blue), reps=10),
         k2_chain_plain_ms=_cuda_ms(
-            torch, lambda: denoise.denoise_finalize_plain(gb_rand, blue), reps=3),
+            torch, lambda: denoise.denoise_finalize_plain(gb_rand, blue), reps=2),
+    )
+
+
+def phase_volume_times(torch, dev, pipe):
+    """K3 against its plain version at 1024² on the volume path's own
+    volume, tables and uniforms (plain: one rep), and the whole
+    volume_fast frame."""
+    from raytrace_tpu_torch.ops import path_vol, trace_vol
+    from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
+
+    packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
+    world = pipe.world()
+    legs = path_vol.legs_of(pipe.bounces)
+    inputs = path_vol.march_inputs(
+        world[1], pipe.blue_noise, unpack_uniforms(packed), W, H)
+    return dict(
+        vol_frame_ms=_cuda_ms(torch, lambda: render_frame(
+            world, pipe.blue_noise, packed, W, H, pipe.max_steps, pipe.seed,
+            pipe.bounces, "volume_fast"), reps=10),
+        k3_ms=_cuda_ms(torch, lambda: trace_vol.march_paths_vol(
+            *inputs["march"], pipe.max_steps, legs), reps=10),
+        k3_plain_ms=_cuda_ms(torch, lambda: trace_vol.march_paths_vol_plain(
+            *inputs["march"], pipe.max_steps, legs), reps=1),
     )
 
 
@@ -234,10 +393,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import raytrace_tpu_torch as rt
     import raytrace_tpu_torch.render.pipeline  # noqa: F401
-    from raytrace_tpu.constants import DENOISE_SIZES
-    from raytrace_tpu.utils.blue_noise import get_blue_noise
     from raytrace_tpu_torch import _build
+    from raytrace_tpu_torch.ops import denoise
     from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+    from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,7 +410,7 @@ def main() -> int:
 
     card = _card()
     name = torch.cuda.get_device_name(0)
-    bn_sha = hashlib.sha256(get_blue_noise().tobytes()).hexdigest()
+    bn_sha = hashlib.sha256(get_blue_noise_f32().tobytes()).hexdigest()
     print(card, flush=True)
     report("device", True, dict(card=card, torch_name=name,
                                 torch=torch.__version__, cuda=torch.version.cuda,
@@ -288,11 +447,32 @@ def main() -> int:
         pipe.max_steps, pipe.seed, pipe.bounces)
     report("k1_vs_plain_main", ok, k1_res)
     times = phase_times(rt, torch, dev, pipe, gb_rand, blue)
+
+    # The volume path: K3 at 256² on two scenes, then the main path.
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+
+    for scene, (volume, view) in _volumes(torch, dev).items():
+        tables = build_vol_tables(volume)
+        packed = torch.from_numpy(_canonical_uniforms(rt, view, seed=7).packed()).to(dev)
+        for bounces in (0, 1, 2):
+            ok, res = phase_k3(torch, volume, tables, blue, packed, 256, 2048, bounces)
+            report(f"k3_vs_plain_{scene}_b{bounces}", ok, res)
+    ok, vol_res, vpipe = phase_volume_main(rt, torch)
+    report("volume_main", ok, vol_res)
+    # K3 once more at the volume path's own size, volume, tables and uniforms.
+    ok, k3_res = phase_k3(
+        torch, vpipe.streamer.volume, vpipe.vol_tables(), vpipe.blue_noise,
+        torch.from_numpy(vpipe.uniforms.packed()).to(dev), W, vpipe.max_steps,
+        vpipe.bounces)
+    report("k3_vs_plain_main", ok, k3_res)
+    times.update(phase_volume_times(torch, dev, vpipe))
     report("times", True, dict(card=card, size=H, **times))
+    ok, res = phase_volume_edit(torch, vpipe)
+    report("volume_edit", ok, res)
     if "jax" in sys.modules:
         raise RuntimeError("chip_smoke imported jax")
 
-    passes = len(DENOISE_SIZES)  # K2's ms is the mean of one chain's passes
+    passes = len(denoise.DENOISE_SIZES)  # K2's ms is the mean of one chain's passes
     kernels = [
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
@@ -305,6 +485,11 @@ def main() -> int:
              launches=main_res["k2_launches"], max_abs_err=k2_res["max_abs_err"],
              ms=times["k2_chain_ms"] / passes,
              plain_ms=times["k2_chain_plain_ms"] / passes),
+        dict(name="K3 march_paths_vol (whole-path volume_fast march)", route="cuda",
+             source="raytrace_tpu_torch/csrc/trace_vol.cu",
+             replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
+             launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
+             ms=times["k3_ms"], plain_ms=times["k3_plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if failed:

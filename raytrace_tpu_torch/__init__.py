@@ -1,8 +1,10 @@
 """raytrace_tpu_torch: the PyTorch and CUDA port of raytrace_tpu.
 
-The frame path of ``raytrace_tpu`` (region tables, the whole-path lighting
-march, denoise and finalize) on PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper in ``csrc/``.  It imports no JAX; of the JAX package it uses
+The frame paths of ``raytrace_tpu`` on PyTorch: the heightfield path
+(region tables, the whole-path lighting march) and the volume path
+(worldgen, the streamed resident volume, its occupancy tables, edits, the
+whole-path brick march), then denoise and finalize, with hand-written CUDA
+kernels for NVIDIA Hopper in ``csrc/``.  It imports no JAX; of the JAX package it uses
 only the JAX-free host modules ``constants``, ``materials`` and
 ``utils.blue_noise``.
 """

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use and again whenever a source (or the flags) changes: the
 library's name carries a hash of both.  It lands in ``build/`` beside this
@@ -8,8 +9,8 @@ file, which ``.gitignore`` lists.  Nothing includes PyTorch's headers, so a
 build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
-plain PyTorch versions compute them, so K1's march agrees with its plain
-version step for step.
+plain PyTorch versions compute them, so the path marches K1 and K3 agree
+with their plain versions step for step.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from pathlib import Path
 _ROOT = Path(__file__).parent
 _CSRC = _ROOT / "csrc"
 BUILD_DIR = _ROOT / "build"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "--fmad=false",
+    "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +41,9 @@ _SIGNATURES = {
     # in, geom, out, h, w, size, albedo, emission, fog, noise, nh, nw, nch,
     # stream
     "rt_denoise_pass": [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
+    # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
+    # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, stream
+    "rt_march_paths_vol": [_P] * 13 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -67,6 +72,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libraytrace_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_together(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Start every command at once; -> (return code, output) of each, in
+    order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, output) for p, output in zip(procs, outputs)]
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
@@ -74,17 +88,28 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    steps = [[[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(sources(), objs)],
+             [[nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = ""
+    try:
+        for cmds in steps:
+            for cmd, (rc, output) in zip(cmds, _run_together(cmds)):
+                log += " ".join(cmd) + "\n" + output
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
+    finally:
+        out.with_suffix(".log").write_text(log)
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, log=log)
     return out
 
 

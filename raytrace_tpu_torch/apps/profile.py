@@ -1,7 +1,7 @@
 """Profiling harness: where the steady frame's time goes on the GPU.
 
 Port of ``raytrace_tpu/apps/profile.py`` with ``torch.profiler`` in place of
-``jax.profiler``.  It drives ``Pipeline.draw_frame`` at the bench camera
+``jax.profiler``.  It drives ``Pipeline.draw_frame`` of the chosen tracer at the bench camera
 (origin (-30,-100,60), pitch -0.3, sun 0.6 + 0.01·i) after a warm-up, and
 prints for the steady frame:
 
@@ -13,7 +13,7 @@ prints for the steady frame:
 - the device activities that take the most time.
 
 Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
-(needs a CUDA GPU)
+[--tracer fused|volume_fast]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -25,21 +25,22 @@ import time
 import torch
 
 from ..render.camera import Camera
-from ..render.pipeline import Pipeline
+from ..render.pipeline import TRACERS, Pipeline
 
 PROFILED_FRAMES = 10
 TOP = 12  # device activities listed
 
 
-def run(frames: int = 30, width: int = 1024, height: int = 1024) -> dict:
+def run(frames: int = 30, width: int = 1024, height: int = 1024,
+        tracer: str = "fused") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA GPU")
-    pipe = Pipeline(width=width, height=height)
+    pipe = Pipeline(width=width, height=height, tracer=tracer)
     cam = Camera(origin=[-30.0, -100.0, 60.0])
     cam.pitch = -0.3
     pipe.teleport(cam)
     sun = lambda i: 0.6 + 0.01 * i
-    # Warm-up: kernel build and load, region tables, allocator.
+    # Warm-up: kernel build and load, tables, allocator.
     for i in range(3):
         pipe.draw_frame(cam, sun(i))
     torch.cuda.synchronize()
@@ -75,7 +76,7 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024) -> dict:
 
     deciles = statistics.quantiles(synced, n=10)
     res = dict(
-        size=[width, height], frames=frames,
+        tracer=tracer, size=[width, height], frames=frames,
         synced_ms_median=statistics.median(synced),
         synced_ms_p10=deciles[0], synced_ms_p90=deciles[-1],
         train_ms=train_ms, enqueue_ms=enqueue_ms,
@@ -95,7 +96,9 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=30)
-    run(ap.parse_args().frames)
+    ap.add_argument("--tracer", choices=TRACERS, default="fused")
+    args = ap.parse_args()
+    run(args.frames, tracer=args.tracer)
 
 
 if __name__ == "__main__":

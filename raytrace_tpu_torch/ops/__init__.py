@@ -1,2 +1,3 @@
-"""Frame operations: rays, region tables, the path march (K1), shading,
+"""Frame operations: rays, heightfield and occupancy tables, the fused
+volume format, the path marches (K1, K3) and their shades, shading,
 denoise and finalize (K2)."""

@@ -1,12 +1,20 @@
-"""Frame pipeline: streaming control, uniforms, and the frame program.
+"""Frame pipeline: streaming, uniforms, and the frame program.
 
 Port of ``raytrace_tpu/render/pipeline.py``: ``FrameUniforms`` (``:37-60``),
-the packed frame program ``_rffp_impl`` (``:198-238``) and ``Pipeline``
-(``:252-392``) for ``tracer="fused"``.  A frame is the region tables, the
-path march K1 and its shade, then the denoise chain K2 with finalize fused
-into its last pass.  The tables are rebuilt whenever the region offset
-``lr`` changes.  Everything runs on the pipeline's ``device``: CUDA
-tensors go through the kernels, CPU tensors through their plain versions.
+the frame program (``_render_frame_impl``, ``:92-149``, packed as
+``_rffp_impl``, ``:198-238``) and ``Pipeline`` (``:252-463``) for
+``tracer="fused"`` and ``"volume_fast"``.
+
+- ``fused``: the region's heightfield tables (rebuilt whenever the region
+  offset ``lr`` changes), the path march K1 and its shade.
+- ``volume_fast``: the streamed resident volume and its occupancy tables
+  (updated per streamed slab, rebuilt after initialize, teleport or an
+  edit), the path march K3 and its shade.
+
+Then the denoise chain K2 with finalize fused into its last pass.  One
+packed uniform vector is uploaded per frame.  Everything runs on the
+pipeline's ``device``: CUDA tensors go through the kernels, CPU tensors
+through their plain versions.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
 from ..ops.denoise import denoise_finalize
 from ..ops.hf_tables import build_hf_tables
 from ..ops.lighting import render_gbuffers_fused
+from ..ops.path_vol import render_gbuffers_path
+from ..ops.vol_tables import build_vol_tables, update_vol_tables
 from .camera import Camera
 from .streaming import TerrainStreamer
 
@@ -34,9 +44,9 @@ from .streaming import TerrainStreamer
 # ROADMAP queue-1 item that brings each.
 _LATER_TRACERS = {
     "volume": "ROADMAP queue 1 item 10 (exact-DDA general path)",
-    "volume_fast": "ROADMAP queue 1 item 11 (volume_fast path)",
     "hf": "ROADMAP queue 1 item 12 (staged heightfield path)",
 }
+TRACERS = ("fused", "volume_fast")
 
 
 @dataclasses.dataclass
@@ -75,19 +85,25 @@ def unpack_uniforms(packed: torch.Tensor) -> dict:
     )
 
 
-def render_frame(tables: dict, blue_noise: torch.Tensor, packed: torch.Tensor,
+def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
                  width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                 seed: int = 0, bounces: int = 2):
+                 seed: int = 0, bounces: int = 2, tracer: str = "fused"):
     """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
 
-    The counterpart of the JAX package's single-dispatch program
-    ``_rffp_impl``: one host-to-device copy of uniforms per frame, then the
-    march and shade, then the denoise chain with finalize.
+    ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` or
+    the (fused volume, ``build_vol_tables`` dict) pair for
+    ``"volume_fast"``.  The counterpart of the JAX package's frame program
+    (``_render_frame_impl``, ``_rffp_impl``): the march and shade, then the
+    denoise chain with finalize.
     """
-    gb = render_gbuffers_fused(
-        tables, blue_noise, unpack_uniforms(packed), width, height, max_steps,
-        seed, bounces,
-    )
+    uniforms = unpack_uniforms(packed)
+    if tracer == "fused":
+        gb = render_gbuffers_fused(world, blue_noise, uniforms, width, height,
+                                   max_steps, seed, bounces)
+    else:
+        volume, tables = world
+        gb = render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
+                                  height, max_steps, bounces)
     return denoise_finalize(gb, blue_noise), gb
 
 
@@ -100,20 +116,33 @@ class Pipeline:
         height: int = DEFAULT_HEIGHT,
         seed: int = 0,
         max_steps: int = MAX_TRACE_STEPS,
-        tracer: str = "fused",
+        tracer: str | None = None,
         bounces: int = 2,
         device="cuda",
+        preloaded_volume=None,
     ):
-        """``tracer``: only "fused" (the whole-path heightfield march) is
-        ported; the others raise ``NotImplementedError`` naming the ROADMAP
-        item that brings them.  ``device``: "cuda" runs the kernels and
-        raises when no GPU is present; "cpu" runs the plain versions."""
+        """``tracer``: "fused" (the whole-path heightfield march of the
+        generated world) or "volume_fast" (the brick-pyramid march of
+        whatever the streamed volume holds: generated, preloaded or edited
+        content); None picks "volume_fast" when ``preloaded_volume`` is
+        given, else "fused", as the JAX package does.  "volume" and "hf"
+        raise ``NotImplementedError`` naming the ROADMAP item that brings
+        them.  ``preloaded_volume``: a fused (256^3,) volume (uint32 bits in
+        any integer dtype) to start from instead of generating one; only
+        the volume tracer reads it.  ``device``: "cuda" runs the kernels
+        and raises when no GPU is present; "cpu" runs the plain versions."""
+        if tracer is None:
+            tracer = "volume_fast" if preloaded_volume is not None else "fused"
         if tracer in _LATER_TRACERS:
             raise NotImplementedError(
                 f"tracer={tracer!r} is not ported yet: {_LATER_TRACERS[tracer]}"
             )
-        if tracer != "fused":
+        if tracer not in TRACERS:
             raise ValueError(f"unknown tracer {tracer!r}")
+        if preloaded_volume is not None and tracer != "volume_fast":
+            raise ValueError(
+                f"tracer={tracer!r} renders from worldgen-derived heightfields "
+                "and would ignore preloaded_volume; use tracer='volume_fast'")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Pipeline(device='cuda') needs a CUDA GPU")
@@ -124,10 +153,13 @@ class Pipeline:
         self.tracer = tracer
         self.bounces = bounces
         self.uniforms = FrameUniforms()
-        self.streamer = TerrainStreamer()
+        self.streamer = TerrainStreamer(seed=seed, device=self.device)
+        if tracer == "volume_fast":
+            self.streamer.initialize(volume=preloaded_volume)
         self.blue_noise = torch.from_numpy(get_blue_noise_f32()).to(self.device)
         self._tables = None
         self._tables_lr = None
+        self._vol_tables = None
         # G-buffers of the last frame drawn (depth, normal, ... on device).
         self.gbuffers = None
 
@@ -137,6 +169,20 @@ class Pipeline:
         self.converge_streaming(
             (camera.origin[0], 0, camera.origin[2]), max_moves=8
         )
+
+    def edit_box(self, world_min, shape, material_id=None) -> None:
+        """Write a solid material box (or carve air with
+        ``material_id=None``) into the resident volume at world voxel
+        ``world_min`` with extents ``shape`` (x, y, z); the occupancy
+        tables rebuild on the next frame.  The heightfield tracer derives
+        its tables from worldgen and cannot show edits, so it raises."""
+        if self.tracer != "volume_fast":
+            raise ValueError(
+                f"tracer={self.tracer!r} renders from worldgen-derived "
+                "heightfields and cannot display volume edits; use "
+                "tracer='volume_fast'"
+            )
+        self.streamer.edit_box(world_min, shape, material_id)
 
     def converge_streaming(self, target, max_moves: int = 32) -> None:
         """Repeat draw_frame's one-slice streaming step until no request is
@@ -166,6 +212,25 @@ class Pipeline:
             self._tables_lr = lr
         return self._tables
 
+    def vol_tables(self) -> dict:
+        """Occupancy tables of the resident volume: updated for each slab
+        streamed in since the last call, rebuilt when the whole volume
+        changed (initialize, teleport, edit)."""
+        log = self.streamer.drain_slab_log()
+        if self._vol_tables is None or log is None:
+            self._vol_tables = build_vol_tables(self.streamer.volume)
+        else:
+            for arr_axis, t0 in log:
+                self._vol_tables = update_vol_tables(
+                    self._vol_tables, self.streamer.volume, t0, arr_axis)
+        return self._vol_tables
+
+    def world(self):
+        """What the frame program reads for this pipeline's tracer."""
+        if self.tracer == "fused":
+            return self.tables()
+        return self.streamer.volume, self.vol_tables()
+
     def draw_frame(self, camera: Camera, sun_angle: float) -> torch.Tensor:
         """One frame: stream one slice toward the camera, then render.
         Returns the (H, W, 3) f32 frame on the device without waiting
@@ -180,7 +245,7 @@ class Pipeline:
             # previous frame before queuing this one.
             packed = packed.pin_memory().to(self.device, non_blocking=True)
         frame, self.gbuffers = render_frame(
-            self.tables(), self.blue_noise, packed, self.width, self.height,
-            self.max_steps, self.seed, self.bounces,
+            self.world(), self.blue_noise, packed, self.width, self.height,
+            self.max_steps, self.seed, self.bounces, self.tracer,
         )
         return frame

@@ -1,22 +1,32 @@
-"""Streaming control: which 256-column region the frame renders.
+"""Terrain streaming: which 256-voxel region is resident, and its voxels.
 
-Port of the control logic of ``raytrace_tpu/render/streaming.py``
-(``Position``, ``SliceRequest``: ``:43-76``; the request methods,
-``setup_next_request`` and ``get_render_offset``: ``:234-346``; ``teleport``'s
-position arithmetic: ``:189-210``).  One slice request per frame moves the
-region 16 voxels along the axis of largest camera drift; the render offset
-``lr`` is all the heightfield path reads.
+Port of ``raytrace_tpu/render/streaming.py``: ``Position``, ``SliceRequest``
+and ``_slab_world_box`` (``:43-76``), the device data plane
+``_generate_and_apply`` (``:79-107``), ``_generate_region`` (``:110-134``)
+and ``_store_slab`` (``:349-363``), and ``TerrainStreamer``'s
+``initialize`` (device source and a supplied volume, ``:155-187``),
+``teleport`` (``:189-214``), ``edit_box`` (``:216-231``), the request
+methods, ``setup_next_request`` with its slab log (``:234-311``),
+``drain_slab_log`` (``:313-320``) and ``get_render_offset``.  One slice
+request per frame moves the region 16 voxels along the axis of largest
+camera drift.
 
-The JAX streamer also keeps a 256^3 voxel volume, generated at
-``initialize`` and patched with a 16-voxel slab on every move.  Nothing on
-the heightfield path reads it, so the port has no data plane yet (it comes
-with the volume tracers): ``setup_next_request`` only advances
-``gpu_position``.
+The resident volume is a fused (256^3,) int32 tensor in (z, y, x) texel
+order; world voxel ``w`` lives at texel ``(w + 128) mod 256``.  It exists
+once ``initialize`` has run (the volume tracers); until then the streamer
+only tracks positions, which is all the heightfield path reads.  The
+streamer owns its volume (``initialize`` copies a supplied one) and writes
+slabs into it in place; the slab log tells a consumer of derived tables
+which slabs changed.  The cache source of the JAX streamer (``source=
+"cache"``, storage + LZ4) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
 
 from raytrace_tpu.constants import (
     CHUNK_SIZE,
@@ -26,8 +36,13 @@ from raytrace_tpu.constants import (
     SLICES_PER_ROOT,
 )
 
+from ..ops.volume import fuse_volume
+from ..world.generate import generate_box
+
 AXIS_X, AXIS_Y, AXIS_Z = 0, 1, 2
 _HALF_CHUNKS = ROOT_CHUNK_SIZE // 2
+_N = ROOT_BLOCK_SIZE
+_SLAB_LOG_MAX = 64  # entries before the log gives up and asks for a rebuild
 
 
 @dataclasses.dataclass
@@ -52,17 +67,108 @@ class SliceRequest:
     new_position: Position
 
 
-class TerrainStreamer:
-    """Region position bookkeeping, one slice move per request."""
+def _slab_world_box(req: SliceRequest):
+    """World box (origin xyz, shape xyz) covered by a slice request."""
+    w0 = tuple(
+        o * CHUNK_SIZE + n * SLICE_SIZE for o, n in zip(req.origin, req.num_slices)
+    )
+    shape = [ROOT_BLOCK_SIZE] * 3
+    shape[req.axis] = SLICE_SIZE
+    return w0, tuple(shape)
 
-    def __init__(self):
+
+def _fused_box(origin, shape, seed: int, device):
+    box = generate_box(origin, shape, seed=seed, device=device)
+    return fuse_volume(box["materials"], box["minefield"]).reshape(
+        shape[2], shape[1], shape[0])
+
+
+def _generate_and_apply(volume, w0, ns, axis: int, shape_xyz, seed: int) -> None:
+    """Generate a world slab and write it at its toroidal offset, in place.
+
+    The slab's world box is not 64-aligned and the minefield's LOD blocks
+    are globally 64-aligned, so terrain is generated for the 64-aligned
+    enclosure (slab origins are 16-aligned: at most 48 voxels of lead) and
+    the slab is sliced out of it.
+    """
+    aligned0 = [v - v % CHUNK_SIZE for v in w0]
+    enclosure = tuple(
+        -(-(s + CHUNK_SIZE - SLICE_SIZE) // CHUNK_SIZE) * CHUNK_SIZE for s in shape_xyz)
+    fused = _fused_box(aligned0, enclosure, seed, volume.device)
+    start = [w0[2] - aligned0[2], w0[1] - aligned0[1], w0[0] - aligned0[0]]
+    slab = fused[start[0]:start[0] + shape_xyz[2], start[1]:start[1] + shape_xyz[1],
+                 start[2]:start[2] + shape_xyz[0]]
+    _store_slab(volume, slab, ns, axis)
+
+
+def _generate_region(origin_chunks, ns, seed: int, device) -> torch.Tensor:
+    """A full 256^3 region at slice-granular world offset, in texel order.
+
+    ``w0 = origin * 64 + ns * 16`` is not chunk-aligned when ``ns != 0``, so
+    terrain comes from the 64-aligned 320^3 enclosure, is sliced, then
+    rolled into texel space.
+    """
+    w0 = [o * CHUNK_SIZE + n * SLICE_SIZE for o, n in zip(origin_chunks, ns)]
+    aligned0 = [v - v % CHUNK_SIZE for v in w0]
+    enc = ROOT_BLOCK_SIZE + CHUNK_SIZE
+    fused = _fused_box(aligned0, (enc,) * 3, seed, device)
+    s = [w - a for w, a in zip(w0, aligned0)]
+    region = fused[s[2]:s[2] + _N, s[1]:s[1] + _N, s[0]:s[0] + _N]
+    t = [n * SLICE_SIZE for n in ns]
+    return torch.roll(region, (t[2], t[1], t[0]), (0, 1, 2)).reshape(-1)
+
+
+def _store_slab(volume, slab, ns, axis: int) -> None:
+    """Roll a world-ordered (z, y, x) slab into texel space and store it in
+    the flat volume, in place.  The texel offset is ``ns * 16`` on every
+    axis; the off-axis extents are the full 256 and wrap toroidally."""
+    vol3 = volume.view(_N, _N, _N)
+    t = [n * SLICE_SIZE for n in ns]
+    shifts, dims = [], []
+    for arr_axis, xyz_axis in ((0, 2), (1, 1), (2, 0)):
+        if xyz_axis != axis:
+            shifts.append(t[xyz_axis])
+            dims.append(arr_axis)
+    vol3.narrow(2 - axis, t[axis], slab.shape[2 - axis]).copy_(
+        torch.roll(slab, shifts, dims))
+
+
+class TerrainStreamer:
+    """Region position bookkeeping and, once initialized, the resident
+    fused volume, streamed one slice per request."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.seed = seed
+        self.device = torch.device(device)
         self.cpu_position = Position()
         self.gpu_position = Position()
         self.request_queue: list[SliceRequest] = []
+        self.volume = None  # fused (256^3,) int32 once initialized
+        # Slab writes since the last drain ((arr_axis, texel_start) each),
+        # or None when the whole volume changed and derived tables must be
+        # rebuilt.
+        self._slab_log: list[tuple[int, int]] | None = None
+
+    def initialize(self, volume=None) -> torch.Tensor:
+        """Generate the initial 4^3-chunk region, or take a private copy of
+        a supplied fused volume (256^3 words in any integer dtype holding
+        the uint32 bits)."""
+        if isinstance(volume, torch.Tensor):
+            self.volume = volume.reshape(-1).to(self.device, torch.int32, copy=True)
+        elif volume is not None:
+            words = np.asarray(volume).astype(np.uint32).reshape(-1).view(np.int32)
+            self.volume = torch.from_numpy(words).to(self.device)
+        else:
+            origin = tuple(c * CHUNK_SIZE for c in self.cpu_position.origin)
+            self.volume = _fused_box(origin, (ROOT_BLOCK_SIZE,) * 3, self.seed,
+                                     self.device).reshape(-1)
+        self._slab_log = None
+        return self.volume
 
     def teleport(self, center) -> None:
         """Recenter the region on a world position, quantized to the slice
-        grid, keeping the o = -2 (mod 4) chunk invariant of the origin."""
+        grid, keeping the o = -2 (mod 4) chunk invariant of the origin, and
+        regenerate the resident volume there if there is one."""
         origin, ns = [], []
         for c in center:
             total16 = int(round(float(c) / SLICE_SIZE))
@@ -73,6 +179,23 @@ class TerrainStreamer:
         self.cpu_position = pos
         self.gpu_position = pos
         self.request_queue.clear()
+        if self.volume is not None:
+            self.volume = _generate_region(pos.origin, ns, self.seed, self.device)
+            self._slab_log = None
+
+    def edit_box(self, world_min, shape, material_id=None) -> None:
+        """Write an axis-aligned world box into the resident volume: solid
+        ``material_id``, or carved air when None (``world/edit.py``).
+        Derived tables must then be rebuilt."""
+        from ..world.edit import edit_fused_volume
+
+        if self.volume is None:
+            raise RuntimeError("edit_box needs a resident volume (initialize first)")
+        self.volume = edit_fused_volume(
+            self.volume, self.gpu_position.render_offset(), world_min, shape,
+            material_id,
+        )
+        self._slab_log = None
 
     def request_increase(self, axis: int) -> None:
         old = Position(self.cpu_position.origin, self.cpu_position.num_loaded_slices)
@@ -122,12 +245,31 @@ class TerrainStreamer:
                 return
 
     def setup_next_request(self) -> bool:
-        """Apply one queued slice move; True if one ran.  Only the position
-        advances: the voxel data plane waits for the volume tracers."""
+        """Apply one queued slice move; True if one ran.  With a resident
+        volume, the slab is generated and written, and logged."""
         if not self.request_queue:
             return False
-        self.gpu_position = self.request_queue.pop(0).new_position
+        req = self.request_queue.pop(0)
+        if self.volume is not None:
+            w0, shape = _slab_world_box(req)
+            _generate_and_apply(self.volume, w0, req.num_slices, req.axis, shape,
+                                self.seed)
+            if self._slab_log is not None:
+                # The volume is (z, y, x): array axis 2 - axis.
+                self._slab_log.append(
+                    (2 - req.axis, req.num_slices[req.axis] * SLICE_SIZE))
+                if len(self._slab_log) > _SLAB_LOG_MAX:
+                    self._slab_log = None
+        self.gpu_position = req.new_position
         return True
+
+    def drain_slab_log(self):
+        """The slab writes since the last drain, as (arr_axis, texel_start)
+        pairs, or None when the whole volume was replaced (consumers must
+        rebuild derived tables).  Draining arms the log either way."""
+        log = self._slab_log
+        self._slab_log = []
+        return log
 
     def get_render_offset(self) -> tuple[int, int, int]:
         return self.gpu_position.render_offset()

@@ -1,1 +1,2 @@
-"""World math on tensors: noise, heights and material bands."""
+"""World math on tensors: noise, heights, material bands, voxel boxes,
+the minefield and edits."""

@@ -25,6 +25,7 @@ def _c_prototypes():
 def test_ctypes_signatures_match_c_prototypes():
     protos = _c_prototypes()
     assert set(protos) == set(_build._SIGNATURES)
+    assert {"rt_march_paths", "rt_denoise_pass", "rt_march_paths_vol"} <= set(protos)
     for name, args in protos.items():
         kinds = [_build._P if "*" in a else _build._I for a in args]
         assert kinds == _build._SIGNATURES[name], name

@@ -17,12 +17,15 @@ import torch
 import jax.numpy as jnp
 
 from raytrace_tpu.ops.denoise_pallas import denoise_finalize_pallas
+from raytrace_tpu.ops.trace_jax import fuse_volume
 from raytrace_tpu.ops.lighting_pallas import render_gbuffers_fused
 from raytrace_tpu.ops.trace_pallas import build_hf_tables as jax_build_hf_tables
 from raytrace_tpu.render import pipeline as jax_pipeline
 from raytrace_tpu.render.streaming import TerrainStreamer as JaxStreamer
 from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
+from raytrace_tpu_torch import convert
 from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
 from raytrace_tpu_torch.render import pipeline
 from raytrace_tpu_torch.render.camera import Camera
 from raytrace_tpu_torch.render.streaming import TerrainStreamer
@@ -122,12 +125,92 @@ def test_draw_frame_streams_and_advances_seed():
 
 
 def test_pipeline_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        pipeline.Pipeline(tracer="volume_fast", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        pipeline.Pipeline(tracer="volume", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        pipeline.Pipeline(tracer="hf", device="cpu")
+    with pytest.raises(ValueError, match="unknown tracer"):
+        pipeline.Pipeline(tracer="raster", device="cpu")
+    with pytest.raises(ValueError, match="would ignore preloaded_volume"):
+        pipeline.Pipeline(tracer="fused", device="cpu",
+                          preloaded_volume=torch.zeros(256 ** 3, dtype=torch.int32))
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
-    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        pipeline.Pipeline(width=16, height=16)
+    for tracer in pipeline.TRACERS:
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            pipeline.Pipeline(width=16, height=16, tracer=tracer)
+
+
+@pytest.fixture(scope="module")
+def world_fused(full_world_volume):
+    """The generated 256^3 region around the origin as a JAX fused volume."""
+    mats, mf = full_world_volume
+    return fuse_volume(jnp.asarray(mats), jnp.asarray(mf))
+
+
+# A view of the generated world that needs no slice move from lr = 0.
+_VOL_CAM = dict(origin=[8.0, -100.0, 14.0], pitch=-0.05)
+
+
+def test_volume_fast_frame_matches_jax(world_fused):
+    """One 32² volume_fast frame of the same preloaded volume through both
+    pipelines' draw_frame."""
+    ours = pipeline.Pipeline(width=32, height=32, device="cpu",
+                             preloaded_volume=np.asarray(world_fused))
+    theirs = jax_pipeline.Pipeline(width=32, height=32, preloaded_volume=world_fused)
+    assert ours.tracer == theirs.tracer == "volume_fast"
+    frame = ours.draw_frame(Camera(**_VOL_CAM), 0.6)
+    want = np.asarray(theirs.draw_frame(Camera(**_VOL_CAM), 0.6))
+    assert ours.streamer.get_render_offset() == (0, 0, 0)
+    stats = compare_images(frame.numpy(), want)
+    print(stats)
+    assert stats["ok"], stats
+    depth = ours.gbuffers["depth"].to(torch.int32)
+    assert int((depth == 65024).sum()) == 0
+    assert (depth == 0xFFFF).any() and (depth != 0xFFFF).any()
+
+
+def test_preloaded_volume_is_copied_and_selects_volume_fast(world_fused):
+    vol = convert.volume_from_jax(world_fused, "cpu")
+    p = pipeline.Pipeline(width=16, height=16, device="cpu", preloaded_volume=vol)
+    assert p.tracer == "volume_fast"
+    assert torch.equal(p.streamer.volume, vol)
+    assert p.streamer.volume.data_ptr() != vol.data_ptr()
+
+
+def test_edit_box_changes_the_frame(world_fused):
+    p = pipeline.Pipeline(width=16, height=16, device="cpu",
+                          preloaded_volume=np.asarray(world_fused))
+    cam = Camera(**_VOL_CAM)
+    p.draw_frame(cam, 0.6)
+    before = p.gbuffers["depth"].clone()
+    # A rock wall across the view, 20 voxels in front of the camera.
+    p.edit_box((-40, -80, 0), (80, 4, 40), 5)
+    p.draw_frame(cam, 0.6)
+    after = p.gbuffers["depth"]
+    assert torch.equal(p.vol_tables()["detail"],
+                       build_vol_tables(p.streamer.volume)["detail"])
+    near = after.to(torch.int32) < before.to(torch.int32)
+    assert near.float().mean() > 0.5
+    with pytest.raises(ValueError, match="cannot display volume edits"):
+        pipeline.Pipeline(width=16, height=16, device="cpu").edit_box(
+            (0, 0, 0), (1, 1, 1), 2)
+
+
+def test_volume_tables_follow_streamed_slabs(world_fused):
+    """Slice moves update the occupancy tables incrementally; the result
+    equals a rebuild of the streamed volume."""
+    p = pipeline.Pipeline(width=8, height=8, device="cpu",
+                          preloaded_volume=np.asarray(world_fused))
+    cam = Camera(origin=[8.0, -100.0, 14.0], pitch=-0.05)
+    p.draw_frame(cam, 0.6)
+    for dx, dz in ((40, 0), (40, 0), (40, 40)):
+        cam.origin = [8.0 + dx, -100.0, 14.0 + dz]
+        p.draw_frame(cam, 0.6)
+    assert p.streamer.get_render_offset() == (32, 0, 16)
+    got, want = p._vol_tables, build_vol_tables(p.streamer.volume)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_profile_app_needs_a_gpu():
@@ -135,20 +218,26 @@ def test_profile_app_needs_a_gpu():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
-    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        profile.run(frames=2, width=16, height=16)
+    for tracer in pipeline.TRACERS:
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            profile.run(frames=2, width=16, height=16, tracer=tracer)
 
 
 def test_package_renders_without_jax():
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
         "import raytrace_tpu_torch as rt\n"
+        "for m in pkgutil.walk_packages(rt.__path__, 'raytrace_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from raytrace_tpu_torch.render.camera import Camera\n"
-        "p = rt.create_instance(width=16, height=16, device='cpu')\n"
         "cam = Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3)\n"
-        "p.teleport(cam)\n"
-        "f = p.draw_frame(cam, 0.6)\n"
-        "assert f.shape == (16, 16, 3) and bool(torch.isfinite(f).all())\n"
+        "for tracer in ('fused', 'volume_fast'):\n"
+        "    p = rt.create_instance(width=16, height=16, device='cpu', tracer=tracer)\n"
+        "    p.teleport(cam)\n"
+        "    f = p.draw_frame(cam, 0.6)\n"
+        "    assert f.shape == (16, 16, 3) and bool(torch.isfinite(f).all())\n"
+        "p.edit_box((-40, -90, 40), (8, 8, 8), 3)\n"
+        "assert bool(torch.isfinite(p.draw_frame(cam, 0.6)).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
         # The three host modules, their packages, and the two JAX-free
