@@ -4,14 +4,18 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``raytrace_tpu_torch/csrc``, holds each kernel against its
 plain PyTorch version at the shapes the frame gives it, renders the 64²
-golden frame, then drives both frame paths through ``create_instance`` ->
-``teleport`` -> 20 ``draw_frame`` calls at 1024²: the heightfield path
-(``tracer="fused"``: K1, K2) and the volume path (``tracer="volume_fast"``:
-the streamed volume, its occupancy tables, K3, K2), then an edit of the
-volume, and times the kernels against their plain versions.  It imports no
-JAX.  Any failure raises and the script exits non-zero; with no CUDA GPU,
-or outside a checkout, it exits non-zero before printing any result.  The
-last line is ``{"ok": true, "device": {...}}``.
+golden frame, then drives the frame paths through ``create_instance`` ->
+``teleport`` -> ``draw_frame`` at 1024²: 20 frames of the heightfield path
+(``tracer="fused"``: K1, K2), of the volume path (``tracer="volume_fast"``:
+the streamed volume, its occupancy tables, K3, K2) and of the staged
+heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
+the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
+PyTorch).  It times the kernels against their plain versions and prints
+each kernel's least possible time on the card (``bound_ms``) beside its
+own.  It imports no JAX and nothing of the JAX package.  Any failure
+raises and the script exits non-zero; with no CUDA GPU, or outside a
+checkout, it exits non-zero before printing any result.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,22 @@ CANON = dict(origin=(-30.0, -100.0, 60.0), pitch=-0.3, sun=0.6)
 K1_ATOL = 1e-5  # shaded lighting, kernel against plain
 VOL_DX = 1.2  # camera x step per frame on the volume path: crosses a slice
 WEIRD = dict(origin=(0.0, -80.0, 40.0), pitch=-0.4, sun=0.6)  # weird scene view
+HF_MATCH = 0.9999  # share of pixels whose hf (K4) and fused (K1) G-buffers agree
+EXACT_FRAMES = 2  # frames of the exact DDA
+
+# The card's peaks (H100 SXM data sheet): float32 outside the tensor cores
+# and HBM3 bandwidth.  A kernel's bound is the larger of its bytes (each
+# input read once, each output written once) over PEAK_BYTES and its float32
+# operations over PEAK_F32.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# float32 operations (add, sub, mul, div, sqrt, floor, abs, pow each 1; no
+# compares, no integer work) counted from the CUDA sources, at least:
+OPS_PER_HF_MOVE = 31  # K1, K4: a fine move (two wall distances, the top, the step, the window)
+OPS_PER_HEIGHT = 88  # K1, K4: heightfield.cuh height_from_corners with its perlin octave
+OPS_PER_VOL_MOVE = 36  # K3: move_to_boundary, the texels and the window test
+OPS_PER_TAP = 16  # K2: unpack, weight, and the three weighted channel sums
+DENOISE_TAPS = 36
 
 
 def _card() -> str:
@@ -54,6 +74,37 @@ def _canonical_uniforms(rt, view=CANON, seed=0):
 
 def _exhausted(gb, torch, lighting) -> int:
     return int((gb["depth"].to(torch.int32) == lighting.EXHAUSTED_DEPTH).sum())
+
+
+def _bound(bytes_moved: float, ops: float) -> dict:
+    """The least time the card could take: ``bound_ms`` and ``bound_by``."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _same(torch, a, b) -> bool:
+    """Equal on every element, a NaN matching a NaN (a bounce ray that
+    rises exactly vertically through a column K4 marches has no finite move
+    and goes NaN in JAX, in K4 and in the plain version alike)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    eq = a == b
+    if a.is_floating_point():
+        eq = eq | (torch.isnan(a) & torch.isnan(b))
+    return bool(eq.all())
+
+
+def _timed_once(torch, fn):
+    """(result, device ms) of one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -81,7 +132,7 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
     frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
     budget = (max_steps, seed, 1 + 2 * bounces)
     meta_k, pd_k = lighting.march_paths(*frame["march"], *budget)
-    meta_p, pd_p = lighting.march_paths_plain(*frame["march"], *budget)
+    meta_p, pd_p, work = lighting.march_paths_plain(*frame["march"], *budget)
     gk = lighting.shade(meta_k, pd_k, **frame["shade"])
     gp = lighting.shade(meta_p, pd_p, **frame["shade"])
     dd = torch.abs(gk["depth"].to(torch.int32) - gp["depth"].to(torch.int32))
@@ -93,6 +144,11 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
         exhausted_kernel=_exhausted(gk, torch, lighting),
         exhausted_plain=_exhausted(gp, torch, lighting),
     )
+    n = meta_k.shape[0]
+    moves, heights = (int(v) for v in work.sum(0, dtype=torch.int64))
+    res["work"] = dict(moves=moves, heights=heights)
+    res.update(_bound(n * (12 + 12 + 4 + 8) + 64 + 6 * 4096,
+                      OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights))
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
           and res["max_depth_diff"] <= 1
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
@@ -111,7 +167,7 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces):
     legs = path_vol.legs_of(bounces)
     frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
     got = trace_vol.march_paths_vol(*frame["march"], max_steps, legs)
-    want = trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs)
+    *want, moves = trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs)
     gk = path_vol.shade(volume, *got, legs=legs, **frame["shade"])
     gp = path_vol.shade(volume, *want, legs=legs, **frame["shade"])
     names = ("meta", "prim_lin", "dif1_lin", "prim_dist")
@@ -123,6 +179,11 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces):
         exhausted_kernel=_exhausted(gk, torch, lighting),
         exhausted_plain=_exhausted(gp, torch, lighting),
     )
+    n = got[0].shape[0]
+    tables_bytes = sum(tables[k].numel() * 4 for k in ("any8", "all8", "any_hi", "detail"))
+    res["work"] = dict(moves=int(moves.sum(dtype=torch.int64)))
+    res.update(_bound(n * (12 + 12 + 48 + 16) + 56 + tables_bytes,
+                      OPS_PER_VOL_MOVE * res["work"]["moves"]))
     ok = (all(v == 1.0 for v in res["equal"].values()) and res["max_abs_err"] == 0.0
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
     return ok, res
@@ -264,7 +325,13 @@ def phase_k2(torch, dev, blue):
     got = denoise.denoise_finalize(gb, blue)
     want = denoise.denoise_finalize_plain(gb, blue)
     err = float(torch.abs(got - want).max())
-    return err <= 3e-5, dict(size=H, max_abs_err=err, atol=3e-5), gb
+    # One pass, the mean of the chain's: light in and out, the geometry
+    # plane, and in the last pass albedo, emission, fog and the noise.
+    passes, n = len(denoise.DENOISE_SIZES), H * W
+    chain_bytes = passes * n * (12 + 4 + 12) + n * 36 + blue.numel() * 4
+    chain_ops = passes * n * (DENOISE_TAPS * OPS_PER_TAP + 11) + n * 30
+    bound = _bound(chain_bytes / passes, chain_ops / passes)
+    return err <= 3e-5, dict(size=H, max_abs_err=err, atol=3e-5, **bound), gb
 
 
 def phase_golden(rt, torch, dev):
@@ -337,7 +404,7 @@ def phase_times(rt, torch, dev, pipe, gb_rand, blue):
     def plain_frame():
         inputs = lighting.march_inputs(
             tables, pipe.blue_noise, unpack_uniforms(packed), W, H)
-        meta, pd = lighting.march_paths_plain(*inputs["march"], *budget)
+        meta, pd, _ = lighting.march_paths_plain(*inputs["march"], *budget)
         gb = lighting.shade(meta, pd, **inputs["shade"])
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
@@ -378,6 +445,196 @@ def phase_volume_times(torch, dev, pipe):
     )
 
 
+def _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces):
+    """The hf G-buffer pass with K4, recording each trace call: (origin,
+    direction, active, caps, hit dict) of the primary batch and of each
+    bounce's sun + diffuse pair."""
+    from raytrace_tpu_torch.ops import integrate, trace_hf
+
+    batches = []
+
+    def trace(o, d, active=None):
+        caps = () if active is None else trace_hf.COMPACT_CAPS
+        hit = trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], max_steps, seed,
+                                     caps, active)
+        batches.append((o, d, active, caps, hit))
+        return hit
+
+    gb = integrate.integrate_gbuffers(trace, blue, uniforms, size, size, bounces)
+    return gb, batches
+
+
+def phase_k4(torch, tables, blue, packed, size, max_steps, seed, bounces):
+    """K4 against its plain version on the batches a frame gives it: the
+    primary rays, then each bounce's sun + diffuse pair with its active
+    mask.  Built without FMA contraction, every output must be equal on
+    every ray, and no primary may be cut.  Times each batch alone: the
+    kernel over 10 calls, the plain version once; ``k4_ms`` and
+    ``k4_plain_ms`` are the means over the batches."""
+    from raytrace_tpu_torch.ops import trace_hf
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    uniforms = unpack_uniforms(packed)
+    _, batches = _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces)
+    keys = ("position", "normal", "air", "albedo", "distance", "exhausted")
+    res = dict(size=size, bounces=bounces, batches=[], max_abs_err=0.0)
+    ok = True
+    ms, plain_ms, bounds = [], [], []
+    for b, (o, d, active, caps, _) in enumerate(batches):
+        args = (tables, o, d, uniforms["lr"], max_steps, seed, caps, active)
+        got = trace_hf.trace_rays_hf(*args)
+        want, t_p = _timed_once(torch, lambda: trace_hf.trace_rays_hf_plain(*args))
+        ms.append(_cuda_ms(torch, lambda: trace_hf.trace_rays_hf(*args), reps=10))
+        plain_ms.append(t_p)
+        equal = {k: _same(torch, got[k], want[k]) for k in keys}
+        err = float(torch.nan_to_num(got["position"] - want["position"]).abs().max())
+        n = o.numel() // 3
+        moves, heights = (int(v) for v in want["work"].reshape(-1, 2).sum(0, dtype=torch.int64))
+        bound = _bound(n * (12 + 12 + (0 if active is None else 1) + 24) + 32 + 6 * 4096,
+                       OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights)
+        bounds.append(bound)
+        traced = torch.ones_like(got["air"]) if active is None else active
+        exhausted = int((got["exhausted"] & traced).sum())
+        res["batches"].append(dict(rays=n, equal=equal, moves=moves, heights=heights,
+                                   exhausted_traced=exhausted, ms=ms[-1],
+                                   plain_ms=plain_ms[-1], **bound))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        ok = ok and all(equal.values()) and (b > 0 or exhausted == 0)
+    res.update(k4_ms=sum(ms) / len(ms), k4_plain_ms=sum(plain_ms) / len(plain_ms),
+               bound_ms=sum(x["bound_ms"] for x in bounds) / len(bounds),
+               bound_by=max(bounds, key=lambda x: x["bound_ms"])["bound_by"])
+    return ok, res
+
+
+def phase_hf_main(rt, torch):
+    """The staged heightfield path: 20 frames at 1024² through
+    create_instance(tracer="hf")/draw_frame, the camera moving as on the
+    main path.  K4 launches once per leg batch: (1 + bounces) per frame."""
+    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf
+    from raytrace_tpu_torch.render.camera import Camera
+
+    pipe = rt.create_instance(width=W, height=H, tracer="hf")
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    pipe.teleport(cam)
+    base = list(cam.origin)
+    pipe.converge_streaming((base[0], 0, base[2]), max_moves=32)
+    torch.cuda.synchronize()
+    trace_hf.trace_rays_hf.launches = 0
+    denoise.denoise_pass.launches = 0
+    finite, exhausted = [], []
+    t0 = time.perf_counter()
+    for t in range(FRAMES):
+        cam.origin = [base[0] + 0.03 * t, base[1] + 0.03 * t, base[2]]
+        frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
+        finite.append(torch.isfinite(frame).all())
+        exhausted.append((pipe.gbuffers["depth"].to(torch.int32)
+                          == lighting.EXHAUSTED_DEPTH).sum())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    k4, k2 = trace_hf.trace_rays_hf.launches, denoise.denoise_pass.launches
+    res = dict(
+        frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
+        all_finite=bool(torch.stack(finite).all()),
+        exhausted_px=int(torch.stack(exhausted).sum()),
+        k4_launches=k4, k2_launches=k2, lr=list(pipe.uniforms.lr),
+    )
+    ok = (res["all_finite"] and res["exhausted_px"] == 0
+          and k4 == (1 + pipe.bounces) * FRAMES
+          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
+    return ok, res, pipe
+
+
+def phase_hf_vs_fused(torch, pipe):
+    """At the hf path's own tables and uniforms, the staged G-buffers (K4)
+    against the fused ones (K1): normal and albedo equal, depth within a
+    quantum and lighting within 1e-5 on at least HF_MATCH of the pixels.
+    Not on all: K4 renormalizes its directions (as the JAX kernel does) and
+    K1 takes the camera's, so a direction can differ by an ulp and a ray
+    that grazes an edge can take the other face.  Given K4's renormalized
+    directions, K1 must agree with K4 on every primary normal."""
+    from raytrace_tpu_torch.ops import lighting, trace_hf
+    from raytrace_tpu_torch.ops.rays import normalize
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    args = (pipe.tables(), pipe.blue_noise, uniforms, W, H, pipe.max_steps, pipe.seed,
+            pipe.bounces)
+    staged = trace_hf.render_gbuffers_hf(*args)
+    fused = lighting.render_gbuffers_fused(*args)
+    normal_ok = staged["normal"] == fused["normal"]
+    albedo_ok = (staged["albedo"] == fused["albedo"]).all(-1)
+    depth_ok = (staged["depth"].to(torch.int32) - fused["depth"].to(torch.int32)).abs() <= 1
+    light_ok = (staged["lighting"] - fused["lighting"]).abs().amax(-1) <= 1e-5
+    agree = normal_ok & albedo_ok & depth_ok & light_ok
+    o, d, *rest = lighting.march_inputs(*args[:5])["march"]
+    d = torch.stack(normalize(d[:, 0], d[:, 1], d[:, 2]), -1)
+    meta, _ = lighting.march_paths(o, d, *rest, pipe.max_steps, pipe.seed, 1)
+    k1_normal = torch.where(((meta >> 12) & 1) == 1, 16, (meta >> 6) & 7)
+    res = dict(
+        normal_mismatch_given_k4_directions=int(
+            (k1_normal.reshape(H, W) != staged["normal"].to(torch.int32)).sum()),
+        pixels=agree.numel(), normal_mismatch=int((~normal_ok).sum()),
+        albedo_mismatch=int((~albedo_ok).sum()), depth_mismatch=int((~depth_ok).sum()),
+        lighting_mismatch=int((~light_ok).sum()),
+        lighting_mismatch_where_normal_agrees=int((normal_ok & ~light_ok).sum()),
+        agree_share=float(agree.float().mean()),
+        exhausted_staged=int((staged["depth"].to(torch.int32) == lighting.EXHAUSTED_DEPTH).sum()),
+    )
+    ok = (res["agree_share"] >= HF_MATCH and res["exhausted_staged"] == 0
+          and res["normal_mismatch_given_k4_directions"] == 0)
+    return ok, res
+
+
+def phase_volume_exact(rt, torch):
+    """The exact DDA (tracer="volume", plain PyTorch): EXACT_FRAMES frames
+    at 1024² through create_instance/draw_frame, and the share of pixels
+    whose primary normal agrees with volume_fast on the same volume."""
+    from raytrace_tpu_torch.ops import lighting, path_vol
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    pipe = rt.create_instance(width=W, height=H, tracer="volume")
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    pipe.teleport(cam)
+    pipe.draw_frame(cam, CANON["sun"])  # warm-up
+    torch.cuda.synchronize()
+    finite, exhausted = [], []
+    t0 = time.perf_counter()
+    for t in range(EXACT_FRAMES):
+        frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
+        finite.append(torch.isfinite(frame).all())
+        exhausted.append((pipe.gbuffers["depth"].to(torch.int32)
+                          == lighting.EXHAUSTED_DEPTH).sum())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / EXACT_FRAMES
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    fast = path_vol.render_gbuffers_path(
+        pipe.streamer.volume, build_vol_tables(pipe.streamer.volume), pipe.blue_noise,
+        uniforms, W, H, pipe.max_steps, pipe.bounces)
+    res = dict(
+        frames=EXACT_FRAMES, ms_per_frame=ms, lr=list(pipe.uniforms.lr),
+        all_finite=bool(torch.stack(finite).all()),
+        exhausted_px=int(torch.stack(exhausted).sum()),
+        normal_agree_with_volume_fast=float(
+            (pipe.gbuffers["normal"] == fast["normal"]).float().mean()),
+    )
+    return res["all_finite"] and res["exhausted_px"] == 0, res
+
+
+def phase_hf_frame_ms(torch, pipe):
+    """Device ms of the whole hf frame at the hf path's tables and uniforms."""
+    from raytrace_tpu_torch.render.pipeline import render_frame
+
+    packed = torch.from_numpy(pipe.uniforms.packed()).to(pipe.device)
+    tables = pipe.tables()
+    return _cuda_ms(torch, lambda: render_frame(
+        tables, pipe.blue_noise, packed, W, H, pipe.max_steps, pipe.seed,
+        pipe.bounces, "hf"), reps=10)
+
+
 def main() -> int:
     import torch
 
@@ -386,7 +643,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if not (ROOT / "raytrace_tpu_torch" / "csrc").is_dir() \
-            or not (ROOT / "raytrace_tpu" / "constants.py").is_file():
+            or not (ROOT / "raytrace_tpu_torch" / "constants.py").is_file():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -466,30 +723,62 @@ def main() -> int:
         vpipe.bounces)
     report("k3_vs_plain_main", ok, k3_res)
     times.update(phase_volume_times(torch, dev, vpipe))
-    report("times", True, dict(card=card, size=H, **times))
     ok, res = phase_volume_edit(torch, vpipe)
     report("volume_edit", ok, res)
-    if "jax" in sys.modules:
-        raise RuntimeError("chip_smoke imported jax")
+    del vpipe
+
+    # The staged heightfield path: K4 at 256² on the canonical view, then
+    # the path itself, K4 at its own 1024² tables and uniforms, and the hf
+    # G-buffers against the fused ones.
+    for bounces in (0, 1, 2):
+        ok, res = phase_k4(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
+        report(f"k4_vs_plain_b{bounces}", ok, res)
+    ok, hf_res, hpipe = phase_hf_main(rt, torch)
+    report("hf_main", ok, hf_res)
+    ok, k4_res = phase_k4(
+        torch, hpipe.tables(), hpipe.blue_noise,
+        torch.from_numpy(hpipe.uniforms.packed()).to(dev), W, hpipe.max_steps,
+        hpipe.seed, hpipe.bounces)
+    report("k4_vs_plain_main", ok, k4_res)
+    ok, res = phase_hf_vs_fused(torch, hpipe)
+    report("hf_vs_fused_main", ok, res)
+    hf_frame_ms = phase_hf_frame_ms(torch, hpipe)
+    del hpipe
+    ok, exact_res = phase_volume_exact(rt, torch)
+    report("volume_exact", ok, exact_res)
+    times.update(k4_ms=k4_res["k4_ms"], k4_plain_ms=k4_res["k4_plain_ms"],
+                 hf_frame_ms=hf_frame_ms, volume_frame_ms=exact_res["ms_per_frame"])
+    report("times", True, dict(card=card, size=H, **times))
+    if "jax" in sys.modules or any(m.split(".")[0] == "raytrace_tpu" for m in sys.modules):
+        raise RuntimeError("chip_smoke imported jax or the JAX package")
 
     passes = len(denoise.DENOISE_SIZES)  # K2's ms is the mean of one chain's passes
+    # No single PyTorch call computes any of these functions (an edge-aware
+    # a-trous pass or a voxel march), so library_ms is null.
+    bound = lambda res: dict(bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                             library_ms=None)
     kernels = [
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
-             ms=times["k1_ms"], plain_ms=times["k1_plain_ms"]),
+             ms=times["k1_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res)),
         dict(name="K2 denoise_pass (a-trous pass, finalize fused)", route="cuda",
              source="raytrace_tpu_torch/csrc/denoise.cu",
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",
              launches=main_res["k2_launches"], max_abs_err=k2_res["max_abs_err"],
              ms=times["k2_chain_ms"] / passes,
-             plain_ms=times["k2_chain_plain_ms"] / passes),
+             plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res)),
         dict(name="K3 march_paths_vol (whole-path volume_fast march)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
-             ms=times["k3_ms"], plain_ms=times["k3_plain_ms"]),
+             ms=times["k3_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res)),
+        dict(name="K4 trace_rays_hf (staged heightfield tracer)", route="cuda",
+             source="raytrace_tpu_torch/csrc/trace_hf.cu",
+             replaces="raytrace_tpu/ops/trace_pallas.py:208",
+             launches=hf_res["k4_launches"], max_abs_err=k4_res["max_abs_err"],
+             ms=k4_res["k4_ms"], plain_ms=k4_res["k4_plain_ms"], **bound(k4_res)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if failed:

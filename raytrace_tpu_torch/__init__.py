@@ -1,11 +1,12 @@
 """raytrace_tpu_torch: the PyTorch and CUDA port of raytrace_tpu.
 
-The frame paths of ``raytrace_tpu`` on PyTorch: the heightfield path
-(region tables, the whole-path lighting march) and the volume path
-(worldgen, the streamed resident volume, its occupancy tables, edits, the
-whole-path brick march), then denoise and finalize, with hand-written CUDA
-kernels for NVIDIA Hopper in ``csrc/``.  It imports no JAX; of the JAX package it uses
-only the JAX-free host modules ``constants``, ``materials`` and
+The frame paths of ``raytrace_tpu`` on PyTorch: the heightfield paths
+(region tables; the whole-path lighting march, or the staged tracer leg by
+leg) and the volume paths (worldgen, the streamed resident volume, its
+occupancy tables, edits; the whole-path brick march, or the exact DDA),
+then denoise and finalize, with hand-written CUDA kernels for NVIDIA Hopper
+in ``csrc/``.  It imports no JAX and nothing of the JAX package: it keeps
+its own copies of the host modules ``constants``, ``materials`` and
 ``utils.blue_noise``.
 """
 

@@ -3,13 +3,14 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
 source, all started together) and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
-at first use and again whenever a source (or the flags) changes: the
-library's name carries a hash of both.  It lands in ``build/`` beside this
+at first use and again whenever a file under ``csrc/`` (a source or a
+header such as ``heightfield.cuh``) or the flags change: the library's
+name carries a hash of all of them.  It lands in ``build/`` beside this
 file, which ``.gitignore`` lists.  Nothing includes PyTorch's headers, so a
 build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
-plain PyTorch versions compute them, so the path marches K1 and K3 agree
+plain PyTorch versions compute them, so the marches K1, K3 and K4 agree
 with their plain versions step for step.
 """
 
@@ -44,6 +45,9 @@ _SIGNATURES = {
     # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
     # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, stream
     "rt_march_paths_vol": [_P] * 13 + [_I] * 3 + [_P],
+    # origin, direction, active, iscal, hsub, h3, cA, cB, cC, cD, pos,
+    # normal, air, packed, n, budget, seed, stream
+    "rt_trace_hf": [_P] * 14 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -61,14 +65,17 @@ def _nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(_CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every file
+    under ``csrc/`` (sources and the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in sorted(p for p in _CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(_CSRC).as_posix().encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libraytrace_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -13,7 +13,7 @@ prints for the steady frame:
 - the device activities that take the most time.
 
 Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
-[--tracer fused|volume_fast]   (needs a CUDA GPU)
+[--tracer fused|hf|volume|volume_fast]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations

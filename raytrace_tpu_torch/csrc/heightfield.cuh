@@ -1,0 +1,218 @@
+// Heightfield device code shared by kernel K1 (lighting.cu) and kernel K4
+// (trace_hf.cu): the world math that gives a column's exact height and a
+// voxel's material band, the region-table classification of a position,
+// and the distance to the next step-aligned boundary.  The plain PyTorch
+// counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
+// world/generate.py (material_band) and the marches of ops/lighting.py and
+// ops/trace_hf.py; all are built with --fmad=false, so every multiply and
+// add rounds separately, as PyTorch computes them.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRegion = 256;
+constexpr float kHalf = 128.0f;
+constexpr int kWords = 1024;
+constexpr float kEps = 1e-4f;
+
+constexpr int32_t kHA = 374761393;
+constexpr int32_t kHB = 668265263;
+constexpr int32_t kHZ = -1262997521;
+constexpr uint32_t kHSeed = 1440662683u;
+constexpr int32_t kHMix = 1274126177;
+
+// float32 values of the JAX package's constants (lacunarity^5 * 2,
+// persistence^5, sqrt 2, 2 pi), written exactly.
+constexpr float kTopFreq = 0x1.42642p+6f;
+constexpr float kTopAmp = 0.03125f;
+constexpr float kSqrt2 = 0x1.6a09e6p+0f;
+constexpr float kTwoPi = 0x1.921fb6p+2f;
+
+// int32 arithmetic that wraps, through uint32: signed overflow is
+// undefined in C++.
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t seed_term(int32_t seed) {
+  return (int32_t)((uint32_t)seed * kHSeed);
+}
+__device__ __forceinline__ int32_t mix(int32_t h) {
+  h = wmul(h ^ (h >> 13), kHMix);  // >> on int32 is arithmetic
+  return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ float grad_dot(int32_t hv, float dx, float dy) {
+  int h = hv & 7;
+  float u = h < 6 ? ((h & 1) == 0 ? dx : -dx) : 0.0f;
+  float v = h < 4 ? ((h & 2) == 0 ? dy : -dy)
+                  : (h >= 6 ? ((h & 1) == 0 ? dy : -dy) : 0.0f);
+  return u + v;
+}
+
+// world/noise.py perlin2
+__device__ float perlin2(float x, float y, int32_t seed) {
+  float x0 = floorf(x), y0 = floorf(y);
+  int32_t xi = (int32_t)x0, yi = (int32_t)y0;
+  float xf = x - x0, yf = y - y0;
+  float u = xf * xf * xf * (xf * (xf * 6.0f - 15.0f) + 10.0f);
+  float v = yf * yf * yf * (yf * (yf * 6.0f - 15.0f) + 10.0f);
+  int32_t hb = wadd(wadd(wmul(xi, kHA), wmul(yi, kHB)), seed_term(seed));
+  float n00 = grad_dot(mix(hb), xf, yf);
+  float n10 = grad_dot(mix(wadd(hb, kHA)), xf - 1.0f, yf);
+  float n01 = grad_dot(mix(wadd(hb, kHB)), xf, yf - 1.0f);
+  float n11 = grad_dot(mix(wadd(hb, kHA + kHB)), xf - 1.0f, yf - 1.0f);
+  float nx0 = n00 + u * (n10 - n00);
+  float nx1 = n01 + u * (n11 - n01);
+  float n = nx0 + v * (nx1 - nx0);
+  return n * kSqrt2;
+}
+
+// ops/hf_tables.py height_from_corners (world/heightmap.py
+// dequant_lattice + height_from_lattice).
+__device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
+                                       int32_t cd, int32_t xi, int32_t yi,
+                                       int32_t seed) {
+  float tx = (float)(xi & 7) * 0.125f;
+  float ty = (float)(yi & 7) * 0.125f;
+  const int32_t w[4] = {ca, cb, cc, cd};
+  float r[4], e[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    r[k] = -4.0f + (float)(w[k] & 0xFFFF) * 0x1p-13f;
+    e[k] = -2.0f + (float)((w[k] >> 16) & 0xFFFF) * 0x1p-14f;
+  }
+  float rt = r[0] + tx * (r[1] - r[0]);
+  float rb = r[2] + tx * (r[3] - r[2]);
+  float rr = rt + ty * (rb - rt);
+  float et = e[0] + tx * (e[1] - e[0]);
+  float eb = e[2] + tx * (e[3] - e[2]);
+  float ee = et + ty * (eb - et);
+  float fx = (float)xi / 600.0f;
+  float fy = (float)yi / 600.0f;
+  float q = 1.0f + perlin2(fx * kTopFreq, fy * kTopFreq, seed + 5) * kTopAmp;
+  float base = rr * q * 0.5f + 0.5f;
+  float eroded = base + ee;
+  float n = eroded >= 0.0f ? powf(fabsf(eroded) / 1.5f, 2.6f) : 0.0f;
+  float h = n * 120.0f + 10.0f;
+  return (int32_t)floorf(h);
+}
+
+// world/generate.py material_band of the voxel's hash: material id 2
+// (grass), 5 (rock) or 6 (snow).  The modulo is unsigned, as in JAX.
+__device__ int32_t material_band(int32_t xi, int32_t yi, int32_t zi,
+                                 int32_t seed) {
+  int32_t h = wadd(wadd(wmul(xi, kHA), wmul(yi, kHB)), wmul(zi, kHZ));
+  h = wadd(h, seed_term(seed + 1));
+  h = mix(h);
+  uint32_t bits = (uint32_t)h;
+  int32_t r60 = (int32_t)(bits % 60u);
+  int32_t r80 = (int32_t)(bits % 80u);
+  int32_t mid = r60 < zi - 20 ? 5 : 2;
+  int32_t high = r80 < zi - 80 ? 6 : 5;
+  return zi < 20 ? 2 : (zi < 80 ? mid : (zi < 160 ? high : 6));
+}
+
+struct Vec3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ Vec3 face_normal(int32_t id) {
+  float sign = (id % 2 == 0) ? 1.0f : -1.0f;
+  int32_t axis = id / 2;
+  return {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
+          axis == 2 ? sign : 0.0f};
+}
+
+// ops/rays.py normalize: v / sqrt(max(|v|^2, 1e-20)), a true division.
+__device__ __forceinline__ Vec3 norm3(float x, float y, float z) {
+  float inv = 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
+  return {x * inv, y * inv, z * inv};
+}
+
+// Distance along the ray to the next boundary of the `step_f` grid:
+// (eps + mod((p + 128) * mul, step_f)) * lp, with the floor modulo written
+// as shifted - floor(shifted / step) * step.  For a power-of-two step
+// (inv_step its exact reciprocal) that difference is rounded once from the
+// exact value, as jnp.mod's is.
+__device__ __forceinline__ float bdist(float p, float mul, float lp,
+                                      float step_f, float inv_step) {
+  float shifted = (p + kHalf) * mul;
+  float m = shifted - floorf(shifted * inv_step) * step_f;
+  return (kEps + m) * lp;
+}
+
+// The exact reciprocal of a pyramid step size (1 for the fine step 0).
+__device__ __forceinline__ float step_reciprocal(int32_t stp) {
+  return stp == 32 ? 0.03125f
+         : stp == 16 ? 0.0625f
+         : stp == 8  ? 0.125f
+         : stp == 4  ? 0.25f
+                     : 1.0f;
+}
+
+// The six region tables of ops/hf_tables.py, one word per 8x8-column block.
+struct Tables {
+  int32_t h3[kWords], hsub[kWords], ca[kWords], cb[kWords], cc[kWords],
+      cd[kWords];
+};
+
+// Copy the tables into the block's shared memory (all threads take part;
+// the caller synchronizes).
+__device__ __forceinline__ void load_tables(Tables& t, const int32_t* h3,
+                                            const int32_t* hsub,
+                                            const int32_t* ca,
+                                            const int32_t* cb,
+                                            const int32_t* cc,
+                                            const int32_t* cd) {
+  for (int k = threadIdx.x; k < kWords; k += blockDim.x) {
+    t.h3[k] = h3[k];
+    t.hsub[k] = hsub[k];
+    t.ca[k] = ca[k];
+    t.cb[k] = cb[k];
+    t.cc[k] = cc[k];
+    t.cd[k] = cd[k];
+  }
+}
+
+// The block word index of column (xi, yi), clamped into the region, and
+// the column's region coordinates.
+__device__ __forceinline__ int32_t block_index(int32_t xi, int32_t yi,
+                                               int32_t r0x, int32_t r0y,
+                                               int32_t& rx, int32_t& ry) {
+  rx = min(max(xi - r0x, 0), kRegion - 1);
+  ry = min(max(yi - r0y, 0), kRegion - 1);
+  return (ry >> 3) * 32 + (rx >> 3);
+}
+
+// The safe step size at voxel height zi of block i3: 32, 16 or 8 from the
+// packed pyramid word, else 4 from the 4-block refinement, else 0 (march
+// the column).  Rising rays (up) compare the voxel itself, not the aligned
+// slab floor.
+__device__ __forceinline__ int32_t pyramid_step(const Tables& t, int32_t i3,
+                                                int32_t rx, int32_t ry,
+                                                int32_t zi, bool up) {
+  int32_t w = t.h3[i3];
+  int32_t h8 = w & 511;
+  int32_t z32 = up ? zi : (zi & ~31);
+  int32_t z16 = up ? zi : (zi & ~15);
+  int32_t z8 = up ? zi : (zi & ~7);
+  int32_t z4 = up ? zi : (zi & ~3);
+  int32_t stp = z32 >= ((w >> 18) & 511)   ? 32
+                : z16 >= ((w >> 9) & 511) ? 16
+                : z8 >= h8                ? 8
+                                          : 0;
+  if (stp == 0) {
+    int32_t quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1);
+    int32_t delta = (t.hsub[i3] >> (quad << 3)) & 255;
+    if (z4 >= h8 - delta) stp = 4;
+  }
+  return stp;
+}
+
+}  // namespace

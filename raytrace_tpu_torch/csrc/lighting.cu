@@ -17,7 +17,8 @@
 // z distance `lzf`, :563-568; `move`, :390-415).  The path has a budget of
 // `max_steps` steps.  The TPU's sort cascade, step caps, unrolling, lazy
 // transitions and lane-shuffle table lookups have no counterpart: a thread
-// simply loops until its own path is done.
+// simply loops until its own path is done.  The world math, the pyramid
+// classification and `bdist` live in heightfield.cuh, shared with K4.
 //
 // What bounds it on Hopper: the step loop's integer and float ALU work and
 // the divergence between neighbouring paths of very different length, not
@@ -25,132 +26,18 @@
 // once per block, and each pixel reads about 48 bytes (origin, direction,
 // noise word) and writes 8 (meta word and primary distance).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "heightfield.cuh"
 
 namespace {
 
-constexpr int kRegion = 256;
-constexpr float kHalf = 128.0f;
-constexpr int kWords = 1024;
-constexpr float kEps = 1e-4f;
 constexpr int kLegDone = 5;
 constexpr int kThreads = 128;
 
-constexpr int32_t kHA = 374761393;
-constexpr int32_t kHB = 668265263;
-constexpr int32_t kHZ = -1262997521;
-constexpr uint32_t kHSeed = 1440662683u;
-constexpr int32_t kHMix = 1274126177;
-
-// float32 values of the JAX package's constants (lacunarity^5 * 2,
-// persistence^5, sqrt 2, 2 pi), written exactly.
-constexpr float kTopFreq = 0x1.42642p+6f;
-constexpr float kTopAmp = 0.03125f;
-constexpr float kSqrt2 = 0x1.6a09e6p+0f;
-constexpr float kTwoPi = 0x1.921fb6p+2f;
-
-// int32 arithmetic that wraps, through uint32: signed overflow is
-// undefined in C++.
-__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a * (uint32_t)b);
-}
-__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-__device__ __forceinline__ int32_t seed_term(int32_t seed) {
-  return (int32_t)((uint32_t)seed * kHSeed);
-}
-__device__ __forceinline__ int32_t mix(int32_t h) {
-  h = wmul(h ^ (h >> 13), kHMix);  // >> on int32 is arithmetic
-  return h ^ (h >> 16);
-}
-
-__device__ __forceinline__ float grad_dot(int32_t hv, float dx, float dy) {
-  int h = hv & 7;
-  float u = h < 6 ? ((h & 1) == 0 ? dx : -dx) : 0.0f;
-  float v = h < 4 ? ((h & 2) == 0 ? dy : -dy)
-                  : (h >= 6 ? ((h & 1) == 0 ? dy : -dy) : 0.0f);
-  return u + v;
-}
-
-// world/noise.py perlin2
-__device__ float perlin2(float x, float y, int32_t seed) {
-  float x0 = floorf(x), y0 = floorf(y);
-  int32_t xi = (int32_t)x0, yi = (int32_t)y0;
-  float xf = x - x0, yf = y - y0;
-  float u = xf * xf * xf * (xf * (xf * 6.0f - 15.0f) + 10.0f);
-  float v = yf * yf * yf * (yf * (yf * 6.0f - 15.0f) + 10.0f);
-  int32_t hb = wadd(wadd(wmul(xi, kHA), wmul(yi, kHB)), seed_term(seed));
-  float n00 = grad_dot(mix(hb), xf, yf);
-  float n10 = grad_dot(mix(wadd(hb, kHA)), xf - 1.0f, yf);
-  float n01 = grad_dot(mix(wadd(hb, kHB)), xf, yf - 1.0f);
-  float n11 = grad_dot(mix(wadd(hb, kHA + kHB)), xf - 1.0f, yf - 1.0f);
-  float nx0 = n00 + u * (n10 - n00);
-  float nx1 = n01 + u * (n11 - n01);
-  float n = nx0 + v * (nx1 - nx0);
-  return n * kSqrt2;
-}
-
-// ops/hf_tables.py height_from_corners (world/heightmap.py
-// dequant_lattice + height_from_lattice).
-__device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
-                                       int32_t cd, int32_t xi, int32_t yi,
-                                       int32_t seed) {
-  float tx = (float)(xi & 7) * 0.125f;
-  float ty = (float)(yi & 7) * 0.125f;
-  const int32_t w[4] = {ca, cb, cc, cd};
-  float r[4], e[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    r[k] = -4.0f + (float)(w[k] & 0xFFFF) * 0x1p-13f;
-    e[k] = -2.0f + (float)((w[k] >> 16) & 0xFFFF) * 0x1p-14f;
-  }
-  float rt = r[0] + tx * (r[1] - r[0]);
-  float rb = r[2] + tx * (r[3] - r[2]);
-  float rr = rt + ty * (rb - rt);
-  float et = e[0] + tx * (e[1] - e[0]);
-  float eb = e[2] + tx * (e[3] - e[2]);
-  float ee = et + ty * (eb - et);
-  float fx = (float)xi / 600.0f;
-  float fy = (float)yi / 600.0f;
-  float q = 1.0f + perlin2(fx * kTopFreq, fy * kTopFreq, seed + 5) * kTopAmp;
-  float base = rr * q * 0.5f + 0.5f;
-  float eroded = base + ee;
-  float n = eroded >= 0.0f ? powf(fabsf(eroded) / 1.5f, 2.6f) : 0.0f;
-  float h = n * 120.0f + 10.0f;
-  return (int32_t)floorf(h);
-}
-
-// lighting_pallas._mat_code: world/generate.py material_band of the
-// voxel's hash as a 2-bit code (1 grass, 2 rock, 3 snow).
+// lighting_pallas._mat_code: the voxel's material band as a 2-bit code
+// (1 grass, 2 rock, 3 snow).
 __device__ int32_t mat_code(int32_t xi, int32_t yi, int32_t zi, int32_t seed) {
-  int32_t h = wadd(wadd(wmul(xi, kHA), wmul(yi, kHB)), wmul(zi, kHZ));
-  h = wadd(h, seed_term(seed + 1));
-  h = mix(h);
-  uint32_t bits = (uint32_t)h;
-  int32_t r60 = (int32_t)(bits % 60u);
-  int32_t r80 = (int32_t)(bits % 80u);
-  int32_t mid = r60 < zi - 20 ? 5 : 2;
-  int32_t high = r80 < zi - 80 ? 6 : 5;
-  int32_t band = zi < 20 ? 2 : (zi < 80 ? mid : (zi < 160 ? high : 6));
+  int32_t band = material_band(xi, yi, zi, seed);
   return band == 2 ? 1 : (band == 5 ? 2 : 3);
-}
-
-struct Vec3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ Vec3 face_normal(int32_t id) {
-  float sign = (id % 2 == 0) ? 1.0f : -1.0f;
-  int32_t axis = id / 2;
-  return {axis == 0 ? sign : 0.0f, axis == 1 ? sign : 0.0f,
-          axis == 2 ? sign : 0.0f};
-}
-
-__device__ __forceinline__ Vec3 norm3(float x, float y, float z) {
-  float inv = 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
-  return {x * inv, y * inv, z * inv};
 }
 
 // ops/shading.py sphere_point
@@ -170,18 +57,6 @@ __device__ __forceinline__ Vec3 diffuse_from_sphere(Vec3 sp, int32_t id) {
   norm = fmaxf(norm, 1e-20f);
   return {dx / norm, dy / norm, dz / norm};
 }
-
-__device__ __forceinline__ float bdist(float p, float mul, float lp,
-                                      float step_f, float inv_step) {
-  float shifted = (p + kHalf) * mul;
-  float m = shifted - floorf(shifted * inv_step) * step_f;
-  return (kEps + m) * lp;
-}
-
-struct Tables {
-  int32_t h3[kWords], hsub[kWords], ca[kWords], cb[kWords], cc[kWords],
-      cd[kWords];
-};
 
 struct Path {
   float px, py, pz, dx, dy, dz, qx, qy, qz, pd;
@@ -205,26 +80,10 @@ __device__ void step(Path& s, const Tables& t, const Scalars& c,
   int32_t xi = (int32_t)floorf(s.px);
   int32_t yi = (int32_t)floorf(s.py);
   int32_t zi = (int32_t)floorf(s.pz);
-  int32_t rx = min(max(xi - c.r0x, 0), kRegion - 1);
-  int32_t ry = min(max(yi - c.r0y, 0), kRegion - 1);
-  int32_t i3 = (ry >> 3) * 32 + (rx >> 3);
-  int32_t w = t.h3[i3];
-  int32_t h8 = w & 511;
-  // Rising rays compare the voxel itself, not the aligned slab floor.
+  int32_t rx, ry;
+  int32_t i3 = block_index(xi, yi, c.r0x, c.r0y, rx, ry);
   bool up = s.dz >= 0.0f;
-  int32_t z32 = up ? zi : (zi & ~31);
-  int32_t z16 = up ? zi : (zi & ~15);
-  int32_t z8 = up ? zi : (zi & ~7);
-  int32_t z4 = up ? zi : (zi & ~3);
-  int32_t stp = z32 >= ((w >> 18) & 511)   ? 32
-                : z16 >= ((w >> 9) & 511) ? 16
-                : z8 >= h8                ? 8
-                                          : 0;
-  if (stp == 0) {
-    int32_t quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1);
-    int32_t delta = (t.hsub[i3] >> (quad << 3)) & 255;
-    if (z4 >= h8 - delta) stp = 4;
-  }
+  int32_t stp = pyramid_step(t, i3, rx, ry, zi, up);
   bool fine = stp == 0;
   bool oob = fabsf(s.px - c.lrx) >= kHalf || fabsf(s.py - c.lry) >= kHalf ||
              fabsf(s.pz - c.lrz) >= kHalf || (up && zi >= c.maxh);
@@ -289,11 +148,7 @@ __device__ void step(Path& s, const Tables& t, const Scalars& c,
   if (!allow_move) return;
 
   float step_f = (float)max(stp, 1);
-  float inv_step = stp == 32 ? 0.03125f
-                   : stp == 16 ? 0.0625f
-                   : stp == 8  ? 0.125f
-                   : stp == 4  ? 0.25f
-                               : 1.0f;
+  float inv_step = step_reciprocal(stp);
   float mulx = s.dx > 0.0f ? -1.0f : 1.0f;
   float muly = s.dy > 0.0f ? -1.0f : 1.0f;
   float mulz = s.dz > 0.0f ? -1.0f : 1.0f;
@@ -339,14 +194,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ pd_out, int n, int max_steps,
                        int seed, int legs) {
   __shared__ Tables t;
-  for (int k = threadIdx.x; k < kWords; k += blockDim.x) {
-    t.h3[k] = h3[k];
-    t.hsub[k] = hsub[k];
-    t.ca[k] = ca[k];
-    t.cb[k] = cb[k];
-    t.cc[k] = cc[k];
-    t.cd[k] = cd[k];
-  }
+  load_tables(t, h3, hsub, ca, cb, cc, cd);
   __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;

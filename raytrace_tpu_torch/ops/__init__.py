@@ -1,3 +1,4 @@
 """Frame operations: rays, heightfield and occupancy tables, the fused
-volume format, the path marches (K1, K3) and their shades, shading,
-denoise and finalize (K2)."""
+volume format, the path marches (K1, K3) and their shades, the staged
+tracers (K4, the exact DDA) and their lighting pass, shading, denoise and
+finalize (K2)."""

@@ -20,8 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from raytrace_tpu.constants import DENOISE_SIZES, NORMAL_SKY
-
+from ..constants import DENOISE_SIZES, NORMAL_SKY
 from .finalize import dither_planes, finalize_planar
 
 # (dx, dy, weight) taps of the dilated kernel (bilateral_denoise.comp:43-84)

@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import LIGHTING_SCALE
-
+from ..constants import LIGHTING_SCALE
 from .shading import filmic_curve
 
 FOG_SCALE = 32.0 * 128.0 * 8.0  # finalize.comp:46

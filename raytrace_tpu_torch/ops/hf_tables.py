@@ -1,19 +1,21 @@
-"""Region tables of the heightfield march: column-height pyramid and
-lattice-corner words.
+"""Region tables of the heightfield marches: column-height pyramid and
+lattice-corner words, and what a march reads from them.
 
 Port of ``raytrace_tpu/ops/trace_pallas.py:60-133`` (``build_hf_tables``)
 and ``:172-200`` (``_height_from_corners``).  Plain PyTorch: the tables are
 rebuilt only when the streamed region moves.  Tables are flat (1024,) int32
 tensors, one word per 8x8-column block at ``by * 32 + bx``; the JAX package
-holds the same words as (8, 128).
+holds the same words as (8, 128).  ``classify``, ``bdist`` and
+``step_reciprocal`` are the steps both heightfield marches (K1 in
+``ops/lighting.py``, K4 in ``ops/trace_hf.py``) share, as their kernels
+share ``csrc/heightfield.cuh``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import ROOT_BLOCK_SIZE, WORLDGEN_SCALE
-
+from ..constants import ROOT_BLOCK_SIZE, WORLDGEN_SCALE
 from .._f32 import fdiv
 from ..world.heightmap import (
     LATTICE_SPACING,
@@ -24,6 +26,7 @@ from ..world.heightmap import (
 )
 
 _HALF = ROOT_BLOCK_SIZE // 2
+_EPS = 1e-4
 TABLE_KEYS = ("hsub", "h3", "cA", "cB", "cC", "cD")
 
 
@@ -87,3 +90,61 @@ def height_from_corners(ca, cb, cc, cd, xi, yi, seed: int):
     fy = fdiv(yi.to(torch.float32), WORLDGEN_SCALE)
     return height_from_lattice(bil(r00, r10, r01, r11), bil(e00, e10, e01, e11),
                                fx, fy, seed)
+
+
+def classify(tables: dict, px, py, pz, rising, r0x: int, r0y: int, seed: int) -> dict:
+    """The tables' verdict at each position (``trace_pallas.py:365-410``).
+
+    Returns the voxel ``xi``, ``yi``, ``zi`` (int32), the safe ``step``
+    (32, 16 or 8 from the packed pyramid word, else 4 from the 4-block
+    refinement, else 0: march the column), ``fine`` (step 0) and the
+    column height ``hcol`` (clamped at 0).  ``rising`` rays (dz >= 0)
+    compare the voxel itself with the block maxima, not the aligned slab
+    floor.
+    """
+    xi = torch.floor(px).to(torch.int32)
+    yi = torch.floor(py).to(torch.int32)
+    zi = torch.floor(pz).to(torch.int32)
+    rx = torch.clamp(xi - r0x, 0, ROOT_BLOCK_SIZE - 1)
+    ry = torch.clamp(yi - r0y, 0, ROOT_BLOCK_SIZE - 1)
+    i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
+    w = tables["h3"][i3]
+    h8 = w & 511
+    z32 = torch.where(rising, zi, zi & ~31)
+    z16 = torch.where(rising, zi, zi & ~15)
+    z8 = torch.where(rising, zi, zi & ~7)
+    z4 = torch.where(rising, zi, zi & ~3)
+    zero = torch.zeros_like(zi)
+    step = torch.where(
+        z32 >= ((w >> 18) & 511), 32,
+        torch.where(z16 >= ((w >> 9) & 511), 16, torch.where(z8 >= h8, 8, zero)),
+    )
+    quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1)
+    delta = (tables["hsub"][i3] >> (quad << 3)) & 255
+    step = torch.where((step == 0) & (z4 >= h8 - delta), 4, step)
+    hcol = torch.clamp(
+        height_from_corners(tables["cA"][i3], tables["cB"][i3], tables["cC"][i3],
+                            tables["cD"][i3], xi, yi, seed),
+        min=0,
+    )
+    return dict(xi=xi, yi=yi, zi=zi, step=step, fine=step == 0, hcol=hcol)
+
+
+def step_reciprocal(step: torch.Tensor) -> torch.Tensor:
+    """The exact float32 reciprocal of a pyramid step (1 for the fine step 0)."""
+    return torch.where(
+        step == 32, 1 / 32,
+        torch.where(step == 16, 1 / 16,
+                    torch.where(step == 8, 1 / 8,
+                                torch.where(step == 4, 1 / 4, 1.0)))).to(torch.float32)
+
+
+def bdist(p, mul, lp, step_f, inv_step):
+    """Distance along the ray to the next boundary of the ``step_f`` grid,
+    ``(eps + mod((p + 128) * mul, step_f)) * lp`` (``trace_pallas.py:251-254``).
+    The floor modulo is ``shifted - floor(shifted * inv_step) * step_f``: for a
+    power-of-two step both products are exact and the difference is rounded
+    once from the exact value, as ``jnp.mod``'s is."""
+    shifted = (p + float(_HALF)) * mul
+    m = shifted - torch.floor(shifted * inv_step) * step_f
+    return (_EPS + m) * lp

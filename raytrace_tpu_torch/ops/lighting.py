@@ -32,19 +32,18 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu import materials
-from raytrace_tpu.constants import (
+from .. import materials
+from ..constants import (
     LIGHTING_SCALE,
     MAX_TRACE_STEPS,
     NORMAL_SKY,
     ROOT_BLOCK_SIZE,
 )
-
 from .._f32 import fdiv
 from ..world.generate import material_band
 from ..world.noise import hash3_u32
 from . import shading
-from .hf_tables import TABLE_KEYS, height_from_corners
+from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal
 from .rays import camera_rays, frame_noise, normalize
 
 _HALF = ROOT_BLOCK_SIZE // 2
@@ -132,47 +131,18 @@ class _Ctx:
 def _detect(s, c: _Ctx):
     """Classification and stateless completion at the current position."""
     live = s["leg"] < LEG_DONE
-    px, py, pz = s["px"], s["py"], s["pz"]
-    xi = torch.floor(px).to(torch.int32)
-    yi = torch.floor(py).to(torch.int32)
-    zi = torch.floor(pz).to(torch.int32)
-    rx = torch.clamp(xi - c.r0x, 0, ROOT_BLOCK_SIZE - 1)
-    ry = torch.clamp(yi - c.r0y, 0, ROOT_BLOCK_SIZE - 1)
-    i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
-    w = c.t["h3"][i3]
-    word = c.t["hsub"][i3]
-    h8 = w & 511
-    up = s["dz"] >= 0
-    z32 = torch.where(up, zi, zi & ~31)
-    z16 = torch.where(up, zi, zi & ~15)
-    z8 = torch.where(up, zi, zi & ~7)
-    z4 = torch.where(up, zi, zi & ~3)
-    zero = torch.zeros_like(zi)
-    step = torch.where(
-        z32 >= ((w >> 18) & 511), 32,
-        torch.where(z16 >= ((w >> 9) & 511), 16, torch.where(z8 >= h8, 8, zero)),
-    )
-    quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1)
-    delta = (word >> (quad << 3)) & 255
-    step = torch.where((step == 0) & (z4 >= h8 - delta), 4, step)
-    fine = step == 0
-    hcol = torch.clamp(
-        height_from_corners(c.t["cA"][i3], c.t["cB"][i3], c.t["cC"][i3],
-                            c.t["cD"][i3], xi, yi, c.seed),
-        min=0,
-    )
+    rising = s["dz"] >= 0
+    d = classify(c.t, s["px"], s["py"], s["pz"], rising, c.r0x, c.r0y, c.seed)
     oob = (
-        (torch.abs(px - c.lrf[0]) >= _HALF)
-        | (torch.abs(py - c.lrf[1]) >= _HALF)
-        | (torch.abs(pz - c.lrf[2]) >= _HALF)
-        | ((s["dz"] >= 0) & (zi >= c.maxh))
+        (torch.abs(s["px"] - c.lrf[0]) >= _HALF)
+        | (torch.abs(s["py"] - c.lrf[1]) >= _HALF)
+        | (torch.abs(s["pz"] - c.lrf[2]) >= _HALF)
+        | (rising & (d["zi"] >= c.maxh))
     )
-    air = live & oob
     # `fine` is implied for a real hit (the pyramid never reports a solid
     # voxel empty); keeping it makes the kernel's hcol-only-when-fine exact.
-    hit = live & ~oob & fine & (zi < hcol)
-    return dict(xi=xi, yi=yi, zi=zi, step=step, fine=fine, hcol=hcol,
-                air=air, hit=hit)
+    hit = live & ~oob & d["fine"] & (d["zi"] < d["hcol"])
+    return dict(d, air=live & oob, hit=hit)
 
 
 def _transition(s, d, c: _Ctx, hoisted):
@@ -227,21 +197,11 @@ def _transition(s, d, c: _Ctx, hoisted):
     return out
 
 
-def _bdist(p, mul, lp, step_f, inv_step):
-    shifted = (p + float(_HALF)) * mul
-    m = shifted - torch.floor(shifted * inv_step) * step_f
-    return (_EPS + m) * lp
-
-
 def _move(s, d, act):
     """Advance ``act`` lanes to the nearest step-aligned boundary."""
     step, fine = d["step"], d["fine"]
     step_f = torch.clamp(step, min=1).to(torch.float32)
-    inv_step = torch.where(
-        step == 32, 1 / 32,
-        torch.where(step == 16, 1 / 16,
-                    torch.where(step == 8, 1 / 8,
-                                torch.where(step == 4, 1 / 4, 1.0)))).to(torch.float32)
+    inv_step = step_reciprocal(step)
     one = torch.ones_like(step_f)
     lims = []
     for a in "xyz":
@@ -250,17 +210,17 @@ def _move(s, d, act):
         lp = 1.0 / torch.abs(dv)
         lims.append((s["p" + a], mul, lp))
     (px, mulx, lpx), (py, muly, lpy), (pz, mulz, lpz) = lims
-    lxf = _bdist(px, mulx, lpx, one, one)
-    lyf = _bdist(py, muly, lpy, one, one)
+    lxf = bdist(px, mulx, lpx, one, one)
+    lyf = bdist(py, muly, lpy, one, one)
     ztop = d["hcol"].to(torch.float32)
     lzf = torch.where(
         (s["dz"] < 0) & (pz >= ztop),
         (_EPS + (pz - ztop)) * lpz,
         torch.full_like(pz, float("inf")),
     )
-    lx = torch.where(fine, lxf, _bdist(px, mulx, lpx, step_f, inv_step))
-    ly = torch.where(fine, lyf, _bdist(py, muly, lpy, step_f, inv_step))
-    lz = torch.where(fine, lzf, _bdist(pz, mulz, lpz, step_f, inv_step))
+    lx = torch.where(fine, lxf, bdist(px, mulx, lpx, step_f, inv_step))
+    ly = torch.where(fine, lyf, bdist(py, muly, lpy, step_f, inv_step))
+    lz = torch.where(fine, lzf, bdist(pz, mulz, lpz, step_f, inv_step))
     use_x = (lx < ly) & (lx < lz)
     use_y = ~(lx < ly) & (ly < lz)
     lmin = torch.where(use_x, lx, torch.where(use_y, ly, lz))
@@ -285,9 +245,10 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
 
     origin, direction: (N, 3) f32; nw: (N,) int32 packed noise bytes;
     iscal: (8,) int32 (r0x, r0y, lr xyz, maxh); fscal: (8,) f32 (sun xyz).
-    Returns ``(meta (N,) int32, pd (N,) f32)``.  Lanes whose path is done
-    are compacted away every few steps (a speed device only: a done lane's
-    step changes nothing).
+    Returns ``(meta (N,) int32, pd (N,) f32, work (N, 2) int32)``: ``work``
+    counts each path's moves and exact column-height evaluations, the work
+    K1 does for it.  Lanes whose path is done are compacted away every few
+    steps (a speed device only: a done lane's step changes nothing).
     """
     c = _Ctx(iscal, tables, seed, legs)
     n = origin.shape[0]
@@ -297,37 +258,48 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
     s = dict(px=origin[:, 0], py=origin[:, 1], pz=origin[:, 2],
              dx=direction[:, 0], dy=direction[:, 1], dz=direction[:, 2],
              qx=zf, qy=zf, qz=zf, pd=zf,
-             leg=zi, cn=zi, pn=zi, nn=zi, acc=zi)
+             leg=zi, cn=zi, pn=zi, nn=zi, acc=zi, moves=zi, heights=zi)
     hoisted = _noise_terms(nw, fscal)
     meta = torch.empty(n, dtype=torch.int32, device=dev)
     pd = torch.empty(n, dtype=torch.float32, device=dev)
+    work = torch.empty((n, 2), dtype=torch.int32, device=dev)
     idx = torch.arange(n, device=dev)
 
     def flush(s, idx):
         meta[idx] = (s["leg"] | (s["cn"] << 3) | (s["pn"] << 6)
                      | (s["nn"] << 9) | (s["acc"] << 12))
         pd[idx] = s["pd"]
+        work[idx] = torch.stack([s["moves"], s["heights"]], -1)
 
     def take(s, hoisted, keep):
         s = {k: v[keep] for k, v in s.items()}
         hoisted = tuple(tuple(t[keep] for t in h) for h in hoisted)
         return s, hoisted
 
+    def detect(s):
+        d = _detect(s, c)
+        # The kernel evaluates a column height where a live ray is in the
+        # region and its step is fine.
+        live = s["leg"] < LEG_DONE
+        s["heights"] = s["heights"] + (live & ~d["air"] & d["fine"]).to(torch.int32)
+        return d
+
     for i in range(max_steps):
         if i % 16 == 0:
             live = s["leg"] < LEG_DONE
             flush({k: v[~live] for k, v in s.items()}, idx[~live])
             if not bool(live.any()):
-                return meta, pd
+                return meta, pd, work
             s, hoisted = take(s, hoisted, live)
             idx = idx[live]
-        d = _detect(s, c)
+        d = detect(s)
         act = (s["leg"] < LEG_DONE) & ~(d["air"] | d["hit"])
+        s["moves"] = s["moves"] + act.to(torch.int32)
         s = _move(_transition(s, d, c, hoisted), d, act)
     # Budget spent: apply completions from the last move, then pack.
-    s = _transition(s, _detect(s, c), c, hoisted)
+    s = _transition(s, detect(s), c, hoisted)
     flush(s, idx)
-    return meta, pd
+    return meta, pd, work
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +317,7 @@ def march_paths(origin, direction, nw, iscal, fscal, tables,
     """
     if origin.device.type == "cpu":
         return march_paths_plain(origin, direction, nw, iscal, fscal, tables,
-                                 max_steps, seed, legs)
+                                 max_steps, seed, legs)[:2]
     if origin.device.type != "cuda":
         raise RuntimeError(f"march_paths: no kernel for device {origin.device}")
     from .._build import check_launch, check_tensor, kernels

@@ -17,8 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import LIGHTING_SCALE, MAX_TRACE_STEPS, NORMAL_SKY
-
+from ..constants import LIGHTING_SCALE, MAX_TRACE_STEPS, NORMAL_SKY
 from .._f32 import fdiv
 from . import shading
 from .lighting import EXHAUSTED_DEPTH

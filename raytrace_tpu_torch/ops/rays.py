@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import ROOT_BLOCK_SIZE
-
+from ..constants import ROOT_BLOCK_SIZE
 from .._f32 import fdiv
 
 _HALF = ROOT_BLOCK_SIZE // 2

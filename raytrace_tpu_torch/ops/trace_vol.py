@@ -49,8 +49,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import ROOT_BLOCK_SIZE
-
+from ..constants import ROOT_BLOCK_SIZE
 from . import shading
 from .rays import normalize
 
@@ -156,6 +155,7 @@ def _coarse(s, c: _Ctx, act):
     for k, a in enumerate("xyz"):
         s["p" + a] = torch.where(move, q[k], p[k])
     s["normal"] = torch.where(move, nrm, s["normal"])
+    s["moves"] = s["moves"] + move.to(torch.int32)
     air = air | (move & _oob(s["px"], s["py"], s["pz"], c))
     return torch.where(air, DONE | AIR, torch.where(hit, DONE, torch.where(
         mixed, PARKED, 0))).to(torch.int32)
@@ -176,6 +176,7 @@ def _resolve(s, c: _Ctx, idx):
     words = c.detail[b0.long()]
     # 0 in the brick, 1 hit, 2 left the brick, 3 left the window
     st = torch.zeros_like(b0)
+    moves = torch.zeros_like(b0)
     for _ in range(MAX_CROSSINGS):
         act = st == 0
         if not bool(act.any()):
@@ -192,9 +193,11 @@ def _resolve(s, c: _Ctx, idx):
         q, nrm = _nearest(p, v, 1.0)
         p = [torch.where(move, q[k], p[k]) for k in range(3)]
         normal = torch.where(move, nrm, normal)
+        moves = moves + move.to(torch.int32)
     for k, a in enumerate("xyz"):
         s["p" + a][idx] = p[k]
     s["normal"][idx] = normal
+    s["moves"][idx] = s["moves"][idx] + moves
     return torch.where(st == 1, DONE, torch.where(st == 3, DONE | AIR, 0)).to(torch.int32)
 
 
@@ -284,9 +287,10 @@ def march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
     sd1, sp1, sd2, sp2 (jittered sun directions and unit-sphere points);
     iscal: (10,) int32 = lr xyz, occupancy bounds xmin xmax ymin ymax zmin
     zmax, pad; fscal: (4,) f32 = camera origin xyz, pad; tables from
-    ``build_vol_tables``.  Returns ``(meta, prim_lin, dif1_lin, prim_dist)``,
-    each (N,).  Finished and halted lanes are compacted away every 16
-    iterations (a speed device only).
+    ``build_vol_tables``.  Returns ``(meta, prim_lin, dif1_lin, prim_dist,
+    moves)``, each (N,): ``moves`` counts the path's moves, coarse and in
+    bricks, the work K3 does for it.  Finished and halted lanes are
+    compacted away every 16 iterations (a speed device only).
     """
     c = _Ctx(iscal, fscal, tables, legs)
     n = origin.shape[0]
@@ -298,11 +302,11 @@ def march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
     s = dict(px=origin[:, 0], py=origin[:, 1], pz=origin[:, 2],
              vx=v[0], vy=v[1], vz=v[2], ax=zf, ay=zf, az=zf,
              meta=zi, normal=zi, prim_lin=zi - 1, dif1_lin=zi - 1, prim_dist=zf,
-             coarse=zi + budget, bricks=zi + budget,
+             moves=zi, coarse=zi + budget, bricks=zi + budget,
              halt=torch.zeros(n, dtype=torch.bool, device=dev), inv=inv)
     s = {k: t.clone() for k, t in s.items()}
     out = dict(meta=zi.clone(), prim_lin=zi.clone(), dif1_lin=zi.clone(),
-               prim_dist=zf.clone())
+               prim_dist=zf.clone(), moves=zi.clone())
     idx = torch.arange(n, device=dev)
     i = 0
     while True:
@@ -311,7 +315,7 @@ def march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
             for k in out:
                 out[k][idx[~live]] = s[k][~live]
             if not bool(live.any()):
-                return out["meta"], out["prim_lin"], out["dif1_lin"], out["prim_dist"]
+                return tuple(out.values())
             s = {k: t[live] for k, t in s.items()}
             idx, live = idx[live], live[live]
         i += 1
@@ -346,7 +350,7 @@ def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
     """
     if origin.device.type == "cpu":
         return march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
-                                     max_steps, legs)
+                                     max_steps, legs)[:4]
     if origin.device.type != "cuda":
         raise RuntimeError(f"march_paths_vol: no kernel for device {origin.device}")
     from .._build import check_launch, check_tensor, kernels

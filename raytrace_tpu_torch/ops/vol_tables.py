@@ -19,8 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import ROOT_BLOCK_SIZE, SLICE_SIZE
-
+from ..constants import ROOT_BLOCK_SIZE, SLICE_SIZE
 from ..world.chunk import _pool2
 from .volume import STEP_SHIFT
 

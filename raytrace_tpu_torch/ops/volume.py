@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import ROOT_BLOCK_SIZE
+from ..constants import ROOT_BLOCK_SIZE
 
 STEP_SHIFT = 24  # minefield bits in the fused volume
 MATERIAL_MASK = (1 << STEP_SHIFT) - 1

@@ -2,14 +2,18 @@
 
 Port of ``raytrace_tpu/render/pipeline.py``: ``FrameUniforms`` (``:37-60``),
 the frame program (``_render_frame_impl``, ``:92-149``, packed as
-``_rffp_impl``, ``:198-238``) and ``Pipeline`` (``:252-463``) for
-``tracer="fused"`` and ``"volume_fast"``.
+``_rffp_impl``, ``:198-238``) and ``Pipeline`` (``:252-487``, with the
+debug-only ``_validate_frame``) for every tracer of the JAX package:
 
 - ``fused``: the region's heightfield tables (rebuilt whenever the region
   offset ``lr`` changes), the path march K1 and its shade.
+- ``hf``: the same tables, traced leg by leg through the staged tracer K4
+  (``ops/trace_hf.py``) and the staged lighting pass (``ops/integrate.py``).
 - ``volume_fast``: the streamed resident volume and its occupancy tables
   (updated per streamed slab, rebuilt after initialize, teleport or an
   edit), the path march K3 and its shade.
+- ``volume``: the streamed resident volume itself, traced leg by leg by the
+  exact DDA (``ops/trace_dda.py``, plain PyTorch, slow: the reference).
 
 Then the denoise chain K2 with finalize fused into its last pass.  One
 packed uniform vector is uploaded per frame.  Everything runs on the
@@ -24,29 +28,27 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytrace_tpu.constants import (
+from ..constants import (
     BLUE_NOISE_SIZE,
     DEFAULT_HEIGHT,
     DEFAULT_WIDTH,
     MAX_TRACE_STEPS,
 )
-from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
-
 from ..ops.denoise import denoise_finalize
 from ..ops.hf_tables import build_hf_tables
-from ..ops.lighting import render_gbuffers_fused
+from ..ops.lighting import EXHAUSTED_DEPTH, render_gbuffers_fused
 from ..ops.path_vol import render_gbuffers_path
+from ..ops.trace_dda import render_gbuffers
+from ..ops.trace_hf import render_gbuffers_hf
 from ..ops.vol_tables import build_vol_tables, update_vol_tables
+from ..utils.blue_noise import get_blue_noise_f32
 from .camera import Camera
 from .streaming import TerrainStreamer
 
-# Tracers of the JAX package that the port does not have yet, with the
-# ROADMAP queue-1 item that brings each.
-_LATER_TRACERS = {
-    "volume": "ROADMAP queue 1 item 10 (exact-DDA general path)",
-    "hf": "ROADMAP queue 1 item 12 (staged heightfield path)",
-}
-TRACERS = ("fused", "volume_fast")
+TRACERS = ("fused", "hf", "volume", "volume_fast")
+# The tracers that render the streamed resident volume (the others derive
+# the world from its heightfield and cannot show a preloaded or edited one).
+VOLUME_TRACERS = ("volume", "volume_fast")
 
 
 @dataclasses.dataclass
@@ -90,20 +92,27 @@ def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
                  seed: int = 0, bounces: int = 2, tracer: str = "fused"):
     """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
 
-    ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` or
-    the (fused volume, ``build_vol_tables`` dict) pair for
-    ``"volume_fast"``.  The counterpart of the JAX package's frame program
-    (``_render_frame_impl``, ``_rffp_impl``): the march and shade, then the
-    denoise chain with finalize.
+    ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` and
+    ``"hf"``, the (fused volume, ``build_vol_tables`` dict) pair for
+    ``"volume_fast"`` and the fused volume for ``"volume"``.  The
+    counterpart of the JAX package's frame program (``_render_frame_impl``,
+    ``_rffp_impl``): the G-buffer pass, then the denoise chain with
+    finalize.
     """
     uniforms = unpack_uniforms(packed)
     if tracer == "fused":
         gb = render_gbuffers_fused(world, blue_noise, uniforms, width, height,
                                    max_steps, seed, bounces)
-    else:
+    elif tracer == "hf":
+        gb = render_gbuffers_hf(world, blue_noise, uniforms, width, height,
+                                max_steps, seed, bounces)
+    elif tracer == "volume_fast":
         volume, tables = world
         gb = render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
                                   height, max_steps, bounces)
+    else:
+        gb = render_gbuffers(world, blue_noise, uniforms, width, height,
+                             max_steps, bounces)
     return denoise_finalize(gb, blue_noise), gb
 
 
@@ -120,26 +129,28 @@ class Pipeline:
         bounces: int = 2,
         device="cuda",
         preloaded_volume=None,
+        validate: bool = False,
     ):
         """``tracer``: "fused" (the whole-path heightfield march of the
-        generated world) or "volume_fast" (the brick-pyramid march of
-        whatever the streamed volume holds: generated, preloaded or edited
-        content); None picks "volume_fast" when ``preloaded_volume`` is
-        given, else "fused", as the JAX package does.  "volume" and "hf"
-        raise ``NotImplementedError`` naming the ROADMAP item that brings
-        them.  ``preloaded_volume``: a fused (256^3,) volume (uint32 bits in
-        any integer dtype) to start from instead of generating one; only
-        the volume tracer reads it.  ``device``: "cuda" runs the kernels
-        and raises when no GPU is present; "cpu" runs the plain versions."""
+        generated world), "hf" (the same world traced leg by leg by the
+        staged heightfield tracer), "volume_fast" (the brick-pyramid march
+        of whatever the streamed volume holds: generated, preloaded or
+        edited content) or "volume" (the exact DDA through that volume,
+        slow: the reference); None picks "volume_fast" when
+        ``preloaded_volume`` is given, else "fused", as the JAX package
+        does.  ``preloaded_volume``: a fused (256^3,) volume (uint32 bits
+        in any integer dtype) to start from instead of generating one; only
+        the volume tracers read it.  ``device``: "cuda" runs the kernels
+        and raises when no GPU is present; "cpu" runs the plain versions.
+        ``validate``: after every frame, report non-finite frame or
+        lighting values and the pixels whose primary ray exhausted its
+        budget (the JAX package's debug-build checks); it waits for each
+        frame, so it is for debugging only."""
         if tracer is None:
             tracer = "volume_fast" if preloaded_volume is not None else "fused"
-        if tracer in _LATER_TRACERS:
-            raise NotImplementedError(
-                f"tracer={tracer!r} is not ported yet: {_LATER_TRACERS[tracer]}"
-            )
         if tracer not in TRACERS:
             raise ValueError(f"unknown tracer {tracer!r}")
-        if preloaded_volume is not None and tracer != "volume_fast":
+        if preloaded_volume is not None and tracer not in VOLUME_TRACERS:
             raise ValueError(
                 f"tracer={tracer!r} renders from worldgen-derived heightfields "
                 "and would ignore preloaded_volume; use tracer='volume_fast'")
@@ -152,9 +163,10 @@ class Pipeline:
         self.seed = seed
         self.tracer = tracer
         self.bounces = bounces
+        self.validate = validate
         self.uniforms = FrameUniforms()
         self.streamer = TerrainStreamer(seed=seed, device=self.device)
-        if tracer == "volume_fast":
+        if tracer in VOLUME_TRACERS:
             self.streamer.initialize(volume=preloaded_volume)
         self.blue_noise = torch.from_numpy(get_blue_noise_f32()).to(self.device)
         self._tables = None
@@ -174,9 +186,9 @@ class Pipeline:
         """Write a solid material box (or carve air with
         ``material_id=None``) into the resident volume at world voxel
         ``world_min`` with extents ``shape`` (x, y, z); the occupancy
-        tables rebuild on the next frame.  The heightfield tracer derives
-        its tables from worldgen and cannot show edits, so it raises."""
-        if self.tracer != "volume_fast":
+        tables rebuild on the next frame.  The heightfield tracers derive
+        their tables from worldgen and cannot show edits, so they raise."""
+        if self.tracer not in VOLUME_TRACERS:
             raise ValueError(
                 f"tracer={self.tracer!r} renders from worldgen-derived "
                 "heightfields and cannot display volume edits; use "
@@ -227,8 +239,10 @@ class Pipeline:
 
     def world(self):
         """What the frame program reads for this pipeline's tracer."""
-        if self.tracer == "fused":
+        if self.tracer in ("fused", "hf"):
             return self.tables()
+        if self.tracer == "volume":
+            return self.streamer.volume
         return self.streamer.volume, self.vol_tables()
 
     def draw_frame(self, camera: Camera, sun_angle: float) -> torch.Tensor:
@@ -248,4 +262,26 @@ class Pipeline:
             self.world(), self.blue_noise, packed, self.width, self.height,
             self.max_steps, self.seed, self.bounces, self.tracer,
         )
+        if self.validate:
+            self._validate_frame(frame, self.gbuffers)
         return frame
+
+    def _validate_frame(self, frame, gb) -> dict:
+        """Debug checks of one frame, with one wait for the device: count
+        non-finite frame values, primary rays that exhausted the step budget
+        (pink pixels) and non-finite lighting values; print each that is
+        not 0 and return all three."""
+        counts = torch.stack([
+            (~torch.isfinite(frame)).sum(),
+            (gb["depth"].to(torch.int32) == EXHAUSTED_DEPTH).sum(),
+            (~torch.isfinite(gb["lighting"])).sum(),
+        ]).tolist()
+        bad, exhausted, bad_light = counts
+        if bad:
+            print(f"[validate] {bad} non-finite frame values")
+        if exhausted:
+            print(f"[validate] {exhausted} rays hit the {self.max_steps}-step "
+                  "limiter (pink error pixels)")
+        if bad_light:
+            print("[validate] non-finite lighting buffer values")
+        return dict(nonfinite=bad, exhausted=exhausted, nonfinite_lighting=bad_light)

@@ -28,14 +28,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytrace_tpu.constants import (
+from ..constants import (
     CHUNK_SIZE,
     ROOT_BLOCK_SIZE,
     ROOT_CHUNK_SIZE,
     SLICE_SIZE,
     SLICES_PER_ROOT,
 )
-
 from ..ops.volume import fuse_volume
 from ..world.generate import generate_box
 

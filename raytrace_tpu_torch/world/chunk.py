@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import CHUNK_SIZE, MAX_CHUNK_LOD
+from ..constants import CHUNK_SIZE, MAX_CHUNK_LOD
 
 
 def _pool2(occ: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import CHUNK_SIZE, ROOT_BLOCK_SIZE
-from raytrace_tpu.materials import PACKED_MATERIALS
-
+from ..constants import CHUNK_SIZE, ROOT_BLOCK_SIZE
+from ..materials import PACKED_MATERIALS
 from ..ops.volume import MATERIAL_MASK, STEP_SHIFT, fuse_volume
 from .chunk import minefield_from_solid
 

@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import BAND_HIGH, BAND_LOW, BAND_MID, CHUNK_SIZE
-from raytrace_tpu.materials import PACKED_MATERIALS
-
+from ..constants import BAND_HIGH, BAND_LOW, BAND_MID, CHUNK_SIZE
+from ..materials import PACKED_MATERIALS
 from .chunk import minefield_from_solid
 from .heightmap import heightmap_grid
 from .noise import hash3_u32

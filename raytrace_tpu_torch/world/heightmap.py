@@ -11,12 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from raytrace_tpu.constants import (
+from ..constants import (
     WORLDGEN_HEIGHT_MUL,
     WORLDGEN_HEIGHT_OFFSET,
     WORLDGEN_SCALE,
 )
-
 from .._f32 import fdiv
 from .noise import (
     DEFAULT_LACUNARITY,

@@ -6,6 +6,7 @@ not caught by ctypes) and the rebuild rule.
 """
 
 import re
+import shutil
 
 import pytest
 import torch
@@ -25,7 +26,8 @@ def _c_prototypes():
 def test_ctypes_signatures_match_c_prototypes():
     protos = _c_prototypes()
     assert set(protos) == set(_build._SIGNATURES)
-    assert {"rt_march_paths", "rt_denoise_pass", "rt_march_paths_vol"} <= set(protos)
+    assert {"rt_march_paths", "rt_denoise_pass", "rt_march_paths_vol",
+            "rt_trace_hf"} <= set(protos)
     for name, args in protos.items():
         kinds = [_build._P if "*" in a else _build._I for a in args]
         assert kinds == _build._SIGNATURES[name], name
@@ -35,11 +37,30 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     first = _build.library_path()
     assert first.parent == _build.BUILD_DIR
     assert _build.library_path() == first
-    src = tmp_path / "extra.cu"
-    src.write_text("// a new source changes the hash\n")
-    real = _build.sources()
-    monkeypatch.setattr(_build, "sources", lambda: [*real, src])
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    assert _build.library_path() == first
+    (csrc / "extra.cu").write_text("// a new source changes the hash\n")
     assert _build.library_path() != first
+    assert csrc / "extra.cu" in _build.sources()
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    """An edit to a shared header rebuilds: the hash covers every file
+    under csrc/, not only the .cu sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    first = _build.library_path()
+    assert (csrc / "heightfield.cuh").exists()
+    assert [p.name for p in _build.sources()] == sorted(p.name for p in csrc.glob("*.cu"))
+    header = csrc / "heightfield.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    edited = _build.library_path()
+    assert edited != first
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.library_path() not in (first, edited)
 
 
 def test_check_tensor_and_launch_errors():

@@ -125,15 +125,13 @@ def test_draw_frame_streams_and_advances_seed():
 
 
 def test_pipeline_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        pipeline.Pipeline(tracer="volume", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        pipeline.Pipeline(tracer="hf", device="cpu")
+    assert pipeline.TRACERS == ("fused", "hf", "volume", "volume_fast")
     with pytest.raises(ValueError, match="unknown tracer"):
         pipeline.Pipeline(tracer="raster", device="cpu")
-    with pytest.raises(ValueError, match="would ignore preloaded_volume"):
-        pipeline.Pipeline(tracer="fused", device="cpu",
-                          preloaded_volume=torch.zeros(256 ** 3, dtype=torch.int32))
+    for tracer in ("fused", "hf"):
+        with pytest.raises(ValueError, match="would ignore preloaded_volume"):
+            pipeline.Pipeline(tracer=tracer, device="cpu",
+                              preloaded_volume=torch.zeros(256 ** 3, dtype=torch.int32))
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
     for tracer in pipeline.TRACERS:
@@ -231,25 +229,67 @@ def test_package_renders_without_jax():
         "    importlib.import_module(m.name)\n"
         "from raytrace_tpu_torch.render.camera import Camera\n"
         "cam = Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3)\n"
-        "for tracer in ('fused', 'volume_fast'):\n"
+        "from raytrace_tpu_torch.render.pipeline import TRACERS\n"
+        "assert len(TRACERS) == 4\n"
+        "for tracer in TRACERS:\n"
         "    p = rt.create_instance(width=16, height=16, device='cpu', tracer=tracer)\n"
-        "    p.teleport(cam)\n"
         "    f = p.draw_frame(cam, 0.6)\n"
-        "    assert f.shape == (16, 16, 3) and bool(torch.isfinite(f).all())\n"
-        "p.edit_box((-40, -90, 40), (8, 8, 8), 3)\n"
-        "assert bool(torch.isfinite(p.draw_frame(cam, 0.6)).all())\n"
+        "    assert f.shape == (16, 16, 3) and bool(torch.isfinite(f).all()), tracer\n"
+        "    if tracer in ('volume', 'volume_fast'):\n"
+        "        p.edit_box((-40, -90, 40), (8, 8, 8), 3)\n"
+        "        assert bool(torch.isfinite(p.draw_frame(cam, 0.6)).all()), tracer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
-        # The three host modules, their packages, and the two JAX-free
-        # modules raytrace_tpu/utils/__init__.py imports with them.
-        "allowed = {'raytrace_tpu', 'raytrace_tpu.constants', 'raytrace_tpu.materials',\n"
-        "           'raytrace_tpu.utils', 'raytrace_tpu.utils.blue_noise',\n"
-        "           'raytrace_tpu.utils.coords', 'raytrace_tpu.utils.perf'}\n"
-        "ref = {m for m in sys.modules if m.split('.')[0] == 'raytrace_tpu'}\n"
-        "assert ref <= allowed, sorted(ref - allowed)\n"
+        "ref = [m for m in sys.modules if m.split('.')[0] == 'raytrace_tpu']\n"
+        "assert not ref, sorted(ref)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path: Path) -> set:
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py, read without running it, imports no JAX and nothing of
+    the JAX package, and checks for the port's own files."""
+    top = {name.split(".")[0] for name in _imported_modules(ROOT / "chip_smoke.py")}
+    assert "raytrace_tpu_torch" in top and "torch" in top
+    assert not top & {"jax", "jaxlib", "raytrace_tpu"}, top
+    assert '"raytrace_tpu" /' not in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_port_sources_import_nothing_of_jax():
+    """Every module of the port, read without running it."""
+    for path in sorted((ROOT / "raytrace_tpu_torch").rglob("*.py")):
+        top = {name.split(".")[0] for name in _imported_modules(path)}
+        assert not top & {"jax", "jaxlib", "raytrace_tpu"}, (path, top)
+
+
+def test_validate_reports_each_frame(capsys):
+    """validate=True checks every frame: a budget too small to reach the
+    terrain leaves exhausted (pink) pixels, which it reports and counts."""
+    cam = Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3)
+    p = pipeline.Pipeline(width=16, height=16, device="cpu", tracer="hf",
+                          max_steps=6, validate=True)
+    p.draw_frame(cam, 0.6)
+    counts = p._validate_frame(p.draw_frame(cam, 0.6), p.gbuffers)
+    out = capsys.readouterr().out
+    assert counts["exhausted"] > 0 and counts["nonfinite"] == 0
+    assert f"{counts['exhausted']} rays hit the 6-step limiter" in out
+    quiet = pipeline.Pipeline(width=16, height=16, device="cpu", tracer="hf")
+    assert not quiet.validate
+    quiet.draw_frame(cam, 0.6)
+    assert capsys.readouterr().out == ""
