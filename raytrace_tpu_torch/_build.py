@@ -43,11 +43,12 @@ _SIGNATURES = {
     # stream
     "rt_denoise_pass": [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
     # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
-    # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, stream
-    "rt_march_paths_vol": [_P] * 13 + [_I] * 3 + [_P],
+    # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, next, census,
+    # stream
+    "rt_march_paths_vol": [_P] * 13 + [_I] * 3 + [_P] * 3,
     # origin, direction, active, iscal, hsub, h3, cA, cB, cC, cD, pos,
-    # normal, air, packed, n, budget, seed, stream
-    "rt_trace_hf": [_P] * 14 + [_I] * 3 + [_P],
+    # normal, air, packed, n, budget, seed, next, census, stream
+    "rt_trace_hf": [_P] * 14 + [_I] * 3 + [_P] * 3,
 }
 
 _lib = None

@@ -1,0 +1,194 @@
+"""The persistent lanes of the march kernels K3 and K4, measured on the card.
+
+K3 (``csrc/trace_vol.cu``) and K4 (``csrc/trace_hf.cu``) run persistent
+lanes that take new work from a counter (``csrc/lanes.cuh``); each source
+hard-codes in its ``refill_now`` when the idle lanes of a warp take new
+items:
+
+  (i)   only when all 32 lanes are idle;
+  (ii)  whenever any lane is idle;
+  (iii) when at least 16 lanes are idle.
+
+The app drives K3 at the volume_fast path's view and K4 on each batch of the
+hf path's frame (the primaries, then each bounce's sun + diffuse pair), at
+the bench camera (origin (-30,-100,60), pitch -0.3, sun 0.6), bounces 2,
+and prints one JSON line per part:
+
+- ``rule``: the kernel library built once per rule, from copies of
+  ``csrc/`` (under ``build/``) whose ``refill_now`` bodies are replaced,
+  timed in turns (i ii iii, then iii ii i, ...): each call's device time
+  from CUDA events (the wrapper's whole call) and the kernel's alone from
+  ``torch.profiler``, the lane-use census (``testing/census.py``, moves from
+  the plain versions), and the check that every output equals the shipped
+  library's;
+- ``order``: the shipped library on the same items in their index order,
+  longest first (by the plain version's moves), and the 32 longest alone:
+  how much of a kernel's time is the latency of its longest items.
+
+Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
+[--reps 10] [--size 1024]   (needs a CUDA GPU)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+
+import torch
+
+from .. import _build
+from ..ops import integrate, path_vol, trace_hf, trace_vol
+from ..render.camera import Camera
+from ..render.pipeline import Pipeline, unpack_uniforms
+from ..testing.census import lane_use
+from ..testing.measure import call_ms, card, kernel_ms, same
+
+RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16"}
+_BODY = re.compile(r"(bool refill_now\(unsigned idle\) \{\s*return )[^;]*;")
+_KERNEL = {"k3": "march_paths_vol_kernel", "k4": "trace_hf_kernel"}
+
+
+def _library(rule: str):
+    """The kernel library built with ``rule`` in both kernels' refill_now."""
+    csrc = _build.BUILD_DIR / f"refill_{rule}" / "csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    shutil.copytree(_build._CSRC, csrc)
+    for name in ("trace_vol.cu", "trace_hf.cu"):
+        src = csrc / name
+        text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", src.read_text())
+        if count != 1:
+            raise RuntimeError(f"{name}: no refill_now body to replace")
+        src.write_text(text)
+    shipped = _build._CSRC
+    _build._CSRC, _build._lib = csrc, None
+    try:
+        return _build.kernels()
+    finally:
+        _build._CSRC = shipped
+
+
+def _camera() -> Camera:
+    cam = Camera(origin=[-30.0, -100.0, 60.0])
+    cam.pitch = -0.3
+    return cam
+
+
+def _k3_items(size: int):
+    """K3's call at the volume_fast path's view -> (call(items, census),
+    moves per path)."""
+    pipe = Pipeline(width=size, height=size, tracer="volume_fast")
+    cam = _camera()
+    pipe.teleport(cam)
+    pipe.draw_frame(cam, 0.6)
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    origin, direction, inv, *rest = path_vol.march_inputs(
+        pipe.vol_tables(), pipe.blue_noise, uniforms, size, size)["march"]
+    legs = path_vol.legs_of(pipe.bounces)
+    moves = trace_vol.march_paths_vol_plain(origin, direction, inv, *rest, pipe.max_steps,
+                                            legs)[-1]
+
+    def call(items=None, census=None):
+        o, d, v = ((origin, direction, inv) if items is None else
+                   (origin[items].contiguous(), direction[items].contiguous(),
+                    inv[items].contiguous()))
+        return trace_vol.march_paths_vol(o, d, v, *rest, pipe.max_steps, legs, census=census)
+
+    return call, moves
+
+
+def _k4_items(size: int):
+    """K4's calls on the batches of the hf path's frame -> [(call(items,
+    census), moves per ray)], primaries first."""
+    pipe = Pipeline(width=size, height=size, tracer="hf")
+    cam = _camera()
+    pipe.teleport(cam)
+    pipe.converge_streaming((cam.origin[0], 0, cam.origin[2]), max_moves=32)
+    pipe.draw_frame(cam, 0.6)
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    tables = pipe.tables()
+    batches = []
+
+    def trace(o, d, active=None):
+        batches.append((o.reshape(-1, 3), d.reshape(-1, 3),
+                        None if active is None else active.reshape(-1)))
+        caps = () if active is None else trace_hf.COMPACT_CAPS
+        return trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], pipe.max_steps,
+                                      pipe.seed, caps, active)
+
+    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size, pipe.bounces)
+    out = []
+    for o, d, active in batches:
+        caps = () if active is None else trace_hf.COMPACT_CAPS
+        args = (tables, o, d, uniforms["lr"], pipe.max_steps, pipe.seed, caps, active)
+        moves = trace_hf.trace_rays_hf_plain(*args)["work"][..., 0]
+
+        def call(items=None, census=None, o=o, d=d, active=active, caps=caps):
+            if items is not None:
+                o, d = o[items].contiguous(), d[items].contiguous()
+                active = None if active is None else active[items].contiguous()
+            return trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], pipe.max_steps,
+                                          pipe.seed, caps, active, census=census)
+
+        out.append((call, moves))
+    return out
+
+
+def _flat(out) -> list:
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the march lanes need a CUDA GPU")
+    label = card()
+    items = {"k3": _k3_items(size)}
+    for b, item in enumerate(_k4_items(size)):
+        items[f"k4_b{b}"] = item
+    want = {name: _flat(call()) for name, (call, _) in items.items()}
+    shipped = _build.kernels()
+    libs = {rule: _library(rule) for rule in RULES}
+    order = [rule for k in range(rounds) for rule in (RULES if k % 2 == 0 else reversed(RULES))]
+    res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in items} for rule in RULES}
+    for rule in order:
+        _build._lib = libs[rule]
+        for name, (call, moves) in items.items():
+            r = res[rule][name]
+            if "lane_use" not in r:
+                census = torch.zeros(1, dtype=torch.int64, device="cuda")
+                if not all(same(a, b) for a, b in zip(_flat(call(census=census)), want[name])):
+                    raise RuntimeError(f"rule {rule}: {name} differs from the shipped kernel")
+                total, iters = int(moves.sum(dtype=torch.int64)), int(census.item())
+                r.update(warp_iterations=iters, lane_use=lane_use(total, iters))
+            r["call_ms"].append(call_ms(call, reps))
+            r["kernel_ms"].append(kernel_ms(call, reps, _KERNEL[name[:2]]))
+    for rule in RULES:
+        print(json.dumps(dict(part="rule", rule=rule, expr=RULES[rule], card=label, size=size,
+                              **res[rule])), flush=True)
+
+    _build._lib = shipped
+    orders = {}
+    for name, (call, moves) in items.items():
+        longest = torch.argsort(moves.reshape(-1), descending=True)
+        kernel = _KERNEL[name[:2]]
+        orders[name] = dict(
+            longest_moves=int(moves.max()),
+            index_order_ms=kernel_ms(call, reps, kernel),
+            longest_first_ms=kernel_ms(lambda: call(longest), reps, kernel),
+            longest_32_alone_ms=kernel_ms(lambda: call(longest[:32]), reps, kernel))
+    print(json.dumps(dict(part="order", card=label, size=size, **orders)), flush=True)
+    return dict(rules=res, orders=orders)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--size", type=int, default=1024)
+    args = ap.parse_args()
+    run(args.rounds, args.reps, args.size)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-// Kernel K3: the volume_fast light path of every pixel, one thread per pixel.
+// Kernel K3: the volume_fast light path of every pixel, on persistent lanes.
 //
 // Replaces the Pallas TPU kernel raytrace_tpu/ops/trace_vol_pallas.py
 // `_make_vol_kernel` (:254-429) together with the XLA work the JAX package
@@ -7,26 +7,52 @@
 // leg transition `_transition` (path_vol.py:161-302).  Its plain PyTorch
 // version is `march_paths_vol_plain` in ops/trace_vol.py; the two run the
 // same float32 operations in the same order (built with --fmad=false, so no
-// multiply-add is contracted).
+// multiply-add is contracted), and every path's outputs are the same bits
+// whichever lane computes them.
 //
-// Each thread loops over its own path until it is done or its budget is
-// spent: a coarse step over the brick pyramid (escape and window tests,
-// hit in an all-solid brick, park in a mixed brick, else move to the
-// nearest 8/16/32/64-aligned boundary); for a parked ray, the voxel march
-// through that brick's 16-word detail row (at most 23 crossings); for a
-// completed ray, the leg transition (primary -> sun1 -> dif1 -> sun2 ->
-// dif2).  The TPU's rounds, step caps, slotted views and state trimming
-// have no counterpart.
+// A path: coarse steps over the brick pyramid (escape and window tests, hit
+// in an all-solid brick, park in a mixed brick, else move to the nearest
+// 8/16/32/64-aligned boundary); for a parked ray, the voxel march through
+// that brick's 16-word detail row (at most 23 crossings); for a completed
+// ray, the leg transition (primary -> sun1 -> dif1 -> sun2 -> dif2).  The
+// TPU's rounds, step caps, slotted views and state trimming have no
+// counterpart.
 //
-// What bounds it on Hopper: the per-step integer and float ALU work and the
-// divergence between neighbouring paths of very different length, then the
-// detail-row reads.  The pyramid tables (any8, all8, any_hi: 9 KB) sit in
-// shared memory, loaded once per block; the 2 MiB detail table is read from
-// global memory through the read-only path and stays in the 50 MB L2.  Each
-// pixel reads 72 bytes of rays and invariants and writes 16.
+// What bounds it on the H100 is neither memory (each pixel reads 72 bytes
+// and writes 16; the 9 KB pyramid sits in shared memory, the 2 MiB detail
+// rows in L2) nor the float32 rate, but the work per move and the latency
+// of the longest paths.  At the volume_fast path's 1024² view, bounces=2
+// (NVIDIA H100 80GB HBM3, 700 W), the paths make 73.0M moves; one thread
+// per pixel, 32 consecutive pixels to a warp, kept 0.44 of the lanes busy
+// (5.19M warp-iterations), and a lane taking a coarse step waited while a
+// neighbour walked up to 23 crossings of a nested resolve loop.  So:
+//  - one move per iteration: each pass of the loop makes exactly one move
+//    of every busy lane, a coarse step or one voxel crossing of the parked
+//    brick, and coarse-marching and resolving lanes share
+//    `move_to_boundary` (modulus 8-64 or 1);
+//  - less work per move: 1/|v|, the sign multipliers and the face-normal
+//    ids are computed once per leg; the floor modulo is
+//    `s - floor(s * (1/m)) * m` with the exact reciprocal of the
+//    power-of-two modulus instead of `fmodf`; nothing lives in local
+//    memory: a crossing reads its one detail word with `__ldg`, and a
+//    transition reads the pixel's jittered sun direction or sphere point
+//    from global memory;
+//  - persistent lanes (lanes.cuh): a grid that fills the card, each warp
+//    refilling its idle lanes from a window of path indices, and the
+//    pyramid tables copied into shared memory once per block.
+// There, the lanes are 0.63 busy (3.60M warp-iterations) and the kernel
+// takes 1.83 ms against 2.94 for one thread per pixel.  The refill rule was
+// measured with apps/march_lanes.py: refilling once 16 lanes are idle took
+// 1.649 ms, once all 32 are 1.689, whenever one is 1.794 (lane use 0.62,
+// 0.43, 0.78).  A refill is a divergent branch the whole warp waits for,
+// so the fullest warps are not the fastest.  The floor is the longest
+// paths: the 32 longest (545 moves) take 0.51 ms alone, and the same paths
+// started longest first take 1.22 ms against 1.65 in index order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lanes.cuh"
 
 namespace {
 
@@ -37,7 +63,7 @@ constexpr int kWords8 = 1024;
 constexpr int kWordsHi = 256;
 constexpr int kDetailWords = 16;
 constexpr float kEps = 1e-4f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // at 128 a block, ptxas spilled registers
 constexpr int kInv = 12;
 
 constexpr int kDone = 1, kAir = 2, kParked = 32;
@@ -48,6 +74,12 @@ constexpr int kDif1NormalShift = 12;
 constexpr int kSkyShift = 15;
 constexpr int kMaxCrossings = 23;
 
+// The refill rule: the idle lanes of a warp take new paths once at least
+// 16 of its 32 lanes are idle.
+__device__ __forceinline__ bool refill_now(unsigned idle) {
+  return __popc(idle) >= 16;
+}
+
 struct Tables {
   int32_t any8[kWords8], all8[kWords8], hi[kWordsHi];
 };
@@ -56,27 +88,29 @@ struct Scalars {
   float lrx, lry, lrz;
   float bxmin, bxmax, bymin, bymax, bzmin, bzmax;
   float ox, oy, oz;
-  int legs;
 };
 
-// A ray's position, its normalized direction and its entry-face normal.
+// A ray: position, normalized direction, the per-leg terms of a move
+// (1/|v| and the sign multiplier per axis, the three entry-face normal ids
+// packed 3 bits apart) and the entry-face normal of its last move.
 struct Ray {
   float px, py, pz, vx, vy, vz;
-  int32_t normal;
+  float lpx, lpy, lpz, mulx, muly, mulz;
+  int32_t nids, normal;
 };
 
-// torch.remainder / jnp.mod for float32: the exact fmodf, then the sign
-// fix that makes the result take the sign of the divisor.
-__device__ __forceinline__ float floor_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
-  return m;
-}
+// Per-path state besides the ray: the outputs, the bounce anchor, the
+// budgets, and the brick being resolved (-1 while coarse-marching) with the
+// crossings made in it.
+struct Path {
+  int32_t meta, prim_lin, dif1_lin;
+  float prim_dist, ax, ay, az;
+  int32_t coarse_left, bricks_left, b0, crossings;
+};
 
-__device__ __forceinline__ bool out_of_window(float px, float py, float pz,
-                                              const Scalars& c) {
-  return fabsf(px - c.lrx) >= kHalf || fabsf(py - c.lry) >= kHalf ||
-         fabsf(pz - c.lrz) >= kHalf;
+__device__ __forceinline__ bool out_of_window(const Ray& r, const Scalars& c) {
+  return fabsf(r.px - c.lrx) >= kHalf || fabsf(r.py - c.lry) >= kHalf ||
+         fabsf(r.pz - c.lrz) >= kHalf;
 }
 
 __device__ __forceinline__ int32_t texel(float p) {
@@ -87,49 +121,71 @@ __device__ __forceinline__ int32_t bit(const int32_t* words, int32_t i) {
   return (words[i >> 5] >> (i & 31)) & 1;
 }
 
-// ops/rays.py normalize: v / sqrt(max(|v|^2, 1e-20)).
+// ops/rays.py normalize: v / sqrt(max(|v|^2, 1e-20)), then the leg's move
+// terms: 1/|v| (inf on a zero axis), -1 where v > 0 else 1, and the normal
+// id of a move along each axis.
 __device__ __forceinline__ void set_direction(Ray& r, float dx, float dy,
                                               float dz) {
   float inv = 1.0f / sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-20f));
   r.vx = dx * inv;
   r.vy = dy * inv;
   r.vz = dz * inv;
+  r.lpx = 1.0f / fabsf(r.vx);
+  r.lpy = 1.0f / fabsf(r.vy);
+  r.lpz = 1.0f / fabsf(r.vz);
+  r.mulx = r.vx > 0.0f ? -1.0f : 1.0f;
+  r.muly = r.vy > 0.0f ? -1.0f : 1.0f;
+  r.mulz = r.vz > 0.0f ? -1.0f : 1.0f;
+  r.nids = (r.vx > 0.0f ? 1 : 0) | ((r.vy > 0.0f ? 3 : 2) << 3) |
+           ((r.vz > 0.0f ? 5 : 4) << 6);
 }
 
-// Move to the nearest boundary of the `modulus` grid along the ray, with
-// the entry-face normal of the axis crossed (trace_vol_pallas.py:300-302,
-// :378-389 and :531-540).
-__device__ __forceinline__ void move_to_boundary(Ray& r, float modulus) {
-  float mulx = r.vx > 0.0f ? -1.0f : 1.0f;
-  float muly = r.vy > 0.0f ? -1.0f : 1.0f;
-  float mulz = r.vz > 0.0f ? -1.0f : 1.0f;
-  float lx = (kEps + floor_mod((r.px + kHalf) * mulx, modulus)) * (1.0f / fabsf(r.vx));
-  float ly = (kEps + floor_mod((r.py + kHalf) * muly, modulus)) * (1.0f / fabsf(r.vy));
-  float lz = (kEps + floor_mod((r.pz + kHalf) * mulz, modulus)) * (1.0f / fabsf(r.vz));
+// (eps + mod((p + 128) * mul, m)) * lp, the floor modulo written as
+// shifted - floor(shifted * inv_m) * m: for a power-of-two m (inv_m its
+// exact reciprocal) both products are exact and the difference is the exact
+// floor modulo rounded once, as torch.remainder rounds it (a zero may take
+// the other sign, which kEps + absorbs).  p + 128 is 0 or at least 2^-17 in
+// magnitude, so shifted * inv_m never underflows.
+__device__ __forceinline__ float bdist(float p, float mul, float lp, float m,
+                                       float inv_m) {
+  float shifted = (p + kHalf) * mul;
+  return (kEps + (shifted - floorf(shifted * inv_m) * m)) * lp;
+}
+
+// Move to the nearest boundary of the `step` grid (1, 8, 16, 32 or 64)
+// along the ray, with the entry-face normal of the axis crossed
+// (trace_vol_pallas.py:300-302, :378-389 and :531-540).
+__device__ __forceinline__ void move_to_boundary(Ray& r, int32_t step) {
+  const float m = (float)step;
+  const float inv_m = __int_as_float((128 - __ffs(step)) << 23);  // 2^-log2(step)
+  float lx = bdist(r.px, r.mulx, r.lpx, m, inv_m);
+  float ly = bdist(r.py, r.muly, r.lpy, m, inv_m);
+  float lz = bdist(r.pz, r.mulz, r.lpz, m, inv_m);
   bool use_x = (lx < ly) && (lx < lz);
   bool use_y = !(lx < ly) && (ly < lz);
   float lmin = use_x ? lx : (use_y ? ly : lz);
-  r.normal = use_x ? (r.vx > 0.0f ? 1 : 0)
-                   : (use_y ? (r.vy > 0.0f ? 3 : 2) : (r.vz > 0.0f ? 5 : 4));
+  r.normal = (r.nids >> (use_x ? 0 : (use_y ? 3 : 6))) & 7;
   r.px = r.px + r.vx * lmin;
   r.py = r.py + r.vy * lmin;
   r.pz = r.pz + r.vz * lmin;
 }
 
-// One coarse step of the brick-pyramid march (one iteration of the Pallas
-// kernel's loop).  Returns 0 (moved, still live), kDone (hit in an
-// all-solid brick), kDone | kAir, or kParked (entered a mixed brick).
-__device__ int coarse_step(Ray& r, const Tables& t, const Scalars& c) {
-  if (out_of_window(r.px, r.py, r.pz, c)) return kDone | kAir;
+// The classification of one coarse step (one iteration of the Pallas
+// kernel's loop) at texel (tx, ty, tz) of brick b.  -> kDone | kAir (out of
+// the window, or past the occupancy bounds moving away), kDone (an
+// all-solid brick), kParked (a mixed brick), or 0 with `step` the size of
+// the largest empty level to move by.
+__device__ __forceinline__ int coarse_classify(const Ray& r, const Tables& t,
+                                               const Scalars& c, int32_t tx,
+                                               int32_t ty, int32_t tz,
+                                               int32_t b, int32_t& step) {
+  if (out_of_window(r, c)) return kDone | kAir;
   bool esc = (r.vx >= 0.0f && r.px >= c.bxmax) || (r.vx <= 0.0f && r.px < c.bxmin) ||
              (r.vy >= 0.0f && r.py >= c.bymax) || (r.vy <= 0.0f && r.py < c.bymin) ||
              (r.vz >= 0.0f && r.pz >= c.bzmax) || (r.vz <= 0.0f && r.pz < c.bzmin);
   if (esc) return kDone | kAir;
-  int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
-  int32_t b = ((tz >> 3) * kNB + (ty >> 3)) * kNB + (tx >> 3);
   if (bit(t.all8, b)) return kDone;
   if (bit(t.any8, b)) return kParked;
-  int32_t step;
   if (!bit(t.hi, 192 * 32 + ((tz >> 6) * 4 + (ty >> 6)) * 4 + (tx >> 6))) {
     step = 64;
   } else if (!bit(t.hi, 128 * 32 + ((tz >> 5) * 8 + (ty >> 5)) * 8 + (tx >> 5))) {
@@ -139,48 +195,8 @@ __device__ int coarse_step(Ray& r, const Tables& t, const Scalars& c) {
   } else {
     step = 8;
   }
-  move_to_boundary(r, (float)step);
-  return out_of_window(r.px, r.py, r.pz, c) ? (kDone | kAir) : 0;
-}
-
-// The voxel march of a parked ray through its brick (resolve_mixed).
-// Returns kDone (hit a solid voxel), kDone | kAir (left the window) or 0
-// (left the brick, or 23 crossings: the coarse march resumes).
-__device__ int resolve(Ray& r, const int32_t* __restrict__ detail,
-                       const Scalars& c) {
-  int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
-  int32_t b0 = ((tz >> 3) * kNB + (ty >> 3)) * kNB + (tx >> 3);
-  int32_t words[kDetailWords];
-  const int4* row = reinterpret_cast<const int4*>(detail + (size_t)b0 * kDetailWords);
-#pragma unroll
-  for (int k = 0; k < kDetailWords / 4; ++k) {
-    int4 w = __ldg(row + k);
-    words[4 * k] = w.x;
-    words[4 * k + 1] = w.y;
-    words[4 * k + 2] = w.z;
-    words[4 * k + 3] = w.w;
-  }
-  for (int i = 0; i < kMaxCrossings; ++i) {
-    tx = texel(r.px);
-    ty = texel(r.py);
-    tz = texel(r.pz);
-    if (out_of_window(r.px, r.py, r.pz, c)) return kDone | kAir;
-    if (((tz >> 3) * kNB + (ty >> 3)) * kNB + (tx >> 3) != b0) return 0;
-    int32_t v = ((tz & 7) << 6) | ((ty & 7) << 3) | (tx & 7);
-    int32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < kDetailWords; ++k) word = (v >> 5) == k ? words[k] : word;
-    if ((word >> (v & 31)) & 1) return kDone;
-    move_to_boundary(r, 1.0f);
-  }
   return 0;
 }
-
-// Per-path state besides the ray.
-struct Path {
-  int32_t meta, prim_lin, dif1_lin;
-  float prim_dist, ax, ay, az;
-};
 
 __device__ __forceinline__ void face_normal(int32_t id, float& x, float& y,
                                             float& z) {
@@ -191,12 +207,14 @@ __device__ __forceinline__ void face_normal(int32_t id, float& x, float& y,
   z = axis == 2 ? sign : 0.0f;
 }
 
-// ops/shading.py diffuse_from_sphere, with its degenerate guard.
-__device__ __forceinline__ void diffuse_from_sphere(const float* sp, int32_t id,
-                                                    float& x, float& y, float& z) {
+// ops/shading.py diffuse_from_sphere, with its degenerate guard; `sp` is the
+// pixel's unit-sphere point in global memory.
+__device__ __forceinline__ void diffuse_from_sphere(const float* __restrict__ sp,
+                                                    int32_t id, float& x,
+                                                    float& y, float& z) {
   float nx, ny, nz;
   face_normal(id, nx, ny, nz);
-  float dx = sp[0] + nx, dy = sp[1] + ny, dz = sp[2] + nz;
+  float dx = __ldg(sp) + nx, dy = __ldg(sp + 1) + ny, dz = __ldg(sp + 2) + nz;
   float norm = sqrtf(dx * dx + dy * dy + dz * dz);
   if (norm < 1e-6f) {
     x = nx;
@@ -211,10 +229,12 @@ __device__ __forceinline__ void diffuse_from_sphere(const float* sp, int32_t id,
 }
 
 // The leg transition of path_vol._transition for a ray that completed
-// (`air`: reached sky, else hit at its position).  Starts the next leg,
-// with entry normal 0, or marks the path done.
-__device__ void transition(Ray& r, Path& s, bool air, const float* inv,
-                           const Scalars& c) {
+// (`air`: reached sky, else hit at its position).  Starts the next leg, with
+// entry normal 0, from the pixel's invariants `inv` (sd1, sp1, sd2, sp2 in
+// global memory), or marks the path done.  -> true when the path is done.
+__device__ __forceinline__ bool transition(Ray& r, Path& s, bool air,
+                           const float* __restrict__ inv, const Scalars& c,
+                           int legs) {
   int32_t leg = (s.meta >> kLegShift) & 7;
   int32_t nrm = r.normal;
   int32_t lx = ((int32_t)floorf(r.px + kHalf)) & (kN - 1);
@@ -240,10 +260,10 @@ __device__ void transition(Ray& r, Path& s, bool air, const float* inv,
     m |= 1 << (kSkyShift + leg);
   }
   int32_t next;
-  if (c.legs == 1) {
+  if (legs == 1) {
     next = kLegDone;
   } else {
-    if (leg == 2 && !air && c.legs >= 5) {
+    if (leg == 2 && !air && legs >= 5) {
       m |= nrm << kDif1NormalShift;
       s.dif1_lin = lin;
     }
@@ -252,19 +272,19 @@ __device__ void transition(Ray& r, Path& s, bool air, const float* inv,
            : leg == 2 ? (air ? kLegDone : 3)
            : leg == 3 ? 4
                       : kLegDone;
-    if (next >= c.legs) next = kLegDone;
+    if (next >= legs) next = kLegDone;
   }
   s.meta = (m & ~(7 << kLegShift)) | (next << kLegShift);
-  if (next == kLegDone) return;
+  if (next == kLegDone) return true;
 
   r.normal = 0;
   float dx, dy, dz;
   if (leg == 0 || leg == 2) {
     // sun1 / sun2 from the nudged hit, which anchors the next diffuse leg.
     const float* sd = inv + (leg == 0 ? 0 : 6);
-    dx = sd[0];
-    dy = sd[1];
-    dz = sd[2];
+    dx = __ldg(sd);
+    dy = __ldg(sd + 1);
+    dz = __ldg(sd + 2);
     r.px = hx;
     r.py = hy;
     r.pz = hz;
@@ -280,6 +300,85 @@ __device__ void transition(Ray& r, Path& s, bool air, const float* inv,
     r.pz = s.az;
   }
   set_direction(r, dx, dy, dz);
+  return false;
+}
+
+// One iteration of a path: exactly one move (a coarse step, or one voxel
+// crossing of the parked ray's brick) or the completion of a leg.  The
+// order of tests is that of the per-path loop
+//   while (leg < done) { coarse step; if parked: resolve (<= 23 crossings);
+//                        if completed: transition }
+// with the budgets spent where it spends them.  -> true when the path is
+// finished: done, or halted by its budget.
+__device__ __forceinline__ bool step_path(Ray& r, Path& s, const Tables& t,
+                                          const int32_t* __restrict__ detail,
+                                          const float* __restrict__ inv,
+                                          const Scalars& c, int legs) {
+  const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
+  const int32_t b = ((tz >> 3) * kNB + (ty >> 3)) * kNB + (tx >> 3);
+  int status = 0;
+  // The tests that open a crossing of resolve_mixed: after 23 crossings, or
+  // out of the brick, the coarse march resumes; out of the window is air.
+  if (s.b0 >= 0) {
+    if (s.crossings == kMaxCrossings) {
+      s.b0 = -1;
+    } else if (out_of_window(r, c)) {
+      status = kDone | kAir;
+      s.b0 = -1;
+    } else if (b != s.b0) {
+      s.b0 = -1;
+    }
+  }
+  int32_t step = 0;  // the move: 0 none, 1 a voxel crossing, 8-64 a coarse step
+  if (s.b0 < 0 && status == 0) {
+    if (s.coarse_left == 0) return true;
+    --s.coarse_left;
+    status = coarse_classify(r, t, c, tx, ty, tz, b, step);
+    if (status == kParked) {
+      if (s.bricks_left == 0) return true;
+      --s.bricks_left;
+      s.b0 = b;
+      s.crossings = 0;
+      status = 0;
+    }
+  }
+  if (s.b0 >= 0 && status == 0) {
+    int32_t v = ((tz & 7) << 6) | ((ty & 7) << 3) | (tx & 7);
+    int32_t word = __ldg(detail + (size_t)s.b0 * kDetailWords + (v >> 5));
+    if ((word >> (v & 31)) & 1) {
+      status = kDone;
+      s.b0 = -1;
+    } else {
+      step = 1;
+      ++s.crossings;
+    }
+  }
+  if (step != 0) {
+    move_to_boundary(r, step);
+    if (s.b0 < 0 && out_of_window(r, c)) status = kDone | kAir;
+  }
+  if (status & kDone) return transition(r, s, (status & kAir) != 0, inv, c, legs);
+  return false;
+}
+
+__device__ __forceinline__ void start_path(int i, Ray& r, Path& s,
+                                           const float* __restrict__ origin,
+                                           const float* __restrict__ direction,
+                                           int budget) {
+  r.px = origin[3 * i];
+  r.py = origin[3 * i + 1];
+  r.pz = origin[3 * i + 2];
+  r.normal = 0;
+  set_direction(r, direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  s.meta = 0;
+  s.prim_lin = -1;
+  s.dif1_lin = -1;
+  s.prim_dist = 0.0f;
+  s.ax = s.ay = s.az = 0.0f;
+  s.coarse_left = budget;
+  s.bricks_left = budget;
+  s.b0 = -1;
+  s.crossings = 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -296,7 +395,8 @@ __global__ void __launch_bounds__(kThreads)
                            int32_t* __restrict__ prim_lin_out,
                            int32_t* __restrict__ dif1_lin_out,
                            float* __restrict__ prim_dist_out, int n, int budget,
-                           int legs) {
+                           int legs, int32_t* __restrict__ next,
+                           long long* __restrict__ census) {
   __shared__ Tables t;
   for (int k = threadIdx.x; k < kWords8; k += blockDim.x) {
     t.any8[k] = any8[k];
@@ -304,8 +404,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int k = threadIdx.x; k < kWordsHi; k += blockDim.x) t.hi[k] = any_hi[k];
   __syncthreads();
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
 
   Scalars c;
   c.lrx = (float)iscal[0];
@@ -320,43 +418,32 @@ __global__ void __launch_bounds__(kThreads)
   c.ox = fscal[0];
   c.oy = fscal[1];
   c.oz = fscal[2];
-  c.legs = legs;
-
-  float inv[kInv];
-#pragma unroll
-  for (int k = 0; k < kInv; ++k) inv[k] = inv_in[(size_t)kInv * i + k];
 
   Ray r;
-  r.px = origin[3 * i];
-  r.py = origin[3 * i + 1];
-  r.pz = origin[3 * i + 2];
-  r.normal = 0;
-  set_direction(r, direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   Path s;
-  s.meta = 0;
-  s.prim_lin = -1;
-  s.dif1_lin = -1;
-  s.prim_dist = 0.0f;
-  s.ax = s.ay = s.az = 0.0f;
-
-  int coarse_left = budget, bricks_left = budget;
-  while (((s.meta >> kLegShift) & 7) < kLegDone) {
-    if (coarse_left == 0) break;
-    --coarse_left;
-    int status = coarse_step(r, t, c);
-    if (status == kParked) {
-      if (bricks_left == 0) break;
-      --bricks_left;
-      status = resolve(r, detail, c);
+  Window w;
+  int i = -1;  // this lane's path, -1 while idle
+  long long iterations = 0;
+  for (;;) {
+    if (refill_now(__ballot_sync(kFullMask, i < 0))) {
+      const int held = i;
+      i = refill(i, w, next, n, [](int) { return true; }, [](int) {});
+      if (held < 0 && i >= 0) start_path(i, r, s, origin, direction, budget);
     }
-    if (status & kDone) transition(r, s, (status & kAir) != 0, inv, c);
+    if (!__any_sync(kFullMask, i >= 0)) break;
+    ++iterations;
+    if (i >= 0 && step_path(r, s, t, detail, inv_in + (size_t)kInv * i, c, legs)) {
+      meta_out[i] = s.meta;
+      prim_lin_out[i] = s.prim_lin;
+      dif1_lin_out[i] = s.dif1_lin;
+      prim_dist_out[i] = s.prim_dist;
+      i = -1;
+    }
   }
-
-  meta_out[i] = s.meta;
-  prim_lin_out[i] = s.prim_lin;
-  dif1_lin_out[i] = s.dif1_lin;
-  prim_dist_out[i] = s.prim_dist;
+  add_census(census, iterations);
 }
+
+int grid_cache = 0;
 
 }  // namespace
 
@@ -367,11 +454,14 @@ extern "C" int rt_march_paths_vol(const float* origin, const float* direction,
                                   const int32_t* detail, int32_t* meta,
                                   int32_t* prim_lin, int32_t* dif1_lin,
                                   float* prim_dist, int n, int budget, int legs,
+                                  int32_t* next, long long* census,
                                   void* stream) {
   if (n <= 0) return 0;
-  int blocks = (n + kThreads - 1) / kThreads;
+  int blocks = 0;
+  int err = persistent_grid(march_paths_vol_kernel, kThreads, n, grid_cache, blocks);
+  if (err != 0) return err;
   march_paths_vol_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail, meta,
-      prim_lin, dif1_lin, prim_dist, n, budget, legs);
+      prim_lin, dif1_lin, prim_dist, n, budget, legs, next, census);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@ Port of ``raytrace_tpu/ops/trace_pallas.py``: ``trace_rays_hf``
 (``:512-706``), ``render_gbuffers_hf`` (``:709-753``) and
 ``_packed_material`` (``:478-489``).  The march is kernel K4,
 ``_make_kernel`` (``:208-475``), written for Hopper in ``csrc/trace_hf.cu``
-as one thread per ray; ``march_rays_hf_plain`` below is the same march in
-plain PyTorch, one step of every live ray per iteration.
+as persistent lanes that each trace ray after ray; ``march_rays_hf_plain``
+below is the same march in plain PyTorch, one step of every live ray per
+iteration.
 
 One step is the JAX unified body ``body_f`` (``:362-438``): classify the
 current voxel from the region tables (``hf_tables.classify``); where the
@@ -198,7 +199,7 @@ def trace_rays_hf_plain(tables: dict, origin, direction, lr,
 
 def trace_rays_hf(tables: dict, origin, direction, lr,
                   max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
-                  caps: tuple = COMPACT_CAPS, active=None) -> dict:
+                  caps: tuple = COMPACT_CAPS, active=None, census=None) -> dict:
     """Trace rays over the heightfield of the region centred at ``lr``.
 
     ``tables`` from ``build_hf_tables`` for that region; origin, direction
@@ -207,7 +208,9 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
     take the plain march (``trace_rays_hf_plain``); CUDA tensors launch K4
     (``csrc/trace_hf.cu``) on the current stream, and
     ``trace_rays_hf.launches`` counts those launches.  Any other device
-    raises.
+    raises.  ``census``, a (1,) int64 tensor on the same device, or None:
+    K4 adds the loop iterations of each of its warps to it (the lane-use
+    census of ``testing/census.py``).
     """
     if origin.device.type == "cpu":
         return trace_rays_hf_plain(tables, origin, direction, lr, max_steps, seed,
@@ -225,14 +228,18 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
         + [(torch.int32, (8,))] + [(torch.int32, (1024,))] * 6
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("trace_rays_hf", t, dtype, shape, dev)
+    if census is not None:
+        check_tensor("trace_rays_hf", census, torch.int64, (1,), dev)
     pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
     normal, air, packed = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' ray counter
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_trace_hf(
         o.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(),
         iscal.data_ptr(), *(tables[k].data_ptr() for k in TABLE_KEYS),
         pos.data_ptr(), normal.data_ptr(), air.data_ptr(), packed.data_ptr(),
-        n, hf_budget(max_steps, caps), seed, stream,
+        n, hf_budget(max_steps, caps), seed, nxt.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
     )
     check_launch("rt_trace_hf", err)
     trace_rays_hf.launches += 1

@@ -7,9 +7,10 @@ the coarse brick march ``_make_vol_kernel``
 (``path_vol.py:161-302``).  The JAX package alternates a Pallas kernel pass
 and an XLA resolve in rounds over the whole frame and runs the transitions
 between rounds; here each pixel walks its own path in one loop, written for
-Hopper in ``csrc/trace_vol.cu`` (one thread per pixel) and below in plain
-PyTorch (``march_paths_vol_plain``, one loop iteration per step of every
-live path).
+Hopper in ``csrc/trace_vol.cu`` (persistent lanes that each walk path after
+path, one move per loop iteration) and below in plain PyTorch
+(``march_paths_vol_plain``, one loop iteration per step of every live
+path).
 
 One step of a path:
   1. coarse step: a ray out of the window, or past the occupancy bounds
@@ -339,14 +340,16 @@ def march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
 
 
 def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
-                    max_steps: int, legs: int):
+                    max_steps: int, legs: int, census=None):
     """Walk every pixel's volume_fast path ->
     ``(meta, prim_lin, dif1_lin, prim_dist)``.
 
     CPU tensors take ``march_paths_vol_plain``; CUDA tensors launch K3
     (``csrc/trace_vol.cu``) on the current stream, and
     ``march_paths_vol.launches`` counts those launches.  Any other device
-    raises.
+    raises.  ``census``, a (1,) int64 tensor on the same device, or None:
+    K3 adds the loop iterations of each of its warps to it (the lane-use
+    census of ``testing/census.py``).
     """
     if origin.device.type == "cpu":
         return march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
@@ -365,12 +368,16 @@ def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
             (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("march_paths_vol", t, dtype, shape, dev)
+    if census is not None:
+        check_tensor("march_paths_vol", census, torch.int64, (1,), dev)
     outs = [torch.empty(n, dtype=dt, device=dev)
             for dt in (torch.int32, torch.int32, torch.int32, torch.float32)]
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' path counter
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_march_paths_vol(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        n, path_budget(max_steps, legs), legs, stream,
+        n, path_budget(max_steps, legs), legs, nxt.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
     )
     check_launch("rt_march_paths_vol", err)
     march_paths_vol.launches += 1
