@@ -10,10 +10,13 @@ golden frame, then drives the frame paths through ``create_instance`` ->
 the streamed volume, its occupancy tables, K3, K2) and of the staged
 heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
 the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
-PyTorch).  It times the kernels against their plain versions and prints
+PyTorch).  It holds the column table K1 reads equal to the plain march's
+heights on every column of each region it renders, times the kernels alone
+and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
-own, and the lane-use census of K3 and K4 (``warp_iterations``,
-``lane_use``).  It imports no JAX and nothing of the JAX package.  Any failure
+own, the lane-use census of K1, K3 and K4 (``warp_iterations``,
+``lane_use``), and each kernel's ptxas line and SASS instruction counts.
+It imports no JAX and nothing of the JAX package.  Any failure
 raises and the script exits non-zero; with no CUDA GPU, or outside a
 checkout, it exits non-zero before printing any result.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,20 +70,25 @@ def _canonical_uniforms(rt, view=CANON, seed=0):
 
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` name inside a mangled entry name (its length prefix
-    may follow the digits of an anonymous namespace's hash)."""
+    may follow the digits of an anonymous namespace's hash), with the
+    integer arguments of a template instance ("denoise_pass_kernel<2,2>")."""
     for m in re.finditer(r"\d+", mangled):
         run = m.group()
         for k in range(len(run)):
             length = int(run[k:])
             name = mangled[m.end():m.end() + length]
             if len(name) == length and name.endswith("_kernel"):
+                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + length:])
+                if args:
+                    name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
                 return name
     return mangled
 
 
 def _ptxas(log: str) -> dict:
-    """Per kernel of the build log: ptxas's resource line (registers, stack,
-    shared memory) and its stack frame and spill line."""
+    """Per kernel of the build log (each template instance apart): ptxas's
+    resource line (registers, stack, shared memory) and its stack frame and
+    spill line."""
     frames, out, entry = {}, {}, None
     lines = log.splitlines()
     for k, ln in enumerate(lines):
@@ -91,10 +99,10 @@ def _ptxas(log: str) -> dict:
         if m:
             entry = m.group(1)
         if entry and "registers" in ln:
-            out[_kernel_name(entry)] = dict(resources=ln.split(":", 1)[1].strip(),
-                                            frame=frames.get(entry))
+            out[entry] = dict(resources=ln.split(":", 1)[1].strip(),
+                              frame=frames.get(entry))
             entry = None
-    return out
+    return {_kernel_name(k): v for k, v in out.items()}
 
 
 def _exhausted(gb, torch, lighting) -> int:
@@ -138,13 +146,16 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
     """K1 against its plain version on the march inputs the frame gives it.
 
     Both are built without FMA contraction, so every meta word must be
-    equal, and with it the normal, albedo and shaded lighting."""
+    equal, and with it the normal, albedo and shaded lighting.  K1 reads
+    the column heights from the tables' column table, the plain version
+    evaluates them.  Reports K1's lane-use census."""
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
 
     frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
     budget = (max_steps, seed, 1 + 2 * bounces)
-    meta_k, pd_k = lighting.march_paths(*frame["march"], *budget)
+    census = torch.zeros(1, dtype=torch.int64, device=packed.device)
+    meta_k, pd_k = lighting.march_paths(*frame["march"], *budget, census=census)
     meta_p, pd_p, work = lighting.march_paths_plain(*frame["march"], *budget)
     gk = lighting.shade(meta_k, pd_k, **frame["shade"])
     gp = lighting.shade(meta_p, pd_p, **frame["shade"])
@@ -160,6 +171,7 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
     n = meta_k.shape[0]
     moves, heights = (int(v) for v in work.sum(0, dtype=torch.int64))
     res["work"] = dict(moves=moves, heights=heights)
+    res["census"] = _census(torch, work[:, 0], census)
     res.update(_bound(n * (12 + 12 + 4 + 8) + 64 + 6 * 4096,
                       OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights))
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
@@ -249,7 +261,7 @@ def phase_volume_main(rt, torch):
     drained.clear()
     torch.cuda.synchronize()
     trace_vol.march_paths_vol.launches = 0
-    denoise.denoise_pass.launches = 0
+    denoise.launch_pass.launches = 0
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -260,7 +272,7 @@ def phase_volume_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k3, k2 = trace_vol.march_paths_vol.launches, denoise.denoise_pass.launches
+    k3, k2 = trace_vol.march_paths_vol.launches, denoise.launch_pass.launches
     rebuilt = build_vol_tables(pipe.streamer.volume)
     tables = pipe.vol_tables()
     res = dict(
@@ -313,53 +325,69 @@ def _blue_noise(torch, dev):
     return torch.from_numpy(get_blue_noise_f32()).to(dev)
 
 
-def _random_gbuffers(torch, dev, h, w, seed):
-    import numpy as np
+def phase_column_table(torch, regions):
+    """The column table K1 reads (``tables["hcol"]``) against the heights
+    the plain march evaluates (``hf_tables.classify`` at each column's
+    center), on every column of each region: they must be equal."""
+    from raytrace_tpu_torch.ops import hf_tables
 
-    rng = np.random.default_rng(seed)
-    normal = rng.integers(0, 6, (h, w)).astype(np.int32)
-    depth = (rng.random((h, w)) * 65000).astype(np.int32)
-    normal[: h // 16] = 16  # a sky band
-    depth[: h // 16] = 0xFFFF
-    t = lambda a: torch.from_numpy(a).to(dev)
-    return dict(
-        lighting=t(rng.random((h, w, 3), np.float32)),
-        depth=t(depth).to(torch.uint16),
-        normal=t(normal).to(torch.uint8),
-        albedo=t(rng.random((h, w, 3), np.float32)),
-        emission=t(rng.random((h, w, 3), np.float32) * 0.1),
-        fog=t(rng.random((h, w, 3), np.float32)),
-    )
+    res, ok = {}, True
+    for name, (tables, seed) in regions.items():
+        dev = tables["r0"].device
+        r0x, r0y = (int(v) for v in tables["r0"].tolist())
+        k = torch.arange(256, dtype=torch.float32, device=dev) + 0.5
+        py, px = torch.meshgrid(k + r0y, k + r0x, indexing="ij")
+        rising = torch.zeros_like(px, dtype=torch.bool)
+        want = hf_tables.classify(tables, px, py, torch.zeros_like(px), rising, r0x, r0y,
+                                  seed)["hcol"]
+        got = tables["hcol"].reshape(256, 256).to(torch.int32)
+        res[name] = dict(r0=[r0x, r0y], seed=seed, equal=bool(torch.equal(got, want)),
+                         mismatches=int((got != want).sum()), max_height=int(got.max()))
+        ok = ok and res[name]["equal"]
+    return ok, res
 
 
-def phase_k2(torch, dev, blue):
-    """K2's chain (6 passes, finalize fused) against the plain chain."""
+def phase_k2(torch, blue, gbs):
+    """K2's chain (6 passes, finalize fused) against the plain chain, on
+    each set of G-buffers, and two single passes against the plain pass."""
     from raytrace_tpu_torch.ops import denoise
 
-    gb = _random_gbuffers(torch, dev, H, W, seed=7)
-    got = denoise.denoise_finalize(gb, blue)
-    want = denoise.denoise_finalize_plain(gb, blue)
-    err = float(torch.abs(got - want).max())
+    res = dict(size=H, atol=3e-5, max_abs_err={})
+    for name, gb in gbs.items():
+        got = denoise.denoise_finalize(gb, blue)
+        want = denoise.denoise_finalize_plain(gb, blue)
+        res["max_abs_err"][name] = float(torch.abs(got - want).max())
+    # Single passes through denoise_pass, which packs the working plane in
+    # PyTorch: one plane to plane, one finalizing.
+    gb = gbs["main"]
+    light = gb["lighting"].permute(2, 0, 1).contiguous()
+    geom = denoise.geometry_plane(gb["depth"], gb["normal"])
+    fin = (gb["albedo"], gb["emission"], gb["fog"], blue)
+    for size, f in ((4, None), (16, fin)):
+        got = denoise.denoise_pass(light, geom, size, f)
+        want = denoise.denoise_pass_plain(light, geom, size, f)
+        res["max_abs_err"][f"pass_{size}{'_fin' if f else ''}"] = float(
+            torch.abs(got - want).max())
     # One pass, the mean of the chain's: light in and out, the geometry
     # plane, and in the last pass albedo, emission, fog and the noise.
     passes, n = len(denoise.DENOISE_SIZES), H * W
     chain_bytes = passes * n * (12 + 4 + 12) + n * 36 + blue.numel() * 4
     chain_ops = passes * n * (DENOISE_TAPS * OPS_PER_TAP + 11) + n * 30
-    bound = _bound(chain_bytes / passes, chain_ops / passes)
-    return err <= 3e-5, dict(size=H, max_abs_err=err, atol=3e-5, **bound), gb
+    res.update(_bound(chain_bytes / passes, chain_ops / passes))
+    return all(e <= res["atol"] for e in res["max_abs_err"].values()), res
 
 
 def phase_golden(rt, torch, dev):
     """The committed 64² golden frame through the port's kernel path."""
     import numpy as np
 
-    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
     from raytrace_tpu_torch.render.pipeline import render_frame
     from raytrace_tpu_torch.testing.golden import compare_images
 
     u = _canonical_uniforms(rt)
     packed = torch.from_numpy(u.packed()).to(dev)
-    frame, _ = render_frame(build_hf_tables((0, 0, 0), device=dev),
+    frame, _ = render_frame(with_column_heights(build_hf_tables((0, 0, 0), device=dev)),
                             _blue_noise(torch, dev), packed, 64, 64)
     want = np.load(ROOT / "tests" / "goldens" / "terrain_frame_64.npz")["frame"]
     stats = compare_images(frame.cpu().numpy(), want)
@@ -379,7 +407,7 @@ def phase_main(rt, torch):
     pipe.converge_streaming((base[0], 0, base[2]), max_moves=32)
     torch.cuda.synchronize()
     lighting.march_paths.launches = 0
-    denoise.denoise_pass.launches = 0
+    denoise.launch_pass.launches = 0
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -390,7 +418,7 @@ def phase_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k1, k2 = lighting.march_paths.launches, denoise.denoise_pass.launches
+    k1, k2 = lighting.march_paths.launches, denoise.launch_pass.launches
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
@@ -402,12 +430,15 @@ def phase_main(rt, torch):
     return ok, res, pipe
 
 
-def phase_times(rt, torch, dev, pipe, gb_rand, blue):
-    """Kernel against plain at 1024²: whole frame, K1 alone, K2 alone, on
-    the main path's own tables and uniforms."""
+def phase_times(rt, torch, dev, pipe, gbs, blue):
+    """Kernel against plain at 1024²: whole frame, K1 (the wrapper's call
+    and the kernel alone), K2 (the chain's call, and each pass's kernel
+    alone), on the main path's own tables, uniforms and G-buffers (K2 also
+    on random G-buffers)."""
+    from raytrace_tpu_torch.apps.kernel_times import pass_keys
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms
+    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
     tables = pipe.tables()
@@ -424,14 +455,25 @@ def phase_times(rt, torch, dev, pipe, gb_rand, blue):
         gb = lighting.shade(meta, pd, **inputs["shade"])
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
-    return dict(
+    k1 = lambda: lighting.march_paths(*inputs["march"], *budget)
+    keys = pass_keys(denoise.DENOISE_SIZES)
+    times = dict(
         frame_ms=frame_ms, plain_frame_ms=call_ms(plain_frame, 1),
-        k1_ms=call_ms(lambda: lighting.march_paths(*inputs["march"], *budget), 10),
+        k1_ms=call_ms(k1, 10), k1_kernel_ms=kernel_ms(k1, 10, "march_paths_kernel"),
         k1_plain_ms=call_ms(
             lambda: lighting.march_paths_plain(*inputs["march"], *budget), 1),
-        k2_chain_ms=call_ms(lambda: denoise.denoise_finalize(gb_rand, blue), 10),
-        k2_chain_plain_ms=call_ms(lambda: denoise.denoise_finalize_plain(gb_rand, blue), 2),
     )
+    for name, gb in gbs.items():
+        sfx = "" if name == "main" else f"_{name}"
+        times[f"k2_chain_ms{sfx}"] = call_ms(lambda: denoise.denoise_finalize(gb, blue), 10)
+        # Each pass alone, in the chain's order: each reads what the chain
+        # gives it.
+        _, passes = denoise.chain_passes(gb, blue)
+        times[f"k2_pass_ms{sfx}"] = {key: kernel_ms(one_pass, 10, "denoise_pass_kernel")
+                                     for key, one_pass in zip(keys, passes)}
+        times[f"k2_chain_plain_ms{sfx}"] = call_ms(
+            lambda: denoise.denoise_finalize_plain(gb, blue), 2)
+    return times
 
 
 def phase_volume_times(torch, dev, pipe):
@@ -545,7 +587,7 @@ def phase_hf_main(rt, torch):
     pipe.converge_streaming((base[0], 0, base[2]), max_moves=32)
     torch.cuda.synchronize()
     trace_hf.trace_rays_hf.launches = 0
-    denoise.denoise_pass.launches = 0
+    denoise.launch_pass.launches = 0
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -556,7 +598,7 @@ def phase_hf_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k4, k2 = trace_hf.trace_rays_hf.launches, denoise.denoise_pass.launches
+    k4, k2 = trace_hf.trace_rays_hf.launches, denoise.launch_pass.launches
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
@@ -677,7 +719,7 @@ def main() -> int:
     import raytrace_tpu_torch.render.pipeline  # noqa: F401
     from raytrace_tpu_torch import _build
     from raytrace_tpu_torch.ops import denoise
-    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
     from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32
     from raytrace_tpu_torch.testing import measure
 
@@ -705,24 +747,27 @@ def main() -> int:
     _build.kernels()
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
-    # K3 and K4 keep their state in registers: no spills, and K3 no stack.
+    # The kernels keep their state in registers: no spills, and K1 and K3
+    # no stack.
     frame = lambda k: [int(v) for v in re.findall(r"\d+", ptxas[k]["frame"] or "-")]
+    k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
-                               and frame("trace_hf_kernel")[1:] == [0, 0])
+                               and frame("march_paths_kernel") == [0, 0, 0]
+                               and frame("trace_hf_kernel")[1:] == [0, 0]
+                               and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2))
+    sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
-                               cached=build["cached"], ptxas=ptxas))
+                               cached=build["cached"], ptxas=ptxas, sass=sass))
 
     if "jax" in sys.modules:
         raise RuntimeError("chip_smoke imported jax")
 
     blue = _blue_noise(torch, dev)
     canon = torch.from_numpy(_canonical_uniforms(rt).packed()).to(dev)
-    canon_tables = build_hf_tables((0, 0, 0), seed=0, device=dev)
+    canon_tables = with_column_heights(build_hf_tables((0, 0, 0), seed=0, device=dev), 0)
     for bounces in (2, 1):
         ok, res = phase_k1(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
         report(f"k1_vs_plain_b{bounces}", ok, res)
-    ok, k2_res, gb_rand = phase_k2(torch, dev, blue)
-    report("k2_vs_plain", ok, k2_res)
     ok, res = phase_golden(rt, torch, dev)
     report("golden_64", ok, res)
     ok, main_res, pipe = phase_main(rt, torch)
@@ -733,7 +778,14 @@ def main() -> int:
         torch.from_numpy(pipe.uniforms.packed()).to(dev), W,
         pipe.max_steps, pipe.seed, pipe.bounces)
     report("k1_vs_plain_main", ok, k1_res)
-    times = phase_times(rt, torch, dev, pipe, gb_rand, blue)
+    # K2 on random G-buffers and on the main path's last frame's.
+    from raytrace_tpu_torch.apps.kernel_times import random_gbuffers
+
+    gbs = dict(main=pipe.gbuffers, random=random_gbuffers(H, W, 7, dev))
+    ok, k2_res = phase_k2(torch, blue, gbs)
+    report("k2_vs_plain", ok, k2_res)
+    times = phase_times(rt, torch, dev, pipe, gbs, blue)
+    regions = dict(canonical=(canon_tables, 0), main=(pipe.tables(), pipe.seed))
 
     # The volume path: K3 at 256² on two scenes, then the main path.
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
@@ -772,6 +824,9 @@ def main() -> int:
     report("k4_vs_plain_main", ok, k4_res)
     ok, res = phase_hf_vs_fused(torch, hpipe)
     report("hf_vs_fused_main", ok, res)
+    regions["hf"] = (hpipe.tables(), hpipe.seed)
+    ok, res = phase_column_table(torch, regions)
+    report("column_table", ok, res)
     hf_frame_ms = phase_hf_frame_ms(torch, hpipe)
     del hpipe
     ok, exact_res = phase_volume_exact(rt, torch)
@@ -783,8 +838,9 @@ def main() -> int:
     if "jax" in sys.modules or any(m.split(".")[0] == "raytrace_tpu" for m in sys.modules):
         raise RuntimeError("chip_smoke imported jax or the JAX package")
 
-    # K2's ms is the mean of one chain's passes; K3's and K4's are the kernel
-    # alone (K4: the mean over a frame's batches), without the wrapper's glue.
+    # Each ms is the kernel alone (torch.profiler), without the wrapper's
+    # glue: K2's the mean of the main path's chain's passes (its chain call
+    # beside it), K4's the mean over a frame's batches.
     passes = len(denoise.DENOISE_SIZES)
     # No single PyTorch call computes any of these functions (an edge-aware
     # a-trous pass or a voxel march), so library_ms is null.
@@ -795,12 +851,13 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
-             ms=times["k1_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res)),
+             ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res)),
         dict(name="K2 denoise_pass (a-trous pass, finalize fused)", route="cuda",
              source="raytrace_tpu_torch/csrc/denoise.cu",
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",
-             launches=main_res["k2_launches"], max_abs_err=k2_res["max_abs_err"],
-             ms=times["k2_chain_ms"] / passes,
+             launches=main_res["k2_launches"],
+             max_abs_err=max(k2_res["max_abs_err"].values()),
+             ms=sum(times["k2_pass_ms"].values()) / passes, chain_ms=times["k2_chain_ms"],
              plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res)),
         dict(name="K3 march_paths_vol (whole-path volume_fast march)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_vol.cu",

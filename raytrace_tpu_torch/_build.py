@@ -11,7 +11,8 @@ build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
 plain PyTorch versions compute them, so the marches K1, K3 and K4 agree
-with their plain versions step for step.
+with their plain versions step for step, and K2's sums round as the plain
+pass's.
 """
 
 from __future__ import annotations
@@ -36,12 +37,12 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # origin, direction, nw, iscal, fscal, hsub, h3, cA, cB, cC, cD,
-    # meta, pd, n, max_steps, seed, legs, stream
-    "rt_march_paths": [_P] * 13 + [_I] * 4 + [_P],
-    # in, geom, out, h, w, size, albedo, emission, fog, noise, nh, nw, nch,
-    # stream
-    "rt_denoise_pass": [_P] * 3 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
+    # origin, direction, nw, iscal, fscal, trig, hsub, h3, hcol, meta, pd,
+    # n, max_steps, seed, legs, next, census, stream
+    "rt_march_paths": [_P] * 11 + [_I] * 4 + [_P] * 3,
+    # light, depth, normal, in, out, frame, h, w, size, albedo, emission,
+    # fog, noise, nh, nw, nch, stream
+    "rt_denoise_pass": [_P] * 6 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
     # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
     # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, next, census,
     # stream

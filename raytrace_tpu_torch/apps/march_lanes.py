@@ -1,29 +1,37 @@
-"""The persistent lanes of the march kernels K3 and K4, measured on the card.
+"""The persistent lanes of the march kernels K1, K3 and K4, measured on the
+card.
 
-K3 (``csrc/trace_vol.cu``) and K4 (``csrc/trace_hf.cu``) run persistent
-lanes that take new work from a counter (``csrc/lanes.cuh``); each source
-hard-codes in its ``refill_now`` when the idle lanes of a warp take new
-items:
+K1 (``csrc/lighting.cu``), K3 (``csrc/trace_vol.cu``) and K4
+(``csrc/trace_hf.cu``) run persistent lanes that take new work from a
+counter (``csrc/lanes.cuh``); each source hard-codes in its ``refill_now``
+when the idle lanes of a warp take new items:
 
   (i)   only when all 32 lanes are idle;
   (ii)  whenever any lane is idle;
-  (iii) when at least 16 lanes are idle.
+  (iii) when at least 16 lanes are idle;
 
-The app drives K3 at the volume_fast path's view and K4 on each batch of the
-hf path's frame (the primaries, then each bounce's sun + diffuse pair), at
-the bench camera (origin (-30,-100,60), pitch -0.3, sun 0.6), bounces 2,
-and prints one JSON line per part:
+and K1 can launch one thread per pixel instead (``static``: its
+``kStaticBlocks``).
+
+The app drives K1 at the fused path's view, K3 at the volume_fast path's
+view and K4 on each batch of the hf path's frame (the primaries, then each
+bounce's sun + diffuse pair), at the bench camera (origin (-30,-100,60),
+pitch -0.3, sun 0.6), bounces 2, and prints one JSON line per part:
 
 - ``rule``: the kernel library built once per rule, from copies of
-  ``csrc/`` (under ``build/``) whose ``refill_now`` bodies are replaced,
-  timed in turns (i ii iii, then iii ii i, ...): each call's device time
-  from CUDA events (the wrapper's whole call) and the kernel's alone from
-  ``torch.profiler``, the lane-use census (``testing/census.py``, moves from
-  the plain versions), and the check that every output equals the shipped
-  library's;
+  ``csrc/`` (under ``build/``) whose ``refill_now`` bodies (or K1's
+  ``kStaticBlocks``) are replaced, timed in turns (i ii iii static, then
+  static iii ii i, ...): each call's device time from CUDA events (the
+  wrapper's whole call) and the kernel's alone from ``torch.profiler``, the
+  lane-use census (``testing/census.py``, moves from the plain versions),
+  and the check that every output equals the shipped library's;
 - ``order``: the shipped library on the same items in their index order,
   longest first (by the plain version's moves), and the 32 longest alone:
-  how much of a kernel's time is the latency of its longest items.
+  how much of a kernel's time is the latency of its longest items;
+- ``split``: K1 alone on the same pixels with its paths cut after 1, 3 and
+  5 legs, beside the plain version's moves and fine steps (column-height
+  reads) for each: where K1's time goes between the primary and the bounce
+  legs.
 
 Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
 [--reps 10] [--size 1024]   (needs a CUDA GPU)
@@ -39,27 +47,37 @@ import shutil
 import torch
 
 from .. import _build
-from ..ops import integrate, path_vol, trace_hf, trace_vol
+from ..ops import integrate, lighting, path_vol, trace_hf, trace_vol
 from ..render.camera import Camera
 from ..render.pipeline import Pipeline, unpack_uniforms
 from ..testing.census import lane_use
 from ..testing.measure import call_ms, card, kernel_ms, same
 
-RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16"}
+RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16",
+         "static": None}
 _BODY = re.compile(r"(bool refill_now\(unsigned idle\) \{\s*return )[^;]*;")
-_KERNEL = {"k3": "march_paths_vol_kernel", "k4": "trace_hf_kernel"}
+_STATIC = "constexpr bool kStaticBlocks = false;"
+_KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel", "k4": "trace_hf_kernel"}
 
 
 def _library(rule: str):
-    """The kernel library built with ``rule`` in both kernels' refill_now."""
+    """The kernel library built with ``rule`` in the kernels' refill_now (or,
+    for ``static``, K1 on one thread per pixel and the others as shipped)."""
     csrc = _build.BUILD_DIR / f"refill_{rule}" / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(_build._CSRC, csrc)
-    for name in ("trace_vol.cu", "trace_hf.cu"):
+    for name in ("lighting.cu", "trace_vol.cu", "trace_hf.cu"):
         src = csrc / name
-        text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", src.read_text())
+        text = src.read_text()
+        if RULES[rule] is not None:
+            text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", text)
+        elif name == "lighting.cu":
+            count = text.count(_STATIC)
+            text = text.replace(_STATIC, _STATIC.replace("false", "true"))
+        else:
+            count = 1  # K3 and K4 as shipped
         if count != 1:
-            raise RuntimeError(f"{name}: no refill_now body to replace")
+            raise RuntimeError(f"{name}: no refill rule to replace")
         src.write_text(text)
     shipped = _build._CSRC
     _build._CSRC, _build._lib = csrc, None
@@ -73,6 +91,36 @@ def _camera() -> Camera:
     cam = Camera(origin=[-30.0, -100.0, 60.0])
     cam.pitch = -0.3
     return cam
+
+
+def _k1_items(size: int):
+    """K1's call at the fused path's view -> (call(items, census, legs),
+    moves per path, work(legs): the plain version's moves and fine steps per
+    path, its paths cut after ``legs`` legs)."""
+    pipe = Pipeline(width=size, height=size, tracer="fused")
+    cam = _camera()
+    pipe.teleport(cam)
+    pipe.converge_streaming((cam.origin[0], 0, cam.origin[2]), max_moves=32)
+    pipe.draw_frame(cam, 0.6)
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    origin, direction, nw, *rest = lighting.march_inputs(
+        pipe.tables(), pipe.blue_noise, uniforms, size, size)["march"]
+    legs = 1 + 2 * pipe.bounces
+    work = lighting.march_paths_plain(origin, direction, nw, *rest, pipe.max_steps,
+                                      pipe.seed, legs)[2]
+
+    def call(items=None, census=None, legs=legs):
+        o, d, w = ((origin, direction, nw) if items is None else
+                   (origin[items].contiguous(), direction[items].contiguous(),
+                    nw[items].contiguous()))
+        return lighting.march_paths(o, d, w, *rest, pipe.max_steps, pipe.seed, legs,
+                                    census=census)
+
+    def work_of(legs):
+        return lighting.march_paths_plain(origin, direction, nw, *rest, pipe.max_steps,
+                                          pipe.seed, legs)[2]
+
+    return call, work[:, 0], work_of
 
 
 def _k3_items(size: int):
@@ -143,17 +191,22 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the march lanes need a CUDA GPU")
     label = card()
-    items = {"k3": _k3_items(size)}
+    k1_call, k1_moves, k1_work = _k1_items(size)
+    items = {"k1": (k1_call, k1_moves), "k3": _k3_items(size)}
     for b, item in enumerate(_k4_items(size)):
         items[f"k4_b{b}"] = item
     want = {name: _flat(call()) for name, (call, _) in items.items()}
     shipped = _build.kernels()
     libs = {rule: _library(rule) for rule in RULES}
     order = [rule for k in range(rounds) for rule in (RULES if k % 2 == 0 else reversed(RULES))]
-    res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in items} for rule in RULES}
+    # The static launch is K1's alone: K3 and K4 are not timed under it.
+    timed = lambda rule: [n for n in items if RULES[rule] is not None or n == "k1"]
+    res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in timed(rule)}
+           for rule in RULES}
     for rule in order:
         _build._lib = libs[rule]
-        for name, (call, moves) in items.items():
+        for name in timed(rule):
+            call, moves = items[name]
             r = res[rule][name]
             if "lane_use" not in r:
                 census = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -178,7 +231,15 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
             longest_first_ms=kernel_ms(lambda: call(longest), reps, kernel),
             longest_32_alone_ms=kernel_ms(lambda: call(longest[:32]), reps, kernel))
     print(json.dumps(dict(part="order", card=label, size=size, **orders)), flush=True)
-    return dict(rules=res, orders=orders)
+
+    split = {}
+    for legs in (1, 3, 5):
+        moves, heights = (int(v) for v in k1_work(legs).sum(0, dtype=torch.int64))
+        split[f"legs_{legs}"] = dict(
+            kernel_ms=kernel_ms(lambda: k1_call(legs=legs), reps, _KERNEL["k1"]),
+            moves=moves, fine_steps=heights)
+    print(json.dumps(dict(part="split", card=label, size=size, k1=split)), flush=True)
+    return dict(rules=res, orders=orders, split=split)
 
 
 def main():

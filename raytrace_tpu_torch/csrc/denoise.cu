@@ -4,40 +4,68 @@
 // `_make_pass_kernel` (:132-246), launched from `_pallas_pass` (:249-269).
 // Its plain PyTorch version is `denoise_pass_plain` in ops/denoise.py.
 //
-// One thread computes one output pixel: the center tap plus 36 taps at
-// dilation `size`, each weighted base / (|dc - dt| / 64 + (normal equal ?
-// 1 : 11)) from the packed geometry plane depth * 32 + normal.  Sky pixels
-// (normal >= 16) pass through.  Edges clamp: a tap outside the frame reads
-// the nearest edge pixel, which is what the JAX chain's per-pass edge
-// padding gives.  With `albedo` non-null the pass also composites albedo * light *
-// 16 + emission * 4, fogs terrain toward fog * 2 by depth, applies the
-// filmic curve and adds the blue-noise dither / 128 (finalize.comp:33-56).
-// The TPU kernel's VMEM bands, column strips and window loads have no
-// counterpart: a 4K frame's planes fit the card whole.
+// One output pixel is the center tap plus 36 taps at dilation `size`, each
+// weighted base / (|dc - dt| / 64 + (normal equal ? 1 : 11)) from the
+// packed geometry depth * 32 + normal.  Sky pixels (normal >= 16) pass
+// through.  Edges clamp: a tap outside the frame reads the nearest edge
+// pixel, which is what the JAX chain's per-pass edge padding gives.  The
+// TPU kernel's VMEM bands, column strips and window loads have no
+// counterpart.
 //
-// What bounds it on Hopper: memory traffic, 37 taps x 4 planes read per
-// pixel per pass; neighbouring threads read neighbouring addresses, and
-// the L1/L2 caches serve the taps' overlap between pixels.
+// Layout.  The chain keeps one working plane of float4 per pixel: the
+// light (r, g, b) and the pixel's geometry key, the bits of depth / 64
+// with the normal in the five low bits (depth < 2^17 is an integer, so
+// depth / 64 is exact and its seven lowest mantissa bits are zero).  A tap
+// is then one 16-byte load, |dc/64 - dt/64| is |dc - dt| / 64 bit for bit,
+// and the normals compare in one integer test.  The first pass reads the
+// G-buffers themselves (lighting (H, W, 3), depth u16, normal u8) and
+// builds the key; each pass writes the plane; the last pass composites
+// albedo * light * 16 + emission * 4, fogs terrain toward fog * 2 by depth,
+// applies the filmic curve, adds the blue-noise dither / 128
+// (finalize.comp:33-56) and writes the (H, W, 3) frame flipped vertically
+// (finalize.comp:59).
+//
+// Tiling.  A dilated pass is a plain 7 x 7 stencil on each of the size²
+// sub-lattices x = a + size * u, y = b + size * v.  A block takes a 32 x 8
+// tile of one sub-lattice, loads it with a 3-pixel halo into shared memory
+// (clamping the frame coordinates as it loads, which is the edge
+// replication), and every tap reads the tile at an offset known at compile
+// time (the kernel is instantiated per dilation): no clamps, no index
+// arithmetic and no global load per tap.  The finalizing pass takes 32
+// consecutive pixels of every size-th row instead (its tile holds the 3 *
+// size columns on each side), so that its reads of albedo, emission, fog
+// and noise and its writes of the frame are coalesced.
+//
+// What bounds it on the H100: instructions, not bytes.  One thread per
+// pixel and pass reading four planes did 37 taps of about 40 instructions
+// each (four loads, two clamps, the index, an unpack, an IEEE division) and
+// took 0.072-0.088 ms a pass at 1024² (NVIDIA H100 80GB HBM3, 700 W)
+// against a bound of 0.011 ms for its bytes.  This design takes 0.039-0.050
+// ms a pass, 0.256 ms for the chain's six: about 1,000 issued instructions
+// a pixel at the card's issue rate, of which the 36 IEEE divisions (each a
+// reciprocal, its refinement and a range check) are the largest share.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
 // The (dx, dy, weight) taps of ops/denoise.py _TAPS, in that order.
 constexpr int kTaps = 36;
 constexpr float kCenterWeight = 0.146634f;
-__constant__ int8_t kTapDx[kTaps] = {
+constexpr int8_t kTapDx[kTaps] = {
     0, 0, 1, -1, 1, -1, -1, 1, 2, -2, 0, 0,
     2, -2, -2, 2, 2, -2, -2, 2, 1, -1, -1, 1,
     3, -3, 0, 0, 3, -3, -3, 3, 1, -1, -1, 1,
 };
-__constant__ int8_t kTapDy[kTaps] = {
+constexpr int8_t kTapDy[kTaps] = {
     1, -1, 0, 0, 1, 1, -1, -1, 0, 0, 2, -2,
     2, 2, -2, -2, 1, 1, -1, -1, 2, 2, -2, -2,
     0, 0, 3, -3, 1, 1, -1, -1, 3, 3, -3, -3,
 };
-__constant__ float kTapW[kTaps] = {
+constexpr float kTapW[kTaps] = {
     0.092566f, 0.092566f, 0.092566f, 0.092566f, 0.058434f, 0.058434f,
     0.058434f, 0.058434f, 0.023205f, 0.023205f, 0.023205f, 0.023205f,
     0.003672f, 0.003672f, 0.003672f, 0.003672f, 0.014648f, 0.014648f,
@@ -47,6 +75,14 @@ __constant__ float kTapW[kTaps] = {
 };
 
 constexpr int kSky = 16;
+constexpr int32_t kNormalBits = 31;
+constexpr int kReach = 3;
+constexpr int kTileW = 32, kTileH = 8;
+
+// Elements of the tables, for use in constant expressions.
+__host__ __device__ constexpr int tap_dx(int k) { return kTapDx[k]; }
+__host__ __device__ constexpr int tap_dy(int k) { return kTapDy[k]; }
+__host__ __device__ constexpr float tap_w(int k) { return kTapW[k]; }
 
 __device__ __forceinline__ float filmic(float x) {
   float seg1 = x * x;
@@ -55,83 +91,173 @@ __device__ __forceinline__ float filmic(float x) {
   return x < 0.3f ? seg1 : (x < 1.13333f ? seg2 : (x < 2.5f ? seg3 : 1.0f));
 }
 
-__device__ __forceinline__ void tap(const float* __restrict__ in,
-                                   const float* __restrict__ geom,
-                                   size_t plane, int j, float dc, float nc,
-                                   float base, float& tw, float& a0, float& a1,
-                                   float& a2) {
-  float g = geom[j];
-  float dt = floorf(g * 0.03125f);
-  float nt = g - dt * 32.0f;
-  float wgt = base / (fabsf(dc - dt) * 0.015625f + (nt == nc ? 1.0f : 11.0f));
-  tw = tw + wgt;
-  a0 = a0 + in[j] * wgt;
-  a1 = a1 + in[plane + j] * wgt;
-  a2 = a2 + in[2 * plane + j] * wgt;
+// The geometry key of the packed geometry g = depth * 32 + normal: unpacked
+// as the plain pass unpacks it, then depth / 64 with the normal in the low
+// bits.
+__device__ __forceinline__ float geometry_key(float g) {
+  float d = floorf(g * 0.03125f);
+  float nrm = g - d * 32.0f;
+  return __int_as_float(__float_as_int(d * 0.015625f) | (int32_t)nrm);
 }
 
-__global__ void denoise_pass_kernel(const float* __restrict__ in,
-                                    const float* __restrict__ geom,
-                                    float* __restrict__ out, int h, int w,
-                                    int size, const float* __restrict__ albedo,
-                                    const float* __restrict__ emission,
-                                    const float* __restrict__ fog,
-                                    const float* __restrict__ noise, int nh,
-                                    int nw, int nch) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
+// Tap K of the pixel whose tile element is `c`, in a tile `width` elements
+// wide whose neighbouring elements are `step` pixels apart along x.
+template <int K, int width, int step>
+__device__ __forceinline__ void tap(const float4* c, int32_t key, float dc,
+                                    float& tw, float& a0, float& a1,
+                                    float& a2) {
+  constexpr int offset = tap_dy(K) * width + tap_dx(K) * step;
+  constexpr float base = tap_w(K);
+  const float4 v = c[offset];
+  const int32_t kt = __float_as_int(v.w);
+  const float dt = __int_as_float(kt & ~kNormalBits);
+  const float same = ((kt ^ key) & kNormalBits) == 0 ? 1.0f : 11.0f;
+  const float wgt = base / (fabsf(dc - dt) + same);
+  tw = tw + wgt;
+  a0 = a0 + v.x * wgt;
+  a1 = a1 + v.y * wgt;
+  a2 = a2 + v.z * wgt;
+}
+
+// The taps in table order, so the sums round as the plain pass's do.
+template <int width, int step, int... K>
+__device__ __forceinline__ void taps(std::integer_sequence<int, K...>,
+                                     const float4* c, int32_t key, float dc,
+                                     float& tw, float& a0, float& a1,
+                                     float& a2) {
+  (tap<K, width, step>(c, key, dc, tw, a0, a1, a2), ...);
+}
+
+// One pass at dilation S.  A block's pixels are x = a + SX * u (u in 32
+// consecutive values) and y = b + S * v (v in 8): SX = S on one sub-lattice,
+// SX = 1 on consecutive pixels of every S-th row.  Input: the G-buffers
+// (`light` non-null: lighting (H, W, 3), depth, normal) or the working plane
+// `in`.  Output: the working plane `out`, or (`out` null) the finalized,
+// flipped frame.
+template <int S, int SX>
+__global__ void __launch_bounds__(kTileW * kTileH)
+    denoise_pass_kernel(const float* __restrict__ light,
+                        const uint16_t* __restrict__ depth,
+                        const uint8_t* __restrict__ normal,
+                        const float4* __restrict__ in,
+                        float4* __restrict__ out, float* __restrict__ frame,
+                        int h, int w, const float* __restrict__ albedo,
+                        const float* __restrict__ emission,
+                        const float* __restrict__ fog,
+                        const float* __restrict__ noise, int nh, int nw,
+                        int nch) {
+  constexpr int kHalo = kReach * S / SX;  // tile columns on each side
+  constexpr int kSW = kTileW + 2 * kHalo, kSH = kTileH + 2 * kReach;
+  __shared__ float4 tile[kSH * kSW];
+  const int a = blockIdx.z % SX, b = blockIdx.z / SX;  // the x, y residues
+  const int u0 = blockIdx.x * kTileW - kHalo;
+  const int v0 = blockIdx.y * kTileH - kReach;
+  for (int k = threadIdx.y * kTileW + threadIdx.x; k < kSH * kSW;
+       k += kTileW * kTileH) {
+    const int tv = k / kSW, tu = k - tv * kSW;
+    const int x = min(max(a + SX * (u0 + tu), 0), w - 1);
+    const int y = min(max(b + S * (v0 + tv), 0), h - 1);
+    const int j = y * w + x;
+    if (light != nullptr) {
+      const float g = (float)depth[j] * 32.0f + (float)normal[j];
+      tile[k] = make_float4(light[3 * j], light[3 * j + 1], light[3 * j + 2],
+                            geometry_key(g));
+    } else {
+      tile[k] = in[j];
+    }
+  }
+  __syncthreads();
+
+  const int x = a + SX * (blockIdx.x * kTileW + threadIdx.x);
+  const int y = b + S * (blockIdx.y * kTileH + threadIdx.y);
   if (x >= w || y >= h) return;
-  size_t plane = (size_t)h * w;
-  int i = y * w + x;
-  float g = geom[i];
-  float dc = floorf(g * 0.03125f);
-  float nc = g - dc * 32.0f;
-  float b0 = in[i], b1 = in[plane + i], b2 = in[2 * plane + i];
-  if (!(nc >= (float)kSky)) {
+  const int i = y * w + x;
+  const float4* c = tile + (threadIdx.y + kReach) * kSW + threadIdx.x + kHalo;
+  const float4 center = *c;
+  const int32_t key = __float_as_int(center.w);
+  const float dc = __int_as_float(key & ~kNormalBits);  // depth / 64
+  float b0 = center.x, b1 = center.y, b2 = center.z;
+  if ((key & kNormalBits) < kSky) {
     float tw = kCenterWeight;
     float a0 = b0 * kCenterWeight, a1 = b1 * kCenterWeight,
           a2 = b2 * kCenterWeight;
-    for (int k = 0; k < kTaps; ++k) {
-      int ty = min(max(y + kTapDy[k] * size, 0), h - 1);
-      int tx = min(max(x + kTapDx[k] * size, 0), w - 1);
-      tap(in, geom, plane, ty * w + tx, dc, nc, kTapW[k], tw, a0, a1, a2);
-    }
+    taps<kSW, S / SX>(std::make_integer_sequence<int, kTaps>{}, c, key, dc, tw, a0,
+                      a1, a2);
     float inv = 1.0f / tw;
     b0 = a0 * inv;
     b1 = a1 * inv;
     b2 = a2 * inv;
   }
-  if (albedo == nullptr) {
-    out[i] = b0;
-    out[plane + i] = b1;
-    out[2 * plane + i] = b2;
+  if (out != nullptr) {
+    out[i] = make_float4(b0, b1, b2, center.w);
     return;
   }
-  // Fused finalize; dc is the raw u16 depth.
-  float fog_amount = fminf(dc * (1.0f / 32768.0f), 1.0f);
-  bool terrain = dc < 65535.0f;
-  const float b[3] = {b0, b1, b2};
-  int t = ((y % nh) * nw + (x % nw)) * nch;
+  // Fused finalize on the raw u16 depth (exact: dc * 64).
+  const float depth_f = dc * 64.0f;
+  float fog_amount = fminf(depth_f * (1.0f / 32768.0f), 1.0f);
+  bool terrain = depth_f < 65535.0f;
+  const float bc[3] = {b0, b1, b2};
+  const int t = ((y % nh) * nw + (x % nw)) * nch;
+  float* row = frame + ((size_t)(h - 1 - y) * w + x) * 3;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float f = albedo[3 * i + c] * (b[c] * 16.0f) + emission[3 * i + c] * 4.0f;
-    float fogc = fog[3 * i + c] * 2.0f;
+  for (int ch = 0; ch < 3; ++ch) {
+    float f = albedo[3 * i + ch] * (bc[ch] * 16.0f) + emission[3 * i + ch] * 4.0f;
+    float fogc = fog[3 * i + ch] * 2.0f;
     if (terrain) f = f + (fogc - f) * fog_amount;
-    out[c * plane + i] = filmic(f) + noise[t + c] * 0.0078125f;
+    row[ch] = filmic(f) + noise[t + ch] * 0.0078125f;
   }
+}
+
+struct PassArgs {
+  const float* light;
+  const uint16_t* depth;
+  const uint8_t* normal;
+  const float4* in;
+  float4* out;
+  float* frame;
+  int h, w;
+  const float *albedo, *emission, *fog, *noise;
+  int nh, nw, nch;
+};
+
+// One block per 32 x 8 tile of pixels; the finalizing pass on consecutive
+// pixels of every S-th row, the others on each of the S² sub-lattices.
+template <int S, int SX>
+int launch(const PassArgs& p, cudaStream_t stream) {
+  const int lw = (p.w + SX - 1) / SX, lh = (p.h + S - 1) / S;
+  dim3 block(kTileW, kTileH);
+  dim3 grid((lw + kTileW - 1) / kTileW, (lh + kTileH - 1) / kTileH, S * SX);
+  denoise_pass_kernel<S, SX><<<grid, block, 0, stream>>>(
+      p.light, p.depth, p.normal, p.in, p.out, p.frame, p.h, p.w, p.albedo,
+      p.emission, p.fog, p.noise, p.nh, p.nw, p.nch);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_size(const PassArgs& p, cudaStream_t stream) {
+  return p.frame != nullptr ? launch<S, 1>(p, stream) : launch<S, S>(p, stream);
 }
 
 }  // namespace
 
-extern "C" int rt_denoise_pass(const float* in, const float* geom, float* out,
-                               int h, int w, int size, const float* albedo,
+extern "C" int rt_denoise_pass(const float* light, const uint16_t* depth,
+                               const uint8_t* normal, const float* in,
+                               float* out, float* frame, int h, int w,
+                               int size, const float* albedo,
                                const float* emission, const float* fog,
                                const float* noise, int nh, int nw, int nch,
                                void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  dim3 block(32, 8);
-  dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  denoise_pass_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      in, geom, out, h, w, size, albedo, emission, fog, noise, nh, nw, nch);
-  return (int)cudaGetLastError();
+  const PassArgs p{light, depth, normal, reinterpret_cast<const float4*>(in),
+                   reinterpret_cast<float4*>(out), frame, h, w, albedo, emission,
+                   fog, noise, nh, nw, nch};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (size) {
+    case 1: return launch_size<1>(p, s);
+    case 2: return launch_size<2>(p, s);
+    case 4: return launch_size<4>(p, s);
+    case 8: return launch_size<8>(p, s);
+    case 16: return launch_size<16>(p, s);
+    default: return (int)cudaErrorInvalidValue;  // no such dilation
+  }
 }

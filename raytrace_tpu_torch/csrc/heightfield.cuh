@@ -1,7 +1,8 @@
 // Heightfield device code shared by kernel K1 (lighting.cu) and kernel K4
-// (trace_hf.cu): the world math that gives a column's exact height and a
-// voxel's material band, the region-table classification of a position,
-// and the distance to the next step-aligned boundary.  The plain PyTorch
+// (trace_hf.cu): the world math that gives a column's exact height (K4; K1
+// reads the region's column table) and a voxel's material band, the
+// region-table classification of a position, and the distance to the next
+// step-aligned boundary.  The plain PyTorch
 // counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
 // world/generate.py (material_band) and the marches of ops/lighting.py and
 // ops/trace_hf.py; all are built with --fmad=false, so every multiply and
@@ -194,10 +195,12 @@ __device__ __forceinline__ int32_t block_index(int32_t xi, int32_t yi,
 // packed pyramid word, else 4 from the 4-block refinement, else 0 (march
 // the column).  Rising rays (up) compare the voxel itself, not the aligned
 // slab floor.
-__device__ __forceinline__ int32_t pyramid_step(const Tables& t, int32_t i3,
-                                                int32_t rx, int32_t ry,
-                                                int32_t zi, bool up) {
-  int32_t w = t.h3[i3];
+__device__ __forceinline__ int32_t pyramid_step(const int32_t* h3,
+                                                const int32_t* hsub,
+                                                int32_t i3, int32_t rx,
+                                                int32_t ry, int32_t zi,
+                                                bool up) {
+  int32_t w = h3[i3];
   int32_t h8 = w & 511;
   int32_t z32 = up ? zi : (zi & ~31);
   int32_t z16 = up ? zi : (zi & ~15);
@@ -209,10 +212,16 @@ __device__ __forceinline__ int32_t pyramid_step(const Tables& t, int32_t i3,
                                           : 0;
   if (stp == 0) {
     int32_t quad = (((ry >> 2) & 1) << 1) | ((rx >> 2) & 1);
-    int32_t delta = (t.hsub[i3] >> (quad << 3)) & 255;
+    int32_t delta = (hsub[i3] >> (quad << 3)) & 255;
     if (z4 >= h8 - delta) stp = 4;
   }
   return stp;
+}
+
+__device__ __forceinline__ int32_t pyramid_step(const Tables& t, int32_t i3,
+                                                int32_t rx, int32_t ry,
+                                                int32_t zi, bool up) {
+  return pyramid_step(t.h3, t.hsub, i3, rx, ry, zi, up);
 }
 
 }  // namespace

@@ -4,15 +4,23 @@ Port of ``raytrace_tpu/ops/denoise.py`` (``_TAPS``, ``_CENTER_WEIGHT``,
 ``_MAX_REACH``) and ``raytrace_tpu/ops/denoise_pallas.py`` (the chain and
 ``denoise_finalize_pallas``, ``:369-432``).  One pass is kernel K2,
 ``_make_pass_kernel`` (``:132-246``), written for Hopper in
-``csrc/denoise.cu`` as one thread per output pixel; ``denoise_pass_plain``
-is the same pass in plain PyTorch, as a 37-tap stencil on edge-padded
-tensors.  Six passes at dilations 1, 2, 4, 8, 8, 16 make the chain; the
-sixth applies finalize (``ops/finalize.py``).
+``csrc/denoise.cu``; ``denoise_pass_plain`` is the same pass in plain
+PyTorch, as a 37-tap stencil on edge-padded tensors.  Six passes at
+dilations 1, 2, 4, 8, 8, 16 make the chain; the sixth applies finalize
+(``ops/finalize.py``).
 
 The geometry plane is the packed float ``depth * 32 + normal`` of the
 Pallas kernel: both parts come back exactly (values < 2^21), and each
 tap's weight is ``base / (|dc - dt| / 64 + (normal equal ? 1 : 11))``.
 Sky pixels (normal >= 16) pass through.  Edges clamp in every pass.
+
+On the card the chain is six launches of K2 and nothing else: the first
+reads the G-buffers as the frame left them (lighting (H, W, 3), depth u16,
+normal u8) and builds each pixel's geometry key (``geometry_key``: the
+bits of ``depth / 64`` with the normal in the five low bits); every pass
+reads and writes one working plane of ``(r, g, b, key)`` float4 per pixel;
+the last writes the finalized (H, W, 3) frame, already flipped.  On the CPU
+the chain runs the plain pass on channel planes.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ _TAPS = (
     ]
 )
 _MAX_REACH = 3
+# The dilations K2 is built for (csrc/denoise.cu rt_denoise_pass).
+KERNEL_SIZES = (1, 2, 4, 8, 16)
 
 
 def _unpack(g):
@@ -85,60 +95,128 @@ def denoise_pass_plain(light, geom, size: int, fin=None):
                            dc, dither_planes(blue_noise, h, w))
 
 
-def denoise_pass(light, geom, size: int, fin=None):
-    """One pass: the plain version for CPU tensors, K2 for CUDA tensors
-    (``denoise_pass.launches`` counts kernel launches).  Other devices
-    raise."""
-    if light.device.type == "cpu":
-        return denoise_pass_plain(light, geom, size, fin)
-    if light.device.type != "cuda":
-        raise RuntimeError(f"denoise_pass: no kernel for device {light.device}")
-    from .._build import check_launch, check_tensor, kernels
+def geometry_key(geom: torch.Tensor) -> torch.Tensor:
+    """The working plane's geometry key of the packed geometry plane: the
+    bits of ``depth / 64`` (exact, its seven lowest mantissa bits zero for
+    ``depth < 2^17``) or'ed with the normal (< 32), as float32 bits."""
+    d, nrm = _unpack(geom)
+    return ((d * (1.0 / 64.0)).view(torch.int32) | nrm.to(torch.int32)).view(torch.float32)
 
-    _, h, w = light.shape
-    ins = [(light, (3, h, w)), (geom, (h, w))]
-    if fin is not None:
-        ins += [(x, (h, w, 3)) for x in fin[:3]]
-        ins += [(fin[3], (fin[3].shape[0], fin[3].shape[1], 4))]
-    for t, shape in ins:
-        check_tensor("denoise_pass", t, torch.float32, shape, light.device)
-    out = torch.empty_like(light)
+
+def launch_pass(h, w, size, light=None, depth=None, normal=None, plane_in=None,
+                plane_out=None, frame=None, fin=None):
+    """One K2 launch on the current stream: G-buffers (``light``, ``depth``,
+    ``normal``) or a working plane in, a working plane or (with ``fin``)
+    the finalized flipped frame out.  ``launch_pass.launches`` counts the
+    launches."""
+    from .._build import check_launch, kernels
+
+    if size not in KERNEL_SIZES:
+        raise ValueError(f"launch_pass: K2 takes the dilations {KERNEL_SIZES}, not {size}")
+    ptr = lambda t: None if t is None else t.data_ptr()
     if fin is None:
         fin_ptrs, nh, nw, nch = (None, None, None, None), 0, 0, 0
     else:
         fin_ptrs = tuple(t.data_ptr() for t in fin)
         nh, nw, nch = fin[3].shape
-    stream = torch.cuda.current_stream(light.device).cuda_stream
+    dev = (light if light is not None else plane_in).device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_denoise_pass(
-        light.data_ptr(), geom.data_ptr(), out.data_ptr(), h, w, size,
-        *fin_ptrs, nh, nw, nch, stream,
+        ptr(light), ptr(depth), ptr(normal), ptr(plane_in), ptr(plane_out),
+        ptr(frame), h, w, size, *fin_ptrs, nh, nw, nch, stream,
     )
     check_launch("rt_denoise_pass", err)
-    denoise_pass.launches += 1
-    return out
+    launch_pass.launches += 1
 
 
-denoise_pass.launches = 0
+launch_pass.launches = 0
 
 
-def _chain(gb: dict, blue_noise: torch.Tensor, one_pass) -> torch.Tensor:
-    light = gb["lighting"].permute(2, 0, 1).contiguous()
-    geom = geometry_plane(gb["depth"], gb["normal"])
-    fin = (gb["albedo"].contiguous(), gb["emission"].contiguous(),
-           gb["fog"].contiguous(), blue_noise)
+def _check_fin(name, fin, h, w, dev):
+    from .._build import check_tensor
+
+    for t in fin[:3]:
+        check_tensor(name, t, torch.float32, (h, w, 3), dev)
+    check_tensor(name, fin[3], torch.float32, (fin[3].shape[0], fin[3].shape[1], 4), dev)
+
+
+def denoise_pass(light, geom, size: int, fin=None):
+    """One pass: (3, H, W) lighting and (H, W) geometry in, (3, H, W) out.
+    The plain version for CPU tensors; for CUDA tensors, K2 on a working
+    plane packed here (``launch_pass.launches`` counts the launch).  Other
+    devices raise."""
+    if light.device.type == "cpu":
+        return denoise_pass_plain(light, geom, size, fin)
+    if light.device.type != "cuda":
+        raise RuntimeError(f"denoise_pass: no kernel for device {light.device}")
+    from .._build import check_tensor
+
+    _, h, w = light.shape
+    check_tensor("denoise_pass", light, torch.float32, (3, h, w), light.device)
+    check_tensor("denoise_pass", geom, torch.float32, (h, w), light.device)
+    plane = torch.stack([light[0], light[1], light[2], geometry_key(geom)], -1)
+    if fin is None:
+        out = torch.empty_like(plane)
+        launch_pass(h, w, size, plane_in=plane, plane_out=out)
+        return out[..., :3].permute(2, 0, 1).contiguous()
+    _check_fin("denoise_pass", fin, h, w, light.device)
+    frame = torch.empty((h, w, 3), dtype=torch.float32, device=light.device)
+    launch_pass(h, w, size, plane_in=plane, frame=frame, fin=fin)
+    return frame.flip(0).permute(2, 0, 1)
+
+
+def chain_passes(gb: dict, blue_noise: torch.Tensor):
+    """The chain on the card, not yet launched -> ``(frame, passes)``: the
+    (H, W, 3) frame it will write and one callable per pass, each launching
+    that pass of K2 (``passes[0]`` reads the G-buffers, ``passes[-1]``
+    writes the frame).  Run in order they make the chain; a pass run again
+    recomputes the same output from the same input."""
+    from functools import partial
+
+    from .._build import check_tensor
+
+    dev = gb["lighting"].device
+    h, w = gb["depth"].shape
+    check_tensor("denoise_finalize", gb["lighting"], torch.float32, (h, w, 3), dev)
+    check_tensor("denoise_finalize", gb["depth"], torch.uint16, (h, w), dev)
+    check_tensor("denoise_finalize", gb["normal"], torch.uint8, (h, w), dev)
+    fin = (gb["albedo"], gb["emission"], gb["fog"], blue_noise)
+    _check_fin("denoise_finalize", fin, h, w, dev)
+    planes = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
+    frame = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    last = len(DENOISE_SIZES) - 1
+    passes = []
     for si, size in enumerate(DENOISE_SIZES):
-        last = si + 1 == len(DENOISE_SIZES)
-        light = one_pass(light, geom, size, fin if last else None)
-    return light.permute(1, 2, 0).flip(0)
+        src = dict(light=gb["lighting"], depth=gb["depth"], normal=gb["normal"]) \
+            if si == 0 else dict(plane_in=planes[(si - 1) % 2])
+        dst = dict(frame=frame, fin=fin) if si == last else dict(plane_out=planes[si % 2])
+        passes.append(partial(launch_pass, h, w, size, **src, **dst))
+    return frame, passes
 
 
 def denoise_finalize(gb: dict, blue_noise: torch.Tensor) -> torch.Tensor:
     """Six-pass denoise + finalize -> (H, W, 3) frame in window orientation
-    (vertically flipped, finalize.comp:59)."""
-    return _chain(gb, blue_noise, denoise_pass)
+    (vertically flipped, finalize.comp:59).  CPU tensors take the plain
+    chain; CUDA tensors launch K2 once per pass and allocate the two working
+    planes and the frame, nothing else.  Other devices raise."""
+    dev = gb["lighting"].device
+    if dev.type == "cpu":
+        return denoise_finalize_plain(gb, blue_noise)
+    if dev.type != "cuda":
+        raise RuntimeError(f"denoise_finalize: no kernel for device {dev}")
+    frame, passes = chain_passes(gb, blue_noise)
+    for one_pass in passes:
+        one_pass()
+    return frame
 
 
 def denoise_finalize_plain(gb: dict, blue_noise: torch.Tensor) -> torch.Tensor:
-    """``denoise_finalize`` through the plain pass on any device: the
-    reference K2's chain is held against."""
-    return _chain(gb, blue_noise, denoise_pass_plain)
+    """The chain through the plain pass on any device: the reference K2's
+    chain is held against."""
+    light = gb["lighting"].permute(2, 0, 1)
+    geom = geometry_plane(gb["depth"], gb["normal"])
+    fin = (gb["albedo"], gb["emission"], gb["fog"], blue_noise)
+    for si, size in enumerate(DENOISE_SIZES):
+        last = si + 1 == len(DENOISE_SIZES)
+        light = denoise_pass_plain(light, geom, size, fin if last else None)
+    return light.permute(1, 2, 0).flip(0)

@@ -8,7 +8,9 @@ tensors, one word per 8x8-column block at ``by * 32 + bx``; the JAX package
 holds the same words as (8, 128).  ``classify``, ``bdist`` and
 ``step_reciprocal`` are the steps both heightfield marches (K1 in
 ``ops/lighting.py``, K4 in ``ops/trace_hf.py``) share, as their kernels
-share ``csrc/heightfield.cuh``.
+share ``csrc/heightfield.cuh``.  ``column_heights`` tabulates every
+column's exact height for K1, which reads it instead of evaluating
+``height_from_corners`` at each fine step.
 """
 
 from __future__ import annotations
@@ -69,6 +71,31 @@ def build_hf_tables(lr, seed: int = 0, device=None) -> dict:
     tables = {k: v.to(torch.int32).contiguous().reshape(-1) for k, v in tables.items()}
     tables["r0"] = torch.tensor([r0x, r0y], dtype=torch.int32, device=device)
     return tables
+
+
+def column_heights(tables: dict, seed: int = 0) -> torch.Tensor:
+    """The region's column table: ``max(height_from_corners, 0)`` of each of
+    its 256 x 256 columns, (65536,) int16 at ``ry * 256 + rx``.
+
+    K1 reads a fine step's column height from it instead of evaluating the
+    lattice words.  It is ``height_from_corners`` over the tables' own
+    corner words, not ``heightmap_grid``, whose last ulp may differ.
+    """
+    n = ROOT_BLOCK_SIZE
+    dev = tables["r0"].device
+    r0x, r0y = (int(v) for v in tables["r0"].tolist())
+    rx = torch.arange(n, dtype=torch.int32, device=dev)[None, :].expand(n, n)
+    ry = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(n, n)
+    i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
+    h = height_from_corners(tables["cA"][i3], tables["cB"][i3], tables["cC"][i3],
+                            tables["cD"][i3], rx + r0x, ry + r0y, seed)
+    return torch.clamp(h, min=0).to(torch.int16).reshape(-1)
+
+
+def with_column_heights(tables: dict, seed: int = 0) -> dict:
+    """``tables`` with the column table beside them, under ``hcol``: the
+    region's tables as the fused march (K1) reads them."""
+    return dict(tables, hcol=column_heights(tables, seed))
 
 
 def height_from_corners(ca, cb, cc, cd, xi, yi, seed: int):

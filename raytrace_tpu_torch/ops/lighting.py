@@ -4,9 +4,10 @@ shade.
 Port of ``raytrace_tpu/ops/lighting_pallas.py``: ``render_gbuffers_fused``
 (``:807-1082``), ``check_material_codes`` (``:80-126``) and ``_mat_code``
 (``:129-140``).  The march is kernel K1, ``_make_kernel`` (``:143-796``),
-written for Hopper in ``csrc/lighting.cu`` as one thread per pixel that
-walks its own path; ``march_paths_plain`` below is the same function in
-plain PyTorch.
+written for Hopper in ``csrc/lighting.cu`` as persistent lanes, each
+walking one pixel's path after another and reading the column heights from
+the region's column table; ``march_paths_plain`` below is the same
+function in plain PyTorch, which evaluates every height itself.
 
 Each pixel walks primary -> sun1 -> dif1 -> sun2 -> dif2, capped at
 ``1 + 2 * bounces`` legs, over the region tables of ``ops/hf_tables.py``.
@@ -306,14 +307,34 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
 # The wrapper: plain version on the CPU, kernel K1 on the card
 # ---------------------------------------------------------------------------
 
+_SPHERE_TRIG: dict = {}
+
+
+def sphere_trig(device) -> torch.Tensor:
+    """(256, 2) f32: sin and cos of the sphere point's angle ``2 pi k / 255``
+    for each noise byte ``k``, computed once per device by the operations
+    ``shading.sphere_point`` runs on it.  K1 reads them from this table."""
+    key = str(torch.device(device))
+    if key not in _SPHERE_TRIG:
+        nr = fdiv(torch.arange(256, dtype=torch.float32, device=device), 255.0)
+        theta = shading.TWO_PI * nr
+        _SPHERE_TRIG[key] = torch.stack([torch.sin(theta), torch.cos(theta)], -1).contiguous()
+    return _SPHERE_TRIG[key]
+
+
 
 def march_paths(origin, direction, nw, iscal, fscal, tables,
-                max_steps: int, seed: int, legs: int):
+                max_steps: int, seed: int, legs: int, census=None):
     """Walk every pixel's light path -> ``(meta, pd)``.
 
     CPU tensors take ``march_paths_plain``; CUDA tensors launch K1
     (``csrc/lighting.cu``) on the current stream, and ``march_paths.launches``
-    counts those launches.  Any other device raises.
+    counts those launches.  Any other device raises.  K1 reads the column
+    heights from ``tables["hcol"]`` (``hf_tables.with_column_heights``,
+    built with ``seed`` for the region of ``iscal``) and the pyramid words.
+    ``census``, a (1,) int64 tensor on the same device, or None: K1 adds the
+    loop iterations of each of its warps to it (the lane-use census of
+    ``testing/census.py``).
     """
     if origin.device.type == "cpu":
         return march_paths_plain(origin, direction, nw, iscal, fscal, tables,
@@ -322,18 +343,29 @@ def march_paths(origin, direction, nw, iscal, fscal, tables,
         raise RuntimeError(f"march_paths: no kernel for device {origin.device}")
     from .._build import check_launch, check_tensor, kernels
 
+    if "hcol" not in tables:
+        raise ValueError("march_paths: the tables have no column table 'hcol' "
+                         "(hf_tables.with_column_heights)")
     n = origin.shape[0]
-    ins = [origin, direction, nw, iscal, fscal] + [tables[k] for k in TABLE_KEYS]
+    dev = origin.device
+    ins = [origin, direction, nw, iscal, fscal, sphere_trig(dev), tables["hsub"],
+           tables["h3"], tables["hcol"]]
     want = [(torch.float32, (n, 3)), (torch.float32, (n, 3)), (torch.int32, (n,)),
-            (torch.int32, (8,)), (torch.float32, (8,))] + [(torch.int32, (1024,))] * 6
+            (torch.int32, (8,)), (torch.float32, (8,)), (torch.float32, (256, 2)),
+            (torch.int32, (1024,)), (torch.int32, (1024,)),
+            (torch.int16, (ROOT_BLOCK_SIZE ** 2,))]
     for t, (dtype, shape) in zip(ins, want):
-        check_tensor("march_paths", t, dtype, shape, origin.device)
-    meta = torch.empty(n, dtype=torch.int32, device=origin.device)
-    pd = torch.empty(n, dtype=torch.float32, device=origin.device)
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
+        check_tensor("march_paths", t, dtype, shape, dev)
+    if census is not None:
+        check_tensor("march_paths", census, torch.int64, (1,), dev)
+    meta = torch.empty(n, dtype=torch.int32, device=dev)
+    pd = torch.empty(n, dtype=torch.float32, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' path counter
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_march_paths(
         *(t.data_ptr() for t in ins), meta.data_ptr(), pd.data_ptr(),
-        n, max_steps, seed, legs, stream,
+        n, max_steps, seed, legs, nxt.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
     )
     check_launch("rt_march_paths", err)
     march_paths.launches += 1
@@ -358,7 +390,8 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           bounces: int = 2) -> dict:
     """G-buffers of one frame: march every pixel's path, then shade.
 
-    ``tables`` from ``build_hf_tables``; ``blue_noise`` (nh, nw, 4) f32 whose
+    ``tables`` from ``build_hf_tables`` (on the card with the column table:
+    ``hf_tables.with_column_heights``); ``blue_noise`` (nh, nw, 4) f32 whose
     values are exact k/255 (the march traces from the u8-requantized noise,
     the shade from the float texture); ``uniforms`` holds tensors origin,
     forward, up, right (3,) f32, sun_angle () f32, seed () int32 and

@@ -35,7 +35,7 @@ from ..constants import (
     MAX_TRACE_STEPS,
 )
 from ..ops.denoise import denoise_finalize
-from ..ops.hf_tables import build_hf_tables
+from ..ops.hf_tables import build_hf_tables, with_column_heights
 from ..ops.lighting import EXHAUSTED_DEPTH, render_gbuffers_fused
 from ..ops.path_vol import render_gbuffers_path
 from ..ops.trace_dda import render_gbuffers
@@ -93,7 +93,8 @@ def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
     """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
 
     ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` and
-    ``"hf"``, the (fused volume, ``build_vol_tables`` dict) pair for
+    ``"hf"`` (for "fused" on the card, with the column table:
+    ``with_column_heights``), the (fused volume, ``build_vol_tables`` dict) pair for
     ``"volume_fast"`` and the fused volume for ``"volume"``.  The
     counterpart of the JAX package's frame program (``_render_frame_impl``,
     ``_rffp_impl``): the G-buffer pass, then the denoise chain with
@@ -217,10 +218,12 @@ class Pipeline:
         u.lr = self.streamer.get_render_offset()
 
     def tables(self) -> dict:
-        """Region tables for the current offset, rebuilt when it moved."""
+        """Region tables for the current offset, with the column table
+        beside them (``hcol``), rebuilt when it moved."""
         lr = self.uniforms.lr
         if self._tables_lr != lr:
-            self._tables = build_hf_tables(lr, seed=self.seed, device=self.device)
+            self._tables = with_column_heights(
+                build_hf_tables(lr, seed=self.seed, device=self.device), self.seed)
             self._tables_lr = lr
         return self._tables
 

@@ -1,9 +1,13 @@
 """Helpers of the measurement scripts (``chip_smoke.py``, ``apps/``): device
-times of a call on the card, and equality of outputs."""
+times of a call on the card, the instructions of the built kernels, and
+equality of outputs."""
 
 from __future__ import annotations
 
+import re
 import subprocess
+from collections import Counter
+from pathlib import Path
 
 import torch
 
@@ -46,13 +50,72 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    # The profiler may drop records of a long train; the mean is over those
-    # it kept.
-    if not 0 < len(times) <= reps:
-        raise RuntimeError(f"{kernel}: {len(times)} launches profiled of {reps}")
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name),
+                    key=lambda e: e.time_range.start)
+    # The profiler may drop records of a long train, and a record an
+    # earlier profile missed may come in first; the mean is over the last
+    # `reps` it kept.
+    times = [e.time_range.elapsed_us() / 1e3 for e in events[-reps:]]
+    if not times:
+        raise RuntimeError(f"{kernel}: no launch profiled of {reps}")
     return sum(times) / len(times)
+
+
+def kernel_ms_each(fn, reps: int, kernel: str, per_call: int) -> list:
+    """Mean device milliseconds of each of the ``per_call`` launches of the
+    kernel whose name contains ``kernel`` that one call of ``fn`` makes, in
+    launch order (the passes of a chain), over ``reps`` calls after a
+    warm-up, from ``torch.profiler``.  Each call is profiled alone: a call
+    whose records came back incomplete is left out, and of more records
+    than launches (an earlier profile's coming in first) the last count."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    kept, counts = [], []
+    for _ in range(reps):
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and kernel in e.name), key=lambda e: e.time_range.start)
+        counts.append(len(events))
+        if len(events) >= per_call:
+            kept.append([e.time_range.elapsed_us() / 1e3 for e in events[-per_call:]])
+    if not kept:
+        raise RuntimeError(f"{kernel}: records per call {counts}, want {per_call}")
+    return [sum(ms[k] for ms in kept) / len(kept) for k in range(per_call)]
+
+
+# Opcodes counted apart in sass_counts: loads, the reciprocal and the
+# division's range check, and float adds, multiplies and fused multiply-adds.
+SASS_OPS = ("LDG", "LDS", "STG", "MUFU.RCP", "FCHK", "FADD", "FMUL", "FFMA", "BRA")
+
+
+def sass_counts(library: Path) -> dict:
+    """Per kernel of a built library (``cuobjdump -sass``): its SASS
+    instruction count and the counts of the opcodes of ``SASS_OPS``."""
+    from .._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, name, ops = {}, None, Counter()
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name, ops = m.group(1), Counter()
+            out[name] = ops
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None:
+            ops["instructions"] += 1
+            op = m.group(1)
+            for want in SASS_OPS:
+                if op == want or op.startswith(want + "."):
+                    ops[want] += 1
+    return {k: dict(v) for k, v in out.items()}
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:

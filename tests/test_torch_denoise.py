@@ -102,3 +102,35 @@ def test_pass_raises_off_cpu_without_kernel():
     light = torch.zeros(3, 8, 8, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         denoise.denoise_pass(light, torch.zeros(8, 8, device="meta"), 1)
+
+
+def test_geometry_key_unpacks_as_geometry_plane():
+    """K2's working-plane key of every u16 depth and every normal < 32
+    gives back the geometry plane's depth and normal exactly, and the tap
+    term |dc/64 - dt/64| is |dc - dt| / 64 bit for bit."""
+    depth = torch.arange(65536, dtype=torch.int32).repeat_interleave(32)
+    normal = torch.arange(32, dtype=torch.int32).repeat(65536)
+    geom = denoise.geometry_plane(depth.to(torch.uint16), normal.to(torch.uint8))
+    dc, nc = denoise._unpack(geom)
+    bits = denoise.geometry_key(geom).view(torch.int32)
+    d64 = (bits & ~31).view(torch.float32)
+    assert torch.equal(d64 * 64.0, dc)
+    assert torch.equal((bits & 31).to(torch.float32), nc)
+    assert torch.equal(nc.to(torch.int32), normal) and torch.equal(dc.to(torch.int32), depth)
+    rng = np.random.default_rng(11)
+    a, b = (torch.from_numpy(rng.integers(0, d64.numel(), 1 << 20)) for _ in range(2))
+    got = torch.abs(d64[a] - d64[b])
+    want = torch.abs(dc[a] - dc[b]) * (1.0 / 64.0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_finalize_raises_off_cpu_without_kernel():
+    gb = {k: v.to("meta") for k, v in _to_torch(_gbuffers(8, 8, seed=1)).items()}
+    with pytest.raises(RuntimeError, match="no kernel"):
+        denoise.denoise_finalize(gb, torch.zeros(4, 4, 4, device="meta"))
+
+
+def test_pass_keys_name_the_chain():
+    from raytrace_tpu_torch.apps.kernel_times import pass_keys
+
+    assert pass_keys(denoise.DENOISE_SIZES) == ["1", "2", "4", "8", "8#2", "fin"]

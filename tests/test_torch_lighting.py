@@ -109,3 +109,22 @@ def test_march_raises_off_cpu_without_kernel():
             meta(8), {})
     with pytest.raises(RuntimeError, match="no kernel"):
         lighting.march_paths(*args, 16, 0, 5)
+
+
+def test_sphere_trig_table_gives_the_plain_sphere_points():
+    """K1 builds its sphere points from ``sphere_trig``: for every noise
+    byte pair the table's sin and cos give shading.sphere_point's bits."""
+    from raytrace_tpu_torch._f32 import fdiv
+    from raytrace_tpu_torch.ops import shading
+
+    k = torch.arange(256, dtype=torch.int32)
+    kr, kg = k.repeat_interleave(256), k.repeat(256)
+    nr, ng = (fdiv(v.to(torch.float32), 255.0) for v in (kr, kg))
+    want = shading.sphere_point(nr, ng)
+    trig = lighting.sphere_trig("cpu")
+    assert trig.shape == (256, 2) and trig.dtype == torch.float32
+    cos_t2 = torch.clamp(1.0 - 2.0 * ng, -1.0, 1.0)
+    sin_t2 = torch.sqrt(torch.clamp(1.0 - cos_t2 * cos_t2, min=0.0))
+    got = (trig[kr.long(), 0] * sin_t2, trig[kr.long(), 1] * sin_t2, cos_t2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

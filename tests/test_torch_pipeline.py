@@ -293,3 +293,16 @@ def test_validate_reports_each_frame(capsys):
     assert not quiet.validate
     quiet.draw_frame(cam, 0.6)
     assert capsys.readouterr().out == ""
+
+
+def test_pipeline_tables_carry_the_column_table():
+    """The pipeline builds the column table K1 reads with the region's
+    tables, for the region it renders."""
+    from raytrace_tpu_torch.ops.hf_tables import column_heights
+
+    p = pipeline.Pipeline(width=16, height=16, device="cpu")
+    p.uniforms.lr = (32, 0, -16)
+    tables = p.tables()
+    want = build_hf_tables((32, 0, -16), seed=0)
+    assert torch.equal(tables["r0"], want["r0"])
+    assert torch.equal(tables["hcol"], column_heights(want, 0))

@@ -104,3 +104,48 @@ def test_build_hf_tables_equal(tables_lr0, key):
         for sh in (0, 16):
             d = np.abs(((port[key] >> sh) & 0xFFFF) - ((jitted[key] >> sh) & 0xFFFF))
             assert d.max() <= 1, key
+
+
+COLUMN_REGIONS = [(0, 0, 0), (-300, 517, 0), (1000, -1000, 0)]
+
+
+def _corner_words(tables):
+    """Each column's block index and world coordinates in the region."""
+    n = 256
+    rx = torch.arange(n, dtype=torch.int32)[None, :].expand(n, n)
+    ry = torch.arange(n, dtype=torch.int32)[:, None].expand(n, n)
+    i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
+    r0x, r0y = (int(v) for v in tables["r0"])
+    return i3, rx + r0x, ry + r0y
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("lr", COLUMN_REGIONS)
+def test_column_heights_equal_height_from_corners(lr, seed):
+    """The column table K1 reads: the port's height_from_corners of every
+    column (clamped at 0), and JAX's _height_from_corners run op by op,
+    bit for bit."""
+    tables = hf_tables.build_hf_tables(lr, seed=seed)
+    got = hf_tables.column_heights(tables, seed)
+    assert got.dtype == torch.int16 and got.shape == (256 * 256,)
+    i3, xi, yi = _corner_words(tables)
+    corners = [tables[k][i3] for k in ("cA", "cB", "cC", "cD")]
+    port = torch.clamp(hf_tables.height_from_corners(*corners, xi, yi, seed), min=0)
+    np.testing.assert_array_equal(got.reshape(256, 256).numpy(), port.numpy())
+    with jax.disable_jit():
+        want = jax_tables._height_from_corners(
+            *(jnp.asarray(c.numpy()) for c in corners), jnp.asarray(xi.numpy()),
+            jnp.asarray(yi.numpy()), seed)
+    np.testing.assert_array_equal(got.reshape(256, 256).numpy(),
+                                  np.maximum(np.asarray(want), 0))
+
+
+def test_with_column_heights_keeps_the_tables():
+    """The column table goes beside the six words and r0, which stay as
+    build_hf_tables gives them."""
+    tables = hf_tables.build_hf_tables((-300, 517, 0), seed=7)
+    both = hf_tables.with_column_heights(tables, 7)
+    assert set(both) == set(tables) | {"hcol"}
+    assert all(both[k] is tables[k] for k in tables)
+    assert set(tables) == set(hf_tables.TABLE_KEYS) | {"r0"}
+    assert torch.equal(both["hcol"], hf_tables.column_heights(tables, 7))
