@@ -51,7 +51,7 @@ PEAK_BYTES = 3.35e12
 # float32 operations (add, sub, mul, div, sqrt, floor, abs, pow each 1; no
 # compares, no integer work) counted from the CUDA sources, at least:
 OPS_PER_HF_MOVE = 31  # K1, K4: a fine move (two wall distances, the top, the step, the window)
-OPS_PER_HEIGHT = 88  # K1, K4: heightfield.cuh height_from_corners with its perlin octave
+OPS_PER_HEIGHT = 88  # K4, K1's column table: height_from_corners with its perlin octave
 OPS_PER_VOL_MOVE = 36  # K3: move_to_boundary, the texels and the window test
 OPS_PER_TAP = 16  # K2: unpack, weight, and the three weighted channel sums
 DENOISE_TAPS = 36
@@ -172,8 +172,18 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
     moves, heights = (int(v) for v in work.sum(0, dtype=torch.int64))
     res["work"] = dict(moves=moves, heights=heights)
     res["census"] = _census(torch, work[:, 0], census)
-    res.update(_bound(n * (12 + 12 + 4 + 8) + 64 + 6 * 4096,
-                      OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights))
+    # K1 reads a fine step's height from the column table (no float work)
+    # and takes the pyramid's two words, the column table and the sphere
+    # table as inputs.  Building the column table is work once per region,
+    # not per frame: its own bound stands beside K1's.  `parent_work` is the
+    # bound of the work K1 did before it read the table (each height
+    # evaluated from the four corner words): the same work as the old times.
+    per_path = n * (12 + 12 + 4 + 8) + 64
+    res.update(_bound(per_path + 2 * 4096 + 2 * 256 * 256 + 256 * 8, OPS_PER_HF_MOVE * moves))
+    res["column_table_bound_ms"] = _bound(4 * 4096 + 2 * 256 * 256,
+                                          OPS_PER_HEIGHT * 256 * 256)["bound_ms"]
+    res["parent_work_bound_ms"] = _bound(
+        per_path + 6 * 4096, OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights)["bound_ms"]
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
           and res["max_depth_diff"] <= 1
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
@@ -435,10 +445,9 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
     and the kernel alone), K2 (the chain's call, and each pass's kernel
     alone), on the main path's own tables, uniforms and G-buffers (K2 also
     on random G-buffers)."""
-    from raytrace_tpu_torch.apps.kernel_times import pass_keys
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms
+    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms, kernel_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
     tables = pipe.tables()
@@ -456,7 +465,6 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
     k1 = lambda: lighting.march_paths(*inputs["march"], *budget)
-    keys = pass_keys(denoise.DENOISE_SIZES)
     times = dict(
         frame_ms=frame_ms, plain_frame_ms=call_ms(plain_frame, 1),
         k1_ms=call_ms(k1, 10), k1_kernel_ms=kernel_ms(k1, 10, "march_paths_kernel"),
@@ -466,11 +474,7 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
     for name, gb in gbs.items():
         sfx = "" if name == "main" else f"_{name}"
         times[f"k2_chain_ms{sfx}"] = call_ms(lambda: denoise.denoise_finalize(gb, blue), 10)
-        # Each pass alone, in the chain's order: each reads what the chain
-        # gives it.
-        _, passes = denoise.chain_passes(gb, blue)
-        times[f"k2_pass_ms{sfx}"] = {key: kernel_ms(one_pass, 10, "denoise_pass_kernel")
-                                     for key, one_pass in zip(keys, passes)}
+        times[f"k2_pass_ms{sfx}"] = denoise_pass_ms(gb, blue, 10)
         times[f"k2_chain_plain_ms{sfx}"] = call_ms(
             lambda: denoise.denoise_finalize_plain(gb, blue), 2)
     return times
@@ -611,9 +615,10 @@ def phase_hf_main(rt, torch):
     return ok, res, pipe
 
 
-def phase_hf_vs_fused(torch, pipe):
-    """At the hf path's own tables and uniforms, the staged G-buffers (K4)
-    against the fused ones (K1): normal and albedo equal, depth within a
+def phase_hf_vs_fused(torch, pipe, tables):
+    """At the hf path's own tables (``tables``: with the column table K1
+    reads) and uniforms, the staged G-buffers (K4) against the fused ones
+    (K1): normal and albedo equal, depth within a
     quantum and lighting within 1e-5 on at least HF_MATCH of the pixels.
     Not on all: K4 renormalizes its directions (as the JAX kernel does) and
     K1 takes the camera's, so a direction can differ by an ulp and a ray
@@ -624,7 +629,7 @@ def phase_hf_vs_fused(torch, pipe):
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
 
     uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
-    args = (pipe.tables(), pipe.blue_noise, uniforms, W, H, pipe.max_steps, pipe.seed,
+    args = (tables, pipe.blue_noise, uniforms, W, H, pipe.max_steps, pipe.seed,
             pipe.bounces)
     staged = trace_hf.render_gbuffers_hf(*args)
     fused = lighting.render_gbuffers_fused(*args)
@@ -779,7 +784,7 @@ def main() -> int:
         pipe.max_steps, pipe.seed, pipe.bounces)
     report("k1_vs_plain_main", ok, k1_res)
     # K2 on random G-buffers and on the main path's last frame's.
-    from raytrace_tpu_torch.apps.kernel_times import random_gbuffers
+    from raytrace_tpu_torch.testing.gbuffers import random_gbuffers
 
     gbs = dict(main=pipe.gbuffers, random=random_gbuffers(H, W, 7, dev))
     ok, k2_res = phase_k2(torch, blue, gbs)
@@ -822,9 +827,11 @@ def main() -> int:
         torch.from_numpy(hpipe.uniforms.packed()).to(dev), W, hpipe.max_steps,
         hpipe.seed, hpipe.bounces)
     report("k4_vs_plain_main", ok, k4_res)
-    ok, res = phase_hf_vs_fused(torch, hpipe)
+    # The hf pipeline's tables have no column table: K1 gets them with one.
+    hf_k1_tables = with_column_heights(hpipe.tables(), hpipe.seed)
+    ok, res = phase_hf_vs_fused(torch, hpipe, hf_k1_tables)
     report("hf_vs_fused_main", ok, res)
-    regions["hf"] = (hpipe.tables(), hpipe.seed)
+    regions["hf"] = (hf_k1_tables, hpipe.seed)
     ok, res = phase_column_table(torch, regions)
     report("column_table", ok, res)
     hf_frame_ms = phase_hf_frame_ms(torch, hpipe)
@@ -851,7 +858,9 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
-             ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res)),
+             ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res),
+             column_table_bound_ms=k1_res["column_table_bound_ms"],
+             parent_work_bound_ms=k1_res["parent_work_bound_ms"]),
         dict(name="K2 denoise_pass (a-trous pass, finalize fused)", route="cuda",
              source="raytrace_tpu_torch/csrc/denoise.cu",
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",

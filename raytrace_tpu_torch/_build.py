@@ -38,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # origin, direction, nw, iscal, fscal, trig, hsub, h3, hcol, meta, pd,
-    # n, max_steps, seed, legs, next, census, stream
-    "rt_march_paths": [_P] * 11 + [_I] * 4 + [_P] * 3,
+    # n, max_steps, seed, legs, census, stream
+    "rt_march_paths": [_P] * 11 + [_I] * 4 + [_P] * 2,
     # light, depth, normal, in, out, frame, h, w, size, albedo, emission,
     # fog, noise, nh, nw, nch, stream
     "rt_denoise_pass": [_P] * 6 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],

@@ -4,18 +4,19 @@ Drives ``Pipeline(tracer="fused")`` at the bench camera (origin
 (-30,-100,60), pitch -0.3, sun 0.6), bounces 2, then times, from
 ``torch.profiler`` (the kernel alone, mean over ``--reps`` calls):
 
-- K1 (``march_paths_kernel``) on the frame's march inputs in index order,
-  longest path first (by the plain version's moves), and its 32 longest
-  paths alone, beside the wrapper's call (CUDA events);
+- K1 (``march_paths_kernel``) on the frame's march inputs, beside the
+  wrapper's call (CUDA events); K1's order (longest first, its 32 longest
+  alone) is ``apps/march_lanes.py``'s;
 - K2 (``denoise_pass_kernel``) per pass of the chain (dilations 1, 2, 4, 8,
-  8, 16 with finalize: keys "1" ... "8#2", "fin") on the frame's own
-  G-buffers and on random ones (numpy seed 7), beside the chain's call
-  (CUDA events).
+  8, 16 with finalize: keys "1" ... "8#2", "fin"; ``measure.denoise_pass_ms``,
+  as ``chip_smoke.py`` times them) on the frame's own G-buffers and on
+  random ones (numpy seed 7), beside the chain's call (CUDA events).
 
 It prints one JSON line with the card's name and power limit.  It uses only
-the wrappers' calls, so it runs as well in a checkout of an earlier commit
-whose kernels are compared with these (copy this file and
-``testing/measure.py`` into it).
+the wrappers' calls and ``denoise.chain_passes``, so it also runs in a
+checkout of an earlier commit that has them, to compare its kernels with
+these (copy this file, ``testing/measure.py`` and ``testing/gbuffers.py``
+into it).
 
 Usage: python -m raytrace_tpu_torch.apps.kernel_times [--reps 10]
 (needs a CUDA GPU)
@@ -26,41 +27,13 @@ from __future__ import annotations
 import argparse
 import json
 
-import numpy as np
 import torch
 
-from ..constants import DENOISE_SIZES
 from ..ops import denoise, lighting
 from ..render.camera import Camera
 from ..render.pipeline import Pipeline, unpack_uniforms
-from ..testing.measure import call_ms, card, kernel_ms, kernel_ms_each
-
-
-def random_gbuffers(h: int, w: int, seed: int, dev) -> dict:
-    """G-buffers of random values from numpy's ``seed``, a sky band on top."""
-    rng = np.random.default_rng(seed)
-    normal = rng.integers(0, 6, (h, w)).astype(np.int32)
-    depth = (rng.random((h, w)) * 65000).astype(np.int32)
-    normal[: h // 16] = 16  # a sky band
-    depth[: h // 16] = 0xFFFF
-    t = lambda a: torch.from_numpy(a).to(dev)
-    return dict(
-        lighting=t(rng.random((h, w, 3), np.float32)),
-        depth=t(depth).to(torch.uint16), normal=t(normal).to(torch.uint8),
-        albedo=t(rng.random((h, w, 3), np.float32)),
-        emission=t(rng.random((h, w, 3), np.float32) * 0.1),
-        fog=t(rng.random((h, w, 3), np.float32)),
-    )
-
-
-def pass_keys(sizes) -> list:
-    """Keys of a chain's passes: the size ("8#2" for the second pass at 8),
-    "fin" for the last."""
-    keys = []
-    for k, size in enumerate(sizes):
-        key = "fin" if k + 1 == len(sizes) else str(size)
-        keys.append(key + "#2" if key in keys else key)
-    return keys
+from ..testing.gbuffers import random_gbuffers
+from ..testing.measure import call_ms, card, denoise_pass_ms, kernel_ms
 
 
 def run(reps: int = 10, size: int = 1024) -> dict:
@@ -73,31 +46,17 @@ def run(reps: int = 10, size: int = 1024) -> dict:
     pipe.converge_streaming((cam.origin[0], 0, cam.origin[2]), max_moves=32)
     pipe.draw_frame(cam, 0.6)
     uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
-    origin, direction, nw, *rest = lighting.march_inputs(
-        pipe.tables(), pipe.blue_noise, uniforms, size, size)["march"]
+    march = lighting.march_inputs(pipe.tables(), pipe.blue_noise, uniforms, size, size)["march"]
     budget = (pipe.max_steps, pipe.seed, 1 + 2 * pipe.bounces)
-
-    def k1(items=None):
-        o, d, w = ((origin, direction, nw) if items is None else
-                   (origin[items].contiguous(), direction[items].contiguous(),
-                    nw[items].contiguous()))
-        return lighting.march_paths(o, d, w, *rest, *budget)
-
-    moves = lighting.march_paths_plain(origin, direction, nw, *rest, *budget)[2][:, 0]
-    longest = torch.argsort(moves, descending=True)
-    name = "march_paths_kernel"
+    k1 = lambda: lighting.march_paths(*march, *budget)
     res = dict(card=card(), size=size, k1=dict(
-        call_ms=call_ms(k1, reps), kernel_ms=kernel_ms(k1, reps, name),
-        longest_first_ms=kernel_ms(lambda: k1(longest), reps, name),
-        longest_32_alone_ms=kernel_ms(lambda: k1(longest[:32]), reps, name),
-        moves=int(moves.sum(dtype=torch.int64)), longest_moves=int(moves.max())))
-    keys = pass_keys(DENOISE_SIZES)
+        call_ms=call_ms(k1, reps), kernel_ms=kernel_ms(k1, reps, "march_paths_kernel")))
     gbs = dict(main=pipe.gbuffers, random=random_gbuffers(size, size, 7, pipe.device))
     for key, gb in gbs.items():
-        chain = lambda: denoise.denoise_finalize(gb, pipe.blue_noise)
-        per_pass = kernel_ms_each(chain, reps, "denoise_pass_kernel", len(keys))
-        res[f"k2_{key}"] = dict(chain_ms=call_ms(chain, reps), pass_ms=dict(zip(keys, per_pass)),
-                                passes_ms=sum(per_pass))
+        per_pass = denoise_pass_ms(gb, pipe.blue_noise, reps)
+        res[f"k2_{key}"] = dict(
+            chain_ms=call_ms(lambda: denoise.denoise_finalize(gb, pipe.blue_noise), reps),
+            pass_ms=per_pass, passes_ms=sum(per_pass.values()))
     print(json.dumps(res), flush=True)
     return res
 

@@ -1,17 +1,16 @@
-"""The persistent lanes of the march kernels K1, K3 and K4, measured on the
-card.
+"""The lanes of the march kernels K1, K3 and K4, measured on the card.
 
-K1 (``csrc/lighting.cu``), K3 (``csrc/trace_vol.cu``) and K4
-(``csrc/trace_hf.cu``) run persistent lanes that take new work from a
-counter (``csrc/lanes.cuh``); each source hard-codes in its ``refill_now``
-when the idle lanes of a warp take new items:
+K3 (``csrc/trace_vol.cu``) and K4 (``csrc/trace_hf.cu``) run persistent
+lanes that take new work from a counter (``csrc/lanes.cuh``); each source
+hard-codes in its ``refill_now`` when the idle lanes of a warp take new
+items:
 
   (i)   only when all 32 lanes are idle;
   (ii)  whenever any lane is idle;
-  (iii) when at least 16 lanes are idle;
+  (iii) when at least 16 lanes are idle.
 
-and K1 can launch one thread per pixel instead (``static``: its
-``kStaticBlocks``).
+K1 (``csrc/lighting.cu``) runs one thread per pixel: its lanes tied with
+the refill rules (PERF.md section 5).
 
 The app drives K1 at the fused path's view, K3 at the volume_fast path's
 view and K4 on each batch of the hf path's frame (the primaries, then each
@@ -19,15 +18,16 @@ bounce's sun + diffuse pair), at the bench camera (origin (-30,-100,60),
 pitch -0.3, sun 0.6), bounces 2, and prints one JSON line per part:
 
 - ``rule``: the kernel library built once per rule, from copies of
-  ``csrc/`` (under ``build/``) whose ``refill_now`` bodies (or K1's
-  ``kStaticBlocks``) are replaced, timed in turns (i ii iii static, then
-  static iii ii i, ...): each call's device time from CUDA events (the
-  wrapper's whole call) and the kernel's alone from ``torch.profiler``, the
-  lane-use census (``testing/census.py``, moves from the plain versions),
-  and the check that every output equals the shipped library's;
-- ``order``: the shipped library on the same items in their index order,
-  longest first (by the plain version's moves), and the 32 longest alone:
-  how much of a kernel's time is the latency of its longest items;
+  ``csrc/`` (under ``build/``) whose ``refill_now`` bodies are replaced,
+  K3 and K4 timed in turns (i ii iii, then iii ii i, ...): each call's
+  device time from CUDA events (the wrapper's whole call) and the kernel's
+  alone from ``torch.profiler``, the lane-use census (``testing/census.py``,
+  moves from the plain versions), and the check that every output equals
+  the shipped library's;
+- ``order``: the shipped library, K1, K3 and K4, on the same items in their
+  index order, longest first (by the plain version's moves), and the 32
+  longest alone: how much of a kernel's time is the latency of its longest
+  items;
 - ``split``: K1 alone on the same pixels with its paths cut after 1, 3 and
   5 legs, beside the plain version's moves and fine steps (column-height
   reads) for each: where K1's time goes between the primary and the bounce
@@ -53,29 +53,19 @@ from ..render.pipeline import Pipeline, unpack_uniforms
 from ..testing.census import lane_use
 from ..testing.measure import call_ms, card, kernel_ms, same
 
-RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16",
-         "static": None}
+RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16"}
 _BODY = re.compile(r"(bool refill_now\(unsigned idle\) \{\s*return )[^;]*;")
-_STATIC = "constexpr bool kStaticBlocks = false;"
 _KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel", "k4": "trace_hf_kernel"}
 
 
 def _library(rule: str):
-    """The kernel library built with ``rule`` in the kernels' refill_now (or,
-    for ``static``, K1 on one thread per pixel and the others as shipped)."""
+    """The kernel library built with ``rule`` in the kernels' refill_now."""
     csrc = _build.BUILD_DIR / f"refill_{rule}" / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(_build._CSRC, csrc)
-    for name in ("lighting.cu", "trace_vol.cu", "trace_hf.cu"):
+    for name in ("trace_vol.cu", "trace_hf.cu"):
         src = csrc / name
-        text = src.read_text()
-        if RULES[rule] is not None:
-            text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", text)
-        elif name == "lighting.cu":
-            count = text.count(_STATIC)
-            text = text.replace(_STATIC, _STATIC.replace("false", "true"))
-        else:
-            count = 1  # K3 and K4 as shipped
+        text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", src.read_text())
         if count != 1:
             raise RuntimeError(f"{name}: no refill rule to replace")
         src.write_text(text)
@@ -199,13 +189,11 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
     shipped = _build.kernels()
     libs = {rule: _library(rule) for rule in RULES}
     order = [rule for k in range(rounds) for rule in (RULES if k % 2 == 0 else reversed(RULES))]
-    # The static launch is K1's alone: K3 and K4 are not timed under it.
-    timed = lambda rule: [n for n in items if RULES[rule] is not None or n == "k1"]
-    res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in timed(rule)}
-           for rule in RULES}
+    timed = [name for name in items if name != "k1"]  # K1 has no refill rule
+    res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in timed} for rule in RULES}
     for rule in order:
         _build._lib = libs[rule]
-        for name in timed(rule):
+        for name in timed:
             call, moves = items[name]
             r = res[rule][name]
             if "lane_use" not in r:

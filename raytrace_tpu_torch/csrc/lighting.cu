@@ -1,4 +1,4 @@
-// Kernel K1: the whole light path of every pixel, on persistent lanes.
+// Kernel K1: the whole light path of every pixel, one thread per pixel.
 //
 // Replaces the Pallas TPU kernel raytrace_tpu/ops/lighting_pallas.py
 // `_make_kernel` (:143-796), launched from `render_gbuffers_fused` (:930-959).
@@ -35,19 +35,16 @@
 //  - 1/|d|, the sign multipliers and the face-normal ids are computed once
 //    per leg, from the same direction, so the distances keep their bits;
 //  - the sphere points' sin and cos come from a 256-entry table: no call
-//    to the trigonometric slow path, so no stack frame;
-//  - persistent lanes (lanes.cuh): a grid that fills the card, each warp
-//    refilling its idle lanes from a window of pixel indices once 16 of
-//    them are idle, and the pyramid copied into shared memory once per
-//    block.
-// There it takes 0.68-0.72 ms, with 0.62 of the lanes busy (0.51 for one
-// thread per pixel).  The lanes barely matter: apps/march_lanes.py measured
-// 0.685-0.694 ms with the shipped rule, 0.692 for one thread per pixel
-// (`kStaticBlocks`), 0.68-0.77 refilling once all 32 lanes are idle and
-// 0.851 whenever one is.  The floor is the longest paths: the 32 longest
-// (392 moves) take 0.26 ms alone, and all paths started longest first take
-// 0.44 ms.  The bounce legs cost twice as much a move as the primaries
-// (0.21 ms for the 16.6M primary moves, 0.48 for the 19.9M others).
+//    to the trigonometric slow path, so no stack frame.
+// There it takes 0.68-0.73 ms.  Persistent lanes that refill (lanes.cuh,
+// as K3 and K4 run them) raised lane use from 0.51 to 0.62 and saved
+// nothing: apps/march_lanes.py measured 0.685-0.694 ms refilling once 16
+// lanes are idle, 0.692-0.693 for one thread per pixel, 0.68-0.77 once all
+// 32 are idle and 0.851 whenever one is.  So K1 keeps the plain launch.
+// The floor is the longest paths: the 32 longest (392 moves) take 0.26 ms
+// alone, and all paths started longest first take 0.44 ms.  The bounce
+// legs cost twice as much a move as the primaries (0.21 ms for the 16.6M
+// primary moves, 0.48 for the 19.9M others).
 
 #include "heightfield.cuh"
 #include "lanes.cuh"
@@ -56,15 +53,6 @@ namespace {
 
 constexpr int kLegDone = 5;
 constexpr int kThreads = 128;
-// One thread per pixel, 128 to a block, no refill (true), or persistent
-// lanes (false).
-constexpr bool kStaticBlocks = false;
-
-// The refill rule: the idle lanes of a warp take new paths once at least
-// 16 of its 32 lanes are idle.
-__device__ __forceinline__ bool refill_now(unsigned idle) {
-  return __popc(idle) >= 16;
-}
 
 // lighting_pallas._mat_code: the voxel's material band as a 2-bit code
 // (1 grass, 2 rock, 3 snow).
@@ -272,8 +260,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int16_t* __restrict__ hc,
                        int32_t* __restrict__ meta_out,
                        float* __restrict__ pd_out, int n, int max_steps,
-                       int seed, int legs, int32_t* __restrict__ next,
-                       long long* __restrict__ census) {
+                       int seed, int legs, long long* __restrict__ census) {
   __shared__ Pyramid t;
   for (int k = threadIdx.x; k < kWords; k += blockDim.x) {
     t.h3[k] = h3[k];
@@ -292,28 +279,17 @@ __global__ void __launch_bounds__(kThreads)
   c.legs = legs;
   const float sunx = fscal[0], suny = fscal[1], sunz = fscal[2];
 
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool live = i < n;
   Path s;
   Hoisted hz;
-  Window w;
-  int i = -1;  // this lane's path, -1 while idle
-  if (kStaticBlocks) {
-    const int g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < n) {
-      i = g;
-      start_path(i, s, hz, origin, direction, nw, trig, sunx, suny, sunz);
-    }
-  }
+  if (live) start_path(i, s, hz, origin, direction, nw, trig, sunx, suny, sunz);
+  // Every lane stays in the loop until its warp is done, so that the warp
+  // counts its iterations for the census.
   long long iterations = 0;
-  for (;;) {
-    if (!kStaticBlocks && refill_now(__ballot_sync(kFullMask, i < 0))) {
-      const int held = i;
-      i = refill(i, w, next, n, [](int) { return true; }, [](int) {});
-      if (held < 0 && i >= 0)
-        start_path(i, s, hz, origin, direction, nw, trig, sunx, suny, sunz);
-    }
-    if (!__any_sync(kFullMask, i >= 0)) break;
+  while (__any_sync(kFullMask, live)) {
     ++iterations;
-    if (i < 0) continue;
+    if (!live) continue;
     // Budget spent: one more step without a move, so that completions from
     // the last move still count.
     const bool last = s.it == max_steps;
@@ -322,13 +298,11 @@ __global__ void __launch_bounds__(kThreads)
     if (last || s.leg >= kLegDone) {
       meta_out[i] = s.leg | (s.cn << 3) | (s.pn << 6) | (s.nn << 9) | (s.acc << 12);
       pd_out[i] = s.pd;
-      i = -1;
+      live = false;
     }
   }
   add_census(census, iterations);
 }
-
-int grid_cache = 0;
 
 }  // namespace
 
@@ -338,16 +312,12 @@ extern "C" int rt_march_paths(const float* origin, const float* direction,
                               const int32_t* hsub, const int32_t* h3,
                               const int16_t* hcol,
                               int32_t* meta, float* pd, int n, int max_steps,
-                              int seed, int legs, int32_t* next,
-                              long long* census, void* stream) {
+                              int seed, int legs, long long* census,
+                              void* stream) {
   if (n <= 0) return 0;
-  int blocks = (n + kThreads - 1) / kThreads;
-  if (!kStaticBlocks) {
-    int err = persistent_grid(march_paths_kernel, kThreads, n, grid_cache, blocks);
-    if (err != 0) return err;
-  }
+  const int blocks = (n + kThreads - 1) / kThreads;
   march_paths_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, nw, iscal, fscal, trig, hsub, h3, hcol, meta, pd, n,
-      max_steps, seed, legs, next, census);
+      max_steps, seed, legs, census);
   return (int)cudaGetLastError();
 }

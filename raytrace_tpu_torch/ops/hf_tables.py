@@ -82,13 +82,12 @@ def column_heights(tables: dict, seed: int = 0) -> torch.Tensor:
     corner words, not ``heightmap_grid``, whose last ulp may differ.
     """
     n = ROOT_BLOCK_SIZE
-    dev = tables["r0"].device
-    r0x, r0y = (int(v) for v in tables["r0"].tolist())
-    rx = torch.arange(n, dtype=torch.int32, device=dev)[None, :].expand(n, n)
-    ry = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(n, n)
+    r0 = tables["r0"]  # on the device: no wait for it
+    rx = torch.arange(n, dtype=torch.int32, device=r0.device)[None, :].expand(n, n)
+    ry = torch.arange(n, dtype=torch.int32, device=r0.device)[:, None].expand(n, n)
     i3 = ((ry >> 3) * 32 + (rx >> 3)).long()
     h = height_from_corners(tables["cA"][i3], tables["cB"][i3], tables["cC"][i3],
-                            tables["cD"][i3], rx + r0x, ry + r0y, seed)
+                            tables["cD"][i3], rx + r0[0], ry + r0[1], seed)
     return torch.clamp(h, min=0).to(torch.int16).reshape(-1)
 
 

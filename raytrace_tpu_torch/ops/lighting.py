@@ -4,10 +4,10 @@ shade.
 Port of ``raytrace_tpu/ops/lighting_pallas.py``: ``render_gbuffers_fused``
 (``:807-1082``), ``check_material_codes`` (``:80-126``) and ``_mat_code``
 (``:129-140``).  The march is kernel K1, ``_make_kernel`` (``:143-796``),
-written for Hopper in ``csrc/lighting.cu`` as persistent lanes, each
-walking one pixel's path after another and reading the column heights from
-the region's column table; ``march_paths_plain`` below is the same
-function in plain PyTorch, which evaluates every height itself.
+written for Hopper in ``csrc/lighting.cu``, one thread per pixel, reading
+the column heights from the region's column table; ``march_paths_plain``
+below is the same function in plain PyTorch, which evaluates every height
+itself.
 
 Each pixel walks primary -> sun1 -> dif1 -> sun2 -> dif2, capped at
 ``1 + 2 * bounces`` legs, over the region tables of ``ops/hf_tables.py``.
@@ -360,11 +360,10 @@ def march_paths(origin, direction, nw, iscal, fscal, tables,
         check_tensor("march_paths", census, torch.int64, (1,), dev)
     meta = torch.empty(n, dtype=torch.int32, device=dev)
     pd = torch.empty(n, dtype=torch.float32, device=dev)
-    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' path counter
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_march_paths(
         *(t.data_ptr() for t in ins), meta.data_ptr(), pd.data_ptr(),
-        n, max_steps, seed, legs, nxt.data_ptr(),
+        n, max_steps, seed, legs,
         None if census is None else census.data_ptr(), stream,
     )
     check_launch("rt_march_paths", err)

@@ -218,12 +218,16 @@ class Pipeline:
         u.lr = self.streamer.get_render_offset()
 
     def tables(self) -> dict:
-        """Region tables for the current offset, with the column table
-        beside them (``hcol``), rebuilt when it moved."""
+        """Region tables for the current offset, rebuilt when it moved; for
+        the fused tracer with the column table K1 reads beside them
+        (``hcol``).  The CPU's plain march evaluates its heights, but builds
+        the table all the same, so that a CPU pipeline holds the tables the
+        card's does."""
         lr = self.uniforms.lr
         if self._tables_lr != lr:
-            self._tables = with_column_heights(
-                build_hf_tables(lr, seed=self.seed, device=self.device), self.seed)
+            self._tables = build_hf_tables(lr, seed=self.seed, device=self.device)
+            if self.tracer == "fused":
+                self._tables = with_column_heights(self._tables, self.seed)
             self._tables_lr = lr
         return self._tables
 

@@ -38,54 +38,74 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Profiles of a train taken before kernel_ms gives up.
+PROFILE_TRIES = 3
+
+
+def launch_times(events, kernel: str, reps: int) -> list:
+    """Device milliseconds of the profiled records (``torch.profiler``
+    events) of the kernel whose name contains ``kernel``, launched in this
+    profile (a device record's ``id`` is the correlation id of its host
+    launch record), in launch order.  Raises ``ValueError`` unless they are
+    1 to ``reps`` records of one kernel (one template instance): a record
+    of another launch would bias the mean.  The profiler may drop a record
+    (9 of 10 kept, in long processes on the H100); the launches of a train
+    are alike, so the rest still give its mean."""
+    events = list(events)
+    launched = {e.id for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU and "Launch" in e.name}
+    found = sorted((e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
+                    and e.id in launched), key=lambda e: e.time_range.start)
+    names = sorted({e.name for e in found})
+    if not 1 <= len(found) <= reps or len(names) != 1:
+        raise ValueError(f"{kernel}: {len(found)} records of {names}, want 1 to {reps} of one")
+    return [e.time_range.elapsed_us() / 1e3 for e in found]
+
+
 def kernel_ms(fn, reps: int, kernel: str) -> float:
     """Mean device milliseconds of the kernel whose name contains
     ``kernel``, launched once by each of ``reps`` calls of ``fn`` after a
     warm-up, from ``torch.profiler``: the kernel alone, without the rest of
-    the call."""
+    the call.  A profile that ``launch_times`` refuses is taken again, at
+    most ``PROFILE_TRIES`` times."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name),
-                    key=lambda e: e.time_range.start)
-    # The profiler may drop records of a long train, and a record an
-    # earlier profile missed may come in first; the mean is over the last
-    # `reps` it kept.
-    times = [e.time_range.elapsed_us() / 1e3 for e in events[-reps:]]
-    if not times:
-        raise RuntimeError(f"{kernel}: no launch profiled of {reps}")
-    return sum(times) / len(times)
-
-
-def kernel_ms_each(fn, reps: int, kernel: str, per_call: int) -> list:
-    """Mean device milliseconds of each of the ``per_call`` launches of the
-    kernel whose name contains ``kernel`` that one call of ``fn`` makes, in
-    launch order (the passes of a chain), over ``reps`` calls after a
-    warm-up, from ``torch.profiler``.  Each call is profiled alone: a call
-    whose records came back incomplete is left out, and of more records
-    than launches (an earlier profile's coming in first) the last count."""
-    fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    kept, counts = [], []
-    for _ in range(reps):
+    faults = []
+    for _ in range(PROFILE_TRIES):
         with torch.profiler.profile(activities=activities) as prof:
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and kernel in e.name), key=lambda e: e.time_range.start)
-        counts.append(len(events))
-        if len(events) >= per_call:
-            kept.append([e.time_range.elapsed_us() / 1e3 for e in events[-per_call:]])
-    if not kept:
-        raise RuntimeError(f"{kernel}: records per call {counts}, want {per_call}")
-    return [sum(ms[k] for ms in kept) / len(kept) for k in range(per_call)]
+        try:
+            times = launch_times(prof.events(), kernel, reps)
+            return sum(times) / len(times)
+        except ValueError as err:
+            faults.append(str(err))
+    raise RuntimeError(f"kernel_ms: no profile kept the launches: {faults}")
+
+
+def pass_keys(sizes) -> list:
+    """Keys of a denoise chain's passes: the size ("8#2" for the second
+    pass at 8), "fin" for the last."""
+    keys = []
+    for k, size in enumerate(sizes):
+        key = "fin" if k + 1 == len(sizes) else str(size)
+        keys.append(key + "#2" if key in keys else key)
+    return keys
+
+
+def denoise_pass_ms(gb: dict, blue_noise, reps: int) -> dict:
+    """K2 alone (``kernel_ms``) for each pass of the chain on the G-buffers
+    ``gb``, keyed by ``pass_keys``.  The passes are timed in the chain's
+    order, each launched alone, so that each reads what the chain gives
+    it."""
+    from ..ops import denoise
+
+    _, passes = denoise.chain_passes(gb, blue_noise)
+    return {key: kernel_ms(one_pass, reps, "denoise_pass_kernel")
+            for key, one_pass in zip(pass_keys(denoise.DENOISE_SIZES), passes)}
 
 
 # Opcodes counted apart in sass_counts: loads, the reciprocal and the

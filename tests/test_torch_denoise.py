@@ -131,6 +131,6 @@ def test_finalize_raises_off_cpu_without_kernel():
 
 
 def test_pass_keys_name_the_chain():
-    from raytrace_tpu_torch.apps.kernel_times import pass_keys
+    from raytrace_tpu_torch.testing.measure import pass_keys
 
     assert pass_keys(denoise.DENOISE_SIZES) == ["1", "2", "4", "8", "8#2", "fin"]

@@ -6,15 +6,18 @@ as ``s - floor(s * (1/m)) * m`` where its plain version takes
 every power-of-two modulus the march uses.  The lane-use census helper
 (``raytrace_tpu_torch/testing/census.py``) is checked on move counts with
 known answers, and the output equality of the measurement scripts
-(``testing/measure.py``) on NaNs, shapes and types.
+(``testing/measure.py``) on NaNs, shapes and types, and their choice of
+profiled kernel records.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from raytrace_tpu_torch.testing.census import WARP, lane_use, static_warp_iterations
-from raytrace_tpu_torch.testing.measure import same
+from raytrace_tpu_torch.testing.measure import launch_times, same
 
 EPS = torch.tensor(1e-4, dtype=torch.float32)  # kEps of the kernels
 
@@ -88,6 +91,41 @@ def test_census_of_a_full_warp_is_one():
     moves = torch.full((WARP,), 7, dtype=torch.int32)
     assert static_warp_iterations(moves) == 7
     assert lane_use(int(moves.sum()), 7) == 1.0
+
+
+def _record(name, cid, start_us, us, device=torch.autograd.DeviceType.CUDA):
+    """A stand-in for a torch.profiler event: a device record's id is the
+    correlation id of its host launch record."""
+    span = SimpleNamespace(start=start_us, elapsed_us=lambda: us)
+    return SimpleNamespace(name=name, id=cid, device_type=device, time_range=span)
+
+
+_PASS = "void denoise_pass_kernel<4, 4>(float4 const*, float4*, int, int)"
+_OTHER = "void denoise_pass_kernel<8, 8>(float4 const*, float4*, int, int)"
+
+
+def _launch(cid):
+    return _record("cudaLaunchKernel", cid, 0.0, 5.0, torch.autograd.DeviceType.CPU)
+
+
+@pytest.mark.parametrize("records, want", [
+    ([_launch(5), _launch(2), _record(_PASS, 5, 20.0, 40.0), _record(_PASS, 2, 0.0, 30.0)],
+     [0.03, 0.04]),
+    ([_launch(2), _launch(5), _record(_PASS, 5, 20.0, 30.0)], [0.03]),  # one dropped
+    ([_launch(7), _record(_PASS, 3, 0.0, 90.0), _record(_PASS, 7, 20.0, 30.0)],
+     [0.03]),  # a record launched before this profile
+    ([_launch(2)], None),  # none kept
+    ([_launch(k) for k in (2, 5, 8)] + [_record(_PASS, k, k, 30.0) for k in (2, 5, 8)],
+     None),  # more than the launches timed
+    ([_launch(2), _launch(5), _record(_OTHER, 2, 0.0, 80.0), _record(_PASS, 5, 20.0, 30.0)],
+     None),  # another pass's
+])
+def test_launch_times_keep_the_profiles_own_launches(records, want):
+    if want is None:
+        with pytest.raises(ValueError):
+            launch_times(records, "denoise_pass_kernel", 2)
+    else:
+        assert launch_times(records, "denoise_pass_kernel", 2) == pytest.approx(want)
 
 
 def test_same_matches_nan_with_nan_only():

@@ -306,3 +306,14 @@ def test_pipeline_tables_carry_the_column_table():
     want = build_hf_tables((32, 0, -16), seed=0)
     assert torch.equal(tables["r0"], want["r0"])
     assert torch.equal(tables["hcol"], column_heights(want, 0))
+
+
+def test_hf_pipeline_tables_have_no_column_table():
+    """The staged tracer (K4) evaluates its heights: its pipeline builds
+    the region's tables without the column table, equal to a fresh build."""
+    p = pipeline.Pipeline(width=16, height=16, device="cpu", tracer="hf")
+    p.uniforms.lr = (32, 0, -16)
+    tables = p.tables()
+    want = build_hf_tables((32, 0, -16), seed=0)
+    assert set(tables) == set(want)
+    assert all(torch.equal(tables[k], want[k]) for k in want)
