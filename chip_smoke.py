@@ -10,8 +10,13 @@ golden frame, then drives the frame paths through ``create_instance`` ->
 the streamed volume, its occupancy tables, K3, K2) and of the staged
 heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
 the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
-PyTorch).  It holds the column table K1 reads equal to the plain march's
-heights on every column of each region it renders, times the kernels alone
+PyTorch).  On the volume path's own volume, tables and uniforms it also
+drives the staged volume tracer: K3s against its plain version on the three
+1024² leg batches, 20 frames of ``render_gbuffers_vol`` + denoise (K3s three
+times a frame), and the staged G-buffers against K3's whole-path ones.  It
+holds the column table K1 reads equal to the plain march's heights on
+every column of each region it renders, and renders a fused frame from
+bare region tables.  It times the kernels alone
 and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3 and K4 (``warp_iterations``,
@@ -329,6 +334,146 @@ def phase_volume_edit(torch, pipe):
     return ok, res
 
 
+def _k3s_batches(volume, tables, blue, uniforms, size, max_steps, bounces):
+    """The staged volume G-buffer pass with K3s, recording each trace call:
+    (origin, direction, active, hit dict) of the primary batch and of each
+    bounce's sun + diffuse pair."""
+    from raytrace_tpu_torch.ops import integrate, trace_vol
+
+    batches = []
+
+    def trace(o, d, active=None):
+        hit = trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"], max_steps,
+                                       active=active)
+        batches.append((o, d, active, hit))
+        return hit
+
+    gb = integrate.integrate_gbuffers(trace, blue, uniforms, size, size, bounces)
+    return gb, batches
+
+
+def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, timed=False):
+    """K3s against its plain version on the batches a frame gives it: the
+    primary rays, then each bounce's sun + diffuse pair with its active
+    mask.  Built without FMA contraction, every output must be equal on
+    every ray (NaN matching NaN), and no primary may be exhausted.  Reports
+    each batch's work (the plain version's moves) and bound; ``timed``: also
+    the kernel alone (torch.profiler, 10 calls), the wrapper's call (CUDA
+    events) and the plain version (once), per batch."""
+    from raytrace_tpu_torch.ops import trace_vol
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms, same
+
+    uniforms = unpack_uniforms(packed)
+    _, batches = _k3s_batches(volume, tables, blue, uniforms, size, max_steps, bounces)
+    keys = ("position", "normal", "air", "albedo", "distance", "exhausted")
+    tables_bytes = sum(tables[k].numel() * 4 for k in ("any8", "all8", "any_hi", "detail"))
+    res = dict(size=size, bounces=bounces, lr=[int(v) for v in uniforms["lr"]], batches=[],
+               max_abs_err=0.0)
+    ok = True
+    for b, (o, d, active, _) in enumerate(batches):
+        args = (tables, volume, o, d, uniforms["lr"], max_steps)
+        got = trace_vol.trace_rays_vol(*args, active=active)
+        want, t_p = _timed_once(torch, lambda: trace_vol.trace_rays_vol_plain(
+            *args, active=active))
+        equal = {k: same(got[k], want[k]) for k in keys}
+        err = float(torch.nan_to_num(got["position"] - want["position"]).abs().max())
+        n = o.numel() // 3
+        moves = int(want["moves"].sum(dtype=torch.int64))
+        traced = torch.ones_like(got["air"]) if active is None else active
+        exhausted = int((got["exhausted"] & traced).sum())
+        batch = dict(rays=n, traced=int(traced.sum()), equal=equal, moves=moves,
+                     exhausted_traced=exhausted, air=int((got["air"] & traced).sum()),
+                     **_bound(n * (12 + 12 + (0 if active is None else 1) + 18) + 40
+                              + tables_bytes, OPS_PER_VOL_MOVE * moves))
+        if timed:
+            batch.update(
+                ms=call_ms(lambda: trace_vol.trace_rays_vol(*args, active=active), 10),
+                kernel_ms=kernel_ms(lambda: trace_vol.trace_rays_vol(*args, active=active),
+                                    10, "trace_rays_vol_kernel"),
+                plain_ms=t_p)
+        res["batches"].append(batch)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        ok = ok and all(equal.values()) and (b > 0 or exhausted == 0)
+    bounds = res["batches"]
+    res.update(bound_ms=sum(x["bound_ms"] for x in bounds) / len(bounds),
+               bound_by=max(bounds, key=lambda x: x["bound_ms"])["bound_by"])
+    return ok, res
+
+
+def phase_staged_vol_main(torch, pipe):
+    """The staged volume path: FRAMES frames of render_gbuffers_vol +
+    denoise_finalize at 1024² on the volume_fast pipeline's own volume and
+    tables (``apps.profile.staged_frame``: the uniforms as draw_frame fills
+    them, at the pipeline's last camera position, the sun moving per
+    frame).  K3s launches once per leg batch: (1 + bounces) per frame."""
+    from raytrace_tpu_torch.apps.profile import staged_frame
+    from raytrace_tpu_torch.ops import denoise, lighting, trace_vol
+    from raytrace_tpu_torch.render.camera import Camera
+
+    cam = Camera(origin=list(pipe.uniforms.origin))
+    cam.pitch = CANON["pitch"]
+    torch.cuda.synchronize()
+    trace_vol.trace_rays_vol.launches = 0
+    denoise.launch_pass.launches = 0
+    finite, exhausted = [], []
+    t0 = time.perf_counter()
+    for t in range(FRAMES):
+        frame = staged_frame(pipe, cam, CANON["sun"] + 0.01 * t)
+        finite.append(torch.isfinite(frame).all())
+        exhausted.append((pipe.gbuffers["depth"].to(torch.int32)
+                          == lighting.EXHAUSTED_DEPTH).sum())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    k3s, k2 = trace_vol.trace_rays_vol.launches, denoise.launch_pass.launches
+    res = dict(
+        frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
+        all_finite=bool(torch.stack(finite).all()),
+        exhausted_px=int(torch.stack(exhausted).sum()),
+        k3s_launches=k3s, k2_launches=k2, lr=list(pipe.uniforms.lr),
+    )
+    ok = (res["all_finite"] and res["exhausted_px"] == 0
+          and k3s == (1 + pipe.bounces) * FRAMES
+          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
+    return ok, res, cam
+
+
+def phase_staged_vs_path(torch, pipe, max_steps=4096):
+    """At the volume_fast pipeline's own volume, tables and uniforms, the
+    staged G-buffers (K3s leg by leg) against the whole-path ones (K3), at
+    max_steps 4096: depth and normal equal on every pixel, the radiometric
+    buffers within rtol 1e-5, atol 1e-6 on every pixel whose staged rays
+    all finished (the JAX package's contract between the two passes).  A
+    bounce ray K3s exhausts (43 rounds of 96 coarse steps, where a whole
+    path may take 41,600) counts as shadowed there; those pixels are
+    counted apart (``cut_px``), with how many of them differ."""
+    from raytrace_tpu_torch.ops import path_vol
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    volume, tables = pipe.world()
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    staged, batches = _k3s_batches(volume, tables, pipe.blue_noise, uniforms, W, max_steps,
+                                   pipe.bounces)
+    path = path_vol.render_gbuffers_path(volume, tables, pipe.blue_noise, uniforms, W, H,
+                                         max_steps, pipe.bounces)
+    cut = torch.zeros(H * W, dtype=torch.bool, device=pipe.device)
+    for _, _, active, hit in batches:
+        ex = hit["exhausted"] if active is None else hit["exhausted"] & active
+        cut = cut | ex.reshape(-1, H * W).any(0)
+    cut = cut.reshape(H, W)
+    res = dict(max_steps=max_steps, pixels=H * W, cut_px=int(cut.sum()), mismatch={},
+               mismatch_cut_px={}, max_abs_err={})
+    for k in ("depth", "normal"):
+        res["mismatch"][k] = int((staged[k].to(torch.int32) != path[k].to(torch.int32)).sum())
+    for k in ("lighting", "albedo", "emission", "fog"):
+        bad = ~torch.isclose(staged[k], path[k], rtol=1e-5, atol=1e-6).all(-1)
+        res["mismatch"][k] = int((bad & ~cut).sum())
+        res["mismatch_cut_px"][k] = int((bad & cut).sum())
+        res["max_abs_err"][k] = float((staged[k] - path[k])[~cut].abs().max())
+    res["sky_px"] = int((staged["depth"].to(torch.int32) == 0xFFFF).sum())
+    return all(v == 0 for v in res["mismatch"].values()), res
+
+
 def _blue_noise(torch, dev):
     from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32
 
@@ -402,6 +547,27 @@ def phase_golden(rt, torch, dev):
     want = np.load(ROOT / "tests" / "goldens" / "terrain_frame_64.npz")["frame"]
     stats = compare_images(frame.cpu().numpy(), want)
     return bool(stats["ok"]), stats
+
+
+def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
+    """A fused frame from bare region tables (``build_hf_tables``, no column
+    table: render_gbuffers_fused builds it for the call) against one from
+    the same tables with the column table: frame and G-buffers bit-equal,
+    and K1 launched for each."""
+    from raytrace_tpu_torch.ops import lighting
+    from raytrace_tpu_torch.render.pipeline import render_frame
+    from raytrace_tpu_torch.testing.measure import same
+
+    bare = {k: v for k, v in tables.items() if k != "hcol"}
+    launches = lighting.march_paths.launches
+    got, gb_got = render_frame(bare, blue, packed, size, size)
+    want, gb_want = render_frame(tables, blue, packed, size, size)
+    wide = lambda t: t.to(torch.int32) if t.dtype == torch.uint16 else t  # no uint16 ==
+    res = dict(size=size, k1_launches=lighting.march_paths.launches - launches,
+               frame_equal=same(got, want),
+               gbuffers_equal={k: same(wide(gb_got[k]), wide(gb_want[k])) for k in gb_want})
+    ok = res["frame_equal"] and all(res["gbuffers_equal"].values()) and res["k1_launches"] == 2
+    return ok, res
 
 
 def phase_main(rt, torch):
@@ -505,6 +671,20 @@ def phase_volume_times(torch, dev, pipe):
         k3_plain_ms=call_ms(lambda: trace_vol.march_paths_vol_plain(
             *inputs["march"], pipe.max_steps, legs), 1),
     )
+
+
+def phase_staged_vol_times(torch, pipe, cam, k3s_res):
+    """K3s per batch (the kernel alone, the wrapper's call and the plain
+    version, from ``k3s_res``) and the device ms of the whole staged volume
+    frame (``apps.profile.staged_frame``) at the pipeline's view."""
+    from raytrace_tpu_torch.apps.profile import staged_frame
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    batches = k3s_res["batches"]
+    return dict(k3s_kernel_ms=[b["kernel_ms"] for b in batches],
+                k3s_ms=[b["ms"] for b in batches],
+                k3s_plain_ms=[b["plain_ms"] for b in batches],
+                staged_vol_frame_ms=call_ms(lambda: staged_frame(pipe, cam, CANON["sun"]), 10))
 
 
 def _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces):
@@ -759,6 +939,7 @@ def main() -> int:
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
                                and frame("trace_hf_kernel")[1:] == [0, 0]
+                               and frame("trace_rays_vol_kernel")[1:] == [0, 0]
                                and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
@@ -775,6 +956,8 @@ def main() -> int:
         report(f"k1_vs_plain_b{bounces}", ok, res)
     ok, res = phase_golden(rt, torch, dev)
     report("golden_64", ok, res)
+    ok, res = phase_fused_bare_tables(torch, canon_tables, blue, canon)
+    report("fused_bare_tables", ok, res)
     ok, main_res, pipe = phase_main(rt, torch)
     report("main_path", ok, main_res)
     # K1 once more at the main path's own size, region and uniforms.
@@ -801,6 +984,9 @@ def main() -> int:
         for bounces in (0, 1, 2):
             ok, res = phase_k3(torch, volume, tables, blue, packed, 256, 2048, bounces)
             report(f"k3_vs_plain_{scene}_b{bounces}", ok, res)
+        for bounces in (0, 1, 2):
+            ok, res = phase_k3s(torch, volume, tables, blue, packed, 256, 2048, bounces)
+            report(f"k3s_vs_plain_{scene}_b{bounces}", ok, res)
     ok, vol_res, vpipe = phase_volume_main(rt, torch)
     report("volume_main", ok, vol_res)
     # K3 once more at the volume path's own size, volume, tables and uniforms.
@@ -810,6 +996,17 @@ def main() -> int:
         vpipe.bounces)
     report("k3_vs_plain_main", ok, k3_res)
     times.update(phase_volume_times(torch, dev, vpipe))
+    # The staged volume path on the same pipeline: K3s on its three 1024²
+    # batches, 20 staged frames, and the staged G-buffers against K3's.
+    vpacked = torch.from_numpy(vpipe.uniforms.packed()).to(dev)
+    ok, k3s_res = phase_k3s(torch, *vpipe.world(), vpipe.blue_noise, vpacked, W,
+                            vpipe.max_steps, vpipe.bounces, timed=True)
+    report("k3s_vs_plain_main", ok, k3s_res)
+    ok, staged_res, cam = phase_staged_vol_main(torch, vpipe)
+    report("staged_vol_main", ok, staged_res)
+    ok, res = phase_staged_vs_path(torch, vpipe)
+    report("staged_vs_path_main", ok, res)
+    times.update(phase_staged_vol_times(torch, vpipe, cam, k3s_res))
     ok, res = phase_volume_edit(torch, vpipe)
     report("volume_edit", ok, res)
     del vpipe
@@ -847,7 +1044,7 @@ def main() -> int:
 
     # Each ms is the kernel alone (torch.profiler), without the wrapper's
     # glue: K2's the mean of the main path's chain's passes (its chain call
-    # beside it), K4's the mean over a frame's batches.
+    # beside it), K3s's and K4's the mean over a frame's batches.
     passes = len(denoise.DENOISE_SIZES)
     # No single PyTorch call computes any of these functions (an edge-aware
     # a-trous pass or a voxel march), so library_ms is null.
@@ -873,6 +1070,13 @@ def main() -> int:
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
              ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res)),
+        dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
+             source="raytrace_tpu_torch/csrc/trace_rays_vol.cu",
+             replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",
+             launches=staged_res["k3s_launches"], max_abs_err=k3s_res["max_abs_err"],
+             ms=sum(times["k3s_kernel_ms"]) / len(times["k3s_kernel_ms"]),
+             plain_ms=sum(times["k3s_plain_ms"]) / len(times["k3s_plain_ms"]),
+             **bound(k3s_res)),
         dict(name="K4 trace_rays_hf (staged heightfield tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_hf.cu",
              replaces="raytrace_tpu/ops/trace_pallas.py:208",

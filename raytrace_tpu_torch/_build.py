@@ -10,7 +10,7 @@ file, which ``.gitignore`` lists.  Nothing includes PyTorch's headers, so a
 build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
-plain PyTorch versions compute them, so the marches K1, K3 and K4 agree
+plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
 with their plain versions step for step, and K2's sums round as the plain
 pass's.
 """
@@ -50,6 +50,9 @@ _SIGNATURES = {
     # origin, direction, active, iscal, hsub, h3, cA, cB, cC, cD, pos,
     # normal, air, packed, n, budget, seed, next, census, stream
     "rt_trace_hf": [_P] * 14 + [_I] * 3 + [_P] * 3,
+    # origin, direction, active, iscal, any8, all8, any_hi, detail, pos,
+    # normal, air, done, n, rounds, steps, stream
+    "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P],
 }
 
 _lib = None

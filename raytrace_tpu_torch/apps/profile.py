@@ -12,8 +12,13 @@ prints for the steady frame:
   activities per frame, and the idle share ``1 - device / train``;
 - the device activities that take the most time.
 
+``--tracer volume_staged`` profiles the staged volume frame instead:
+``render_gbuffers_vol`` (K3s leg by leg) and the denoise chain on the
+volume_fast pipeline's volume and tables, uniforms filled as draw_frame
+fills them.
+
 Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
-[--tracer fused|hf|volume|volume_fast]   (needs a CUDA GPU)
+[--tracer fused|hf|volume|volume_fast|volume_staged]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -24,36 +29,54 @@ import time
 
 import torch
 
+from ..ops.denoise import denoise_finalize
+from ..ops.trace_vol import render_gbuffers_vol
 from ..render.camera import Camera
-from ..render.pipeline import TRACERS, Pipeline
+from ..render.pipeline import TRACERS, Pipeline, unpack_uniforms
 
 PROFILED_FRAMES = 10
 TOP = 12  # device activities listed
+STAGED = "volume_staged"  # the staged volume frame on the volume_fast pipeline
+
+
+def staged_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tensor:
+    """One staged volume frame: the uniforms as draw_frame fills them, then
+    render_gbuffers_vol and the denoise chain on the pipeline's world."""
+    pipe.fill_uniforms(camera, sun_angle)
+    packed = torch.from_numpy(pipe.uniforms.packed()).pin_memory().to(
+        pipe.device, non_blocking=True)
+    volume, tables = pipe.world()
+    pipe.gbuffers = render_gbuffers_vol(volume, tables, pipe.blue_noise,
+                                        unpack_uniforms(packed), pipe.width, pipe.height,
+                                        pipe.max_steps, pipe.bounces)
+    return denoise_finalize(pipe.gbuffers, pipe.blue_noise)
 
 
 def run(frames: int = 30, width: int = 1024, height: int = 1024,
         tracer: str = "fused") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA GPU")
-    pipe = Pipeline(width=width, height=height, tracer=tracer)
+    staged = tracer == STAGED
+    pipe = Pipeline(width=width, height=height, tracer="volume_fast" if staged else tracer)
+    draw = (lambda c, a: staged_frame(pipe, c, a)) if staged else pipe.draw_frame
     cam = Camera(origin=[-30.0, -100.0, 60.0])
     cam.pitch = -0.3
     pipe.teleport(cam)
     sun = lambda i: 0.6 + 0.01 * i
     # Warm-up: kernel build and load, tables, allocator.
     for i in range(3):
-        pipe.draw_frame(cam, sun(i))
+        draw(cam, sun(i))
     torch.cuda.synchronize()
 
     synced = []
     for i in range(frames):
         t0 = time.perf_counter()
-        pipe.draw_frame(cam, sun(i))
+        draw(cam, sun(i))
         torch.cuda.synchronize()
         synced.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     for i in range(frames):
-        pipe.draw_frame(cam, sun(i))
+        draw(cam, sun(i))
     t_enqueued = time.perf_counter()
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3 / frames
@@ -63,7 +86,7 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for i in range(PROFILED_FRAMES):
-            pipe.draw_frame(cam, sun(i))
+            draw(cam, sun(i))
         torch.cuda.synchronize()
     per_name: dict[str, list] = {}
     for e in prof.events():
@@ -96,7 +119,7 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=30)
-    ap.add_argument("--tracer", choices=TRACERS, default="fused")
+    ap.add_argument("--tracer", choices=TRACERS + (STAGED,), default="fused")
     args = ap.parse_args()
     run(args.frames, tracer=args.tracer)
 

@@ -32,20 +32,32 @@ def length(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(n2.to(torch.float64)).to(torch.float32)
 
 
-def hit_result(origin, pos, normal, air, packed, exhausted) -> dict:
+def flat_rays(origin, direction, active):
+    """(N, 3) f32 origin and direction and (N,) bool active (or None) of a
+    batch of rays of any leading shape, contiguous, as the kernels take
+    them."""
+    o = origin.reshape(-1, 3).to(torch.float32).contiguous()
+    d = direction.reshape(-1, 3).to(torch.float32).contiguous()
+    a = None if active is None else active.reshape(-1).to(torch.bool).contiguous()
+    return o, d, a
+
+
+def hit_result(origin, pos, normal, air, packed, exhausted, nudge=None) -> dict:
     """A tracer's hit dict (``trace_jax.py:144-165``, ``trace_pallas.py:682-706``).
 
     ``pos`` (..., 3) is where each ray stopped, ``normal`` its entry-face
     id, ``air`` whether it reached sky, ``packed`` the packed material of
     its hit voxel (0 for none).  Returns ``position`` nudged 0.001 off the
-    face, ``normal``, ``air``, ``albedo`` (..., 3), ``distance`` (before the
-    nudge) and ``exhausted``.
+    face (only where ``nudge`` is True, when it is given), ``normal``,
+    ``air``, ``albedo`` (..., 3), ``distance`` (before the nudge) and
+    ``exhausted``.
     """
     nx, ny, nz = shading.face_normal_vector(normal)
     albedo = torch.stack([fdiv(((packed >> sh) & 0x7F).to(torch.float32), 127.0)
                           for sh in (14, 7, 0)], -1)
+    step = 0.001 if nudge is None else torch.where(nudge, 0.001, 0.0)[..., None]
     return {
-        "position": pos + 0.001 * torch.stack([nx, ny, nz], -1),
+        "position": pos + step * torch.stack([nx, ny, nz], -1),
         "normal": normal,
         "air": air,
         "albedo": albedo,

@@ -44,7 +44,7 @@ from .._f32 import fdiv
 from ..world.generate import material_band
 from ..world.noise import hash3_u32
 from . import shading
-from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal
+from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal, with_column_heights
 from .rays import camera_rays, frame_noise, normalize
 
 _HALF = ROOT_BLOCK_SIZE // 2
@@ -389,8 +389,10 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           bounces: int = 2) -> dict:
     """G-buffers of one frame: march every pixel's path, then shade.
 
-    ``tables`` from ``build_hf_tables`` (on the card with the column table:
-    ``hf_tables.with_column_heights``); ``blue_noise`` (nh, nw, 4) f32 whose
+    ``tables`` from ``build_hf_tables``, with or without the column table K1
+    reads (``hf_tables.with_column_heights``): bare tables get it built here
+    for this call (``Pipeline.tables()`` builds it once per region, so its
+    frames build nothing); ``blue_noise`` (nh, nw, 4) f32 whose
     values are exact k/255 (the march traces from the u8-requantized noise,
     the shade from the float texture); ``uniforms`` holds tensors origin,
     forward, up, right (3,) f32, sun_angle () f32, seed () int32 and
@@ -398,6 +400,8 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
     fog (H, W, 3) f32, depth (H, W) uint16 and normal (H, W) uint8.
     """
     check_material_codes()
+    if "hcol" not in tables:
+        tables = with_column_heights(tables, seed)
     frame = march_inputs(tables, blue_noise, uniforms, width, height)
     meta, pdist = march_paths(*frame["march"], max_steps, seed, 1 + 2 * bounces)
     return shade(meta, pdist, **frame["shade"])

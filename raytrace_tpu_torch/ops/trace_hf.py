@@ -40,7 +40,7 @@ from ..constants import MAX_TRACE_STEPS, ROOT_BLOCK_SIZE
 from ..world.generate import PACKED_GRASS, PACKED_ROCK, PACKED_SNOW, material_band
 from ..world.noise import hash3_u32
 from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal
-from .integrate import hit_result, integrate_gbuffers
+from .integrate import flat_rays, hit_result, integrate_gbuffers
 from .rays import normalize
 
 _HALF = ROOT_BLOCK_SIZE // 2
@@ -168,13 +168,6 @@ def _step(s: dict, live, tables, r0x: int, r0y: int, lrf, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _flat(origin, direction, active):
-    o = origin.reshape(-1, 3).to(torch.float32).contiguous()
-    d = direction.reshape(-1, 3).to(torch.float32).contiguous()
-    a = None if active is None else active.reshape(-1).to(torch.bool).contiguous()
-    return o, d, a
-
-
 def _result(origin, pos, normal, air, packed) -> dict:
     shape = origin.shape[:-1]
     air = air.reshape(shape) != 0
@@ -189,7 +182,7 @@ def trace_rays_hf_plain(tables: dict, origin, direction, lr,
     """``trace_rays_hf`` through the plain march, on any device.  The hit
     dict also carries ``work`` (..., 2): each ray's moves and column-height
     evaluations."""
-    o, d, a = _flat(origin, direction, active)
+    o, d, a = flat_rays(origin, direction, active)
     *out, work = march_rays_hf_plain(o, d, a, march_iscal(tables, lr), tables,
                                      hf_budget(max_steps, caps), seed)
     res = _result(origin, *out)
@@ -219,7 +212,7 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
         raise RuntimeError(f"trace_rays_hf: no kernel for device {origin.device}")
     from .._build import check_launch, check_tensor, kernels
 
-    o, d, a = _flat(origin, direction, active)
+    o, d, a = flat_rays(origin, direction, active)
     n = o.shape[0]
     dev = o.device
     iscal = march_iscal(tables, lr)

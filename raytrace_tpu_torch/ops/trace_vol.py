@@ -1,18 +1,28 @@
-"""Kernel K3 and its plain version: the volume_fast light path of a pixel.
+"""Kernels K3 and K3s and their plain versions: the volume_fast light path
+of a pixel, and the staged volume tracer of independent rays.
 
-Port of the per-ray work of ``raytrace_tpu/ops/path_vol.py``'s round loop:
-the coarse brick march ``_make_vol_kernel``
-(``raytrace_tpu/ops/trace_vol_pallas.py:254-429``), the in-brick voxel march
-``resolve_mixed`` (``:437-579``) and the leg transition ``_transition``
-(``path_vol.py:161-302``).  The JAX package alternates a Pallas kernel pass
-and an XLA resolve in rounds over the whole frame and runs the transitions
-between rounds; here each pixel walks its own path in one loop, written for
-Hopper in ``csrc/trace_vol.cu`` (persistent lanes that each walk path after
-path, one move per loop iteration) and below in plain PyTorch
-(``march_paths_vol_plain``, one loop iteration per step of every live
-path).
+Port of the per-ray work of ``raytrace_tpu/ops/trace_vol_pallas.py``: the
+coarse brick march ``_make_vol_kernel`` (``:254-429``) and the in-brick
+voxel march ``resolve_mixed`` (``:437-579``), in two forms.  The code the
+two kernels share is ``csrc/vol_march.cuh``.
 
-One step of a path:
+- **K3** walks every pixel's whole path, the work of
+  ``raytrace_tpu/ops/path_vol.py``'s round loop with its leg transition
+  ``_transition`` (``path_vol.py:161-302``).  The JAX package alternates a
+  Pallas kernel pass and an XLA resolve in rounds over the whole frame and
+  runs the transitions between rounds; here each pixel walks its own path
+  in one loop, written for Hopper in ``csrc/trace_vol.cu`` (persistent
+  lanes that each walk path after path, one move per loop iteration) and
+  below in plain PyTorch (``march_paths_vol_plain``, one loop iteration per
+  step of every live path).
+- **K3s** traces independent rays, the work of ``trace_rays_vol``
+  (``trace_vol_pallas.py:799-1200``, its plain round loop ``:924-1006``):
+  in ``csrc/trace_rays_vol.cu`` one thread per ray runs the rounds, and
+  ``march_rays_vol_plain`` below runs one coarse step of every live ray
+  per loop iteration.  ``render_gbuffers_vol`` is the staged G-buffer pass
+  built on it (``:1210-1246``).
+
+One step of a ray:
   1. coarse step: a ray out of the window, or past the occupancy bounds
      and not moving back toward them, completes as air; in an all-solid
      brick it hits; entering a mixed brick it parks; otherwise it moves to
@@ -20,12 +30,13 @@ One step of a path:
      completes as air if that leaves the window;
   2. a parked ray marches voxel by voxel through its brick's 16-word
      detail row (at most 23 crossings): a solid voxel is a hit, leaving the
-     window is air, leaving the brick resumes the coarse march;
-  3. a completed ray runs the leg transition: primary -> sun1 -> dif1 ->
-     sun2 -> dif2, capped at ``legs`` rays, new legs starting from the
+     window is air, leaving the brick (or running out of crossings)
+     resumes the coarse march;
+  3. (K3) a completed ray runs the leg transition: primary -> sun1 -> dif1
+     -> sun2 -> dif2, capped at ``legs`` rays, new legs starting from the
      nudged hit with entry normal 0.
 
-Budget: each path may take ``path_budget(max_steps, legs)`` =
+K3's budget: each path may take ``path_budget(max_steps, legs)`` =
 ``2 * legs * ceil(max_steps / 416) * 416`` coarse steps and as many brick
 resolves; it stops where either runs out.  The JAX package gives the frame
 ``legs * ceil(max_steps / 416)`` rounds of up to 416 coarse steps and one
@@ -33,6 +44,13 @@ resolve each, then a safety drain of as many rounds again, so both give a
 path at least that many steps; the marches are memoryless in position and
 direction, so every path that ends within both budgets ends the same way.
 A path cut in its primary leg is the exhausted (pink) pixel of the shade.
+
+K3s's budget is JAX's plain round loop, per ray: ``rounds`` rounds
+(default ``max(1, ceil(max_steps / cap))``), each of up to
+``round_steps(cap) = 2 * ceil(cap / 2)`` coarse steps (the kernel runs two
+steps per test of its step counter) that end early where the ray parks,
+hits or goes to air; a parked ray then gets one resolve.  A ray still live
+after ``rounds`` rounds is exhausted.
 
 Path meta word (int32), as ``path_vol.py:80-95`` without the transient low
 bits (the per-ray status and entry normal stay in registers):
@@ -50,9 +68,12 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import ROOT_BLOCK_SIZE
+from ..constants import MAX_TRACE_STEPS, ROOT_BLOCK_SIZE
 from . import shading
+from .integrate import flat_rays, hit_result, integrate_gbuffers
 from .rays import normalize
+from .vol_tables import occupancy_world_bounds
+from .volume import MATERIAL_MASK
 
 _HALF = ROOT_BLOCK_SIZE // 2
 _N = ROOT_BLOCK_SIZE
@@ -66,7 +87,9 @@ SKY_SHIFT = 15  # bit 15 + leg: that leg's ray reached sky
 MAX_CROSSINGS = 23  # voxel crossings of one brick resolve
 ROUND_CAP = 416  # coarse steps per JAX round (path_vol.DEFAULT_CAP)
 INV_WIDTH = 12  # per-pixel invariants: sd1, sp1, sd2, sp2 (xyz each)
+RAYS_CAP = 96  # K3s: coarse steps per round (trace_rays_vol's cap)
 _EPS = 1e-4
+_BIG = 1 << 30  # escape=False bounds: never reached in the window
 
 
 def path_budget(max_steps: int, legs: int) -> int:
@@ -80,13 +103,14 @@ def path_budget(max_steps: int, legs: int) -> int:
 
 
 class _Ctx:
-    """Per-launch constants of the plain march."""
+    """Per-launch constants of the plain marches (K3's also read the camera
+    origin ``fscal`` and the path's ``legs``)."""
 
-    def __init__(self, iscal, fscal, tables, legs):
+    def __init__(self, iscal, tables, fscal=None, legs=0):
         iv = iscal.tolist()
         self.lr = [float(v) for v in iv[0:3]]
         self.bounds = [float(v) for v in iv[3:9]]
-        self.origin = fscal[:3].tolist()
+        self.origin = None if fscal is None else fscal[:3].tolist()
         self.any8 = tables["any8"].reshape(-1)
         self.all8 = tables["all8"].reshape(-1)
         self.hi = tables["any_hi"].reshape(-1)
@@ -293,7 +317,7 @@ def march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
     bricks, the work K3 does for it.  Finished and halted lanes are
     compacted away every 16 iterations (a speed device only).
     """
-    c = _Ctx(iscal, fscal, tables, legs)
+    c = _Ctx(iscal, tables, fscal, legs)
     n = origin.shape[0]
     dev = origin.device
     budget = path_budget(max_steps, legs)
@@ -385,3 +409,218 @@ def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
 
 
 march_paths_vol.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3s: the staged tracer of independent rays
+# ---------------------------------------------------------------------------
+
+
+def rays_vol_rounds(max_steps: int, cap: int = RAYS_CAP) -> int:
+    """K3s's default rounds per ray (``trace_vol_pallas.py:876-877``)."""
+    return max(1, -(-max_steps // cap))
+
+
+def round_steps(cap: int) -> int:
+    """Coarse steps in one round: the Pallas kernel tests its step counter
+    against ``cap`` once every two steps (``unroll=2``, ``:402-411``)."""
+    return 2 * -(-cap // 2)
+
+
+def rays_vol_iscal(tables: dict, lr: torch.Tensor, escape: bool = True) -> torch.Tensor:
+    """K3s's (10,) int32 scalars: lr xyz, the escape bounds xmin xmax ymin
+    ymax zmin zmax (the occupancy bounds, or +-2^30 with ``escape`` False,
+    ``:907-914``), pad."""
+    lri = lr.to(torch.int32)
+    if escape:
+        bounds = occupancy_world_bounds(tables["any8b"], lri)
+    else:
+        bounds = torch.tensor([-_BIG, _BIG] * 3, dtype=torch.int32, device=lri.device)
+    return torch.cat([lri, bounds, torch.zeros(1, dtype=torch.int32, device=lri.device)])
+
+
+def march_rays_vol_plain(origin, direction, active, iscal, tables, rounds: int,
+                         cap: int = RAYS_CAP):
+    """K3s's plain PyTorch version: one coarse step of every live ray per
+    loop iteration, with the resolve of the rays that park in it.
+
+    origin, direction: (N, 3) f32 (directions need not be unit); active:
+    (N,) bool or None (all traced); iscal: (10,) int32 from
+    ``rays_vol_iscal``; tables from ``build_vol_tables``.  A ray gets
+    ``rounds`` rounds of up to ``round_steps(cap)`` coarse steps, a round
+    ending early where it parks (then one resolve), hits or goes to air.
+    Returns ``(position (N, 3) f32 before any nudge, normal (N,) int32,
+    air (N,) bool, done (N,) bool, moves (N,) int32)``: a ray not done is
+    exhausted and keeps its resume position and entry normal; an inactive
+    ray is born done at its origin with normal 0 (``:901-904``); ``moves``
+    counts each ray's coarse moves and voxel crossings, the work K3s does
+    for it.  Finished rays are compacted away every 16 iterations (a speed
+    device only).
+    """
+    c = _Ctx(iscal, tables)
+    n = origin.shape[0]
+    dev = origin.device
+    steps = round_steps(cap)
+    pos = origin.clone()
+    normal = torch.zeros(n, dtype=torch.int32, device=dev)
+    air = torch.zeros(n, dtype=torch.bool, device=dev)
+    traced = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
+              else active.to(torch.bool))
+    done = ~traced
+    moves = torch.zeros(n, dtype=torch.int32, device=dev)
+    idx = torch.nonzero(traced)[:, 0]
+    v = normalize(direction[idx, 0], direction[idx, 1], direction[idx, 2])
+    zi = torch.zeros(idx.shape[0], dtype=torch.int32, device=dev)
+    # status: 0 live, DONE hit, DONE|AIR air; k: steps in the round; r: rounds spent
+    s = dict(idx=idx, px=origin[idx, 0], py=origin[idx, 1], pz=origin[idx, 2],
+             vx=v[0], vy=v[1], vz=v[2], normal=zi, moves=zi, status=zi, k=zi, r=zi)
+    s = {k: t.clone() for k, t in s.items()}
+
+    def flush(s, sel):
+        j = s["idx"][sel]
+        pos[j] = torch.stack([s["px"][sel], s["py"][sel], s["pz"][sel]], -1)
+        normal[j] = s["normal"][sel]
+        air[j] = (s["status"][sel] & AIR) != 0
+        done[j] = (s["status"][sel] & DONE) != 0
+        moves[j] = s["moves"][sel]
+
+    i = 0
+    while True:
+        live = ((s["status"] & DONE) == 0) & (s["r"] < rounds)
+        if i % 16 == 0:
+            flush(s, ~live)
+            if not bool(live.any()):
+                return pos, normal, air, done, moves
+            s = {k: t[live] for k, t in s.items()}
+            live = live[live]
+        i += 1
+        status = _coarse(s, c, live)
+        parked = status == PARKED
+        ridx = torch.nonzero(parked)[:, 0]
+        if ridx.numel():
+            status[ridx] = _resolve(s, c, ridx)
+        s["k"] = s["k"] + live.to(torch.int32)
+        end = live & (status == 0) & (parked | (s["k"] == steps))
+        s["r"] = s["r"] + end.to(torch.int32)
+        s["k"] = torch.where(end, 0, s["k"])
+        s["status"] = torch.where(live, status, s["status"])
+
+
+def _rays_result(volume, origin, pos, normal, air, done) -> dict:
+    """JAX's hit dict (``:1140-1200``) from the march's (N,) outputs: the
+    packed material of each hit voxel, ``floor(p + 128) mod 256`` of the
+    position before the nudge, and the 0.001 nudge on hits only (air and
+    exhausted rays keep their raw resume position)."""
+    shape = origin.shape[:-1]
+    pos = pos.reshape(origin.shape)
+    normal, air, done = (t.reshape(shape) for t in (normal, air, done))
+    hit = done & ~air
+    t = torch.remainder(torch.floor(pos + float(_HALF)).to(torch.int32), _N)
+    lin = (t[..., 2] * _N + t[..., 1]) * _N + t[..., 0]
+    packed = torch.where(hit, volume[torch.where(hit, lin, 0).long()] & MATERIAL_MASK, 0)
+    return hit_result(origin, pos, normal, air, packed, ~done, nudge=hit)
+
+
+def trace_rays_vol_plain(tables: dict, volume, origin, direction, lr,
+                         max_steps: int = MAX_TRACE_STEPS, rounds: int | None = None,
+                         cap: int = RAYS_CAP, active=None, escape: bool = True) -> dict:
+    """``trace_rays_vol`` through the plain march, on any device.  The hit
+    dict also carries ``moves`` (...,): each ray's coarse moves and voxel
+    crossings."""
+    o, d, a = flat_rays(origin, direction, active)
+    rounds = rays_vol_rounds(max_steps, cap) if rounds is None else rounds
+    *out, moves = march_rays_vol_plain(o, d, a, rays_vol_iscal(tables, lr, escape),
+                                       tables, rounds, cap)
+    res = _rays_result(volume, origin, *out)
+    res["moves"] = moves.reshape(origin.shape[:-1])
+    return res
+
+
+def trace_rays_vol(tables: dict, volume, origin, direction, lr,
+                   max_steps: int = MAX_TRACE_STEPS, rounds: int | None = None,
+                   cap: int = RAYS_CAP, active=None, escape: bool = True) -> dict:
+    """Trace independent rays through the resident volume (the JAX
+    package's ``trace_rays_vol``, a drop-in for the exact DDA).
+
+    ``tables`` from ``build_vol_tables`` for ``volume`` (fused (256^3,)
+    int32); origin, direction (..., 3) f32 (directions need not be unit);
+    ``lr`` (3,) the region centre; ``active`` (...,) bool or None.  Each
+    ray gets ``rounds`` rounds (default ``rays_vol_rounds(max_steps,
+    cap)``) of up to ``round_steps(cap)`` coarse steps and one brick
+    resolve.  ``escape``: complete rays as air the moment they clear the
+    occupancy bounds moving away (False: bounds never reached).  Returns
+    the hit dict: ``position`` (nudged 0.001 off the face for hits only),
+    ``normal``, ``air``, ``albedo``, ``distance`` (before the nudge) and
+    ``exhausted``.  Inactive rays are born done: they come back as hits at
+    their origin with its voxel's material and ``exhausted`` False (the
+    caller masks them).
+
+    CPU tensors take the plain march (``trace_rays_vol_plain``); CUDA
+    tensors launch K3s (``csrc/trace_rays_vol.cu``) on the current stream,
+    and ``trace_rays_vol.launches`` counts those launches.  Any other
+    device raises.
+
+    Every ray equals JAX's plain round loop (``cascade=False``).  JAX turns
+    on its straggler cascade by itself when ``rounds >= 12`` and the batch
+    spans at least 16 tiles (32768 rays, ``:1008-1014``); the cascade
+    equals the plain loop on every ray that finishes (``:841-846``), so the
+    port equals it there too, and may report a later resume position for a
+    ray the cascade exhausts.  The TPU's tiles (``tile_rows``), padding
+    rays, lane-shuffle lookups, round ``while_loop`` with its early exit,
+    ``interpret`` and ``cascade`` have no counterpart, and the one-pass
+    ``resolve_mixed_parallel`` (``resolve=``) is not ported: the serial
+    resolve is JAX's default.
+    """
+    if origin.device.type == "cpu":
+        return trace_rays_vol_plain(tables, volume, origin, direction, lr, max_steps,
+                                    rounds, cap, active, escape)
+    if origin.device.type != "cuda":
+        raise RuntimeError(f"trace_rays_vol: no kernel for device {origin.device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    o, d, a = flat_rays(origin, direction, active)
+    n = o.shape[0]
+    dev = o.device
+    rounds = rays_vol_rounds(max_steps, cap) if rounds is None else rounds
+    iscal = rays_vol_iscal(tables, lr, escape)
+    keys = ("any8", "all8", "any_hi", "detail")
+    ins = [o, d] + ([] if a is None else [a]) + [iscal] + [tables[k] for k in keys]
+    want = [(torch.float32, (n, 3))] * 2 + ([] if a is None else [(torch.bool, (n,))]) \
+        + [(torch.int32, (10,)), (torch.int32, (8, 128)), (torch.int32, (8, 128)),
+           (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
+    for t, (dtype, shape) in zip(ins, want):
+        check_tensor("trace_rays_vol", t, dtype, shape, dev)
+    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty(n, dtype=torch.int32, device=dev)
+    air, done = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_trace_rays_vol(
+        o.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(),
+        iscal.data_ptr(), *(tables[k].data_ptr() for k in keys),
+        pos.data_ptr(), normal.data_ptr(), air.data_ptr(), done.data_ptr(),
+        n, rounds, round_steps(cap), stream,
+    )
+    check_launch("rt_trace_rays_vol", err)
+    trace_rays_vol.launches += 1
+    return _rays_result(volume, origin, pos, normal, air, done)
+
+
+trace_rays_vol.launches = 0
+
+
+def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Tensor,
+                        uniforms: dict, width: int, height: int,
+                        max_steps: int = MAX_TRACE_STEPS, bounces: int = 2,
+                        escape: bool = True) -> dict:
+    """G-buffers of one frame through the staged volume tracer:
+    ``integrate.integrate_gbuffers`` with ``trace_rays_vol``
+    (``trace_vol_pallas.py:1210-1246``), one K3s launch for the primaries
+    and one for each bounce's sun + diffuse pair.  ``volume`` and ``tables``
+    as for ``trace_rays_vol``, the region centre ``uniforms["lr"]``;
+    returns the six G-buffers of ``integrate_gbuffers``."""
+
+    def trace(o, d, active=None):
+        return trace_rays_vol(tables, volume, o, d, uniforms["lr"], max_steps,
+                              active=active, escape=escape)
+
+    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces)

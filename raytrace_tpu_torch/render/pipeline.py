@@ -24,6 +24,7 @@ through their plain versions.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -130,7 +131,7 @@ class Pipeline:
         bounces: int = 2,
         device="cuda",
         preloaded_volume=None,
-        validate: bool = False,
+        validate: bool | None = None,
     ):
         """``tracer``: "fused" (the whole-path heightfield march of the
         generated world), "hf" (the same world traced leg by leg by the
@@ -146,7 +147,9 @@ class Pipeline:
         ``validate``: after every frame, report non-finite frame or
         lighting values and the pixels whose primary ray exhausted its
         budget (the JAX package's debug-build checks); it waits for each
-        frame, so it is for debugging only."""
+        frame, so it is for debugging only.  None reads the
+        ``RAYTRACE_TPU_VALIDATE`` environment variable ("1" turns it on), as
+        the JAX package does."""
         if tracer is None:
             tracer = "volume_fast" if preloaded_volume is not None else "fused"
         if tracer not in TRACERS:
@@ -164,6 +167,8 @@ class Pipeline:
         self.seed = seed
         self.tracer = tracer
         self.bounces = bounces
+        if validate is None:
+            validate = bool(int(os.environ.get("RAYTRACE_TPU_VALIDATE", "0")))
         self.validate = validate
         self.uniforms = FrameUniforms()
         self.streamer = TerrainStreamer(seed=seed, device=self.device)

@@ -27,7 +27,7 @@ def test_ctypes_signatures_match_c_prototypes():
     protos = _c_prototypes()
     assert set(protos) == set(_build._SIGNATURES)
     assert {"rt_march_paths", "rt_denoise_pass", "rt_march_paths_vol",
-            "rt_trace_hf"} <= set(protos)
+            "rt_trace_hf", "rt_trace_rays_vol"} <= set(protos)
     for name, args in protos.items():
         kinds = [_build._P if "*" in a else _build._I for a in args]
         assert kinds == _build._SIGNATURES[name], name

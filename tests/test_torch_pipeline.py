@@ -216,7 +216,7 @@ def test_profile_app_needs_a_gpu():
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
-    for tracer in pipeline.TRACERS:
+    for tracer in pipeline.TRACERS + (profile.STAGED,):
         with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
             profile.run(frames=2, width=16, height=16, tracer=tracer)
 
@@ -293,6 +293,47 @@ def test_validate_reports_each_frame(capsys):
     assert not quiet.validate
     quiet.draw_frame(cam, 0.6)
     assert capsys.readouterr().out == ""
+
+
+def test_validate_defaults_to_the_environment(monkeypatch):
+    """validate=None reads RAYTRACE_TPU_VALIDATE, as the JAX pipeline does;
+    an explicit value wins."""
+    make = lambda **kw: pipeline.Pipeline(width=8, height=8, device="cpu", **kw)
+    monkeypatch.setenv("RAYTRACE_TPU_VALIDATE", "1")
+    assert make().validate is True
+    assert make(validate=False).validate is False
+    monkeypatch.setenv("RAYTRACE_TPU_VALIDATE", "0")
+    assert make().validate is False
+    monkeypatch.delenv("RAYTRACE_TPU_VALIDATE")
+    assert make().validate is False
+    assert make(validate=True).validate is True
+
+
+def test_fused_frame_takes_bare_tables(monkeypatch):
+    """render_gbuffers_fused takes build_hf_tables' dict as JAX's does: it
+    builds the column table K1 reads for the call, and the frame equals the
+    frame from tables that carry it."""
+    from raytrace_tpu_torch.ops import lighting
+    from raytrace_tpu_torch.ops.hf_tables import column_heights, with_column_heights
+
+    bare = build_hf_tables((0, 0, 0), seed=0)
+    u = pipeline.unpack_uniforms(torch.from_numpy(_canonical(pipeline.FrameUniforms).packed()))
+    bn = torch.from_numpy(get_blue_noise_f32())
+    seen = []
+    march = lighting.march_paths
+
+    def spy(*args, **kwargs):
+        seen.append(args[5])
+        return march(*args, **kwargs)
+
+    monkeypatch.setattr(lighting, "march_paths", spy)
+    got = lighting.render_gbuffers_fused(bare, bn, u, 32, 32)
+    want = lighting.render_gbuffers_fused(with_column_heights(bare, 0), bn, u, 32, 32)
+    assert "hcol" not in bare
+    assert torch.equal(seen[0]["hcol"], column_heights(bare, 0))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_pipeline_tables_carry_the_column_table():
