@@ -12,14 +12,16 @@ heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
 the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
 PyTorch).  On the volume path's own volume, tables and uniforms it also
 drives the staged volume tracer: K3s against its plain version on the three
-1024² leg batches, 20 frames of ``render_gbuffers_vol`` + denoise (K3s three
-times a frame), and the staged G-buffers against K3's whole-path ones.  It
+1024² leg batches and, at tight round budgets (rounds 1-3, caps 2 and 8), on
+the 256² batches and one 1024² pair batch, 20 frames of
+``render_gbuffers_vol`` + denoise (K3s three times a frame), and the staged
+G-buffers against K3's whole-path ones.  It
 holds the column table K1 reads equal to the plain march's heights on
 every column of each region it renders, and renders a fused frame from
 bare region tables.  It times the kernels alone
 and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
-own, the lane-use census of K1, K3 and K4 (``warp_iterations``,
+own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
 ``lane_use``), and each kernel's ptxas line and SASS instruction counts.
 It imports no JAX and nothing of the JAX package.  Any failure
 raises and the script exits non-zero; with no CUDA GPU, or outside a
@@ -46,6 +48,8 @@ VOL_DX = 1.2  # camera x step per frame on the volume path: crosses a slice
 WEIRD = dict(origin=(0.0, -80.0, 40.0), pitch=-0.4, sun=0.6)  # weird scene view
 HF_MATCH = 0.9999  # share of pixels whose hf (K4) and fused (K1) G-buffers agree
 EXACT_FRAMES = 2  # frames of the exact DDA
+# K3s's tight round budgets: (rounds, cap), where many rays exhaust.
+TIGHT = [(rounds, cap) for rounds in (1, 2, 3) for cap in (2, 8)]
 
 # The card's peaks (H100 SXM data sheet): float32 outside the tensor cores
 # and HBM3 bandwidth.  A kernel's bound is the larger of its bytes (each
@@ -357,9 +361,10 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
     primary rays, then each bounce's sun + diffuse pair with its active
     mask.  Built without FMA contraction, every output must be equal on
     every ray (NaN matching NaN), and no primary may be exhausted.  Reports
-    each batch's work (the plain version's moves) and bound; ``timed``: also
-    the kernel alone (torch.profiler, 10 calls), the wrapper's call (CUDA
-    events) and the plain version (once), per batch."""
+    each batch's work (the plain version's moves), bound and lane-use
+    census; ``timed``: also the kernel alone (torch.profiler, 10 calls), the
+    wrapper's call (CUDA events) and the plain version (once), per batch.
+    -> (ok, res, the batches: (origin, direction, active, hit dict))."""
     from raytrace_tpu_torch.ops import trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
     from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms, same
@@ -373,7 +378,8 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
     ok = True
     for b, (o, d, active, _) in enumerate(batches):
         args = (tables, volume, o, d, uniforms["lr"], max_steps)
-        got = trace_vol.trace_rays_vol(*args, active=active)
+        census = torch.zeros(1, dtype=torch.int64, device=o.device)
+        got = trace_vol.trace_rays_vol(*args, active=active, census=census)
         want, t_p = _timed_once(torch, lambda: trace_vol.trace_rays_vol_plain(
             *args, active=active))
         equal = {k: same(got[k], want[k]) for k in keys}
@@ -384,6 +390,7 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
         exhausted = int((got["exhausted"] & traced).sum())
         batch = dict(rays=n, traced=int(traced.sum()), equal=equal, moves=moves,
                      exhausted_traced=exhausted, air=int((got["air"] & traced).sum()),
+                     census=_census(torch, want["moves"], census),
                      **_bound(n * (12 + 12 + (0 if active is None else 1) + 18) + 40
                               + tables_bytes, OPS_PER_VOL_MOVE * moves))
         if timed:
@@ -398,7 +405,36 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
     bounds = res["batches"]
     res.update(bound_ms=sum(x["bound_ms"] for x in bounds) / len(bounds),
                bound_by=max(bounds, key=lambda x: x["bound_ms"])["bound_by"])
-    return ok, res
+    return ok, res, batches
+
+
+def phase_k3s_tight(torch, cases):
+    """K3s against its plain version at the TIGHT round budgets, where the
+    cut of an exhausted ray falls mid-round, mid-resolve or at a round's
+    end: every output equal on every ray (NaN matching NaN).  ``cases``:
+    label -> (volume, tables, lr, origin, direction, active).  Counts the
+    exhausted traced rays compared; fails if there are none."""
+    from raytrace_tpu_torch.ops import trace_vol
+    from raytrace_tpu_torch.testing.measure import same
+
+    keys = ("position", "normal", "air", "albedo", "distance", "exhausted")
+    res = dict(budgets=[list(b) for b in TIGHT], batches={}, exhausted_compared=0)
+    ok = True
+    for label, (volume, tables, lr, o, d, active) in cases.items():
+        traced = None if active is None else active.reshape(-1)
+        rows = []
+        for rounds, cap in TIGHT:
+            kw = dict(rounds=rounds, cap=cap, active=active)
+            got = trace_vol.trace_rays_vol(tables, volume, o, d, lr, **kw)
+            want = trace_vol.trace_rays_vol_plain(tables, volume, o, d, lr, **kw)
+            ex = want["exhausted"].reshape(-1)
+            exhausted = int((ex if traced is None else ex & traced).sum())
+            equal = all(same(got[k], want[k]) for k in keys)
+            rows.append(dict(rounds=rounds, cap=cap, equal=equal, exhausted=exhausted))
+            res["exhausted_compared"] += exhausted
+            ok = ok and equal
+        res["batches"][label] = dict(rays=o.numel() // 3, runs=rows)
+    return ok and res["exhausted_compared"] > 0, res
 
 
 def phase_staged_vol_main(torch, pipe):
@@ -905,7 +941,7 @@ def main() -> int:
     from raytrace_tpu_torch import _build
     from raytrace_tpu_torch.ops import denoise
     from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
-    from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32
+    from raytrace_tpu_torch.render.pipeline import get_blue_noise_f32, unpack_uniforms
     from raytrace_tpu_torch.testing import measure
 
     dev = torch.device("cuda:0")
@@ -932,14 +968,14 @@ def main() -> int:
     _build.kernels()
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
-    # The kernels keep their state in registers: no spills, and K1 and K3
-    # no stack.
+    # The kernels keep their state in registers: no spills, and K1, K3 and
+    # K3s no stack.
     frame = lambda k: [int(v) for v in re.findall(r"\d+", ptxas[k]["frame"] or "-")]
     k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
                                and frame("trace_hf_kernel")[1:] == [0, 0]
-                               and frame("trace_rays_vol_kernel")[1:] == [0, 0]
+                               and frame("trace_rays_vol_kernel") == [0, 0, 0]
                                and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
@@ -978,6 +1014,7 @@ def main() -> int:
     # The volume path: K3 at 256² on two scenes, then the main path.
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
 
+    tight = {}  # K3s's batches at tight budgets: label -> (volume, tables, lr, o, d, active)
     for scene, (volume, view) in _volumes(torch, dev).items():
         tables = build_vol_tables(volume)
         packed = torch.from_numpy(_canonical_uniforms(rt, view, seed=7).packed()).to(dev)
@@ -985,8 +1022,12 @@ def main() -> int:
             ok, res = phase_k3(torch, volume, tables, blue, packed, 256, 2048, bounces)
             report(f"k3_vs_plain_{scene}_b{bounces}", ok, res)
         for bounces in (0, 1, 2):
-            ok, res = phase_k3s(torch, volume, tables, blue, packed, 256, 2048, bounces)
+            ok, res, batches = phase_k3s(torch, volume, tables, blue, packed, 256, 2048,
+                                         bounces)
             report(f"k3s_vs_plain_{scene}_b{bounces}", ok, res)
+        lr = unpack_uniforms(packed)["lr"]
+        for b, (o, d, active, _) in enumerate(batches):
+            tight[f"{scene}_256_b{b}"] = (volume, tables, lr, o, d, active)
     ok, vol_res, vpipe = phase_volume_main(rt, torch)
     report("volume_main", ok, vol_res)
     # K3 once more at the volume path's own size, volume, tables and uniforms.
@@ -999,9 +1040,15 @@ def main() -> int:
     # The staged volume path on the same pipeline: K3s on its three 1024²
     # batches, 20 staged frames, and the staged G-buffers against K3's.
     vpacked = torch.from_numpy(vpipe.uniforms.packed()).to(dev)
-    ok, k3s_res = phase_k3s(torch, *vpipe.world(), vpipe.blue_noise, vpacked, W,
-                            vpipe.max_steps, vpipe.bounces, timed=True)
+    ok, k3s_res, batches = phase_k3s(torch, *vpipe.world(), vpipe.blue_noise, vpacked, W,
+                                     vpipe.max_steps, vpipe.bounces, timed=True)
     report("k3s_vs_plain_main", ok, k3s_res)
+    o, d, active, _ = batches[1]
+    tight["main_1024_b1"] = (*vpipe.world(), unpack_uniforms(vpacked)["lr"], o, d, active)
+    del batches
+    ok, res = phase_k3s_tight(torch, tight)
+    report("k3s_tight_budget", ok, res)
+    del tight
     ok, staged_res, cam = phase_staged_vol_main(torch, vpipe)
     report("staged_vol_main", ok, staged_res)
     ok, res = phase_staged_vs_path(torch, vpipe)
@@ -1050,6 +1097,8 @@ def main() -> int:
     # a-trous pass or a voxel march), so library_ms is null.
     bound = lambda res: dict(bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                              library_ms=None)
+    # The lane-use census of the main path's run (per batch for K3s and K4).
+    lanes = lambda c: dict(warp_iterations=c["warp_iterations"], lane_use=c["lane_use"])
     kernels = [
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
@@ -1069,19 +1118,21 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/trace_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
-             ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res)),
+             ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res),
+             census=lanes(k3_res["census"])),
         dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_rays_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",
              launches=staged_res["k3s_launches"], max_abs_err=k3s_res["max_abs_err"],
              ms=sum(times["k3s_kernel_ms"]) / len(times["k3s_kernel_ms"]),
              plain_ms=sum(times["k3s_plain_ms"]) / len(times["k3s_plain_ms"]),
-             **bound(k3s_res)),
+             **bound(k3s_res), census=[lanes(b["census"]) for b in k3s_res["batches"]]),
         dict(name="K4 trace_rays_hf (staged heightfield tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_hf.cu",
              replaces="raytrace_tpu/ops/trace_pallas.py:208",
              launches=hf_res["k4_launches"], max_abs_err=k4_res["max_abs_err"],
-             ms=k4_res["k4_kernel_ms"], plain_ms=k4_res["k4_plain_ms"], **bound(k4_res)),
+             ms=k4_res["k4_kernel_ms"], plain_ms=k4_res["k4_plain_ms"], **bound(k4_res),
+             census=[lanes(b["census"]) for b in k4_res["batches"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if failed:

@@ -51,8 +51,8 @@ _SIGNATURES = {
     # normal, air, packed, n, budget, seed, next, census, stream
     "rt_trace_hf": [_P] * 14 + [_I] * 3 + [_P] * 3,
     # origin, direction, active, iscal, any8, all8, any_hi, detail, pos,
-    # normal, air, done, n, rounds, steps, stream
-    "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P],
+    # normal, air, done, n, rounds, steps, next, census, stream
+    "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P] * 3,
 }
 
 _lib = None

@@ -1,9 +1,9 @@
-"""The lanes of the march kernels K1, K3 and K4, measured on the card.
+"""The lanes of the march kernels K1, K3, K3s and K4, measured on the card.
 
-K3 (``csrc/trace_vol.cu``) and K4 (``csrc/trace_hf.cu``) run persistent
-lanes that take new work from a counter (``csrc/lanes.cuh``); each source
-hard-codes in its ``refill_now`` when the idle lanes of a warp take new
-items:
+K3 (``csrc/trace_vol.cu``), K3s (``csrc/trace_rays_vol.cu``) and K4
+(``csrc/trace_hf.cu``) run persistent lanes that take new work from a
+counter (``csrc/lanes.cuh``); each source hard-codes in its ``refill_now``
+when the idle lanes of a warp take new items:
 
   (i)   only when all 32 lanes are idle;
   (ii)  whenever any lane is idle;
@@ -13,9 +13,10 @@ K1 (``csrc/lighting.cu``) runs one thread per pixel: its lanes tied with
 the refill rules (PERF.md section 5).
 
 The app drives K1 at the fused path's view, K3 at the volume_fast path's
-view and K4 on each batch of the hf path's frame (the primaries, then each
-bounce's sun + diffuse pair), at the bench camera (origin (-30,-100,60),
-pitch -0.3, sun 0.6), bounces 2, and prints one JSON line per part:
+view, K3s on each batch of the staged volume frame at that view and K4 on
+each batch of the hf path's frame (the primaries, then each bounce's sun +
+diffuse pair), at the bench camera (origin (-30,-100,60), pitch -0.3, sun
+0.6), bounces 2, and prints one JSON line per part:
 
 - ``rule``: the kernel library built once per rule, from copies of
   ``csrc/`` (under ``build/``) whose ``refill_now`` bodies are replaced,
@@ -31,15 +32,29 @@ pitch -0.3, sun 0.6), bounces 2, and prints one JSON line per part:
 - ``split``: K1 alone on the same pixels with its paths cut after 1, 3 and
   5 legs, beside the plain version's moves and fine steps (column-height
   reads) for each: where K1's time goes between the primary and the bounce
-  legs.
+  legs;
+- ``k3s``: K3s's design alternatives (``VARIANTS``: the shipped kernel; one
+  ray per thread in index order; each crossing's detail word read from L2;
+  a coarse step's pyramid words loaded together; a crossing's move computed
+  while its voxel word loads; refill rules i and ii), each a library built
+  from a copy of ``csrc/`` with the switch flipped, timed alone per batch
+  in turns, with its census and the check that every
+  output equals the shipped library's; then each on the same rays longest
+  first (by the plain version's moves) and on the 32 longest alone (their
+  most moves, and the microseconds per move of that lone warp).  In a
+  checkout whose K3s has no switches and no census (an earlier commit) it
+  times the shipped kernel alone, with the census of one thread per ray
+  computed from the moves.
 
 Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
-[--reps 10] [--size 1024]   (needs a CUDA GPU)
+[--reps 10] [--size 1024] [--part all|rule|order|split|k3s]
+(needs a CUDA GPU)
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import shutil
@@ -50,24 +65,53 @@ from .. import _build
 from ..ops import integrate, lighting, path_vol, trace_hf, trace_vol
 from ..render.camera import Camera
 from ..render.pipeline import Pipeline, unpack_uniforms
-from ..testing.census import lane_use
+from ..testing.census import lane_use, static_warp_iterations
 from ..testing.measure import call_ms, card, kernel_ms, same
 
 RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16"}
 _BODY = re.compile(r"(bool refill_now\(unsigned idle\) \{\s*return )[^;]*;")
-_KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel", "k4": "trace_hf_kernel"}
+_KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel",
+           "k3s": "trace_rays_vol_kernel", "k4": "trace_hf_kernel"}
+_K3S = "trace_rays_vol.cu"
 
 
-def _library(rule: str):
-    """The kernel library built with ``rule`` in the kernels' refill_now."""
-    csrc = _build.BUILD_DIR / f"refill_{rule}" / "csrc"
+def _switch(name: str, value: str):
+    """An edit of K3s's source: its ``constexpr bool <name>`` set to
+    ``value``."""
+    pattern = re.compile(rf"(constexpr bool {name} = )\w+;")
+    return lambda text: pattern.subn(lambda m: m.group(1) + value + ";", text)
+
+
+def _rule(rule: str):
+    return lambda text: _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", text)
+
+
+# K3s's design alternatives: variant -> the edit of its source (the shipped
+# kernel: persistent lanes, refill rule iii, the parked brick's detail row
+# copied to shared memory, the coarse step's words behind its tests).
+VARIANTS = {
+    "shipped": None,
+    "one_ray_per_thread": _switch("kLanes", "false"),
+    "l2_detail_words": _switch("kRowCopy", "false"),
+    "flat_coarse": _switch("kFlatCoarse", "true"),
+    "eager_move": _switch("kEagerMove", "true"),
+    "rule_i": _rule("i"),
+    "rule_ii": _rule("ii"),
+}
+
+
+def _library(tag: str, edits: dict):
+    """The kernel library built from a copy of ``csrc/`` under
+    ``build/<tag>`` with ``edits`` (source file -> edit, each of which must
+    change its source once)."""
+    csrc = _build.BUILD_DIR / tag / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(_build._CSRC, csrc)
-    for name in ("trace_vol.cu", "trace_hf.cu"):
+    for name, edit in edits.items():
         src = csrc / name
-        text, count = _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", src.read_text())
+        text, count = edit(src.read_text())
         if count != 1:
-            raise RuntimeError(f"{name}: no refill rule to replace")
+            raise RuntimeError(f"{name}: no {tag} switch to change")
         src.write_text(text)
     shipped = _build._CSRC
     _build._CSRC, _build._lib = csrc, None
@@ -75,6 +119,12 @@ def _library(rule: str):
         return _build.kernels()
     finally:
         _build._CSRC = shipped
+
+
+def _rule_library(rule: str):
+    """The kernel library built with ``rule`` in K3's and K4's refill_now."""
+    return _library(f"refill_{rule}", {name: _rule(rule)
+                                       for name in ("trace_vol.cu", "trace_hf.cu")})
 
 
 def _camera() -> Camera:
@@ -173,25 +223,63 @@ def _k4_items(size: int):
     return out
 
 
+def _k3s_items(size: int):
+    """K3s's calls on the batches of the staged volume frame at the
+    volume_fast path's view -> [(call(items, census), moves per ray)],
+    primaries first."""
+    pipe = Pipeline(width=size, height=size, tracer="volume_fast")
+    cam = _camera()
+    pipe.teleport(cam)
+    pipe.draw_frame(cam, 0.6)
+    uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+    volume, tables = pipe.world()
+    batches = []
+
+    def trace(o, d, active=None):
+        batches.append((o.reshape(-1, 3), d.reshape(-1, 3),
+                        None if active is None else active.reshape(-1)))
+        return trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"], pipe.max_steps,
+                                        active=active)
+
+    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size, pipe.bounces)
+    out = []
+    for o, d, active in batches:
+        moves = trace_vol.trace_rays_vol_plain(tables, volume, o, d, uniforms["lr"],
+                                               pipe.max_steps, active=active)["moves"]
+
+        def call(items=None, census=None, o=o, d=d, active=active):
+            if items is not None:
+                o, d = o[items].contiguous(), d[items].contiguous()
+                active = None if active is None else active[items].contiguous()
+            kw = {} if census is None else dict(census=census)
+            return trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"],
+                                            pipe.max_steps, active=active, **kw)
+
+        out.append((call, moves))
+    return out
+
+
 def _flat(out) -> list:
     return list(out.values()) if isinstance(out, dict) else list(out)
 
 
-def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the march lanes need a CUDA GPU")
-    label = card()
-    k1_call, k1_moves, k1_work = _k1_items(size)
-    items = {"k1": (k1_call, k1_moves), "k3": _k3_items(size)}
-    for b, item in enumerate(_k4_items(size)):
-        items[f"k4_b{b}"] = item
+def _in_turns(names, rounds: int) -> list:
+    """``names`` in turns: forward, then backward, ``rounds`` times."""
+    names = list(names)
+    return [n for k in range(rounds) for n in (names if k % 2 == 0 else reversed(names))]
+
+
+def _kernel(name: str) -> str:
+    return _KERNEL[name.split("_")[0]]
+
+
+def _rule_part(label, size, items, rounds, reps) -> dict:
     want = {name: _flat(call()) for name, (call, _) in items.items()}
     shipped = _build.kernels()
-    libs = {rule: _library(rule) for rule in RULES}
-    order = [rule for k in range(rounds) for rule in (RULES if k % 2 == 0 else reversed(RULES))]
+    libs = {rule: _rule_library(rule) for rule in RULES}
     timed = [name for name in items if name != "k1"]  # K1 has no refill rule
     res = {rule: {name: dict(call_ms=[], kernel_ms=[]) for name in timed} for rule in RULES}
-    for rule in order:
+    for rule in _in_turns(RULES, rounds):
         _build._lib = libs[rule]
         for name in timed:
             call, moves = items[name]
@@ -203,23 +291,29 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
                 total, iters = int(moves.sum(dtype=torch.int64)), int(census.item())
                 r.update(warp_iterations=iters, lane_use=lane_use(total, iters))
             r["call_ms"].append(call_ms(call, reps))
-            r["kernel_ms"].append(kernel_ms(call, reps, _KERNEL[name[:2]]))
+            r["kernel_ms"].append(kernel_ms(call, reps, _kernel(name)))
+    _build._lib = shipped
     for rule in RULES:
         print(json.dumps(dict(part="rule", rule=rule, expr=RULES[rule], card=label, size=size,
                               **res[rule])), flush=True)
+    return res
 
-    _build._lib = shipped
+
+def _order_part(label, size, items, reps) -> dict:
     orders = {}
     for name, (call, moves) in items.items():
         longest = torch.argsort(moves.reshape(-1), descending=True)
-        kernel = _KERNEL[name[:2]]
+        kernel = _kernel(name)
         orders[name] = dict(
             longest_moves=int(moves.max()),
             index_order_ms=kernel_ms(call, reps, kernel),
             longest_first_ms=kernel_ms(lambda: call(longest), reps, kernel),
             longest_32_alone_ms=kernel_ms(lambda: call(longest[:32]), reps, kernel))
     print(json.dumps(dict(part="order", card=label, size=size, **orders)), flush=True)
+    return orders
 
+
+def _split_part(label, size, k1_call, k1_work, reps) -> dict:
     split = {}
     for legs in (1, 3, 5):
         moves, heights = (int(v) for v in k1_work(legs).sum(0, dtype=torch.int64))
@@ -227,7 +321,79 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024) -> dict:
             kernel_ms=kernel_ms(lambda: k1_call(legs=legs), reps, _KERNEL["k1"]),
             moves=moves, fine_steps=heights)
     print(json.dumps(dict(part="split", card=label, size=size, k1=split)), flush=True)
-    return dict(rules=res, orders=orders, split=split)
+    return split
+
+
+def _k3s_part(label, size, rounds, reps) -> dict:
+    """K3s's variants on the staged volume frame's batches: in index order
+    in turns (with census and the check against the shipped library), then
+    longest first and the 32 longest alone."""
+    batches = _k3s_items(size)
+    kernel = _KERNEL["k3s"]
+    has_census = "census" in inspect.signature(trace_vol.trace_rays_vol).parameters
+    source = (_build._CSRC / _K3S).read_text()
+    variants = {name: edit for name, edit in VARIANTS.items()
+                if edit is None or edit(source)[1] == 1}
+    want = [_flat(call()) for call, _ in batches]
+    shipped = _build.kernels()
+    libs = {name: shipped if edit is None else _library(f"k3s_{name}", {_K3S: edit})
+            for name, edit in variants.items()}
+    res = {name: [dict(kernel_ms=[]) for _ in batches] for name in variants}
+    for name in _in_turns(variants, rounds):
+        _build._lib = libs[name]
+        for (call, moves), r, w in zip(batches, res[name], want):
+            if "moves" not in r:
+                census = torch.zeros(1, dtype=torch.int64, device="cuda") if has_census else None
+                if not all(same(a, b) for a, b in zip(_flat(call(census=census)), w)):
+                    raise RuntimeError(f"k3s {name} differs from the shipped kernel")
+                total, static = int(moves.sum(dtype=torch.int64)), static_warp_iterations(moves)
+                r.update(rays=moves.numel(), moves=total, static_warp_iterations=static,
+                         static_lane_use=lane_use(total, static))
+                if census is not None:
+                    iters = int(census.item())
+                    r.update(warp_iterations=iters, lane_use=lane_use(total, iters))
+            r["kernel_ms"].append(kernel_ms(call, reps, kernel))
+    for name in variants:
+        _build._lib = libs[name]
+        for (call, moves), r in zip(batches, res[name]):
+            longest = torch.argsort(moves.reshape(-1), descending=True)
+            lone = int(moves.reshape(-1)[longest[0]])
+            r.update(longest_first_ms=kernel_ms(lambda: call(longest), reps, kernel),
+                     longest_32_ms=kernel_ms(lambda: call(longest[:32]), reps, kernel),
+                     longest_32_moves=lone)
+            r["longest_32_us_per_move"] = r["longest_32_ms"] * 1e3 / max(lone, 1)
+        mean = lambda xs: sum(xs) / len(xs)
+        print(json.dumps(dict(
+            part="k3s", variant=name, card=label, size=size, batches=res[name],
+            frame_ms=sum(mean(r["kernel_ms"]) for r in res[name]),
+            longest_first_frame_ms=sum(r["longest_first_ms"] for r in res[name]))), flush=True)
+    _build._lib = shipped
+    return res
+
+
+PARTS = ("rule", "order", "split", "k3s")
+
+
+def run(rounds: int = 2, reps: int = 10, size: int = 1024, part: str = "all") -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the march lanes need a CUDA GPU")
+    label = card()
+    parts = PARTS if part == "all" else (part,)
+    out = {}
+    if set(parts) & {"rule", "order", "split"}:
+        k1_call, k1_moves, k1_work = _k1_items(size)
+        items = {"k1": (k1_call, k1_moves), "k3": _k3_items(size)}
+        for b, item in enumerate(_k4_items(size)):
+            items[f"k4_b{b}"] = item
+    if "rule" in parts:
+        out["rules"] = _rule_part(label, size, items, rounds, reps)
+    if "order" in parts:
+        out["orders"] = _order_part(label, size, items, reps)
+    if "split" in parts:
+        out["split"] = _split_part(label, size, k1_call, k1_work, reps)
+    if "k3s" in parts:
+        out["k3s"] = _k3s_part(label, size, rounds, reps)
+    return out
 
 
 def main():
@@ -235,8 +401,9 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--part", choices=("all",) + PARTS, default="all")
     args = ap.parse_args()
-    run(args.rounds, args.reps, args.size)
+    run(args.rounds, args.reps, args.size, args.part)
 
 
 if __name__ == "__main__":

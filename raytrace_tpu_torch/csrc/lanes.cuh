@@ -1,6 +1,6 @@
-// Persistent lanes that refill, shared by kernels K3 (trace_vol.cu) and K4
-// (trace_hf.cu); K1 (lighting.cu), one thread per pixel, takes only the
-// census.
+// Persistent lanes that refill, shared by kernels K3 (trace_vol.cu), K3s
+// (trace_rays_vol.cu) and K4 (trace_hf.cu); K1 (lighting.cu), one thread per
+// pixel, takes only the census.
 //
 // A march kernel launches one grid that fills the card and lets each lane
 // walk item after item (a path, a ray).  Each warp holds a window of 32

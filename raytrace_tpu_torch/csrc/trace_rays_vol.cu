@@ -1,5 +1,5 @@
-// Kernel K3s: the staged volume tracer of independent rays, one thread per
-// ray.
+// Kernel K3s: the staged volume tracer of independent rays, on persistent
+// lanes that refill, one move per loop iteration.
 //
 // Replaces the Pallas TPU kernel raytrace_tpu/ops/trace_vol_pallas.py
 // `_make_vol_kernel` (:254-429) as `trace_rays_vol` (:799-1200) runs it,
@@ -10,10 +10,10 @@
 // PyTorch version is `march_rays_vol_plain` in ops/trace_vol.py; the two
 // run the same float32 operations in the same order (built with
 // --fmad=false, so no multiply-add is contracted), and every ray's outputs
-// are the same bits.  The march code is K3's (vol_march.cuh).  The TPU's
-// (rows, 128) tiles, padding rays, lane-shuffle lookups, the round loop's
-// early exit and the straggler cascade have no counterpart: a thread
-// simply stops when its ray is done.
+// are the same bits whichever lane computes them.  The march code is K3's
+// (vol_march.cuh).  The TPU's (rows, 128) tiles, padding rays, lane-shuffle
+// lookups, the round loop's early exit and the straggler cascade have no
+// counterpart.
 //
 // A ray: up to `steps` coarse steps a round (escape and window tests, hit
 // in an all-solid brick, park in a mixed brick, else move to the nearest
@@ -27,69 +27,189 @@
 //
 // What bounds it on the H100: not memory (a ray reads 24-25 bytes and
 // writes 18; the 9 KB pyramid sits in shared memory, the 2 MiB detail rows
-// in L2 and the read-only cache), nor the float32 rate, but the work per
-// move and the latency of each warp's longest ray: a warp runs until its
-// last lane's ray is done, and a grazing bounce ray can take many rounds.
-// This first form keeps each ray's state in registers, copies the pyramid
-// into shared memory once per block and reads a crossing's detail word with
-// `__ldg`.  Keeping every lane of a warp busy (persistent lanes, as K3 and
-// K4 have) and starting the longest rays first are the next steps.
+// in L2) nor the float32 rate, but the work per move, the latency of each
+// move's dependent chain, and each warp's longest ray.  One thread per ray
+// in index order (the first form) held a warp until its last lane was
+// done, kept the lanes of inactive rays idle for a warp's whole life (a
+// bounce pair batch holds a slot for every pixel, active or not), made a
+// coarse-stepping lane wait while a neighbour walked up to 23 crossings of
+// a nested loop, and made each crossing wait on an L2 read of its detail
+// word.  So:
+//  - persistent lanes (lanes.cuh): a grid that fills the card, each warp
+//    drawing windows of 32 ray indices from a counter; an inactive ray is
+//    written born done as its window is drawn and never takes a lane;
+//  - one move per iteration (`step_ray`, the form of K3's `step_path`):
+//    each pass of the loop makes one coarse step or one voxel crossing of
+//    every busy lane, and the round loop's budget is lane state (the round,
+//    the steps spent in it, the parked brick and its crossings);
+//  - a parked brick's detail row read once: the ray copies its brick's 64
+//    bytes into its own column of a shared-memory table with four 16-byte
+//    loads, and every crossing of that resolve tests the copy.
+// The four switches below select the measured alternatives
+// (apps/march_lanes.py, part "k3s"; PERF.md section 6 has the numbers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
 #include "vol_march.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// The rounds of one traced ray.  -> kDone (a hit), kDone | kAir (air) or 0
+// true: persistent lanes that refill; false: one ray per thread, launched
+// in index order (the loop is the same).
+constexpr bool kLanes = true;
+// true: a parked ray copies its brick's detail row into shared memory;
+// false: each crossing reads its detail word from L2 (`voxel_solid`).
+constexpr bool kRowCopy = true;
+// true: a coarse step loads its five pyramid words before any test;
+// false: `coarse_classify`, each word behind the previous test.
+constexpr bool kFlatCoarse = false;
+// true: a crossing computes its move while its voxel word loads, and keeps
+// it unless the voxel is solid; false: the move follows the test.
+constexpr bool kEagerMove = false;
+
+// The refill rule: the idle lanes of a warp take new rays once at least 16
+// of its 32 lanes are idle.
+__device__ __forceinline__ bool refill_now(unsigned idle) {
+  return __popc(idle) >= 16;
+}
+
+// The round loop's budget of one ray: the round `r`, the coarse steps `k`
+// spent in it, the brick being resolved (-1 while coarse-marching) and the
+// crossings made in it.
+struct Budget {
+  int32_t r, k, b0, crossings;
+};
+
+// coarse_classify with the five pyramid words loaded first, independent of
+// one another and of the tests (a texel is always inside the tables).
+__device__ __forceinline__ int coarse_classify_flat(const Ray& r, const Tables& t,
+                                                    const Scalars& c, int32_t tx,
+                                                    int32_t ty, int32_t tz,
+                                                    int32_t b, int32_t& step) {
+  const int32_t f8 = bit(t.all8, b);
+  const int32_t a8 = bit(t.any8, b);
+  const int32_t a64 = bit(t.hi, 192 * 32 + ((tz >> 6) * 4 + (ty >> 6)) * 4 + (tx >> 6));
+  const int32_t a32 = bit(t.hi, 128 * 32 + ((tz >> 5) * 8 + (ty >> 5)) * 8 + (tx >> 5));
+  const int32_t a16 = bit(t.hi, ((tz >> 4) * 16 + (ty >> 4)) * 16 + (tx >> 4));
+  if (out_of_window(r, c)) return kDone | kAir;
+  bool esc = (r.vx >= 0.0f && r.px >= c.bxmax) || (r.vx <= 0.0f && r.px < c.bxmin) ||
+             (r.vy >= 0.0f && r.py >= c.bymax) || (r.vy <= 0.0f && r.py < c.bymin) ||
+             (r.vz >= 0.0f && r.pz >= c.bzmax) || (r.vz <= 0.0f && r.pz < c.bzmin);
+  if (esc) return kDone | kAir;
+  if (f8) return kDone;
+  if (a8) return kParked;
+  step = !a64 ? 64 : (!a32 ? 32 : (!a16 ? 16 : 8));
+  return 0;
+}
+
+// Copy brick b's 16-word detail row into this lane's column `row` of the
+// block's (16, kThreads) shared table: four 16-byte loads issued together.
+__device__ __forceinline__ void copy_row(int32_t* row, const int32_t* __restrict__ detail,
+                                         int32_t b) {
+  const int4* src = reinterpret_cast<const int4*>(detail + (size_t)b * kDetailWords);
+#pragma unroll
+  for (int q = 0; q < kDetailWords / 4; ++q) {
+    const int4 v = __ldg(src + q);
+    row[(4 * q) * kThreads] = v.x;
+    row[(4 * q + 1) * kThreads] = v.y;
+    row[(4 * q + 2) * kThreads] = v.z;
+    row[(4 * q + 3) * kThreads] = v.w;
+  }
+}
+
+// The voxel test of one crossing against the lane's copy of the row.
+__device__ __forceinline__ bool row_solid(const int32_t* row, int32_t tx, int32_t ty,
+                                          int32_t tz) {
+  const int32_t v = ((tz & 7) << 6) | ((ty & 7) << 3) | (tx & 7);
+  return (row[(v >> 5) * kThreads] >> (v & 31)) & 1;
+}
+
+// One iteration of a ray: exactly one move (a coarse step, or one voxel
+// crossing of the parked brick) unless the ray finishes.  The order of the
+// tests is that of the plain round loop
+//   for each round: up to `steps` coarse steps (a move that leaves the
+//   window is air); after a park, one resolve of <= 23 crossings that ends
+//   the round live where it leaves the brick or runs out of crossings
+// with the round ended where the loop ends it.  -> true when the ray is
+// finished, with `status` kDone (a hit), kDone | kAir (air) or 0
 // (exhausted: still live after `rounds` rounds).
-__device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars& c,
-                                         const int32_t* __restrict__ detail,
-                                         int rounds, int steps) {
-  for (int round = 0; round < rounds; ++round) {
-    int status = 0;
-    int32_t tx = 0, ty = 0, tz = 0, b = 0;
-    for (int k = 0; k < steps; ++k) {
-      tx = texel(r.px);
-      ty = texel(r.py);
-      tz = texel(r.pz);
-      b = brick_of(tx, ty, tz);
-      int32_t step = 0;
-      status = coarse_classify(r, t, c, tx, ty, tz, b, step);
-      if (status != 0) break;
+__device__ __forceinline__ bool step_ray(Ray& r, Budget& s, int& status, const Tables& t,
+                                         const Scalars& c, int32_t* row,
+                                         const int32_t* __restrict__ detail, int rounds,
+                                         int steps) {
+  const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
+  const int32_t b = brick_of(tx, ty, tz);
+  status = 0;
+  // The tests that open a crossing of resolve_mixed: after 23 crossings,
+  // or out of the brick, the round ends live; out of the window is air.
+  if (s.b0 >= 0) {
+    if (s.crossings != kMaxCrossings && out_of_window(r, c)) {
+      status = kDone | kAir;
+      return true;
+    }
+    if (s.crossings == kMaxCrossings || b != s.b0) {
+      s.b0 = -1;
+      s.k = 0;
+      if (++s.r == rounds) return true;
+    }
+  }
+  int32_t step = 1;  // the move: 1 a voxel crossing, 8-64 a coarse step
+  if (s.b0 < 0) {
+    status = kFlatCoarse ? coarse_classify_flat(r, t, c, tx, ty, tz, b, step)
+                         : coarse_classify(r, t, c, tx, ty, tz, b, step);
+    ++s.k;
+    if (status != kParked) {
+      if (status != 0) return true;
       move_to_boundary(r, step);
       if (out_of_window(r, c)) {
         status = kDone | kAir;
-        break;
+        return true;
       }
-    }
-    if (status == kParked) {
-      // resolve_mixed: the crossings of brick b (the ray parked at its
-      // entry); leaving it, or 23 crossings, ends the round live.
-      const int32_t b0 = b;
-      status = 0;
-      for (int k = 0; k < kMaxCrossings; ++k) {
-        if (out_of_window(r, c)) {
-          status = kDone | kAir;
-          break;
-        }
-        tx = texel(r.px);
-        ty = texel(r.py);
-        tz = texel(r.pz);
-        if (brick_of(tx, ty, tz) != b0) break;
-        if (voxel_solid(detail, b0, tx, ty, tz)) {
-          status = kDone;
-          break;
-        }
-        move_to_boundary(r, 1);
+      if (s.k == steps) {
+        s.k = 0;
+        if (++s.r == rounds) return true;
       }
+      return false;
     }
-    if (status != 0) return status;
+    // Parked: the first crossing's window and brick tests hold here.
+    status = 0;
+    s.b0 = b;
+    s.crossings = 0;
+    if (kRowCopy) copy_row(row, detail, b);
   }
-  return 0;
+  const bool solid =
+      kRowCopy ? row_solid(row, tx, ty, tz) : voxel_solid(detail, s.b0, tx, ty, tz);
+  if (kEagerMove) {
+    Ray moved = r;
+    move_to_boundary(moved, step);
+    if (!solid) r = moved;
+  } else if (!solid) {
+    move_to_boundary(r, step);
+  }
+  if (solid) {
+    status = kDone;
+    return true;
+  }
+  ++s.crossings;
+  return false;
+}
+
+__device__ __forceinline__ void start_ray(int i, Ray& r, Budget& s,
+                                          const float* __restrict__ origin,
+                                          const float* __restrict__ direction) {
+  r.px = origin[3 * i];
+  r.py = origin[3 * i + 1];
+  r.pz = origin[3 * i + 2];
+  r.normal = 0;
+  set_direction(r, direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  s.r = 0;
+  s.k = 0;
+  s.b0 = -1;
+  s.crossings = 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -105,30 +225,65 @@ __global__ void __launch_bounds__(kThreads)
                           int32_t* __restrict__ normal_out,
                           uint8_t* __restrict__ air_out,
                           uint8_t* __restrict__ done_out, int n, int rounds,
-                          int steps) {
+                          int steps, int32_t* __restrict__ next,
+                          long long* __restrict__ census) {
   __shared__ Tables t;
+  __shared__ int32_t rows[kRowCopy ? kDetailWords : 1][kThreads];
   Scalars c;
   load_tables(t, c, any8, all8, any_hi, iscal);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  int32_t* row = &rows[0][threadIdx.x];
+
+  // A ray that takes no lane: an inactive ray is born done at its origin
+  // with normal 0; with no rounds, an active ray is exhausted there.
+  const auto live = [=](int k) {
+    return rounds > 0 && (active == nullptr || active[k] != 0);
+  };
+  const auto skip = [=](int k) {
+    pos_out[3 * k] = origin[3 * k];
+    pos_out[3 * k + 1] = origin[3 * k + 1];
+    pos_out[3 * k + 2] = origin[3 * k + 2];
+    normal_out[k] = 0;
+    air_out[k] = 0;
+    done_out[k] = active != nullptr && active[k] == 0;
+  };
 
   Ray r;
-  r.px = origin[3 * i];
-  r.py = origin[3 * i + 1];
-  r.pz = origin[3 * i + 2];
-  r.normal = 0;
-  int status = kDone;  // an inactive ray is born done at its origin
-  if (active == nullptr || active[i]) {
-    set_direction(r, direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
-    status = trace_ray(r, t, c, detail, rounds, steps);
+  Budget s;
+  Window w;
+  int i = -1;  // this lane's ray, -1 while idle
+  if (!kLanes) {
+    const int k = blockIdx.x * kThreads + threadIdx.x;
+    if (k < n && live(k)) {
+      i = k;
+      start_ray(i, r, s, origin, direction);
+    } else if (k < n) {
+      skip(k);
+    }
   }
-  pos_out[3 * i] = r.px;
-  pos_out[3 * i + 1] = r.py;
-  pos_out[3 * i + 2] = r.pz;
-  normal_out[i] = r.normal;
-  air_out[i] = (status & kAir) != 0;
-  done_out[i] = (status & kDone) != 0;
+  long long iterations = 0;
+  for (;;) {
+    if (kLanes && refill_now(__ballot_sync(kFullMask, i < 0))) {
+      const int held = i;
+      i = refill(i, w, next, n, live, skip);
+      if (held < 0 && i >= 0) start_ray(i, r, s, origin, direction);
+    }
+    if (!__any_sync(kFullMask, i >= 0)) break;
+    ++iterations;
+    int status;
+    if (i >= 0 && step_ray(r, s, status, t, c, row, detail, rounds, steps)) {
+      pos_out[3 * i] = r.px;
+      pos_out[3 * i + 1] = r.py;
+      pos_out[3 * i + 2] = r.pz;
+      normal_out[i] = r.normal;
+      air_out[i] = (status & kAir) != 0;
+      done_out[i] = (status & kDone) != 0;
+      i = -1;
+    }
+  }
+  add_census(census, iterations);
 }
+
+int grid_cache = 0;
 
 }  // namespace
 
@@ -138,11 +293,18 @@ extern "C" int rt_trace_rays_vol(const float* origin, const float* direction,
                                  const int32_t* any_hi, const int32_t* detail,
                                  float* pos, int32_t* normal, uint8_t* air,
                                  uint8_t* done, int n, int rounds, int steps,
-                                 void* stream) {
+                                 int32_t* next, long long* census, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  int blocks = (n + kThreads - 1) / kThreads;
+  if (kLanes) {
+    int err = persistent_grid(trace_rays_vol_kernel, kThreads, n, grid_cache, blocks);
+    if (err != 0) return err;
+    // The lanes' ray counter, zeroed on the launching stream.
+    err = (int)cudaMemsetAsync(next, 0, sizeof(int32_t), (cudaStream_t)stream);
+    if (err != 0) return err;
+  }
   trace_rays_vol_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, active, iscal, any8, all8, any_hi, detail, pos, normal,
-      air, done, n, rounds, steps);
+      air, done, n, rounds, steps, next, census);
   return (int)cudaGetLastError();
 }

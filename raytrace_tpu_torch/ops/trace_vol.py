@@ -17,9 +17,10 @@ two kernels share is ``csrc/vol_march.cuh``.
   step of every live path).
 - **K3s** traces independent rays, the work of ``trace_rays_vol``
   (``trace_vol_pallas.py:799-1200``, its plain round loop ``:924-1006``):
-  in ``csrc/trace_rays_vol.cu`` one thread per ray runs the rounds, and
-  ``march_rays_vol_plain`` below runs one coarse step of every live ray
-  per loop iteration.  ``render_gbuffers_vol`` is the staged G-buffer pass
+  in ``csrc/trace_rays_vol.cu`` persistent lanes walk ray after ray, one
+  move per loop iteration, with the round loop's budget in each lane's
+  state, and ``march_rays_vol_plain`` below runs one coarse step of every
+  live ray per loop iteration.  ``render_gbuffers_vol`` is the staged G-buffer pass
   built on it (``:1210-1246``).
 
 One step of a ray:
@@ -538,7 +539,8 @@ def trace_rays_vol_plain(tables: dict, volume, origin, direction, lr,
 
 def trace_rays_vol(tables: dict, volume, origin, direction, lr,
                    max_steps: int = MAX_TRACE_STEPS, rounds: int | None = None,
-                   cap: int = RAYS_CAP, active=None, escape: bool = True) -> dict:
+                   cap: int = RAYS_CAP, active=None, escape: bool = True,
+                   census=None) -> dict:
     """Trace independent rays through the resident volume (the JAX
     package's ``trace_rays_vol``, a drop-in for the exact DDA).
 
@@ -558,7 +560,9 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
     CPU tensors take the plain march (``trace_rays_vol_plain``); CUDA
     tensors launch K3s (``csrc/trace_rays_vol.cu``) on the current stream,
     and ``trace_rays_vol.launches`` counts those launches.  Any other
-    device raises.
+    device raises.  ``census``, a (1,) int64 tensor on the card, or None:
+    K3s adds the loop iterations of each of its warps to it (the lane-use
+    census of ``testing/census.py``).
 
     Every ray equals JAX's plain round loop (``cascade=False``).  JAX turns
     on its straggler cascade by itself when ``rounds >= 12`` and the batch
@@ -590,15 +594,21 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
            (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("trace_rays_vol", t, dtype, shape, dev)
+    if tables["detail"].data_ptr() % 16:
+        raise ValueError("trace_rays_vol: the detail rows must be 16-byte aligned")
+    if census is not None:
+        check_tensor("trace_rays_vol", census, torch.int64, (1,), dev)
     pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
     normal = torch.empty(n, dtype=torch.int32, device=dev)
     air, done = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
+    nxt = torch.empty(1, dtype=torch.int32, device=dev)  # the lanes' ray counter
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_trace_rays_vol(
         o.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(),
         iscal.data_ptr(), *(tables[k].data_ptr() for k in keys),
         pos.data_ptr(), normal.data_ptr(), air.data_ptr(), done.data_ptr(),
-        n, rounds, round_steps(cap), stream,
+        n, rounds, round_steps(cap), nxt.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
     )
     check_launch("rt_trace_rays_vol", err)
     trace_rays_vol.launches += 1

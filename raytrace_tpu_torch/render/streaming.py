@@ -134,11 +134,15 @@ def _store_slab(volume, slab, ns, axis: int) -> None:
 
 class TerrainStreamer:
     """Region position bookkeeping and, once initialized, the resident
-    fused volume, streamed one slice per request."""
+    fused volume, streamed one slice per request.  ``device``: where the
+    volume lives; "cuda" (the default, as ``Pipeline``'s) raises when no GPU
+    is present, "cpu" keeps it on the host."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cuda"):
         self.seed = seed
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TerrainStreamer(device='cuda') needs a CUDA GPU")
         self.cpu_position = Position()
         self.gpu_position = Position()
         self.request_queue: list[SliceRequest] = []

@@ -95,7 +95,7 @@ def test_unpack_uniforms_reads_the_packed_vector():
 def test_streamer_positions_match_jax():
     """request_move_towards walks the same region positions (the JAX
     streamer's request methods only: no volume is generated)."""
-    ours, theirs = TerrainStreamer(), JaxStreamer(seed=0)
+    ours, theirs = TerrainStreamer(device="cpu"), JaxStreamer(seed=0)
     targets = [(300, 0, -200)] * 30 + [(-500, 40, 90)] * 40 + [(0, 0, 0)] * 40
     for target in targets:
         ours.request_move_towards(target)
@@ -107,6 +107,17 @@ def test_streamer_positions_match_jax():
     while ours.setup_next_request():
         pass
     assert ours.get_render_offset() == theirs.cpu_position.render_offset()
+
+
+def test_streamer_defaults_to_the_card():
+    """TerrainStreamer() places its volume on the card, as Pipeline does,
+    and refuses to run without one rather than quietly on the CPU."""
+    if torch.cuda.is_available():
+        assert TerrainStreamer().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        TerrainStreamer()
+    assert TerrainStreamer(device="cpu").device.type == "cpu"
 
 
 def test_draw_frame_streams_and_advances_seed():

@@ -152,6 +152,13 @@ CASES = {
                           {}, None),
     "edited_from_above": ("edited_world", _from_above, {}, None),
 }
+# Tight budgets: the cut of an exhausted ray falls mid-round, mid-resolve or
+# at a round's end.
+CASES.update({
+    f"random_r{rounds}_cap{cap}{'_active' if masked else ''}": (
+        "weird_world", _random, dict(rounds=rounds, cap=cap), _half(2048) if masked else None)
+    for rounds in (1, 2, 3) for cap in (2, 8) for masked in (False, True)
+})
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -192,7 +199,7 @@ def test_trace_rays_vol_matches_jax(traced_pair):
     np.testing.assert_allclose(got["distance"][ok], want["distance"][ok], rtol=1e-5, atol=1e-5)
     hits = ok & ~want["air"] & ~want["exhausted"]
     assert hits.any()
-    if case.startswith("random_rounds3"):
+    if "rounds" in CASES[case][2]:
         assert want["exhausted"][traced].any() and got["exhausted"][traced].any()
     else:
         assert not got["exhausted"][traced].any()

@@ -165,7 +165,7 @@ def test_streamer_volume_matches_jax(full_world):
     """Initialize, teleport, then slice moves up and down two axes: the
     same volume as the jitted JAX worldgen (a few columns may differ), and
     the same positions and slab log as the JAX streamer."""
-    ours, theirs = TerrainStreamer(seed=0), JaxStreamer(seed=0)
+    ours, theirs = TerrainStreamer(seed=0, device="cpu"), JaxStreamer(seed=0)
     assert _differing_columns(ours.initialize(), full_world[0]) <= 0.001
     ours.teleport((-30.0, 0.0, 60.0))
     theirs.teleport((-30.0, 0.0, 60.0))
@@ -182,7 +182,7 @@ def test_streamer_volume_matches_jax(full_world):
 
 def test_streamer_initialize_takes_a_private_copy(weird):
     _, _, port = weird
-    s = TerrainStreamer()
+    s = TerrainStreamer(device="cpu")
     vol = s.initialize(port.numpy().view(np.uint32))
     assert vol.dtype == torch.int32 and torch.equal(vol, port)
     s.request_move_towards((40, 0, 0))
@@ -193,7 +193,7 @@ def test_streamer_initialize_takes_a_private_copy(weird):
 
 
 def test_streamer_without_volume_moves_positions_only():
-    s = TerrainStreamer()
+    s = TerrainStreamer(device="cpu")
     s.request_move_towards((40, 0, 0))
     assert s.setup_next_request() and s.volume is None
     assert s.get_render_offset() == (16, 0, 0)
