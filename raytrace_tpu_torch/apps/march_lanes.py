@@ -33,15 +33,18 @@ diffuse pair), at the bench camera (origin (-30,-100,60), pitch -0.3, sun
   5 legs, beside the plain version's moves and fine steps (column-height
   reads) for each: where K1's time goes between the primary and the bounce
   legs;
-- ``k3s``: K3s's design alternatives (``VARIANTS``: the shipped kernel; one
-  ray per thread in index order; each crossing's detail word read from L2;
-  a coarse step's pyramid words loaded together; a crossing's move computed
-  while its voxel word loads; refill rules i and ii), each a library built
-  from a copy of ``csrc/`` with the switch flipped, timed alone per batch
-  in turns, with its census and the check that every
-  output equals the shipped library's; then each on the same rays longest
-  first (by the plain version's moves) and on the 32 longest alone (their
-  most moves, and the microseconds per move of that lone warp).  In a
+- ``k3s``: K3s's design alternatives (``VARIANTS``: the shipped kernel;
+  one move per iteration on the unmasked batch too; every ray walked whole
+  by its lane (the nested round loop); one ray per thread in index order,
+  one move per iteration or whole; a parked brick's detail row copied to
+  shared memory; a coarse step's pyramid words loaded together; refill
+  rules i and ii), each a library built from a copy of ``csrc/`` with its
+  switches flipped, timed alone per batch in turns, with its census (for
+  whole rays, the most loop iterations of a lane in each window) and the
+  check that every output equals the shipped library's; then each on the
+  same rays longest first (by the plain version's moves) and on the 32
+  longest alone (their most moves, and the microseconds per move of that
+  lone warp).  In a
   checkout whose K3s has no switches and no census (an earlier commit) it
   times the shipped kernel alone, with the census of one thread per ray
   computed from the moves.
@@ -86,15 +89,33 @@ def _rule(rule: str):
     return lambda text: _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", text)
 
 
+def _edits(*edits):
+    """The edits applied in turn; -> (text, 1), or the count of the first
+    that did not change its source once."""
+    def edit(text):
+        for one in edits:
+            text, count = one(text)
+            if count != 1:
+                return text, count
+        return text, 1
+    return edit
+
+
 # K3s's design alternatives: variant -> the edit of its source (the shipped
-# kernel: persistent lanes, refill rule iii, the parked brick's detail row
-# copied to shared memory, the coarse step's words behind its tests).
+# kernel: persistent lanes; one move per iteration with refill rule iii for
+# a batch with an active mask, each ray whole for one without; each
+# crossing's detail word read from L2; the coarse step's words behind its
+# tests).
 VARIANTS = {
     "shipped": None,
-    "one_ray_per_thread": _switch("kLanes", "false"),
-    "l2_detail_words": _switch("kRowCopy", "false"),
+    "one_move_unmasked": _switch("kWholeUnmasked", "false"),
+    "whole_ray": _switch("kWholeRay", "true"),
+    "one_ray_per_thread": _edits(_switch("kLanes", "false"),
+                                 _switch("kWholeUnmasked", "false")),
+    "whole_ray_per_thread": _edits(_switch("kWholeRay", "true"),
+                                   _switch("kLanes", "false")),
+    "row_copy": _switch("kRowCopy", "true"),
     "flat_coarse": _switch("kFlatCoarse", "true"),
-    "eager_move": _switch("kEagerMove", "true"),
     "rule_i": _rule("i"),
     "rule_ii": _rule("ii"),
 }

@@ -29,24 +29,31 @@
 // writes 18; the 9 KB pyramid sits in shared memory, the 2 MiB detail rows
 // in L2) nor the float32 rate, but the work per move, the latency of each
 // move's dependent chain, and each warp's longest ray.  One thread per ray
-// in index order (the first form) held a warp until its last lane was
-// done, kept the lanes of inactive rays idle for a warp's whole life (a
-// bounce pair batch holds a slot for every pixel, active or not), made a
-// coarse-stepping lane wait while a neighbour walked up to 23 crossings of
-// a nested loop, and made each crossing wait on an L2 read of its detail
-// word.  So:
+// in index order (the first form, the nested round loop) held a warp until
+// its last lane was done and kept the lanes of inactive rays idle for a
+// warp's whole life: a bounce pair batch holds a slot for every pixel,
+// active or not.  So:
 //  - persistent lanes (lanes.cuh): a grid that fills the card, each warp
 //    drawing windows of 32 ray indices from a counter; an inactive ray is
 //    written born done as its window is drawn and never takes a lane;
-//  - one move per iteration (`step_ray`, the form of K3's `step_path`):
-//    each pass of the loop makes one coarse step or one voxel crossing of
-//    every busy lane, and the round loop's budget is lane state (the round,
-//    the steps spent in it, the parked brick and its crossings);
-//  - a parked brick's detail row read once: the ray copies its brick's 64
-//    bytes into its own column of a shared-memory table with four 16-byte
-//    loads, and every crossing of that resolve tests the copy.
-// The four switches below select the measured alternatives
-// (apps/march_lanes.py, part "k3s"; PERF.md section 6 has the numbers).
+//  - for a batch with an active mask (the bounce pairs), one move per
+//    iteration (`step_ray`, the form of K3's `step_path`): each pass of the
+//    loop makes one coarse step or one voxel crossing of every busy lane,
+//    through one shared `move_to_boundary`, the round loop's budget is lane
+//    state (the round, the steps spent in it, the parked brick and its
+//    crossings), and idle lanes refill once 16 are idle;
+//  - for a batch without one (the primaries: coherent, all live), each lane
+//    walks its ray whole in the nested round loop (`trace_ray`), and the
+//    warp draws its next window when all 32 are done: a refill mid-flight
+//    stalls the warp on its new rays' loads.
+// At the volume_fast view's three 1024² batches (NVIDIA H100 80GB HBM3,
+// 700 W; apps/march_lanes.py --part k3s, in turns) this takes 1.08 ms
+// against the first form's 1.49 (0.15 / 0.63 / 0.30 against 0.16 / 0.87 /
+// 0.47).  The switches below select the measured alternatives (PERF.md
+// section 5): one move per iteration on every batch (1.19), every ray whole
+// (1.31), one ray per thread (1.44), a parked brick's detail row copied to
+// shared memory once (1.24, and ptxas spilled), the coarse step's pyramid
+// words loaded together (1.25), refilling when all or any lanes are idle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,15 +68,20 @@ constexpr int kThreads = 256;
 // true: persistent lanes that refill; false: one ray per thread, launched
 // in index order (the loop is the same).
 constexpr bool kLanes = true;
-// true: a parked ray copies its brick's detail row into shared memory;
-// false: each crossing reads its detail word from L2 (`voxel_solid`).
-constexpr bool kRowCopy = true;
+// true: a parked ray copies its brick's 64-byte detail row into its column
+// of a shared (16, kThreads) table with four 16-byte loads, and its
+// crossings test the copy; false: each crossing reads its detail word from
+// L2 (`voxel_solid`).
+constexpr bool kRowCopy = false;
 // true: a coarse step loads its five pyramid words before any test;
 // false: `coarse_classify`, each word behind the previous test.
 constexpr bool kFlatCoarse = false;
-// true: a crossing computes its move while its voxel word loads, and keeps
-// it unless the voxel is solid; false: the move follows the test.
-constexpr bool kEagerMove = false;
+// true: a lane walks its ray whole (`trace_ray`, the nested round loop)
+// and the warp refills once all its rays are done; false: one move per
+// iteration (`step_ray`).  kWholeUnmasked: whole rays for a launch without
+// an active mask (the primaries) only.
+constexpr bool kWholeRay = false;
+constexpr bool kWholeUnmasked = true;
 
 // The refill rule: the idle lanes of a warp take new rays once at least 16
 // of its 32 lanes are idle.
@@ -107,7 +119,8 @@ __device__ __forceinline__ int coarse_classify_flat(const Ray& r, const Tables& 
 }
 
 // Copy brick b's 16-word detail row into this lane's column `row` of the
-// block's (16, kThreads) shared table: four 16-byte loads issued together.
+// block's (16, kThreads) shared table: four 16-byte loads issued together
+// (a row is 64 bytes, and PyTorch's allocations are 16-byte aligned).
 __device__ __forceinline__ void copy_row(int32_t* row, const int32_t* __restrict__ detail,
                                          int32_t b) {
   const int4* src = reinterpret_cast<const int4*>(detail + (size_t)b * kDetailWords);
@@ -128,74 +141,118 @@ __device__ __forceinline__ bool row_solid(const int32_t* row, int32_t tx, int32_
   return (row[(v >> 5) * kThreads] >> (v & 31)) & 1;
 }
 
+// The voxel test of a crossing of brick b0 at texel (tx, ty, tz): against
+// the lane's copy of the row, or the detail word in L2.
+__device__ __forceinline__ bool crossing_solid(const int32_t* row,
+                                               const int32_t* __restrict__ detail,
+                                               int32_t b0, int32_t tx, int32_t ty,
+                                               int32_t tz) {
+  return kRowCopy ? row_solid(row, tx, ty, tz) : voxel_solid(detail, b0, tx, ty, tz);
+}
+
+__device__ __forceinline__ int classify(const Ray& r, const Tables& t, const Scalars& c,
+                                        int32_t tx, int32_t ty, int32_t tz, int32_t b,
+                                        int32_t& step) {
+  return kFlatCoarse ? coarse_classify_flat(r, t, c, tx, ty, tz, b, step)
+                     : coarse_classify(r, t, c, tx, ty, tz, b, step);
+}
+
 // One iteration of a ray: exactly one move (a coarse step, or one voxel
-// crossing of the parked brick) unless the ray finishes.  The order of the
-// tests is that of the plain round loop
-//   for each round: up to `steps` coarse steps (a move that leaves the
-//   window is air); after a park, one resolve of <= 23 crossings that ends
-//   the round live where it leaves the brick or runs out of crossings
-// with the round ended where the loop ends it.  -> true when the ray is
-// finished, with `status` kDone (a hit), kDone | kAir (air) or 0
-// (exhausted: still live after `rounds` rounds).
-__device__ __forceinline__ bool step_ray(Ray& r, Budget& s, int& status, const Tables& t,
-                                         const Scalars& c, int32_t* row,
-                                         const int32_t* __restrict__ detail, int rounds,
-                                         int steps) {
+// crossing of the parked brick) unless the ray finishes; coarse-stepping
+// and resolving lanes share `move_to_boundary`.  The order of the tests is
+// that of the plain round loop (`trace_ray`) with the round ended where
+// that loop ends it.  -> -1 while the ray is live, else its status: kDone
+// (a hit), kDone | kAir (air) or 0 (exhausted: still live after `rounds`
+// rounds).
+__device__ __forceinline__ int step_ray(Ray& r, Budget& s, const Tables& t,
+                                        const Scalars& c, int32_t* row,
+                                        const int32_t* __restrict__ detail, int rounds,
+                                        int steps) {
   const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
   const int32_t b = brick_of(tx, ty, tz);
-  status = 0;
   // The tests that open a crossing of resolve_mixed: after 23 crossings,
   // or out of the brick, the round ends live; out of the window is air.
   if (s.b0 >= 0) {
-    if (s.crossings != kMaxCrossings && out_of_window(r, c)) {
-      status = kDone | kAir;
-      return true;
-    }
+    if (s.crossings != kMaxCrossings && out_of_window(r, c)) return kDone | kAir;
     if (s.crossings == kMaxCrossings || b != s.b0) {
       s.b0 = -1;
       s.k = 0;
-      if (++s.r == rounds) return true;
+      if (++s.r == rounds) return 0;
     }
   }
   int32_t step = 1;  // the move: 1 a voxel crossing, 8-64 a coarse step
   if (s.b0 < 0) {
-    status = kFlatCoarse ? coarse_classify_flat(r, t, c, tx, ty, tz, b, step)
-                         : coarse_classify(r, t, c, tx, ty, tz, b, step);
+    const int status = classify(r, t, c, tx, ty, tz, b, step);
     ++s.k;
-    if (status != kParked) {
-      if (status != 0) return true;
+    if (status == kParked) {
+      // The first crossing's window and brick tests hold here.
+      s.b0 = b;
+      s.crossings = 0;
+      if (kRowCopy) copy_row(row, detail, b);
+    } else if (status != 0) {
+      return status;
+    }
+  }
+  if (s.b0 >= 0) {
+    if (crossing_solid(row, detail, s.b0, tx, ty, tz)) return kDone;
+    ++s.crossings;
+  }
+  move_to_boundary(r, step);
+  if (s.b0 < 0) {
+    if (out_of_window(r, c)) return kDone | kAir;
+    if (s.k == steps) {
+      s.k = 0;
+      if (++s.r == rounds) return 0;
+    }
+  }
+  return -1;
+}
+
+// The rounds of one ray, whole, in the plain round loop's nested form: up
+// to `steps` coarse steps a round, then after a park one resolve of <= 23
+// crossings; `trips` counts the loops' iterations.  -> its status, as
+// step_ray's.
+__device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars& c,
+                                         int32_t* row, const int32_t* __restrict__ detail,
+                                         int rounds, int steps, int& trips) {
+  for (int round = 0; round < rounds; ++round) {
+    int status = 0;
+    int32_t b = 0;
+    for (int k = 0; k < steps; ++k) {
+      ++trips;
+      const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
+      b = brick_of(tx, ty, tz);
+      int32_t step = 0;
+      status = classify(r, t, c, tx, ty, tz, b, step);
+      if (status != 0) break;
       move_to_boundary(r, step);
       if (out_of_window(r, c)) {
         status = kDone | kAir;
-        return true;
+        break;
       }
-      if (s.k == steps) {
-        s.k = 0;
-        if (++s.r == rounds) return true;
-      }
-      return false;
     }
-    // Parked: the first crossing's window and brick tests hold here.
-    status = 0;
-    s.b0 = b;
-    s.crossings = 0;
-    if (kRowCopy) copy_row(row, detail, b);
+    if (status == kParked) {
+      const int32_t b0 = b;
+      status = 0;
+      if (kRowCopy) copy_row(row, detail, b0);
+      for (int k = 0; k < kMaxCrossings; ++k) {
+        ++trips;
+        if (out_of_window(r, c)) {
+          status = kDone | kAir;
+          break;
+        }
+        const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
+        if (brick_of(tx, ty, tz) != b0) break;
+        if (crossing_solid(row, detail, b0, tx, ty, tz)) {
+          status = kDone;
+          break;
+        }
+        move_to_boundary(r, 1);
+      }
+    }
+    if (status != 0) return status;
   }
-  const bool solid =
-      kRowCopy ? row_solid(row, tx, ty, tz) : voxel_solid(detail, s.b0, tx, ty, tz);
-  if (kEagerMove) {
-    Ray moved = r;
-    move_to_boundary(moved, step);
-    if (!solid) r = moved;
-  } else if (!solid) {
-    move_to_boundary(r, step);
-  }
-  if (solid) {
-    status = kDone;
-    return true;
-  }
-  ++s.crossings;
-  return false;
+  return 0;
 }
 
 __device__ __forceinline__ void start_ray(int i, Ray& r, Budget& s,
@@ -260,7 +317,10 @@ __global__ void __launch_bounds__(kThreads)
       skip(k);
     }
   }
-  long long iterations = 0;
+  // A launch without an active mask (the primaries: coherent, every ray
+  // live) walks each ray whole: the warp refills only between windows.
+  const bool whole = kWholeRay || (kWholeUnmasked && active == nullptr);
+  int iterations = 0;  // the warp's loop iterations
   for (;;) {
     if (kLanes && refill_now(__ballot_sync(kFullMask, i < 0))) {
       const int held = i;
@@ -268,9 +328,18 @@ __global__ void __launch_bounds__(kThreads)
       if (held < 0 && i >= 0) start_ray(i, r, s, origin, direction);
     }
     if (!__any_sync(kFullMask, i >= 0)) break;
-    ++iterations;
-    int status;
-    if (i >= 0 && step_ray(r, s, status, t, c, row, detail, rounds, steps)) {
+    int status = -1, trips = 1;
+    if (i >= 0) {
+      if (whole) {
+        trips = 0;
+        status = trace_ray(r, t, c, row, detail, rounds, steps, trips);
+      } else {
+        status = step_ray(r, s, t, c, row, detail, rounds, steps);
+      }
+    }
+    // Whole rays: a window counts as its lane's most loop iterations.
+    iterations += whole ? __reduce_max_sync(kFullMask, trips) : 1;
+    if (status >= 0) {
       pos_out[3 * i] = r.px;
       pos_out[3 * i + 1] = r.py;
       pos_out[3 * i + 2] = r.pz;

@@ -20,8 +20,8 @@ two kernels share is ``csrc/vol_march.cuh``.
   in ``csrc/trace_rays_vol.cu`` persistent lanes walk ray after ray, one
   move per loop iteration, with the round loop's budget in each lane's
   state, and ``march_rays_vol_plain`` below runs one coarse step of every
-  live ray per loop iteration.  ``render_gbuffers_vol`` is the staged G-buffer pass
-  built on it (``:1210-1246``).
+  live ray per loop iteration.  ``render_gbuffers_vol`` is the staged
+  G-buffer pass built on it (``:1210-1246``).
 
 One step of a ray:
   1. coarse step: a ray out of the window, or past the occupancy bounds
@@ -594,8 +594,6 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
            (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("trace_rays_vol", t, dtype, shape, dev)
-    if tables["detail"].data_ptr() % 16:
-        raise ValueError("trace_rays_vol: the detail rows must be 16-byte aligned")
     if census is not None:
         check_tensor("trace_rays_vol", census, torch.int64, (1,), dev)
     pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
