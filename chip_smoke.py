@@ -413,10 +413,12 @@ def phase_k3s_tight(torch, cases):
     cut of an exhausted ray falls mid-round, mid-resolve or at a round's
     end: every output equal on every ray (NaN matching NaN).  ``cases``:
     label -> (volume, tables, lr, origin, direction, active).  Counts the
-    exhausted traced rays compared; fails if there are none."""
+    exhausted traced rays compared; fails if there are none.  ``seconds``:
+    the phase's time on the host's clock."""
     from raytrace_tpu_torch.ops import trace_vol
     from raytrace_tpu_torch.testing.measure import same
 
+    t0 = time.perf_counter()
     keys = ("position", "normal", "air", "albedo", "distance", "exhausted")
     res = dict(budgets=[list(b) for b in TIGHT], batches={}, exhausted_compared=0)
     ok = True
@@ -434,6 +436,7 @@ def phase_k3s_tight(torch, cases):
             res["exhausted_compared"] += exhausted
             ok = ok and equal
         res["batches"][label] = dict(rays=o.numel() // 3, runs=rows)
+    res["seconds"] = time.perf_counter() - t0
     return ok and res["exhausted_compared"] > 0, res
 
 
@@ -962,6 +965,7 @@ def main() -> int:
                                 torch=torch.__version__, cuda=torch.version.cuda,
                                 blue_noise_sha256=bn_sha))
 
+    start = time.perf_counter()
     t0 = time.perf_counter()
     _build.build()
     build = dict(_build.build_info)
@@ -1085,7 +1089,9 @@ def main() -> int:
     times.update(k4_ms=k4_res["k4_ms"], k4_kernel_ms=k4_res["k4_kernel_ms"],
                  k4_plain_ms=k4_res["k4_plain_ms"],
                  hf_frame_ms=hf_frame_ms, volume_frame_ms=exact_res["ms_per_frame"])
-    report("times", True, dict(card=card, size=H, **times))
+    # smoke_seconds: the script from before the build to here.
+    report("times", True, dict(card=card, size=H, smoke_seconds=time.perf_counter() - start,
+                               **times))
     if "jax" in sys.modules or any(m.split(".")[0] == "raytrace_tpu" for m in sys.modules):
         raise RuntimeError("chip_smoke imported jax or the JAX package")
 

@@ -33,21 +33,15 @@ diffuse pair), at the bench camera (origin (-30,-100,60), pitch -0.3, sun
   5 legs, beside the plain version's moves and fine steps (column-height
   reads) for each: where K1's time goes between the primary and the bounce
   legs;
-- ``k3s``: K3s's design alternatives (``VARIANTS``: the shipped kernel;
-  one move per iteration on the unmasked batch too; every ray walked whole
-  by its lane (the nested round loop); one ray per thread in index order,
-  one move per iteration or whole; a parked brick's detail row copied to
-  shared memory; a coarse step's pyramid words loaded together; refill
-  rules i and ii), each a library built from a copy of ``csrc/`` with its
-  switches flipped, timed alone per batch in turns, with its census (for
-  whole rays, the most loop iterations of a lane in each window) and the
-  check that every output equals the shipped library's; then each on the
-  same rays longest first (by the plain version's moves) and on the 32
-  longest alone (their most moves, and the microseconds per move of that
-  lone warp).  In a
-  checkout whose K3s has no switches and no census (an earlier commit) it
-  times the shipped kernel alone, with the census of one thread per ray
-  computed from the moves.
+- ``k3s``: K3s on the shipped refill rule iii and on rules i and ii
+  (``VARIANTS``, each a library built from a copy of ``csrc/`` whose
+  ``refill_now`` body is replaced), timed alone per batch in turns, with
+  its census (for the unmasked batch, whose rays are walked whole, the most
+  loop iterations of a lane in each window) and the check that every output
+  equals the shipped library's; then each on the same rays longest first
+  (by the plain version's moves) and on the 32 longest alone (their most
+  moves, and the microseconds per move of that lone warp).  A parent
+  checkout's K3s is timed alone with ``apps/kernel_times.py``.
 
 Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
 [--reps 10] [--size 1024] [--part all|rule|order|split|k3s]
@@ -57,7 +51,6 @@ Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import re
 import shutil
@@ -78,47 +71,13 @@ _KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel",
 _K3S = "trace_rays_vol.cu"
 
 
-def _switch(name: str, value: str):
-    """An edit of K3s's source: its ``constexpr bool <name>`` set to
-    ``value``."""
-    pattern = re.compile(rf"(constexpr bool {name} = )\w+;")
-    return lambda text: pattern.subn(lambda m: m.group(1) + value + ";", text)
-
-
 def _rule(rule: str):
     return lambda text: _BODY.subn(lambda m: m.group(1) + RULES[rule] + ";", text)
 
 
-def _edits(*edits):
-    """The edits applied in turn; -> (text, 1), or the count of the first
-    that did not change its source once."""
-    def edit(text):
-        for one in edits:
-            text, count = one(text)
-            if count != 1:
-                return text, count
-        return text, 1
-    return edit
-
-
-# K3s's design alternatives: variant -> the edit of its source (the shipped
-# kernel: persistent lanes; one move per iteration with refill rule iii for
-# a batch with an active mask, each ray whole for one without; each
-# crossing's detail word read from L2; the coarse step's words behind its
-# tests).
-VARIANTS = {
-    "shipped": None,
-    "one_move_unmasked": _switch("kWholeUnmasked", "false"),
-    "whole_ray": _switch("kWholeRay", "true"),
-    "one_ray_per_thread": _edits(_switch("kLanes", "false"),
-                                 _switch("kWholeUnmasked", "false")),
-    "whole_ray_per_thread": _edits(_switch("kWholeRay", "true"),
-                                   _switch("kLanes", "false")),
-    "row_copy": _switch("kRowCopy", "true"),
-    "flat_coarse": _switch("kFlatCoarse", "true"),
-    "rule_i": _rule("i"),
-    "rule_ii": _rule("ii"),
-}
+# K3s's variants: variant -> the edit of its source (the shipped kernel
+# refills on rule iii).
+VARIANTS = {"shipped": None, "rule_i": _rule("i"), "rule_ii": _rule("ii")}
 
 
 def _library(tag: str, edits: dict):
@@ -132,7 +91,7 @@ def _library(tag: str, edits: dict):
         src = csrc / name
         text, count = edit(src.read_text())
         if count != 1:
-            raise RuntimeError(f"{name}: no {tag} switch to change")
+            raise RuntimeError(f"{name}: the {tag} edit does not apply")
         src.write_text(text)
     shipped = _build._CSRC
     _build._CSRC, _build._lib = csrc, None
@@ -272,9 +231,8 @@ def _k3s_items(size: int):
             if items is not None:
                 o, d = o[items].contiguous(), d[items].contiguous()
                 active = None if active is None else active[items].contiguous()
-            kw = {} if census is None else dict(census=census)
             return trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"],
-                                            pipe.max_steps, active=active, **kw)
+                                            pipe.max_steps, active=active, census=census)
 
         out.append((call, moves))
     return out
@@ -351,30 +309,25 @@ def _k3s_part(label, size, rounds, reps) -> dict:
     longest first and the 32 longest alone."""
     batches = _k3s_items(size)
     kernel = _KERNEL["k3s"]
-    has_census = "census" in inspect.signature(trace_vol.trace_rays_vol).parameters
-    source = (_build._CSRC / _K3S).read_text()
-    variants = {name: edit for name, edit in VARIANTS.items()
-                if edit is None or edit(source)[1] == 1}
     want = [_flat(call()) for call, _ in batches]
     shipped = _build.kernels()
     libs = {name: shipped if edit is None else _library(f"k3s_{name}", {_K3S: edit})
-            for name, edit in variants.items()}
-    res = {name: [dict(kernel_ms=[]) for _ in batches] for name in variants}
-    for name in _in_turns(variants, rounds):
+            for name, edit in VARIANTS.items()}
+    res = {name: [dict(kernel_ms=[]) for _ in batches] for name in VARIANTS}
+    for name in _in_turns(VARIANTS, rounds):
         _build._lib = libs[name]
         for (call, moves), r, w in zip(batches, res[name], want):
             if "moves" not in r:
-                census = torch.zeros(1, dtype=torch.int64, device="cuda") if has_census else None
+                census = torch.zeros(1, dtype=torch.int64, device="cuda")
                 if not all(same(a, b) for a, b in zip(_flat(call(census=census)), w)):
                     raise RuntimeError(f"k3s {name} differs from the shipped kernel")
                 total, static = int(moves.sum(dtype=torch.int64)), static_warp_iterations(moves)
+                iters = int(census.item())
                 r.update(rays=moves.numel(), moves=total, static_warp_iterations=static,
-                         static_lane_use=lane_use(total, static))
-                if census is not None:
-                    iters = int(census.item())
-                    r.update(warp_iterations=iters, lane_use=lane_use(total, iters))
+                         static_lane_use=lane_use(total, static), warp_iterations=iters,
+                         lane_use=lane_use(total, iters))
             r["kernel_ms"].append(kernel_ms(call, reps, kernel))
-    for name in variants:
+    for name in VARIANTS:
         _build._lib = libs[name]
         for (call, moves), r in zip(batches, res[name]):
             longest = torch.argsort(moves.reshape(-1), descending=True)

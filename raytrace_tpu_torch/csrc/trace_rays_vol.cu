@@ -49,11 +49,12 @@
 // At the volume_fast view's three 1024² batches (NVIDIA H100 80GB HBM3,
 // 700 W; apps/march_lanes.py --part k3s, in turns) this takes 1.08 ms
 // against the first form's 1.49 (0.15 / 0.63 / 0.30 against 0.16 / 0.87 /
-// 0.47).  The switches below select the measured alternatives (PERF.md
-// section 5): one move per iteration on every batch (1.19), every ray whole
-// (1.31), one ray per thread (1.44), a parked brick's detail row copied to
-// shared memory once (1.24, and ptxas spilled), the coarse step's pyramid
-// words loaded together (1.25), refilling when all or any lanes are idle.
+// 0.47).  The alternatives that lost are in PERF.md section 5 with their
+// times: one move per iteration on every batch, every ray whole, one ray
+// per thread, a parked brick's detail row copied to shared memory once
+// (ptxas spilled), the coarse step's pyramid words loaded together.  The
+// refill rule (refill_now) is the one alternative kept as an edit point:
+// apps/march_lanes.py times rules i and ii against it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,24 +65,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-// true: persistent lanes that refill; false: one ray per thread, launched
-// in index order (the loop is the same).
-constexpr bool kLanes = true;
-// true: a parked ray copies its brick's 64-byte detail row into its column
-// of a shared (16, kThreads) table with four 16-byte loads, and its
-// crossings test the copy; false: each crossing reads its detail word from
-// L2 (`voxel_solid`).
-constexpr bool kRowCopy = false;
-// true: a coarse step loads its five pyramid words before any test;
-// false: `coarse_classify`, each word behind the previous test.
-constexpr bool kFlatCoarse = false;
-// true: a lane walks its ray whole (`trace_ray`, the nested round loop)
-// and the warp refills once all its rays are done; false: one move per
-// iteration (`step_ray`).  kWholeUnmasked: whole rays for a launch without
-// an active mask (the primaries) only.
-constexpr bool kWholeRay = false;
-constexpr bool kWholeUnmasked = true;
 
 // The refill rule: the idle lanes of a warp take new rays once at least 16
 // of its 32 lanes are idle.
@@ -96,67 +79,6 @@ struct Budget {
   int32_t r, k, b0, crossings;
 };
 
-// coarse_classify with the five pyramid words loaded first, independent of
-// one another and of the tests (a texel is always inside the tables).
-__device__ __forceinline__ int coarse_classify_flat(const Ray& r, const Tables& t,
-                                                    const Scalars& c, int32_t tx,
-                                                    int32_t ty, int32_t tz,
-                                                    int32_t b, int32_t& step) {
-  const int32_t f8 = bit(t.all8, b);
-  const int32_t a8 = bit(t.any8, b);
-  const int32_t a64 = bit(t.hi, 192 * 32 + ((tz >> 6) * 4 + (ty >> 6)) * 4 + (tx >> 6));
-  const int32_t a32 = bit(t.hi, 128 * 32 + ((tz >> 5) * 8 + (ty >> 5)) * 8 + (tx >> 5));
-  const int32_t a16 = bit(t.hi, ((tz >> 4) * 16 + (ty >> 4)) * 16 + (tx >> 4));
-  if (out_of_window(r, c)) return kDone | kAir;
-  bool esc = (r.vx >= 0.0f && r.px >= c.bxmax) || (r.vx <= 0.0f && r.px < c.bxmin) ||
-             (r.vy >= 0.0f && r.py >= c.bymax) || (r.vy <= 0.0f && r.py < c.bymin) ||
-             (r.vz >= 0.0f && r.pz >= c.bzmax) || (r.vz <= 0.0f && r.pz < c.bzmin);
-  if (esc) return kDone | kAir;
-  if (f8) return kDone;
-  if (a8) return kParked;
-  step = !a64 ? 64 : (!a32 ? 32 : (!a16 ? 16 : 8));
-  return 0;
-}
-
-// Copy brick b's 16-word detail row into this lane's column `row` of the
-// block's (16, kThreads) shared table: four 16-byte loads issued together
-// (a row is 64 bytes, and PyTorch's allocations are 16-byte aligned).
-__device__ __forceinline__ void copy_row(int32_t* row, const int32_t* __restrict__ detail,
-                                         int32_t b) {
-  const int4* src = reinterpret_cast<const int4*>(detail + (size_t)b * kDetailWords);
-#pragma unroll
-  for (int q = 0; q < kDetailWords / 4; ++q) {
-    const int4 v = __ldg(src + q);
-    row[(4 * q) * kThreads] = v.x;
-    row[(4 * q + 1) * kThreads] = v.y;
-    row[(4 * q + 2) * kThreads] = v.z;
-    row[(4 * q + 3) * kThreads] = v.w;
-  }
-}
-
-// The voxel test of one crossing against the lane's copy of the row.
-__device__ __forceinline__ bool row_solid(const int32_t* row, int32_t tx, int32_t ty,
-                                          int32_t tz) {
-  const int32_t v = ((tz & 7) << 6) | ((ty & 7) << 3) | (tx & 7);
-  return (row[(v >> 5) * kThreads] >> (v & 31)) & 1;
-}
-
-// The voxel test of a crossing of brick b0 at texel (tx, ty, tz): against
-// the lane's copy of the row, or the detail word in L2.
-__device__ __forceinline__ bool crossing_solid(const int32_t* row,
-                                               const int32_t* __restrict__ detail,
-                                               int32_t b0, int32_t tx, int32_t ty,
-                                               int32_t tz) {
-  return kRowCopy ? row_solid(row, tx, ty, tz) : voxel_solid(detail, b0, tx, ty, tz);
-}
-
-__device__ __forceinline__ int classify(const Ray& r, const Tables& t, const Scalars& c,
-                                        int32_t tx, int32_t ty, int32_t tz, int32_t b,
-                                        int32_t& step) {
-  return kFlatCoarse ? coarse_classify_flat(r, t, c, tx, ty, tz, b, step)
-                     : coarse_classify(r, t, c, tx, ty, tz, b, step);
-}
-
 // One iteration of a ray: exactly one move (a coarse step, or one voxel
 // crossing of the parked brick) unless the ray finishes; coarse-stepping
 // and resolving lanes share `move_to_boundary`.  The order of the tests is
@@ -165,7 +87,7 @@ __device__ __forceinline__ int classify(const Ray& r, const Tables& t, const Sca
 // (a hit), kDone | kAir (air) or 0 (exhausted: still live after `rounds`
 // rounds).
 __device__ __forceinline__ int step_ray(Ray& r, Budget& s, const Tables& t,
-                                        const Scalars& c, int32_t* row,
+                                        const Scalars& c,
                                         const int32_t* __restrict__ detail, int rounds,
                                         int steps) {
   const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
@@ -182,19 +104,18 @@ __device__ __forceinline__ int step_ray(Ray& r, Budget& s, const Tables& t,
   }
   int32_t step = 1;  // the move: 1 a voxel crossing, 8-64 a coarse step
   if (s.b0 < 0) {
-    const int status = classify(r, t, c, tx, ty, tz, b, step);
+    const int status = coarse_classify(r, t, c, tx, ty, tz, b, step);
     ++s.k;
     if (status == kParked) {
       // The first crossing's window and brick tests hold here.
       s.b0 = b;
       s.crossings = 0;
-      if (kRowCopy) copy_row(row, detail, b);
     } else if (status != 0) {
       return status;
     }
   }
   if (s.b0 >= 0) {
-    if (crossing_solid(row, detail, s.b0, tx, ty, tz)) return kDone;
+    if (voxel_solid(detail, s.b0, tx, ty, tz)) return kDone;
     ++s.crossings;
   }
   move_to_boundary(r, step);
@@ -213,8 +134,8 @@ __device__ __forceinline__ int step_ray(Ray& r, Budget& s, const Tables& t,
 // crossings; `trips` counts the loops' iterations.  -> its status, as
 // step_ray's.
 __device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars& c,
-                                         int32_t* row, const int32_t* __restrict__ detail,
-                                         int rounds, int steps, int& trips) {
+                                         const int32_t* __restrict__ detail, int rounds,
+                                         int steps, int& trips) {
   for (int round = 0; round < rounds; ++round) {
     int status = 0;
     int32_t b = 0;
@@ -223,7 +144,7 @@ __device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars&
       const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
       b = brick_of(tx, ty, tz);
       int32_t step = 0;
-      status = classify(r, t, c, tx, ty, tz, b, step);
+      status = coarse_classify(r, t, c, tx, ty, tz, b, step);
       if (status != 0) break;
       move_to_boundary(r, step);
       if (out_of_window(r, c)) {
@@ -234,7 +155,6 @@ __device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars&
     if (status == kParked) {
       const int32_t b0 = b;
       status = 0;
-      if (kRowCopy) copy_row(row, detail, b0);
       for (int k = 0; k < kMaxCrossings; ++k) {
         ++trips;
         if (out_of_window(r, c)) {
@@ -243,7 +163,7 @@ __device__ __forceinline__ int trace_ray(Ray& r, const Tables& t, const Scalars&
         }
         const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
         if (brick_of(tx, ty, tz) != b0) break;
-        if (crossing_solid(row, detail, b0, tx, ty, tz)) {
+        if (voxel_solid(detail, b0, tx, ty, tz)) {
           status = kDone;
           break;
         }
@@ -285,10 +205,8 @@ __global__ void __launch_bounds__(kThreads)
                           int steps, int32_t* __restrict__ next,
                           long long* __restrict__ census) {
   __shared__ Tables t;
-  __shared__ int32_t rows[kRowCopy ? kDetailWords : 1][kThreads];
   Scalars c;
   load_tables(t, c, any8, all8, any_hi, iscal);
-  int32_t* row = &rows[0][threadIdx.x];
 
   // A ray that takes no lane: an inactive ray is born done at its origin
   // with normal 0; with no rounds, an active ray is exhausted there.
@@ -308,21 +226,12 @@ __global__ void __launch_bounds__(kThreads)
   Budget s;
   Window w;
   int i = -1;  // this lane's ray, -1 while idle
-  if (!kLanes) {
-    const int k = blockIdx.x * kThreads + threadIdx.x;
-    if (k < n && live(k)) {
-      i = k;
-      start_ray(i, r, s, origin, direction);
-    } else if (k < n) {
-      skip(k);
-    }
-  }
   // A launch without an active mask (the primaries: coherent, every ray
   // live) walks each ray whole: the warp refills only between windows.
-  const bool whole = kWholeRay || (kWholeUnmasked && active == nullptr);
+  const bool whole = active == nullptr;
   int iterations = 0;  // the warp's loop iterations
   for (;;) {
-    if (kLanes && refill_now(__ballot_sync(kFullMask, i < 0))) {
+    if (refill_now(__ballot_sync(kFullMask, i < 0))) {
       const int held = i;
       i = refill(i, w, next, n, live, skip);
       if (held < 0 && i >= 0) start_ray(i, r, s, origin, direction);
@@ -332,9 +241,9 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= 0) {
       if (whole) {
         trips = 0;
-        status = trace_ray(r, t, c, row, detail, rounds, steps, trips);
+        status = trace_ray(r, t, c, detail, rounds, steps, trips);
       } else {
-        status = step_ray(r, s, t, c, row, detail, rounds, steps);
+        status = step_ray(r, s, t, c, detail, rounds, steps);
       }
     }
     // Whole rays: a window counts as its lane's most loop iterations.
@@ -365,13 +274,11 @@ extern "C" int rt_trace_rays_vol(const float* origin, const float* direction,
                                  int32_t* next, long long* census, void* stream) {
   if (n <= 0) return 0;
   int blocks = (n + kThreads - 1) / kThreads;
-  if (kLanes) {
-    int err = persistent_grid(trace_rays_vol_kernel, kThreads, n, grid_cache, blocks);
-    if (err != 0) return err;
-    // The lanes' ray counter, zeroed on the launching stream.
-    err = (int)cudaMemsetAsync(next, 0, sizeof(int32_t), (cudaStream_t)stream);
-    if (err != 0) return err;
-  }
+  int err = persistent_grid(trace_rays_vol_kernel, kThreads, n, grid_cache, blocks);
+  if (err != 0) return err;
+  // The lanes' ray counter, zeroed on the launching stream.
+  err = (int)cudaMemsetAsync(next, 0, sizeof(int32_t), (cudaStream_t)stream);
+  if (err != 0) return err;
   trace_rays_vol_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origin, direction, active, iscal, any8, all8, any_hi, detail, pos, normal,
       air, done, n, rounds, steps, next, census);
