@@ -18,7 +18,15 @@ the 256² batches and one 1024² pair batch, 20 frames of
 G-buffers against K3's whole-path ones.  It
 holds the column table K1 reads equal to the plain march's heights on
 every column of each region it renders, and renders a fused frame from
-bare region tables.  It times the kernels alone
+bare region tables.  Then the apps: the host codec (``native_codec``),
+``generate_world`` and a cache-streamed ``volume_fast`` pipeline held bit
+for bit to a device-streamed one (``cache_stream``), each kernel against
+its plain version at the apps' shapes (``app_shapes_*``: 1920x1080 b1,
+512² b0 and b2), the benchmark's configs 1-4 (``benchmark_configs``: each
+with ``exhausted_px`` 0), ``capture`` (its four-deep pinned readback
+against a synchronous one, PNGs against the ``.dat`` bytes),
+``flythrough`` (scripted, and the ``b`` edit), ``debug_view --gbuffers``
+and ``stage_times``.  It times the kernels alone
 and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
@@ -48,6 +56,7 @@ VOL_DX = 1.2  # camera x step per frame on the volume path: crosses a slice
 WEIRD = dict(origin=(0.0, -80.0, 40.0), pitch=-0.4, sun=0.6)  # weird scene view
 HF_MATCH = 0.9999  # share of pixels whose hf (K4) and fused (K1) G-buffers agree
 EXACT_FRAMES = 2  # frames of the exact DDA
+MAX_STEPS = 2048  # the step budget of the apps (MAX_TRACE_STEPS)
 # K3s's tight round budgets: (rounds, cap), where many rays exhaust.
 TIGHT = [(rounds, cap) for rounds in (1, 2, 3) for cap in (2, 8)]
 
@@ -151,21 +160,31 @@ def _timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
-    """K1 against its plain version on the march inputs the frame gives it.
+def _wh(size):
+    """(width, height) of a square ``size`` or a (width, height) pair."""
+    return (size, size) if isinstance(size, int) else tuple(size)
+
+
+def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=False):
+    """K1 against its plain version on the march inputs the frame gives it
+    (``size``: square, or (width, height)).
 
     Both are built without FMA contraction, so every meta word must be
     equal, and with it the normal, albedo and shaded lighting.  K1 reads
     the column heights from the tables' column table, the plain version
-    evaluates them.  Reports K1's lane-use census."""
+    evaluates them.  Reports K1's lane-use census; ``timed``: also K1
+    alone (torch.profiler, 10 calls) and the plain version (once).
+    -> (ok, res, the kernel's G-buffers)."""
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import kernel_ms
 
-    frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
+    frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size))
     budget = (max_steps, seed, 1 + 2 * bounces)
     census = torch.zeros(1, dtype=torch.int64, device=packed.device)
     meta_k, pd_k = lighting.march_paths(*frame["march"], *budget, census=census)
-    meta_p, pd_p, work = lighting.march_paths_plain(*frame["march"], *budget)
+    (meta_p, pd_p, work), t_p = _timed_once(
+        torch, lambda: lighting.march_paths_plain(*frame["march"], *budget))
     gk = lighting.shade(meta_k, pd_k, **frame["shade"])
     gp = lighting.shade(meta_p, pd_p, **frame["shade"])
     dd = torch.abs(gk["depth"].to(torch.int32) - gp["depth"].to(torch.int32))
@@ -174,6 +193,7 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
         meta_equal=float((meta_k == meta_p).float().mean()),
         max_abs_err=float(torch.abs(gk["lighting"] - gp["lighting"]).max()),
         max_depth_diff=int(dd.max()),
+        sky_px=int((gk["depth"].to(torch.int32) == 0xFFFF).sum()),
         exhausted_kernel=_exhausted(gk, torch, lighting),
         exhausted_plain=_exhausted(gp, torch, lighting),
     )
@@ -193,26 +213,33 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces):
                                           OPS_PER_HEIGHT * 256 * 256)["bound_ms"]
     res["parent_work_bound_ms"] = _bound(
         per_path + 6 * 4096, OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights)["bound_ms"]
+    if timed:
+        res.update(kernel_ms=kernel_ms(lambda: lighting.march_paths(*frame["march"], *budget),
+                                       10, "march_paths_kernel"), plain_ms=t_p)
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
           and res["max_depth_diff"] <= 1
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
-    return ok, res
+    return ok, res, gk
 
 
-def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces):
+def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, timed=False):
     """K3 against its plain version on the march inputs the frame gives it.
 
     Both are built without FMA contraction, so the four outputs (meta word,
     primary and dif1 hit voxels, primary distance) must be equal on every
-    pixel, and neither may cut a primary.  Reports K3's lane-use census."""
+    pixel, and neither may cut a primary.  Reports K3's lane-use census;
+    ``timed``: also K3 alone (torch.profiler, 10 calls) and the plain
+    version (once)."""
     from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import kernel_ms
 
     legs = path_vol.legs_of(bounces)
     frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
     census = torch.zeros(1, dtype=torch.int64, device=packed.device)
     got = trace_vol.march_paths_vol(*frame["march"], max_steps, legs, census=census)
-    *want, moves = trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs)
+    (*want, moves), t_p = _timed_once(
+        torch, lambda: trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs))
     gk = path_vol.shade(volume, *got, legs=legs, **frame["shade"])
     gp = path_vol.shade(volume, *want, legs=legs, **frame["shade"])
     names = ("meta", "prim_lin", "dif1_lin", "prim_dist")
@@ -230,6 +257,9 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces):
     res["census"] = _census(torch, moves, census)
     res.update(_bound(n * (12 + 12 + 48 + 16) + 56 + tables_bytes,
                       OPS_PER_VOL_MOVE * res["work"]["moves"]))
+    if timed:
+        res.update(kernel_ms=kernel_ms(lambda: trace_vol.march_paths_vol(
+            *frame["march"], max_steps, legs), 10, "march_paths_vol_kernel"), plain_ms=t_p)
     ok = (all(v == 1.0 for v in res["equal"].values()) and res["max_abs_err"] == 0.0
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
     return ok, res
@@ -546,7 +576,8 @@ def phase_k2(torch, blue, gbs):
     each set of G-buffers, and two single passes against the plain pass."""
     from raytrace_tpu_torch.ops import denoise
 
-    res = dict(size=H, atol=3e-5, max_abs_err={})
+    h, w = gbs["main"]["depth"].shape
+    res = dict(size=[h, w], atol=3e-5, max_abs_err={})
     for name, gb in gbs.items():
         got = denoise.denoise_finalize(gb, blue)
         want = denoise.denoise_finalize_plain(gb, blue)
@@ -564,7 +595,7 @@ def phase_k2(torch, blue, gbs):
             torch.abs(got - want).max())
     # One pass, the mean of the chain's: light in and out, the geometry
     # plane, and in the last pass albedo, emission, fog and the noise.
-    passes, n = len(denoise.DENOISE_SIZES), H * W
+    passes, n = len(denoise.DENOISE_SIZES), h * w
     chain_bytes = passes * n * (12 + 4 + 12) + n * 36 + blue.numel() * 4
     chain_ops = passes * n * (DENOISE_TAPS * OPS_PER_TAP + 11) + n * 30
     res.update(_bound(chain_bytes / passes, chain_ops / passes))
@@ -729,7 +760,7 @@ def phase_staged_vol_times(torch, pipe, cam, k3s_res):
 def _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces):
     """The hf G-buffer pass with K4, recording each trace call: (origin,
     direction, active, caps, hit dict) of the primary batch and of each
-    bounce's sun + diffuse pair."""
+    bounce's sun + diffuse pair.  ``size``: square, or (width, height)."""
     from raytrace_tpu_torch.ops import integrate, trace_hf
 
     batches = []
@@ -741,7 +772,7 @@ def _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces):
         batches.append((o, d, active, caps, hit))
         return hit
 
-    gb = integrate.integrate_gbuffers(trace, blue, uniforms, size, size, bounces)
+    gb = integrate.integrate_gbuffers(trace, blue, uniforms, *_wh(size), bounces)
     return gb, batches
 
 
@@ -926,6 +957,344 @@ def phase_hf_frame_ms(torch, pipe):
         pipe.bounces, "hf"), 10)
 
 
+def _scratch_dir(name: str) -> Path:
+    """An empty directory inside the checkout's build directory (which
+    ``.gitignore`` lists) for the files a phase writes."""
+    import shutil
+
+    path = ROOT / "raytrace_tpu_torch" / "build" / "smoke" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf, trace_vol
+
+    return dict(K1=lighting.march_paths.launches, K2=denoise.launch_pass.launches,
+                K3=trace_vol.march_paths_vol.launches,
+                K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches)
+
+
+def _launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+
+
+def phase_native_codec(torch, dev):
+    """The port's host codec: the library builds with g++, a chunk generated
+    on the card survives encode and decode through ``ChunkStorage`` (a miss,
+    then a hit), its file starts with ``RTL4``, and ``native.copy3d`` equals
+    ``coords.copy_3d_clipped`` on a box clipped on every axis."""
+    import numpy as np
+
+    from raytrace_tpu_torch import native
+    from raytrace_tpu_torch.utils.coords import copy_3d_clipped
+    from raytrace_tpu_torch.world.generate import generate_chunk
+    from raytrace_tpu_torch.world.storage import ChunkStorage
+
+    t0 = time.perf_counter()
+    res = dict(lz4=native.lz4_available(), build_error=native.build_error,
+               library=native.library_path().name)
+    storage = ChunkStorage(_scratch_dir("codec"), seed=0, device=dev)
+    coord = (0, 0, 0)
+    mats, mf = (t.cpu().numpy() for t in generate_chunk(coord, seed=0, device=dev))
+    miss = storage.borrow_packed_chunk_data(coord)
+    blob = storage.path_for(coord).read_bytes()
+    hit = storage.borrow_packed_chunk_data(coord)
+    res.update(magic=blob[:4].decode("latin-1"), file_bytes=len(blob),
+               solid_voxels=int((mats != 0).sum()),
+               miss_equal=bool(np.array_equal(miss[0], mats) and np.array_equal(miss[1], mf)),
+               hit_equal=bool(np.array_equal(hit[0], mats) and np.array_equal(hit[1], mf)))
+    copies = {}
+    for name, src in (("materials", mats), ("minefield", mf)):
+        got = np.zeros((40, 48, 56), src.dtype)
+        want = got.copy()
+        box = ((64, 64, 64), (5, -7, 9), (-11, 13, -3))  # size, src start, dst start
+        native.copy3d(src, got, *box)
+        copy_3d_clipped(src, want, *box)
+        copies[name] = bool(np.array_equal(got, want)) and bool(got.any() or not src.any())
+    res.update(copy3d_equal=copies, seconds=time.perf_counter() - t0)
+    ok = (res["lz4"] and res["magic"] == "RTL4" and res["miss_equal"] and res["hit_equal"]
+          and all(copies.values()))
+    return ok, res
+
+
+CACHE_SIZE = 512  # frames of the cache_stream phase
+CACHE_FRAMES = 20
+
+
+def phase_cache_stream(rt, torch):
+    """``apps.generate_world.run(radius=2)`` writes the 64 chunks of the
+    initial region; then a ``volume_fast`` pipeline streaming from that
+    cache and one generating on the card fly CACHE_FRAMES frames at +VOL_DX
+    x a frame.  The slabs beyond the region are cache misses, generated on
+    the card and stored.  Their volumes must be bit-equal after every frame,
+    and so must their frames.  Times each frame of each pipeline on the
+    host clock, synchronized, apart for the frames that streamed a slab."""
+    import os
+
+    from raytrace_tpu_torch.apps import generate_world
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.world.storage import ChunkStorage
+
+    t0 = time.perf_counter()
+    cache_dir = _scratch_dir("world")
+    generate_world.run(radius=2, storage_dir=cache_dir)
+    written = sorted(os.listdir(cache_dir))
+    magics = {(cache_dir / f).read_bytes()[:4] for f in written}
+    gen_s = time.perf_counter() - t0
+    kw = dict(width=CACHE_SIZE, height=CACHE_SIZE, tracer="volume_fast")
+    pipes = dict(cache=rt.create_instance(source="cache",
+                                          storage=ChunkStorage(cache_dir, seed=0), **kw),
+                 device=rt.create_instance(**kw))
+    res = dict(generate_world_seconds=gen_s, chunks_written=len(written),
+               magics=sorted(m.decode("latin-1") for m in magics),
+               initial_volume_equal=bool(torch.equal(pipes["cache"].streamer.volume,
+                                                     pipes["device"].streamer.volume)))
+    cam = Camera(origin=[8.0, -100.0, 60.0], pitch=-0.3)
+    ms = {k: [] for k in pipes}
+    streamed, volume_equal, frame_equal = [], [], []
+    for t in range(CACHE_FRAMES):
+        cam.origin = [8.0 + VOL_DX * t, -100.0, 60.0]
+        frames = {}
+        for name, pipe in pipes.items():
+            before = pipe.streamer.get_render_offset()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            frames[name] = pipe.draw_frame(cam, CANON["sun"])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3)
+            moved = before != pipe.streamer.get_render_offset()
+        streamed.append(moved)
+        volume_equal.append(bool(torch.equal(pipes["cache"].streamer.volume,
+                                             pipes["device"].streamer.volume)))
+        frame_equal.append(bool(torch.equal(frames["cache"], frames["device"])))
+    # Frame 0 also builds the occupancy tables: it is left out of the means.
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    for name in pipes:
+        later = list(zip(ms[name], streamed))[1:]
+        res[f"{name}_ms_slab_frames"] = mean([m for m, moved in later if moved])
+        res[f"{name}_ms_other_frames"] = mean([m for m, moved in later if not moved])
+        res[f"{name}_ms"] = ms[name]
+    stored = sorted(os.listdir(cache_dir))
+    res.update(frames=CACHE_FRAMES, size=CACHE_SIZE, slab_frames=[t for t, s in
+                                                                   enumerate(streamed) if s],
+               lr=list(pipes["cache"].uniforms.lr),
+               misses_stored=len(stored) - len(written),
+               magics_after=sorted({(cache_dir / f).read_bytes()[:4].decode("latin-1")
+                                    for f in stored}),
+               volume_equal_every_frame=all(volume_equal),
+               frame_equal_every_frame=all(frame_equal),
+               seconds=time.perf_counter() - t0)
+    ok = (len(written) == 64 and magics == {b"RTL4"} and res["magics_after"] == ["RTL4"]
+          and res["initial_volume_equal"]
+          and res["volume_equal_every_frame"] and res["frame_equal_every_frame"]
+          and res["misses_stored"] > 0 and len(res["slab_frames"]) > 0)
+    return ok, res
+
+
+def _view_uniforms(rt, cam, sun, seed, lr=(0, 0, 0)):
+    """Packed uniforms of a camera (its scaled basis) at region offset lr."""
+    fwd, up, right = cam.scaled_basis()
+    return rt.render.pipeline.FrameUniforms(origin=tuple(cam.origin), forward=fwd, up=up,
+                                            right=right, sun_angle=sun, seed=seed, lr=lr)
+
+
+def phase_app_shapes(rt, torch, dev, blue):
+    """Each kernel against its plain version at the shapes the apps give it,
+    before any app is timed: K1 at config 2's 1920x1080 b1 (the canonical
+    view, lr 0) and at capture's 512² b2 (its first view, teleported), K2's
+    chain on the 1080x1920 G-buffers of that K1 frame, K3 at config 1's
+    512² b0 on its one-chunk volume, K4 at debug_view's 512² b2 and at
+    config 2's 1920x1080 b1 (``--tracer hf``).  The tolerances of the
+    existing phases.  Capture's K1 view is the first of the sweep's second
+    position: at the first position the heightfield tracers see only sky
+    (in the JAX package too), so K1 makes no move there.
+    -> (ok, {name: (ok, res)}, seconds)."""
+    from raytrace_tpu_torch.apps import benchmark, capture
+    from raytrace_tpu_torch.ops import denoise
+    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms
+
+    out = {}
+    t0 = time.perf_counter()
+    tables = with_column_heights(build_hf_tables((0, 0, 0), seed=0, device=dev), 0)
+    canon = torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev)
+    ok, res, gb = phase_k1(torch, tables, blue, canon, (1920, 1080), MAX_STEPS, 0, 1,
+                           timed=True)
+    out["k1_1920x1080_b1"] = (ok, res)
+    ok, res = phase_k2(torch, blue, dict(main=gb))
+    res.update(chain_ms=call_ms(lambda: denoise.denoise_finalize(gb, blue), 10),
+               pass_ms=denoise_pass_ms(gb, blue, 10),
+               chain_plain_ms=call_ms(lambda: denoise.denoise_finalize_plain(gb, blue), 2))
+    out["k2_1080x1920"] = (ok, res)
+    del gb
+    first = list(capture.sweep_configs())[len(capture.SUN_ANGLES) * capture.NUM_HEADINGS]
+    pipe = rt.create_instance(width=512, height=512)
+    cam = Camera(origin=list(first["origin"]), heading=first["heading"],
+                 pitch=first["pitch"])
+    pipe.teleport(cam)
+    pipe.fill_uniforms(cam, first["sun_angle"])
+    ok, res, _ = phase_k1(torch, pipe.tables(), blue,
+                          torch.from_numpy(pipe.uniforms.packed()).to(dev), 512, MAX_STEPS,
+                          0, 2, timed=True)
+    out["k1_512_b2_capture"] = (ok, res)
+    del pipe
+    volume = benchmark.single_chunk_volume(dev)
+    packed = torch.from_numpy(_view_uniforms(
+        rt, Camera(**benchmark.CONFIG1_CAMERA), 0.6, 7).packed()).to(dev)
+    ok, res = phase_k3(torch, volume, build_vol_tables(volume), blue, packed, 512, 1024, 0,
+                       timed=True)
+    out["k3_512_b0_single_chunk"] = (ok, res)
+    bare = build_hf_tables((0, 0, 0), seed=0, device=dev)
+    ok, res = phase_k4(torch, bare, blue, canon, 512, 1024, 0, 2)
+    out["k4_512_b2_debug_view"] = (ok, res)
+    ok, res = phase_k4(torch, bare, blue, canon, (1920, 1080), MAX_STEPS, 0, 1)
+    out["k4_1920x1080_b1"] = (ok, res)
+    return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
+
+
+# The kernels each benchmark config must launch (its frames: one warm frame
+# and the timed ones; config 3 twice 64 frames, config 4 one a view).
+CONFIG_KERNELS = {"1": {"K3": 21}, "2": {"K1": 21, "K2": 126},
+                  "3": {"K1": 128, "K2": 768}, "4": {"K1": 30, "K2": 180}}
+
+
+def phase_benchmark_configs(torch):
+    """``apps.benchmark`` configs 1-4 as the app runs them (each prints its
+    JSON line), with each config's kernel launches; every config must have
+    ``exhausted_px == 0`` and launch exactly the kernels of its path
+    (CONFIG_KERNELS)."""
+    from raytrace_tpu_torch.apps import benchmark
+
+    t0 = time.perf_counter()
+    records, launches = [], {}
+    for key in ("1", "2", "3", "4"):
+        before = _launch_counts()
+        got = benchmark.CONFIGS[key]()
+        torch.cuda.synchronize()
+        launches[key] = _launches_since(before)
+        records += list(got) if isinstance(got, tuple) else [got]
+    res = dict(records=records, launches=launches, seconds=time.perf_counter() - t0)
+    ok = (len(records) == 5 and all(r["exhausted_px"] == 0 for r in records)
+          and launches == CONFIG_KERNELS)
+    return ok, res
+
+
+CAPTURE_SIZE = 256
+CAPTURE_VIEWS = 4
+
+
+def phase_capture(rt, torch):
+    """``apps.capture.run`` of CAPTURE_VIEWS views in ``dat`` format and as
+    many in ``png-fast``: the ``.dat`` bytes must equal a synchronous
+    readback of the same views' frames (kept on the card while the capture
+    reads its pinned copies back four views deep), and each PNG must decode
+    to its view's ``.dat`` bytes."""
+    import json as _json
+
+    import numpy as np
+
+    from raytrace_tpu_torch.apps import capture
+    from raytrace_tpu_torch.testing.golden import read_png
+
+    t0 = time.perf_counter()
+    pipe = rt.create_instance(width=CAPTURE_SIZE, height=CAPTURE_SIZE)
+    kept, draw = [], pipe.draw_frame
+
+    def keep(camera, sun_angle):
+        frame = draw(camera, sun_angle)
+        kept.append(frame)
+        return frame
+
+    pipe.draw_frame = keep
+    dirs = {fmt: _scratch_dir(f"capture_{fmt}") for fmt in ("dat", "png-fast")}
+    n, dt = capture.run(dirs["dat"], CAPTURE_SIZE, CAPTURE_SIZE, CAPTURE_VIEWS,
+                        pipeline=pipe, fmt="dat")
+    shape = (CAPTURE_SIZE, CAPTURE_SIZE, 3)
+    dat = [np.fromfile(dirs["dat"] / f"view_{i:05d}.dat", np.uint8).reshape(shape)
+           for i in range(CAPTURE_VIEWS)]
+    synced = [capture.quantize(f).cpu().numpy() for f in kept]
+    capture.run(dirs["png-fast"], CAPTURE_SIZE, CAPTURE_SIZE, CAPTURE_VIEWS, fmt="png-fast")
+    png = [read_png(dirs["png-fast"] / f"view_{i:05d}.png") for i in range(CAPTURE_VIEWS)]
+    manifests = {k: _json.loads((d / "manifest.json").read_text()) for k, d in dirs.items()}
+    res = dict(views=CAPTURE_VIEWS, size=CAPTURE_SIZE, views_timed=n, seconds_timed=dt,
+               dat_equal_sync_readback=[bool(np.array_equal(a, b)) for a, b in zip(dat, synced)],
+               png_equal_dat=[bool(np.array_equal(a, b)) for a, b in zip(png, dat)],
+               distinct_views=len({a.tobytes() for a in dat}),
+               manifest_entries={k: len(v) for k, v in manifests.items()},
+               seconds=time.perf_counter() - t0)
+    ok = (len(kept) == CAPTURE_VIEWS and all(res["dat_equal_sync_readback"])
+          and all(res["png_equal_dat"]) and res["distinct_views"] == CAPTURE_VIEWS
+          and all(v == CAPTURE_VIEWS for v in res["manifest_entries"].values()))
+    return ok, res
+
+
+FLY_SIZE = 256
+
+
+def phase_flythrough(torch):
+    """``apps.flythrough.run``: 10 scripted frames of ``fused`` (forward,
+    sun up), then 3 frames of ``volume_fast`` twice without an edit and
+    once with a ``b`` press at frame 1: the two unedited runs bit-equal,
+    the edited one different."""
+    import numpy as np
+
+    from raytrace_tpu_torch.apps import flythrough
+
+    t0 = time.perf_counter()
+    before = _launch_counts()
+    common = dict(width=FLY_SIZE, height=FLY_SIZE, quiet=True)
+    fused, avg, mx = flythrough.run(frames=10, tracer="fused", script=[
+        (0, "press", "w"), (0, "press", "r"), (6, "release", "r")], **common)
+    cam = ["0", "0", "60", "1.5708", "-0.3", "0.6"]
+    vol = lambda script: flythrough.run(cam, frames=3, tracer="volume_fast",
+                                        script=script, **common)[0]
+    base, again, edited = vol([]), vol([]), vol([(1, "press", "b")])
+    res = dict(fused_shape=list(fused.shape), fused_finite=bool(np.isfinite(fused).all()),
+               hud_avg_ms=avg, hud_max_ms=mx, unedited_equal=bool(np.array_equal(base, again)),
+               edited_differs=bool(not np.array_equal(base, edited)),
+               edited_px=int((np.abs(base - edited).max(-1) > 0).sum()),
+               launches=_launches_since(before), seconds=time.perf_counter() - t0)
+    ok = (res["fused_shape"] == [FLY_SIZE, FLY_SIZE, 3] and res["fused_finite"]
+          and res["unedited_equal"] and res["edited_differs"]
+          and res["launches"].get("K1") == 10 and res["launches"].get("K3") == 9)
+    return ok, res
+
+
+def phase_debug_and_stage_times(torch):
+    """``apps.debug_view --gbuffers`` (K4 at 512²: 3 launches, every PNG
+    readable, no primary cut) and ``apps.stage_times`` for ``fused`` over 3
+    frames (every stage a positive time)."""
+    import numpy as np
+
+    from raytrace_tpu_torch.apps import debug_view, stage_times
+    from raytrace_tpu_torch.ops import lighting
+    from raytrace_tpu_torch.testing.golden import read_png
+
+    t0 = time.perf_counter()
+    out = _scratch_dir("debug_view")
+    before = _launch_counts()
+    gb = debug_view.run(out, gbuffers=True)
+    names = sorted(p.name for p in out.glob("*.png"))
+    shapes = {n: list(read_png(out / n).shape) for n in names}
+    dv = dict(pngs=shapes, launches=_launches_since(before),
+              exhausted_px=_exhausted(gb, torch, lighting),
+              sky_px=int((gb["depth"].to(torch.int32) == 0xFFFF).sum()))
+    t1 = time.perf_counter()
+    st = stage_times.run("fused", frames=3)
+    res = dict(debug_view=dv, stage_times=st, debug_view_seconds=t1 - t0,
+               stage_times_seconds=time.perf_counter() - t1)
+    stages = (st["gbuffers_ms"], st["denoise_ms"], st["frame_ms"])
+    ok = (len(names) == 7 and dv["launches"].get("K4") == 3 and dv["exhausted_px"] == 0
+          and shapes["gb_albedo.png"] == [512, 512, 3]
+          and all(np.isfinite(v) and v > 0 for v in stages))
+    return ok, res
+
+
 def main() -> int:
     import torch
 
@@ -992,7 +1361,7 @@ def main() -> int:
     canon = torch.from_numpy(_canonical_uniforms(rt).packed()).to(dev)
     canon_tables = with_column_heights(build_hf_tables((0, 0, 0), seed=0, device=dev), 0)
     for bounces in (2, 1):
-        ok, res = phase_k1(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
+        ok, res, _ = phase_k1(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
         report(f"k1_vs_plain_b{bounces}", ok, res)
     ok, res = phase_golden(rt, torch, dev)
     report("golden_64", ok, res)
@@ -1001,7 +1370,7 @@ def main() -> int:
     ok, main_res, pipe = phase_main(rt, torch)
     report("main_path", ok, main_res)
     # K1 once more at the main path's own size, region and uniforms.
-    ok, k1_res = phase_k1(
+    ok, k1_res, _ = phase_k1(
         torch, pipe.tables(), pipe.blue_noise,
         torch.from_numpy(pipe.uniforms.packed()).to(dev), W,
         pipe.max_steps, pipe.seed, pipe.bounces)
@@ -1086,6 +1455,25 @@ def main() -> int:
     del hpipe
     ok, exact_res = phase_volume_exact(rt, torch)
     report("volume_exact", ok, exact_res)
+
+    # The apps: the chunk cache, then each kernel at the apps' shapes before
+    # any app is timed, then the apps themselves.
+    ok, res = phase_native_codec(torch, dev)
+    report("native_codec", ok, res)
+    ok, res = phase_cache_stream(rt, torch)
+    report("cache_stream", ok, res)
+    ok, app_shapes, app_shapes_s = phase_app_shapes(rt, torch, dev, blue)
+    for label, (ok, res) in app_shapes.items():
+        report(f"app_shapes_{label}", ok, res)
+    print(f"[app_shapes] seconds {app_shapes_s:.3f}", flush=True)
+    ok, bench_res = phase_benchmark_configs(torch)
+    report("benchmark_configs", ok, bench_res)
+    ok, res = phase_capture(rt, torch)
+    report("capture", ok, res)
+    ok, res = phase_flythrough(torch)
+    report("flythrough", ok, res)
+    ok, res = phase_debug_and_stage_times(torch)
+    report("debug_view_stage_times", ok, res)
     times.update(k4_ms=k4_res["k4_ms"], k4_kernel_ms=k4_res["k4_kernel_ms"],
                  k4_plain_ms=k4_res["k4_plain_ms"],
                  hf_frame_ms=hf_frame_ms, volume_frame_ms=exact_res["ms_per_frame"])
@@ -1105,6 +1493,37 @@ def main() -> int:
                              library_ms=None)
     # The lane-use census of the main path's run (per batch for K3s and K4).
     lanes = lambda c: dict(warp_iterations=c["warp_iterations"], lane_use=c["lane_use"])
+
+    # Each kernel at the apps' shapes (app_shapes_*): its time alone, its
+    # plain version's, its bound, and its launches in the benchmark configs.
+    def at(label, ms, plain_ms):
+        res = app_shapes[label][1]
+        return dict(shape=label, ms=ms, plain_ms=plain_ms, max_abs_err=res["max_abs_err"]
+                    if not isinstance(res["max_abs_err"], dict)
+                    else max(res["max_abs_err"].values()),
+                    bound_ms=res["bound_ms"], bound_by=res["bound_by"])
+
+    def bench_launches(kernel):
+        return {f"config_{k}": v[kernel] for k, v in bench_res["launches"].items()
+                if kernel in v}
+
+    k1_app = [at(label, app_shapes[label][1]["kernel_ms"], app_shapes[label][1]["plain_ms"])
+              for label in ("k1_1920x1080_b1", "k1_512_b2_capture")]
+    k2_app = app_shapes["k2_1080x1920"][1]
+    k3_app = app_shapes["k3_512_b0_single_chunk"][1]
+    app = dict(
+        K1=dict(shapes=k1_app, launches=bench_launches("K1")),
+        K2=dict(shapes=[at("k2_1080x1920", sum(k2_app["pass_ms"].values()) / passes,
+                           k2_app["chain_plain_ms"] / passes)
+                        | dict(chain_ms=k2_app["chain_ms"])], launches=bench_launches("K2")),
+        K3=dict(shapes=[at("k3_512_b0_single_chunk", k3_app["kernel_ms"], k3_app["plain_ms"])],
+                launches=bench_launches("K3")),
+        K3s=dict(shapes=[], launches=bench_launches("K3s")),
+        K4=dict(shapes=[at(label, app_shapes[label][1]["k4_kernel_ms"],
+                           app_shapes[label][1]["k4_plain_ms"])
+                        for label in ("k4_512_b2_debug_view", "k4_1920x1080_b1")],
+                launches=bench_launches("K4")),
+    )
     kernels = [
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
@@ -1112,33 +1531,35 @@ def main() -> int:
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
              ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res),
              column_table_bound_ms=k1_res["column_table_bound_ms"],
-             parent_work_bound_ms=k1_res["parent_work_bound_ms"]),
+             parent_work_bound_ms=k1_res["parent_work_bound_ms"], app_shapes=app["K1"]),
         dict(name="K2 denoise_pass (a-trous pass, finalize fused)", route="cuda",
              source="raytrace_tpu_torch/csrc/denoise.cu",
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",
              launches=main_res["k2_launches"],
              max_abs_err=max(k2_res["max_abs_err"].values()),
              ms=sum(times["k2_pass_ms"].values()) / passes, chain_ms=times["k2_chain_ms"],
-             plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res)),
+             plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res),
+             app_shapes=app["K2"]),
         dict(name="K3 march_paths_vol (whole-path volume_fast march)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
              ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res),
-             census=lanes(k3_res["census"])),
+             census=lanes(k3_res["census"]), app_shapes=app["K3"]),
         dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_rays_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",
              launches=staged_res["k3s_launches"], max_abs_err=k3s_res["max_abs_err"],
              ms=sum(times["k3s_kernel_ms"]) / len(times["k3s_kernel_ms"]),
              plain_ms=sum(times["k3s_plain_ms"]) / len(times["k3s_plain_ms"]),
-             **bound(k3s_res), census=[lanes(b["census"]) for b in k3s_res["batches"]]),
+             **bound(k3s_res), census=[lanes(b["census"]) for b in k3s_res["batches"]],
+             app_shapes=app["K3s"]),
         dict(name="K4 trace_rays_hf (staged heightfield tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_hf.cu",
              replaces="raytrace_tpu/ops/trace_pallas.py:208",
              launches=hf_res["k4_launches"], max_abs_err=k4_res["max_abs_err"],
              ms=k4_res["k4_kernel_ms"], plain_ms=k4_res["k4_plain_ms"], **bound(k4_res),
-             census=[lanes(b["census"]) for b in k4_res["batches"]]),
+             census=[lanes(b["census"]) for b in k4_res["batches"]], app_shapes=app["K4"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     if failed:

@@ -5,9 +5,12 @@ The frame paths of ``raytrace_tpu`` on PyTorch: the heightfield paths
 leg) and the volume paths (worldgen, the streamed resident volume, its
 occupancy tables, edits; the whole-path brick march, or the exact DDA),
 then denoise and finalize, with hand-written CUDA kernels for NVIDIA Hopper
-in ``csrc/``.  It imports no JAX and nothing of the JAX package: it keeps
-its own copies of the host modules ``constants``, ``materials`` and
-``utils.blue_noise``.
+in ``csrc/``; the chunk disk cache (``world.storage``, ``native``) and the
+apps (``apps/``: flythrough, capture, generate_world, debug_view,
+stage_times, benchmark).  It imports no JAX and nothing of the JAX package:
+it keeps its own copies of the host modules ``constants``, ``materials``,
+``utils.blue_noise``, ``utils.coords``, ``utils.perf``, ``engine`` and the
+codec's C++ source.
 """
 
 from __future__ import annotations

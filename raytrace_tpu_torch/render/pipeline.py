@@ -3,7 +3,8 @@
 Port of ``raytrace_tpu/render/pipeline.py``: ``FrameUniforms`` (``:37-60``),
 the frame program (``_render_frame_impl``, ``:92-149``, packed as
 ``_rffp_impl``, ``:198-238``) and ``Pipeline`` (``:252-487``, with the
-debug-only ``_validate_frame``) for every tracer of the JAX package:
+debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
+``:261-262, 300``) for every tracer of the JAX package:
 
 - ``fused``: the region's heightfield tables (rebuilt whenever the region
   offset ``lr`` changes), the path march K1 and its shade.
@@ -132,6 +133,8 @@ class Pipeline:
         device="cuda",
         preloaded_volume=None,
         validate: bool | None = None,
+        source: str = "device",
+        storage=None,
     ):
         """``tracer``: "fused" (the whole-path heightfield march of the
         generated world), "hf" (the same world traced leg by leg by the
@@ -149,7 +152,10 @@ class Pipeline:
         budget (the JAX package's debug-build checks); it waits for each
         frame, so it is for debugging only.  None reads the
         ``RAYTRACE_TPU_VALIDATE`` environment variable ("1" turns it on), as
-        the JAX package does."""
+        the JAX package does.  ``source`` and ``storage``: where the
+        streamed volume's voxels come from (``TerrainStreamer``): "device"
+        generates them, "cache" reads the chunks of ``storage``, a
+        ``ChunkStorage``; only the volume tracers read voxels."""
         if tracer is None:
             tracer = "volume_fast" if preloaded_volume is not None else "fused"
         if tracer not in TRACERS:
@@ -171,7 +177,8 @@ class Pipeline:
             validate = bool(int(os.environ.get("RAYTRACE_TPU_VALIDATE", "0")))
         self.validate = validate
         self.uniforms = FrameUniforms()
-        self.streamer = TerrainStreamer(seed=seed, device=self.device)
+        self.streamer = TerrainStreamer(seed=seed, device=self.device, source=source,
+                                        storage=storage)
         if tracer in VOLUME_TRACERS:
             self.streamer.initialize(volume=preloaded_volume)
         self.blue_noise = torch.from_numpy(get_blue_noise_f32()).to(self.device)

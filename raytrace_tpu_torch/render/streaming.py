@@ -7,9 +7,14 @@ and ``_store_slab`` (``:349-363``), and ``TerrainStreamer``'s
 ``initialize`` (device source and a supplied volume, ``:155-187``),
 ``teleport`` (``:189-214``), ``edit_box`` (``:216-231``), the request
 methods, ``setup_next_request`` with its slab log (``:234-311``),
-``drain_slab_log`` (``:313-320``) and ``get_render_offset``.  One slice
-request per frame moves the region 16 voxels along the axis of largest
-camera drift.
+``drain_slab_log`` (``:313-320``) and ``get_render_offset``, with both
+sources of voxels: ``source="device"`` generates a slab on the streamer's
+device, ``source="cache"`` reads the chunks of ``storage`` (a
+``world.storage.ChunkStorage``, which generates a missing chunk and stores
+it), assembles the region (``initialize``, ``:167-187``) or the slab
+(``_apply_from_cache``, ``:322-343``) on the host with ``native.copy3d``,
+and copies it to the device once.  One slice request per frame moves the
+region 16 voxels along the axis of largest camera drift.
 
 The resident volume is a fused (256^3,) int32 tensor in (z, y, x) texel
 order; world voxel ``w`` lives at texel ``(w + 128) mod 256``.  It exists
@@ -17,8 +22,9 @@ once ``initialize`` has run (the volume tracers); until then the streamer
 only tracks positions, which is all the heightfield path reads.  The
 streamer owns its volume (``initialize`` copies a supplied one) and writes
 slabs into it in place; the slab log tells a consumer of derived tables
-which slabs changed.  The cache source of the JAX streamer (``source=
-"cache"``, storage + LZ4) is not ported.
+which slabs changed.  As in JAX, ``teleport`` needs the device source
+(``:200``), and with the heightfield tracers, which never initialize a
+volume, no chunk is read.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..constants import (
     SLICE_SIZE,
     SLICES_PER_ROOT,
 )
+from .. import native
 from ..ops.volume import fuse_volume
 from ..world.generate import generate_box
 
@@ -132,14 +139,44 @@ def _store_slab(volume, slab, ns, axis: int) -> None:
         torch.roll(slab, shifts, dims))
 
 
+def _assemble_from_cache(storage, w0, shape_xyz) -> torch.Tensor:
+    """The fused (z, y, x) world box at chunk-aligned or slice-aligned
+    ``w0`` with extents ``shape_xyz``, assembled on the host from the
+    chunks of ``storage`` that overlap it (reference
+    terrain_upload.rs:84-204)."""
+    zyx = (shape_xyz[2], shape_xyz[1], shape_xyz[0])
+    mats = np.zeros(zyx, np.int32)
+    mf = np.zeros(zyx, np.uint8)
+    c0 = [v // CHUNK_SIZE for v in w0]
+    c1 = [-(-(v + s) // CHUNK_SIZE) for v, s in zip(w0, shape_xyz)]
+    for cz in range(c0[2], c1[2]):
+        for cy in range(c0[1], c1[1]):
+            for cx in range(c0[0], c1[0]):
+                m, f = storage.borrow_packed_chunk_data((cx, cy, cz))
+                dst = (cx * CHUNK_SIZE - w0[0], cy * CHUNK_SIZE - w0[1],
+                       cz * CHUNK_SIZE - w0[2])
+                native.copy3d(m, mats, (CHUNK_SIZE,) * 3, dst_start=dst)
+                native.copy3d(f, mf, (CHUNK_SIZE,) * 3, dst_start=dst)
+    return fuse_volume(torch.from_numpy(mats), torch.from_numpy(mf)).reshape(zyx)
+
+
 class TerrainStreamer:
     """Region position bookkeeping and, once initialized, the resident
     fused volume, streamed one slice per request.  ``device``: where the
     volume lives; "cuda" (the default, as ``Pipeline``'s) raises when no GPU
-    is present, "cpu" keeps it on the host."""
+    is present, "cpu" keeps it on the host.  ``source``: "device" generates
+    the voxels on ``device``; "cache" reads them from ``storage``, a
+    ``ChunkStorage``."""
 
-    def __init__(self, seed: int = 0, device="cuda"):
+    def __init__(self, seed: int = 0, device="cuda", source: str = "device",
+                 storage=None):
+        if source not in ("device", "cache"):
+            raise ValueError(f"unknown terrain source {source!r}")
+        if source == "cache" and storage is None:
+            raise ValueError("source='cache' needs a ChunkStorage (storage=...)")
         self.seed = seed
+        self.source = source
+        self.storage = storage
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TerrainStreamer(device='cuda') needs a CUDA GPU")
@@ -153,16 +190,19 @@ class TerrainStreamer:
         self._slab_log: list[tuple[int, int]] | None = None
 
     def initialize(self, volume=None) -> torch.Tensor:
-        """Generate the initial 4^3-chunk region, or take a private copy of
-        a supplied fused volume (256^3 words in any integer dtype holding
-        the uint32 bits)."""
+        """Generate (or, from the cache, load) the initial 4^3-chunk region,
+        or take a private copy of a supplied fused volume (256^3 words in
+        any integer dtype holding the uint32 bits)."""
+        origin = tuple(c * CHUNK_SIZE for c in self.cpu_position.origin)
         if isinstance(volume, torch.Tensor):
             self.volume = volume.reshape(-1).to(self.device, torch.int32, copy=True)
         elif volume is not None:
             words = np.asarray(volume).astype(np.uint32).reshape(-1).view(np.int32)
             self.volume = torch.from_numpy(words).to(self.device)
+        elif self.source == "cache":
+            region = _assemble_from_cache(self.storage, origin, (ROOT_BLOCK_SIZE,) * 3)
+            self.volume = region.reshape(-1).to(self.device)
         else:
-            origin = tuple(c * CHUNK_SIZE for c in self.cpu_position.origin)
             self.volume = _fused_box(origin, (ROOT_BLOCK_SIZE,) * 3, self.seed,
                                      self.device).reshape(-1)
         self._slab_log = None
@@ -171,7 +211,10 @@ class TerrainStreamer:
     def teleport(self, center) -> None:
         """Recenter the region on a world position, quantized to the slice
         grid, keeping the o = -2 (mod 4) chunk invariant of the origin, and
-        regenerate the resident volume there if there is one."""
+        regenerate the resident volume there if there is one.  Needs the
+        device source, as in JAX."""
+        if self.source != "device":
+            raise ValueError("teleport needs the device source (source='device')")
         origin, ns = [], []
         for c in center:
             total16 = int(round(float(c) / SLICE_SIZE))
@@ -249,14 +292,18 @@ class TerrainStreamer:
 
     def setup_next_request(self) -> bool:
         """Apply one queued slice move; True if one ran.  With a resident
-        volume, the slab is generated and written, and logged."""
+        volume, the slab is generated (or assembled from the cache) and
+        written, and logged."""
         if not self.request_queue:
             return False
         req = self.request_queue.pop(0)
         if self.volume is not None:
             w0, shape = _slab_world_box(req)
-            _generate_and_apply(self.volume, w0, req.num_slices, req.axis, shape,
-                                self.seed)
+            if self.source == "cache":
+                self._apply_from_cache(req, w0, shape)
+            else:
+                _generate_and_apply(self.volume, w0, req.num_slices, req.axis, shape,
+                                    self.seed)
             if self._slab_log is not None:
                 # The volume is (z, y, x): array axis 2 - axis.
                 self._slab_log.append(
@@ -273,6 +320,12 @@ class TerrainStreamer:
         log = self._slab_log
         self._slab_log = []
         return log
+
+    def _apply_from_cache(self, req: SliceRequest, w0, shape) -> None:
+        """Assemble the slab from cached chunks on the host, copy it to the
+        device once and store it at its toroidal offset."""
+        slab = _assemble_from_cache(self.storage, w0, shape)
+        _store_slab(self.volume, slab.to(self.device), req.num_slices, req.axis)
 
     def get_render_offset(self) -> tuple[int, int, int]:
         return self.gpu_position.render_offset()
