@@ -26,7 +26,14 @@ its plain version at the apps' shapes (``app_shapes_*``: 1920x1080 b1,
 with ``exhausted_px`` 0), ``capture`` (its four-deep pinned readback
 against a synchronous one, PNGs against the ``.dat`` bytes),
 ``flythrough`` (scripted, and the ``b`` edit), ``debug_view --gbuffers``
-and ``stage_times``.  It times the kernels alone
+and ``stage_times``.  Then the row bands and the tile split: each tracer's
+bands against the same rows of its whole frame (``row_bands``), K2's
+finalizing pass on a row window against plain and the tile split's band
+denoise run band after band in the process (``k2_bands``: halo and gather
+plans), ``render_frame_tiled`` over a one-rank NCCL group and with no
+group (``tiled_nccl``), and config 5 at 3840x2160 (``config5_4k_*``: K1,
+K3 and K2 against plain at the 4K width, then the config for fused and
+volume_fast with its ``parity``).  It times the kernels alone
 and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
@@ -165,9 +172,11 @@ def _wh(size):
     return (size, size) if isinstance(size, int) else tuple(size)
 
 
-def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=False):
+def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=False,
+             band=None):
     """K1 against its plain version on the march inputs the frame gives it
-    (``size``: square, or (width, height)).
+    (``size``: square, or (width, height); ``band``: (row0, rows) of its
+    image rows, default all).
 
     Both are built without FMA contraction, so every meta word must be
     equal, and with it the normal, albedo and shaded lighting.  K1 reads
@@ -179,7 +188,8 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
     from raytrace_tpu_torch.testing.measure import kernel_ms
 
-    frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size))
+    frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
+                                  *(band or ()))
     budget = (max_steps, seed, 1 + 2 * bounces)
     census = torch.zeros(1, dtype=torch.int64, device=packed.device)
     meta_k, pd_k = lighting.march_paths(*frame["march"], *budget, census=census)
@@ -189,7 +199,7 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     gp = lighting.shade(meta_p, pd_p, **frame["shade"])
     dd = torch.abs(gk["depth"].to(torch.int32) - gp["depth"].to(torch.int32))
     res = dict(
-        size=size, bounces=bounces, lr=[int(v) for v in frame["march"][3][2:5]],
+        size=size, band=band, bounces=bounces, lr=[int(v) for v in frame["march"][3][2:5]],
         meta_equal=float((meta_k == meta_p).float().mean()),
         max_abs_err=float(torch.abs(gk["lighting"] - gp["lighting"]).max()),
         max_depth_diff=int(dd.max()),
@@ -222,8 +232,11 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     return ok, res, gk
 
 
-def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, timed=False):
-    """K3 against its plain version on the march inputs the frame gives it.
+def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, timed=False,
+             band=None):
+    """K3 against its plain version on the march inputs the frame gives it
+    (``size``: square, or (width, height); ``band``: (row0, rows) of its
+    image rows, default all).
 
     Both are built without FMA contraction, so the four outputs (meta word,
     primary and dif1 hit voxels, primary distance) must be equal on every
@@ -235,7 +248,8 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
     from raytrace_tpu_torch.testing.measure import kernel_ms
 
     legs = path_vol.legs_of(bounces)
-    frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), size, size)
+    frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
+                                  *(band or ()))
     census = torch.zeros(1, dtype=torch.int64, device=packed.device)
     got = trace_vol.march_paths_vol(*frame["march"], max_steps, legs, census=census)
     (*want, moves), t_p = _timed_once(
@@ -244,7 +258,7 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
     gp = path_vol.shade(volume, *want, legs=legs, **frame["shade"])
     names = ("meta", "prim_lin", "dif1_lin", "prim_dist")
     res = dict(
-        size=size, bounces=bounces, lr=[int(v) for v in frame["march"][3][:3]],
+        size=size, band=band, bounces=bounces, lr=[int(v) for v in frame["march"][3][:3]],
         equal={n: float((a == b).float().mean()) for n, a, b in zip(names, got, want)},
         max_abs_err=float(torch.abs(gk["lighting"] - gp["lighting"]).max()),
         sky_px=int((gk["depth"].to(torch.int32) == 0xFFFF).sum()),
@@ -271,7 +285,7 @@ def _volumes(torch, dev):
     volumes at lr = 0."""
     from raytrace_tpu_torch.ops.volume import fuse_volume
     from raytrace_tpu_torch.world.chunk import minefield_from_solid
-    from raytrace_tpu_torch.world.generate import PACKED_ROCK, generate_box
+    from raytrace_tpu_torch.world.generate import PACKED_ROCK
 
     solid = torch.zeros((256, 256, 256), dtype=torch.bool, device=dev)
     solid[:100] = True
@@ -279,9 +293,16 @@ def _volumes(torch, dev):
     solid[90:100, 128:132, 128:132] = False
     mats = torch.where(solid, PACKED_ROCK, 0).to(torch.int32)
     weird = fuse_volume(mats, minefield_from_solid(solid))
+    return {"weird": (weird, WEIRD), "world": (_generated_volume(dev), CANON)}
+
+
+def _generated_volume(dev):
+    """The generated world around the origin (lr 0), fused."""
+    from raytrace_tpu_torch.ops.volume import fuse_volume
+    from raytrace_tpu_torch.world.generate import generate_box
+
     box = generate_box((-128,) * 3, (256,) * 3, seed=0, device=dev)
-    return {"weird": (weird, WEIRD), "world": (fuse_volume(box["materials"],
-                                                         box["minefield"]), CANON)}
+    return fuse_volume(box["materials"], box["minefield"])
 
 
 def phase_volume_main(rt, torch):
@@ -632,10 +653,8 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
     launches = lighting.march_paths.launches
     got, gb_got = render_frame(bare, blue, packed, size, size)
     want, gb_want = render_frame(tables, blue, packed, size, size)
-    wide = lambda t: t.to(torch.int32) if t.dtype == torch.uint16 else t  # no uint16 ==
     res = dict(size=size, k1_launches=lighting.march_paths.launches - launches,
-               frame_equal=same(got, want),
-               gbuffers_equal={k: same(wide(gb_got[k]), wide(gb_want[k])) for k in gb_want})
+               frame_equal=same(got, want), gbuffers_equal=_gbuffers_equal(gb_got, gb_want))
     ok = res["frame_equal"] and all(res["gbuffers_equal"].values()) and res["k1_launches"] == 2
     return ok, res
 
@@ -1295,6 +1314,233 @@ def phase_debug_and_stage_times(torch):
     return ok, res
 
 
+def _zero_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf, trace_vol
+
+    for fn in (lighting.march_paths, denoise.launch_pass, trace_vol.march_paths_vol,
+               trace_vol.trace_rays_vol, trace_hf.trace_rays_hf):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    """The kernels launched since the counts were set to 0, with their counts."""
+    return {k: v for k, v in _launch_counts().items() if v}
+
+
+def _wide(t):
+    """uint16 as int32: uint16 tensors take no ``==``."""
+    import torch
+
+    return t.to(torch.int32) if t.dtype == torch.uint16 else t
+
+
+def _gbuffers_equal(a: dict, b: dict) -> dict:
+    from raytrace_tpu_torch.testing.measure import same
+
+    return {k: same(_wide(a[k]), _wide(b[k])) for k in b}
+
+
+def _world_volume(dev):
+    """The generated world around the origin (lr 0), fused, with its tables."""
+    from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
+
+    volume = _generated_volume(dev)
+    return volume, build_vol_tables(volume)
+
+
+# Bands of the 1024² frame: four of 256 rows, and one that starts on no
+# band boundary.
+ROW_BANDS = [(0, 256), (256, 256), (512, 256), (768, 256), (300, 200)]
+
+
+def phase_row_bands(rt, torch, dev, blue, tables, vol_world):
+    """Each band's G-buffers (``row0``/``rows``) equal the same rows of the
+    whole frame's bit for bit, at 1024² b2 and the canonical view, for
+    fused (K1), volume_fast (K3), hf (K4) and the staged volume tracer
+    (K3s), with each tracer's launches over the whole frame and the bands."""
+    from raytrace_tpu_torch.ops.trace_vol import render_gbuffers_vol
+    from raytrace_tpu_torch.render.pipeline import frame_gbuffers, unpack_uniforms
+
+    t0 = time.perf_counter()
+    uni = unpack_uniforms(torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev))
+    renders = {
+        "fused": lambda **b: frame_gbuffers(tables, blue, uni, W, H, tracer="fused", **b),
+        "volume_fast": lambda **b: frame_gbuffers(vol_world, blue, uni, W, H,
+                                                  tracer="volume_fast", **b),
+        "hf": lambda **b: frame_gbuffers(tables, blue, uni, W, H, tracer="hf", **b),
+        "staged_volume": lambda **b: render_gbuffers_vol(*vol_world, blue, uni, W, H, **b),
+    }
+    res = {}
+    for name, render in renders.items():
+        _zero_counts()
+        whole = render()
+        equal = {}
+        for row0, rows in ROW_BANDS:
+            band = render(row0=row0, rows=rows)
+            rows_of = {k: v[row0:row0 + rows] for k, v in whole.items()}
+            equal[f"{row0}+{rows}"] = all(_gbuffers_equal(band, rows_of).values())
+        torch.cuda.synchronize()
+        res[name] = dict(equal=equal, launches=_counts(),
+                         sky_px=int((whole["depth"].to(torch.int32) == 0xFFFF).sum()))
+    res["seconds"] = time.perf_counter() - t0
+    want = {"fused": "K1", "volume_fast": "K3", "hf": "K4", "staged_volume": "K3s"}
+    ok = all(all(res[n]["equal"].values()) and res[n]["launches"].get(k, 0) > 0
+             and 0 < res[n]["sky_px"] < W * H for n, k in want.items())
+    return ok, res
+
+
+def _cut_bands(gb, ranks):
+    """``gb`` cut into ``ranks`` bands of consecutive rows, in rank order."""
+    band = gb["depth"].shape[0] // ranks
+    return [{k: v[r * band:(r + 1) * band].contiguous() for k, v in gb.items()}
+            for r in range(ranks)]
+
+
+def phase_k2_bands(torch, blue, gb):
+    """K2's finalizing pass on a row window with a dither offset against
+    its plain pass (max |err| 0, one pass and the chain), then the tile
+    split's band denoise as 2, 4, 8 and 16 in-process bands of ``gb``: the
+    assembled frame equal to ``denoise_finalize`` bit for bit, K2 launched
+    six times a band (``tiles.denoise_in_turn``: the tile split's band
+    regions, chains and assembly, each halo cut from its neighbour)."""
+    from raytrace_tpu_torch.ops import denoise
+    from raytrace_tpu_torch.parallel import tiles
+
+    t0 = time.perf_counter()
+    first, count, dither_row0 = 300, 200, 1300
+    rows = slice(first, first + count)
+    light = gb["lighting"].permute(2, 0, 1).contiguous()
+    geom = denoise.geometry_plane(gb["depth"], gb["normal"])
+    fin = tuple(gb[k][rows].contiguous() for k in ("albedo", "emission", "fog")) + (blue,)
+    window = dict(window=(first, count), dither_row0=dither_row0)
+    err = lambda a, b: float(torch.abs(a - b).max())
+    res = dict(window=[first, count], dither_row0=dither_row0, max_abs_err=dict(
+        pass_16_fin=err(denoise.denoise_pass(light, geom, 16, fin, **window),
+                        denoise.denoise_pass_plain(light, geom, 16, fin, **window))))
+    band_gb = dict(gb, **{k: gb[k][rows].contiguous() for k in ("albedo", "emission", "fog")})
+    res["max_abs_err"]["chain"] = err(denoise.denoise_finalize(band_gb, blue, **window),
+                                      denoise.denoise_finalize_plain(band_gb, blue, **window))
+    whole = denoise.denoise_finalize(gb, blue)
+    res["bands"] = {}
+    for ranks in (2, 4, 8, 16):
+        _zero_counts()
+        frame = tiles.denoise_in_turn(_cut_bands(gb, ranks), blue)
+        how = tiles.plan(ranks, gb["depth"].shape[0] // ranks)
+        torch.cuda.synchronize()
+        res["bands"][ranks] = dict(plan=how, equal=bool(torch.equal(frame, whole)),
+                                   k2_launches=denoise.launch_pass.launches)
+    res["seconds"] = time.perf_counter() - t0
+    passes = len(denoise.DENOISE_SIZES)
+    ok = (all(e == 0.0 for e in res["max_abs_err"].values())
+          and all(b["equal"] and b["k2_launches"] == passes * r
+                  for r, b in res["bands"].items())
+          and {b["plan"] for b in res["bands"].values()} == {"halo", "gather"})
+    return ok, res
+
+
+def phase_tiled_nccl(rt, torch, dev, blue, tables, vol_world):
+    """``render_frame_tiled`` at 1024² through an NCCL process group of one
+    rank (file store) and with no process group: both equal the whole-frame
+    path (the tracer's G-buffers, then ``denoise_finalize``) bit for bit,
+    for fused and volume_fast; and the group's gather of a frame and of the
+    uint16 depth (sent as bytes) gives them back unchanged."""
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch.ops.denoise import denoise_finalize
+    from raytrace_tpu_torch.parallel import tiles
+    from raytrace_tpu_torch.render.pipeline import frame_gbuffers, unpack_uniforms
+
+    t0 = time.perf_counter()
+    uni = unpack_uniforms(torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev))
+    worlds = {"fused": tables, "volume_fast": vol_world}
+    wants = {}
+    for tracer, world in worlds.items():
+        gb = frame_gbuffers(world, blue, uni, W, H, tracer=tracer)
+        wants[tracer] = (denoise_finalize(gb, blue), gb["depth"])
+    store = _scratch_dir("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0,
+                            device_id=dev)
+    res = dict(backend=dist.get_backend(), ranks=dist.get_world_size())
+    try:
+        for tracer, world in worlds.items():
+            want, depth = wants[tracer]
+            got = tiles.render_frame_tiled(world, blue, uni, W, H, tracer=tracer)
+            (frame,), (depth_back,) = (tiles.gather_ranks(t, 1, None) for t in (got, depth))
+            res[f"{tracer}_group"] = dict(equal=bool(torch.equal(got, want)),
+                                          gathered_equal=bool(torch.equal(frame, want)),
+                                          depth_gathered_equal=bool(torch.equal(
+                                              _wide(depth_back), _wide(depth))))
+    finally:
+        dist.destroy_process_group()
+    for tracer, world in worlds.items():
+        got = tiles.render_frame_tiled(world, blue, uni, W, H, tracer=tracer)
+        res[f"{tracer}_no_group"] = dict(equal=bool(torch.equal(got, wants[tracer][0])))
+    res["seconds"] = time.perf_counter() - t0
+    ok = res["backend"] == "nccl" and all(
+        all(v.values()) for k, v in res.items() if isinstance(v, dict))
+    return ok, res
+
+
+CONFIG5_BAND = (1080, 270)  # image rows of one band of an 8-way split at 4K
+
+
+def phase_config5(rt, torch, dev, blue):
+    """Config 5 at 3840x2160 b2: first K1 and K3 against their plain
+    versions on one 270-row band (rows 1080-1350, the band of an 8-way
+    split; the plain march on the whole 4K frame would take tens of
+    seconds), K1 alone on the whole frame, and K2's chain on the whole
+    frame's G-buffers and as 8 in-process bands against plain; then
+    ``apps.benchmark`` config 5 for fused and volume_fast, each with the
+    counts set to 0 before it and read after: ``exhausted_px`` 0, its
+    ``parity``, its Mrays/s and ms, and its launches (the whole frame its
+    parity compares with, one warm and three timed frames)."""
+    from raytrace_tpu_torch.apps import benchmark
+    from raytrace_tpu_torch.ops import denoise, lighting
+    from raytrace_tpu_torch.parallel import tiles
+    from raytrace_tpu_torch.render.pipeline import frame_gbuffers, unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms, kernel_ms
+
+    t0 = time.perf_counter()
+    w, h = benchmark.CONFIG5_SIZE
+    packed = torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev)
+    tables = benchmark.config5_world("fused", dev)
+    out = {}
+    ok, res, _ = phase_k1(torch, tables, blue, packed, (w, h), MAX_STEPS, 0, 2, timed=True,
+                          band=CONFIG5_BAND)
+    inputs = lighting.march_inputs(tables, blue, unpack_uniforms(packed), w, h)
+    res["whole_frame_kernel_ms"] = kernel_ms(
+        lambda: lighting.march_paths(*inputs["march"], MAX_STEPS, 0, 5), 10,
+        "march_paths_kernel")
+    del inputs
+    out["k1"] = (ok, res)
+    vol_world = benchmark.config5_world("volume_fast", dev)
+    out["k3"] = phase_k3(torch, vol_world[0], vol_world[1], blue, packed, (w, h), MAX_STEPS,
+                         2, timed=True, band=CONFIG5_BAND)
+    gb = frame_gbuffers(tables, blue, unpack_uniforms(packed), w, h)
+    ok, res = phase_k2(torch, blue, dict(main=gb))
+    frame = tiles.denoise_in_turn(_cut_bands(gb, 8), blue)
+    how = tiles.plan(8, h // 8)
+    res.update(chain_ms=call_ms(lambda: denoise.denoise_finalize(gb, blue), 10),
+               pass_ms=denoise_pass_ms(gb, blue, 10),
+               chain_plain_ms=call_ms(lambda: denoise.denoise_finalize_plain(gb, blue), 2),
+               bands_8=dict(plan=how, equal=bool(torch.equal(
+                   frame, denoise.denoise_finalize(gb, blue)))))
+    out["k2"] = (ok and res["bands_8"]["equal"], res)
+    del gb, frame, tables, vol_world
+    for tracer in ("fused", "volume_fast"):
+        _zero_counts()
+        rec = benchmark.config5_tiled_4k(tracer)
+        torch.cuda.synchronize()
+        rec["launches"] = _counts()
+        main = "K1" if tracer == "fused" else "K3"
+        frames = 2 + benchmark.CONFIG5_FRAMES  # the whole frame, the warm one, the timed
+        out[f"run_{tracer}"] = (rec["exhausted_px"] == 0 and rec["devices"] == 1
+                                and rec["parity"]
+                                and rec["launches"] == {main: frames, "K2": 6 * frames}, rec)
+    return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -1474,6 +1720,23 @@ def main() -> int:
     report("flythrough", ok, res)
     ok, res = phase_debug_and_stage_times(torch)
     report("debug_view_stage_times", ok, res)
+
+    # Row bands and the tile split: each tracer's bands against its whole
+    # frame, K2's band denoise in one process, render_frame_tiled over NCCL,
+    # and config 5 at 4K.
+    vol_world = _world_volume(dev)
+    ok, res = phase_row_bands(rt, torch, dev, blue, canon_tables, vol_world)
+    report("row_bands", ok, res)
+    ok, res = phase_k2_bands(torch, blue, gbs["main"])
+    report("k2_bands", ok, res)
+    ok, res = phase_tiled_nccl(rt, torch, dev, blue, canon_tables, vol_world)
+    report("tiled_nccl", ok, res)
+    del vol_world
+    ok, config5, config5_s = phase_config5(rt, torch, dev, blue)
+    for label, (ok_one, res) in config5.items():
+        report(f"config5_4k_{label}", ok_one, res)
+    report("config5_4k", ok, dict(seconds=config5_s, records=[
+        config5[f"run_{t}"][1] for t in ("fused", "volume_fast")]))
     times.update(k4_ms=k4_res["k4_ms"], k4_kernel_ms=k4_res["k4_kernel_ms"],
                  k4_plain_ms=k4_res["k4_plain_ms"],
                  hf_frame_ms=hf_frame_ms, volume_frame_ms=exact_res["ms_per_frame"])
@@ -1509,6 +1772,28 @@ def main() -> int:
 
     k1_app = [at(label, app_shapes[label][1]["kernel_ms"], app_shapes[label][1]["plain_ms"])
               for label in ("k1_1920x1080_b1", "k1_512_b2_capture")]
+
+    # Each kernel of config 5 at 4K: K1 and K3 alone, plain and bound on
+    # the 270-row band (K1 alone on the whole frame too), K2 per pass on the
+    # whole frame, and the launches of config 5's run.
+    def at_4k(label, ms, plain_ms, kernel, **extra):
+        res = config5[label][1]
+        tracer = "fused" if kernel in ("K1", "K2") else "volume_fast"
+        return dict(shape="3840x2160 b2", band=res.get("band"), ms=ms, plain_ms=plain_ms,
+                    max_abs_err=res["max_abs_err"] if not isinstance(res["max_abs_err"], dict)
+                    else max(res["max_abs_err"].values()), bound_ms=res["bound_ms"],
+                    bound_by=res["bound_by"],
+                    launches=config5[f"run_{tracer}"][1]["launches"].get(kernel), **extra)
+
+    k2_4k = config5["k2"][1]
+    config5_entries = dict(
+        K1=at_4k("k1", config5["k1"][1]["kernel_ms"], config5["k1"][1]["plain_ms"], "K1",
+                 whole_frame_ms=config5["k1"][1]["whole_frame_kernel_ms"]),
+        K2=at_4k("k2", sum(k2_4k["pass_ms"].values()) / len(denoise.DENOISE_SIZES),
+                 k2_4k["chain_plain_ms"] / len(denoise.DENOISE_SIZES), "K2",
+                 chain_ms=k2_4k["chain_ms"]),
+        K3=at_4k("k3", config5["k3"][1]["kernel_ms"], config5["k3"][1]["plain_ms"], "K3"),
+    )
     k2_app = app_shapes["k2_1080x1920"][1]
     k3_app = app_shapes["k3_512_b0_single_chunk"][1]
     app = dict(
@@ -1531,7 +1816,8 @@ def main() -> int:
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
              ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res),
              column_table_bound_ms=k1_res["column_table_bound_ms"],
-             parent_work_bound_ms=k1_res["parent_work_bound_ms"], app_shapes=app["K1"]),
+             parent_work_bound_ms=k1_res["parent_work_bound_ms"], app_shapes=app["K1"],
+             config5_4k=config5_entries["K1"]),
         dict(name="K2 denoise_pass (a-trous pass, finalize fused)", route="cuda",
              source="raytrace_tpu_torch/csrc/denoise.cu",
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",
@@ -1539,13 +1825,15 @@ def main() -> int:
              max_abs_err=max(k2_res["max_abs_err"].values()),
              ms=sum(times["k2_pass_ms"].values()) / passes, chain_ms=times["k2_chain_ms"],
              plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res),
-             app_shapes=app["K2"]),
+             app_shapes=app["K2"],
+             config5_4k=config5_entries["K2"]),
         dict(name="K3 march_paths_vol (whole-path volume_fast march)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
              ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res),
-             census=lanes(k3_res["census"]), app_shapes=app["K3"]),
+             census=lanes(k3_res["census"]), app_shapes=app["K3"],
+             config5_4k=config5_entries["K3"]),
         dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_rays_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",

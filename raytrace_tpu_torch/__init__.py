@@ -5,9 +5,11 @@ The frame paths of ``raytrace_tpu`` on PyTorch: the heightfield paths
 leg) and the volume paths (worldgen, the streamed resident volume, its
 occupancy tables, edits; the whole-path brick march, or the exact DDA),
 then denoise and finalize, with hand-written CUDA kernels for NVIDIA Hopper
-in ``csrc/``; the chunk disk cache (``world.storage``, ``native``) and the
+in ``csrc/``; the chunk disk cache (``world.storage``, ``native``), the
+tile split over a ``torch.distributed`` group (``parallel.tiles``), the
 apps (``apps/``: flythrough, capture, generate_world, debug_view,
-stage_times, benchmark).  It imports no JAX and nothing of the JAX package:
+stage_times, benchmark) and the NumPy reference tracer
+(``testing.reference_tracer``).  It imports no JAX and nothing of the JAX package:
 it keeps its own copies of the host modules ``constants``, ``materials``,
 ``utils.blue_noise``, ``utils.coords``, ``utils.perf``, ``engine`` and the
 codec's C++ source.

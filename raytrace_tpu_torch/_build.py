@@ -40,9 +40,9 @@ _SIGNATURES = {
     # origin, direction, nw, iscal, fscal, trig, hsub, h3, hcol, meta, pd,
     # n, max_steps, seed, legs, census, stream
     "rt_march_paths": [_P] * 11 + [_I] * 4 + [_P] * 2,
-    # light, depth, normal, in, out, frame, h, w, size, albedo, emission,
-    # fog, noise, nh, nw, nch, stream
-    "rt_denoise_pass": [_P] * 6 + [_I] * 3 + [_P] * 4 + [_I] * 3 + [_P],
+    # light, depth, normal, in, out, frame, h, w, size, r0, rows,
+    # dither_row0, albedo, emission, fog, noise, nh, nw, nch, stream
+    "rt_denoise_pass": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_I] * 3 + [_P],
     # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
     # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, next, census,
     # stream

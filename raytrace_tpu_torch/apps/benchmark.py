@@ -1,39 +1,46 @@
-"""Benchmark suite reproducing the BASELINE measurement configs 1-4.
+"""Benchmark suite reproducing the BASELINE measurement configs 1-5.
 
-Port of ``raytrace_tpu/apps/benchmark.py:82-238``.  Each config prints one
+Port of ``raytrace_tpu/apps/benchmark.py:82-296``.  Each config prints one
 JSON line (``_emit``):
 
   1. one loaded chunk, 512x512, primary rays only (bounces=0): Mrays/s
   2. the generated world, 1920x1080, one diffuse bounce: Mrays/s
   3. a 60-frame flythrough with streaming, at bounces 2 and 1: ms/frame
   4. batch dataset capture of 30 views at 512²: views/s
+  5. the tile split at 3840x2160, bounces 2, over every rank: Mrays/s
 
 Every line carries ``exhausted_px``, the count of timed pixels whose
 primary ray was cut by its step budget (depth == ``EXHAUSTED_DEPTH``):
 configs 1-2 count it on every timed frame, config 3 sums each frame's
 count on the device and reads it once at the end, config 4 counts over the
-views.  A number whose ``exhausted_px`` is not 0 rendered error pixels
-instead of doing the work.  Trains are timed on the host clock between
-``torch.cuda.synchronize()`` calls (``value``, ``ms_per_frame``), with the
-device ms from CUDA events beside them (``device_ms_per_frame``).
+views, config 5 over every timed frame and every rank.  A number whose
+``exhausted_px`` is not 0 rendered error pixels instead of doing the work.
+Trains are timed on the host clock between ``torch.cuda.synchronize()``
+calls (``value``, ``ms_per_frame``), with the device ms from CUDA events
+beside them (``device_ms_per_frame``).
 
-Config 5 (tile-split 4K over all devices, JAX ``:241-296``) needs
-``parallel/tiles.py`` and the row bands, which the port does not have yet,
-so ``CONFIGS`` leaves it out.
+Config 5 renders through ``parallel.tiles.render_frame_tiled`` over the
+default process group: one rank on one GPU, or N under
+``torchrun --nproc_per_node N``, each rank on ``cuda:LOCAL_RANK`` (NCCL);
+only rank 0 prints.
 
-Usage: python -m raytrace_tpu_torch.apps.benchmark [--configs 1,2,3,4]
+Usage: python -m raytrace_tpu_torch.apps.benchmark [--configs 1,2,3,4,5]
 [--tracer fused|hf|volume|volume_fast]   (needs a CUDA GPU)
+On N GPUs: torchrun --standalone --nproc_per_node N -m
+raytrace_tpu_torch.apps.benchmark --configs 5 --tracer fused
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import tempfile
 import time
 from collections import deque
 
 import torch
+import torch.distributed as dist
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops.denoise import denoise_finalize
@@ -44,10 +51,11 @@ from ..ops.trace_dda import render_gbuffers
 from ..ops.trace_hf import render_gbuffers_hf
 from ..ops.vol_tables import build_vol_tables
 from ..ops.volume import fuse_volume
+from ..parallel import tiles
 from ..render.camera import Camera
-from ..render.pipeline import Pipeline
+from ..render.pipeline import Pipeline, frame_gbuffers
 from ..utils.blue_noise import get_blue_noise_f32
-from ..world.generate import generate_chunk
+from ..world.generate import generate_box, generate_chunk
 from . import capture
 
 TRAIN = 20  # timed frames of configs 1-2
@@ -65,11 +73,12 @@ def exhausted_px(depth: torch.Tensor) -> torch.Tensor:
     return (depth.to(torch.int32) == EXHAUSTED_DEPTH).sum()
 
 
-def _emit(name, value, unit, extra=None) -> dict:
+def _emit(name, value, unit, extra=None, show=True) -> dict:
     rec = {"config": name, "value": round(value, 2), "unit": unit}
     if extra:
         rec.update(extra)
-    print(json.dumps(rec), flush=True)
+    if show:
+        print(json.dumps(rec), flush=True)
     return rec
 
 
@@ -232,11 +241,89 @@ def config4_capture(tracer="fused", views=30, fmt="dat"):
                   "views_timed": n, "seconds": dt, "exhausted_px": int(exhausted)})
 
 
+CONFIG5_SIZE = (3840, 2160)
+CONFIG5_FRAMES = 3  # timed, after one warm frame
+
+
+def _tile_device() -> torch.device:
+    """The card of this rank: under ``torchrun`` (``WORLD_SIZE`` > 1)
+    ``cuda:LOCAL_RANK``, in an NCCL default group set up here unless the
+    caller set one up; otherwise the current card."""
+    dev = _device()
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev)
+    elif dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def config5_world(tracer: str, dev):
+    """Config 5's world on ``dev`` (JAX ``benchmark.py:241-258``): the lr 0
+    region's heightfield tables for ``fused`` (with K1's column table, built
+    once here as config 2 does) and ``hf``; the generated 256³ box around
+    the origin, fused, for ``volume``, with its occupancy tables for
+    ``volume_fast``."""
+    if tracer in ("fused", "hf"):
+        tables = build_hf_tables((0, 0, 0), seed=0, device=dev)
+        return with_column_heights(tables, 0) if tracer == "fused" else tables
+    box = generate_box((-128,) * 3, (256,) * 3, seed=0, device=dev)
+    fused = fuse_volume(box["materials"], box["minefield"])
+    return (fused, build_vol_tables(fused)) if tracer == "volume_fast" else fused
+
+
+def config5_tiled_4k(tracer="fused"):
+    """3840x2160 at bounces 2 (5 rays a pixel) through the tile split over
+    the default group's ranks, from the bench camera: one warm frame, then
+    ``CONFIG5_FRAMES`` timed ones (JAX ``benchmark.py:241-286``).
+    Each rank renders its band and counts its exhausted pixels; the count
+    is summed over the ranks.  ``parity``: the warm tiled frame equals, on
+    every rank, the frame that rank renders whole by itself (the tracer's
+    G-buffers, then ``denoise_finalize``), bit for bit."""
+    dev = _tile_device()
+    world = config5_world(tracer, dev)
+    bn = torch.from_numpy(get_blue_noise_f32()).to(dev)
+    uni = _uniforms(Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3), dev)
+    w, h = CONFIG5_SIZE
+    frames = CONFIG5_FRAMES
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+
+    def frame():
+        gb = tiles.band_gbuffers(world, bn, uni, w, h, None, MAX_TRACE_STEPS, tracer)
+        return tiles.denoise_tiled(gb, bn, h), exhausted_px(gb["depth"])
+
+    whole = denoise_finalize(frame_gbuffers(world, bn, uni, w, h, MAX_TRACE_STEPS,
+                                            tracer=tracer), bn)
+    parity = torch.tensor(int(torch.equal(frame()[0], whole)), device=dev)
+    del whole
+    if ranks > 1:
+        dist.all_reduce(parity, op=dist.ReduceOp.MIN)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    counts = [frame()[1] for _ in range(frames)]
+    end.record()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / frames
+    exhausted = torch.stack(counts).sum()
+    if ranks > 1:
+        dist.all_reduce(exhausted)
+    rec = dict(devices=ranks, ms=dt * 1e3, device_ms_per_frame=start.elapsed_time(end) / frames,
+               exhausted_px=int(exhausted), parity=bool(parity), tracer=tracer,
+               size=[w, h], frames_timed=frames, plan=tiles.plan(ranks, h // ranks))
+    return _emit("5_tiled_4k", w * h * 5 / dt / 1e6, "Mrays/s", rec, show=rank == 0)
+
+
 CONFIGS = {
     "1": config1_single_chunk,
     "2": config2_world_1080p,
     "3": config3_flythrough_both,
     "4": config4_capture,
+    "5": config5_tiled_4k,
 }
 
 
@@ -247,6 +334,8 @@ def main():
     ns = ap.parse_args()
     for c in ns.configs.split(","):
         CONFIGS[c.strip()](tracer=ns.tracer)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ volume_fast pipeline's volume and tables, uniforms filled as draw_frame
 fills them.
 
 Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
-[--tracer fused|hf|volume|volume_fast|volume_staged]   (needs a CUDA GPU)
+[--tracer fused|hf|volume|volume_fast|volume_staged] [--size 1024x1024]
+(needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -120,8 +121,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--tracer", choices=TRACERS + (STAGED,), default="fused")
+    ap.add_argument("--size", default="1024x1024", help="WxH, e.g. 3840x2160 (config 5)")
     args = ap.parse_args()
-    run(args.frames, tracer=args.tracer)
+    width, height = (int(v) for v in args.size.split("x"))
+    run(args.frames, width, height, tracer=args.tracer)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,11 @@
 // albedo * light * 16 + emission * 4, fogs terrain toward fog * 2 by depth,
 // applies the filmic curve, adds the blue-noise dither / 128
 // (finalize.comp:33-56) and writes the (H, W, 3) frame flipped vertically
-// (finalize.comp:59).
+// (finalize.comp:59).  It finalizes a window of input rows (first r0,
+// count rows; the whole input by default): its albedo, emission and fog
+// cover only those rows, its dither is that of image rows dither_row0 ..,
+// and it flips the window over its own rows.  The tile split finalizes one
+// band of a region that holds the band and its neighbours' halo rows.
 //
 // Tiling.  A dilated pass is a plain 7 x 7 stencil on each of the size²
 // sub-lattices x = a + size * u, y = b + size * v.  A block takes a 32 x 8
@@ -128,12 +132,13 @@ __device__ __forceinline__ void taps(std::integer_sequence<int, K...>,
   (tap<K, width, step>(c, key, dc, tw, a0, a1, a2), ...);
 }
 
-// One pass at dilation S.  A block's pixels are x = a + SX * u (u in 32
-// consecutive values) and y = b + S * v (v in 8): SX = S on one sub-lattice,
-// SX = 1 on consecutive pixels of every S-th row.  Input: the G-buffers
-// (`light` non-null: lighting (H, W, 3), depth, normal) or the working plane
-// `in`.  Output: the working plane `out`, or (`out` null) the finalized,
-// flipped frame.
+// One pass at dilation S over input rows r0 .. r0 + rows.  A block's
+// pixels are x = a + SX * u (u in 32 consecutive values) and
+// y = r0 + b + S * v (v in 8): SX = S on one sub-lattice, SX = 1 on
+// consecutive pixels of every S-th row.  Input: the G-buffers (`light`
+// non-null: lighting (H, W, 3), depth, normal) or the working plane `in`,
+// each over all h rows.  Output: the working plane `out` (r0 = 0, rows = h),
+// or (`out` null) the finalized frame of the rows, flipped over them.
 template <int S, int SX>
 __global__ void __launch_bounds__(kTileW * kTileH)
     denoise_pass_kernel(const float* __restrict__ light,
@@ -141,7 +146,8 @@ __global__ void __launch_bounds__(kTileW * kTileH)
                         const uint8_t* __restrict__ normal,
                         const float4* __restrict__ in,
                         float4* __restrict__ out, float* __restrict__ frame,
-                        int h, int w, const float* __restrict__ albedo,
+                        int h, int w, int r0, int rows, int dither_row0,
+                        const float* __restrict__ albedo,
                         const float* __restrict__ emission,
                         const float* __restrict__ fog,
                         const float* __restrict__ noise, int nh, int nw,
@@ -156,7 +162,7 @@ __global__ void __launch_bounds__(kTileW * kTileH)
        k += kTileW * kTileH) {
     const int tv = k / kSW, tu = k - tv * kSW;
     const int x = min(max(a + SX * (u0 + tu), 0), w - 1);
-    const int y = min(max(b + S * (v0 + tv), 0), h - 1);
+    const int y = min(max(r0 + b + S * (v0 + tv), 0), h - 1);
     const int j = y * w + x;
     if (light != nullptr) {
       const float g = (float)depth[j] * 32.0f + (float)normal[j];
@@ -169,8 +175,8 @@ __global__ void __launch_bounds__(kTileW * kTileH)
   __syncthreads();
 
   const int x = a + SX * (blockIdx.x * kTileW + threadIdx.x);
-  const int y = b + S * (blockIdx.y * kTileH + threadIdx.y);
-  if (x >= w || y >= h) return;
+  const int y = r0 + b + S * (blockIdx.y * kTileH + threadIdx.y);
+  if (x >= w || y >= r0 + rows) return;
   const int i = y * w + x;
   const float4* c = tile + (threadIdx.y + kReach) * kSW + threadIdx.x + kHalo;
   const float4 center = *c;
@@ -197,12 +203,14 @@ __global__ void __launch_bounds__(kTileW * kTileH)
   float fog_amount = fminf(depth_f * (1.0f / 32768.0f), 1.0f);
   bool terrain = depth_f < 65535.0f;
   const float bc[3] = {b0, b1, b2};
-  const int t = ((y % nh) * nw + (x % nw)) * nch;
-  float* row = frame + ((size_t)(h - 1 - y) * w + x) * 3;
+  const int yw = y - r0;  // the row in the window
+  const int fi = yw * w + x;
+  const int t = (((dither_row0 + yw) % nh) * nw + (x % nw)) * nch;
+  float* row = frame + ((size_t)(rows - 1 - yw) * w + x) * 3;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    float f = albedo[3 * i + ch] * (bc[ch] * 16.0f) + emission[3 * i + ch] * 4.0f;
-    float fogc = fog[3 * i + ch] * 2.0f;
+    float f = albedo[3 * fi + ch] * (bc[ch] * 16.0f) + emission[3 * fi + ch] * 4.0f;
+    float fogc = fog[3 * fi + ch] * 2.0f;
     if (terrain) f = f + (fogc - f) * fog_amount;
     row[ch] = filmic(f) + noise[t + ch] * 0.0078125f;
   }
@@ -215,7 +223,7 @@ struct PassArgs {
   const float4* in;
   float4* out;
   float* frame;
-  int h, w;
+  int h, w, r0, rows, dither_row0;
   const float *albedo, *emission, *fog, *noise;
   int nh, nw, nch;
 };
@@ -224,12 +232,12 @@ struct PassArgs {
 // pixels of every S-th row, the others on each of the S² sub-lattices.
 template <int S, int SX>
 int launch(const PassArgs& p, cudaStream_t stream) {
-  const int lw = (p.w + SX - 1) / SX, lh = (p.h + S - 1) / S;
+  const int lw = (p.w + SX - 1) / SX, lh = (p.rows + S - 1) / S;
   dim3 block(kTileW, kTileH);
   dim3 grid((lw + kTileW - 1) / kTileW, (lh + kTileH - 1) / kTileH, S * SX);
   denoise_pass_kernel<S, SX><<<grid, block, 0, stream>>>(
-      p.light, p.depth, p.normal, p.in, p.out, p.frame, p.h, p.w, p.albedo,
-      p.emission, p.fog, p.noise, p.nh, p.nw, p.nch);
+      p.light, p.depth, p.normal, p.in, p.out, p.frame, p.h, p.w, p.r0, p.rows,
+      p.dither_row0, p.albedo, p.emission, p.fog, p.noise, p.nh, p.nw, p.nch);
   return (int)cudaGetLastError();
 }
 
@@ -243,14 +251,18 @@ int launch_size(const PassArgs& p, cudaStream_t stream) {
 extern "C" int rt_denoise_pass(const float* light, const uint16_t* depth,
                                const uint8_t* normal, const float* in,
                                float* out, float* frame, int h, int w,
-                               int size, const float* albedo,
-                               const float* emission, const float* fog,
-                               const float* noise, int nh, int nw, int nch,
-                               void* stream) {
-  if (h <= 0 || w <= 0) return 0;
+                               int size, int r0, int rows, int dither_row0,
+                               const float* albedo, const float* emission,
+                               const float* fog, const float* noise, int nh,
+                               int nw, int nch, void* stream) {
+  if (h <= 0 || w <= 0 || rows <= 0) return 0;
+  // The window lies in the input; a plane-to-plane pass takes every row.
+  if (r0 < 0 || r0 + rows > h || dither_row0 < 0 ||
+      (frame == nullptr && (r0 != 0 || rows != h)))
+    return (int)cudaErrorInvalidValue;
   const PassArgs p{light, depth, normal, reinterpret_cast<const float4*>(in),
-                   reinterpret_cast<float4*>(out), frame, h, w, albedo, emission,
-                   fog, noise, nh, nw, nch};
+                   reinterpret_cast<float4*>(out), frame, h, w, r0, rows,
+                   dither_row0, albedo, emission, fog, noise, nh, nw, nch};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (size) {
     case 1: return launch_size<1>(p, s);

@@ -21,6 +21,13 @@ bits of ``depth / 64`` with the normal in the five low bits); every pass
 reads and writes one working plane of ``(r, g, b, key)`` float4 per pixel;
 the last writes the finalized (H, W, 3) frame, already flipped.  On the CPU
 the chain runs the plain pass on channel planes.
+
+The finalizing pass may finalize a window of the input's rows only
+(``window=(first, count)``, its albedo, emission and fog then cover just
+those rows) with the dither of image rows ``dither_row0 ..``, and flips the
+window over its own rows: the tile split (``parallel/tiles.py``) denoises a
+band with its neighbours' halo rows around it and finalizes the band alone.
+The defaults finalize every row with the dither of rows ``0 ..``.
 """
 
 from __future__ import annotations
@@ -64,10 +71,20 @@ def geometry_plane(depth: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     return depth.to(torch.float32) * 32.0 + normal.to(torch.float32)
 
 
-def denoise_pass_plain(light, geom, size: int, fin=None):
+def _window(window, h: int):
+    """``(first, count)`` of the rows a finalizing pass finalizes, checked."""
+    first, count = (0, h) if window is None else (int(window[0]), int(window[1]))
+    if not (0 <= first and 0 < count and first + count <= h):
+        raise ValueError(f"finalize window {window} is not inside the {h} input rows")
+    return first, count
+
+
+def denoise_pass_plain(light, geom, size: int, fin=None, window=None, dither_row0=0):
     """One pass, plain PyTorch: (3, H, W) lighting and (H, W) geometry in,
-    (3, H, W) out.  ``fin = (albedo, emission, fog, blue_noise)`` (the
-    first three (H, W, 3)) fuses finalize into the pass."""
+    (3, H, W) out.  ``fin = (albedo, emission, fog, blue_noise)`` fuses
+    finalize into the pass: the output is then the (3, count, W) colour of
+    input rows ``window = (first, count)`` (default all), the first three
+    of ``fin`` (count, W, 3), dithered as image rows ``dither_row0 ..``."""
     h, w = geom.shape
     pad = _MAX_REACH * size
     lp = F.pad(light[None], (pad,) * 4, mode="replicate")[0]
@@ -90,9 +107,11 @@ def denoise_pass_plain(light, geom, size: int, fin=None):
     if fin is None:
         return out
     albedo, emission, fog, blue_noise = fin
+    first, count = _window(window, h)
+    rows = slice(first, first + count)
     planar = lambda x: x.permute(2, 0, 1)
-    return finalize_planar(planar(albedo), planar(emission), planar(fog), out,
-                           dc, dither_planes(blue_noise, h, w))
+    return finalize_planar(planar(albedo), planar(emission), planar(fog), out[:, rows],
+                           dc[rows], dither_planes(blue_noise, count, w, dither_row0))
 
 
 def geometry_key(geom: torch.Tensor) -> torch.Tensor:
@@ -104,26 +123,30 @@ def geometry_key(geom: torch.Tensor) -> torch.Tensor:
 
 
 def launch_pass(h, w, size, light=None, depth=None, normal=None, plane_in=None,
-                plane_out=None, frame=None, fin=None):
+                plane_out=None, frame=None, fin=None, window=None, dither_row0=0):
     """One K2 launch on the current stream: G-buffers (``light``, ``depth``,
     ``normal``) or a working plane in, a working plane or (with ``fin``)
-    the finalized flipped frame out.  ``launch_pass.launches`` counts the
-    launches."""
+    the finalized frame of the input rows ``window`` (default all), flipped
+    over those rows, out.  ``launch_pass.launches`` counts the launches."""
     from .._build import check_launch, kernels
 
     if size not in KERNEL_SIZES:
         raise ValueError(f"launch_pass: K2 takes the dilations {KERNEL_SIZES}, not {size}")
     ptr = lambda t: None if t is None else t.data_ptr()
     if fin is None:
+        if window is not None:
+            raise ValueError("launch_pass: a window needs the finalizing pass")
         fin_ptrs, nh, nw, nch = (None, None, None, None), 0, 0, 0
     else:
         fin_ptrs = tuple(t.data_ptr() for t in fin)
         nh, nw, nch = fin[3].shape
+    first, count = _window(window, h)
     dev = (light if light is not None else plane_in).device
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_denoise_pass(
         ptr(light), ptr(depth), ptr(normal), ptr(plane_in), ptr(plane_out),
-        ptr(frame), h, w, size, *fin_ptrs, nh, nw, nch, stream,
+        ptr(frame), h, w, size, first, count, dither_row0, *fin_ptrs, nh, nw, nch,
+        stream,
     )
     check_launch("rt_denoise_pass", err)
     launch_pass.launches += 1
@@ -132,21 +155,22 @@ def launch_pass(h, w, size, light=None, depth=None, normal=None, plane_in=None,
 launch_pass.launches = 0
 
 
-def _check_fin(name, fin, h, w, dev):
+def _check_fin(name, fin, rows, w, dev):
     from .._build import check_tensor
 
     for t in fin[:3]:
-        check_tensor(name, t, torch.float32, (h, w, 3), dev)
+        check_tensor(name, t, torch.float32, (rows, w, 3), dev)
     check_tensor(name, fin[3], torch.float32, (fin[3].shape[0], fin[3].shape[1], 4), dev)
 
 
-def denoise_pass(light, geom, size: int, fin=None):
-    """One pass: (3, H, W) lighting and (H, W) geometry in, (3, H, W) out.
-    The plain version for CPU tensors; for CUDA tensors, K2 on a working
-    plane packed here (``launch_pass.launches`` counts the launch).  Other
-    devices raise."""
+def denoise_pass(light, geom, size: int, fin=None, window=None, dither_row0=0):
+    """One pass: (3, H, W) lighting and (H, W) geometry in, (3, H, W) out
+    (with ``fin``: the finalized rows of ``window``, as
+    ``denoise_pass_plain``).  The plain version for CPU tensors; for CUDA
+    tensors, K2 on a working plane packed here (``launch_pass.launches``
+    counts the launch).  Other devices raise."""
     if light.device.type == "cpu":
-        return denoise_pass_plain(light, geom, size, fin)
+        return denoise_pass_plain(light, geom, size, fin, window, dither_row0)
     if light.device.type != "cuda":
         raise RuntimeError(f"denoise_pass: no kernel for device {light.device}")
     from .._build import check_tensor
@@ -159,15 +183,18 @@ def denoise_pass(light, geom, size: int, fin=None):
         out = torch.empty_like(plane)
         launch_pass(h, w, size, plane_in=plane, plane_out=out)
         return out[..., :3].permute(2, 0, 1).contiguous()
-    _check_fin("denoise_pass", fin, h, w, light.device)
-    frame = torch.empty((h, w, 3), dtype=torch.float32, device=light.device)
-    launch_pass(h, w, size, plane_in=plane, frame=frame, fin=fin)
+    first, count = _window(window, h)
+    _check_fin("denoise_pass", fin, count, w, light.device)
+    frame = torch.empty((count, w, 3), dtype=torch.float32, device=light.device)
+    launch_pass(h, w, size, plane_in=plane, frame=frame, fin=fin, window=window,
+                dither_row0=dither_row0)
     return frame.flip(0).permute(2, 0, 1)
 
 
-def chain_passes(gb: dict, blue_noise: torch.Tensor):
+def chain_passes(gb: dict, blue_noise: torch.Tensor, window=None, dither_row0=0):
     """The chain on the card, not yet launched -> ``(frame, passes)``: the
-    (H, W, 3) frame it will write and one callable per pass, each launching
+    (count, W, 3) frame it will write (the rows of ``window``, default
+    all, as ``denoise_finalize``) and one callable per pass, each launching
     that pass of K2 (``passes[0]`` reads the G-buffers, ``passes[-1]``
     writes the frame).  Run in order they make the chain; a pass run again
     recomputes the same output from the same input."""
@@ -181,42 +208,51 @@ def chain_passes(gb: dict, blue_noise: torch.Tensor):
     check_tensor("denoise_finalize", gb["depth"], torch.uint16, (h, w), dev)
     check_tensor("denoise_finalize", gb["normal"], torch.uint8, (h, w), dev)
     fin = (gb["albedo"], gb["emission"], gb["fog"], blue_noise)
-    _check_fin("denoise_finalize", fin, h, w, dev)
+    first, count = _window(window, h)
+    _check_fin("denoise_finalize", fin, count, w, dev)
     planes = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
-    frame = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    frame = torch.empty((count, w, 3), dtype=torch.float32, device=dev)
     last = len(DENOISE_SIZES) - 1
     passes = []
     for si, size in enumerate(DENOISE_SIZES):
         src = dict(light=gb["lighting"], depth=gb["depth"], normal=gb["normal"]) \
             if si == 0 else dict(plane_in=planes[(si - 1) % 2])
-        dst = dict(frame=frame, fin=fin) if si == last else dict(plane_out=planes[si % 2])
+        dst = dict(frame=frame, fin=fin, window=window, dither_row0=dither_row0) \
+            if si == last else dict(plane_out=planes[si % 2])
         passes.append(partial(launch_pass, h, w, size, **src, **dst))
     return frame, passes
 
 
-def denoise_finalize(gb: dict, blue_noise: torch.Tensor) -> torch.Tensor:
+def denoise_finalize(gb: dict, blue_noise: torch.Tensor, window=None,
+                     dither_row0=0) -> torch.Tensor:
     """Six-pass denoise + finalize -> (H, W, 3) frame in window orientation
-    (vertically flipped, finalize.comp:59).  CPU tensors take the plain
+    (vertically flipped, finalize.comp:59).  ``gb``'s lighting, depth and
+    normal are denoised whole; ``window = (first, count)`` (default all
+    rows) picks the rows finalized, which ``gb``'s albedo, emission and fog
+    cover, dithered as image rows ``dither_row0 ..``: the result is then
+    (count, W, 3), flipped over those rows.  CPU tensors take the plain
     chain; CUDA tensors launch K2 once per pass and allocate the two working
     planes and the frame, nothing else.  Other devices raise."""
     dev = gb["lighting"].device
     if dev.type == "cpu":
-        return denoise_finalize_plain(gb, blue_noise)
+        return denoise_finalize_plain(gb, blue_noise, window, dither_row0)
     if dev.type != "cuda":
         raise RuntimeError(f"denoise_finalize: no kernel for device {dev}")
-    frame, passes = chain_passes(gb, blue_noise)
+    frame, passes = chain_passes(gb, blue_noise, window, dither_row0)
     for one_pass in passes:
         one_pass()
     return frame
 
 
-def denoise_finalize_plain(gb: dict, blue_noise: torch.Tensor) -> torch.Tensor:
-    """The chain through the plain pass on any device: the reference K2's
-    chain is held against."""
+def denoise_finalize_plain(gb: dict, blue_noise: torch.Tensor, window=None,
+                           dither_row0=0) -> torch.Tensor:
+    """The chain through the plain pass on any device (``window`` and
+    ``dither_row0`` as ``denoise_finalize``): the reference K2's chain is
+    held against."""
     light = gb["lighting"].permute(2, 0, 1)
     geom = geometry_plane(gb["depth"], gb["normal"])
     fin = (gb["albedo"], gb["emission"], gb["fog"], blue_noise)
-    for si, size in enumerate(DENOISE_SIZES):
-        last = si + 1 == len(DENOISE_SIZES)
-        light = denoise_pass_plain(light, geom, size, fin if last else None)
+    for size in DENOISE_SIZES[:-1]:
+        light = denoise_pass_plain(light, geom, size)
+    light = denoise_pass_plain(light, geom, DENOISE_SIZES[-1], fin, window, dither_row0)
     return light.permute(1, 2, 0).flip(0)

@@ -16,10 +16,11 @@ from .shading import filmic_curve
 FOG_SCALE = 32.0 * 128.0 * 8.0  # finalize.comp:46
 
 
-def dither_planes(blue_noise: torch.Tensor, height: int, width: int):
-    """(3, H, W) dither: ``blue_noise[y % nh, x % nw, :3]``."""
+def dither_planes(blue_noise: torch.Tensor, height: int, width: int, row0: int = 0):
+    """(3, H, W) dither of image rows ``row0 .. row0 + height``:
+    ``blue_noise[(row0 + y) % nh, x % nw, :3]`` (finalize.py:59-70)."""
     nh, nw = blue_noise.shape[0], blue_noise.shape[1]
-    rows = torch.arange(height, device=blue_noise.device) % nh
+    rows = torch.arange(row0, row0 + height, device=blue_noise.device) % nh
     cols = torch.arange(width, device=blue_noise.device) % nw
     return blue_noise[rows[:, None], cols[None, :], :3].permute(2, 0, 1)
 

@@ -67,20 +67,31 @@ def hit_result(origin, pos, normal, air, packed, exhausted, nudge=None) -> dict:
 
 
 def integrate_gbuffers(trace, blue_noise: torch.Tensor, uniforms: dict,
-                       width: int, height: int, bounces: int = 2) -> dict:
-    """The full lighting pass producing the six G-buffers.
+                       width: int, height: int, bounces: int = 2, row0: int = 0,
+                       rows: int | None = None) -> dict:
+    """The full lighting pass producing the six G-buffers, of the whole
+    frame or of its image rows ``row0 .. row0 + rows`` (a band of the tile
+    split; ``trace_jax.py:268-297``).
 
     ``uniforms`` holds tensors origin, forward, up, right (3,) f32,
     sun_angle () f32, seed () int32 and lr (3,) f32.  ``bounces``: 0 =
     primary rays only (sky lighting), 1 = sun + one diffuse bounce, 2 = the
-    full path.  Returns lighting, albedo, emission and fog (H, W, 3) f32,
-    depth (H, W) uint16 and normal (H, W) uint8.
+    full path.  Returns lighting, albedo, emission and fog (rows, W, 3) f32,
+    depth (rows, W) uint16 and normal (rows, W) uint8.
+
+    A band's G-buffers equal the same rows of the whole frame's bit for bit
+    on CUDA tensors.  On CPU tensors they do when ``width * rows`` and
+    ``width * height`` are multiples of 32: PyTorch's CPU ``pow`` and
+    ``sin`` can give another last bit in the scalar tail of a vectorized
+    loop than in its body, so otherwise a band's lighting and fog may differ
+    by up to 4 units in the last place; depth, normal, albedo and emission
+    stay equal.  The fused and volume_fast passes share this.
     """
-    origin, ray_dir = camera_rays(uniforms, width, height)
+    origin, ray_dir = camera_rays(uniforms, width, height, row0, rows)
     sun = shading.sun_direction(uniforms["sun_angle"])
     sunlight = shading.sun_color(sun)
     sun_vec, sunlight_vec = torch.stack(sun), torch.stack(sunlight)
-    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height)
+    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
     zero = torch.zeros((), dtype=torch.float32, device=ray_dir.device)
 
     def sky(d, include_sun):

@@ -386,8 +386,10 @@ def _byte(img):
 def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           uniforms: dict, width: int, height: int,
                           max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
-                          bounces: int = 2) -> dict:
-    """G-buffers of one frame: march every pixel's path, then shade.
+                          bounces: int = 2, row0: int = 0,
+                          rows: int | None = None) -> dict:
+    """G-buffers of one frame, or of its image rows ``row0 .. row0 + rows``
+    (a band of the tile split): march every pixel's path, then shade.
 
     ``tables`` from ``build_hf_tables``, with or without the column table K1
     reads (``hf_tables.with_column_heights``): bare tables get it built here
@@ -397,19 +399,24 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
     the shade from the float texture); ``uniforms`` holds tensors origin,
     forward, up, right (3,) f32, sun_angle () f32, seed () int32 and
     lr (3,) f32, all on one device.  Returns lighting, albedo, emission and
-    fog (H, W, 3) f32, depth (H, W) uint16 and normal (H, W) uint8.
+    fog (rows, W, 3) f32, depth (rows, W) uint16 and normal (rows, W) uint8;
+    a band's equal the same rows of the whole frame's bit for bit (on CPU
+    tensors when ``width * rows`` and ``width * height`` are multiples of
+    32: see ``integrate.integrate_gbuffers``).
     """
     check_material_codes()
     if "hcol" not in tables:
         tables = with_column_heights(tables, seed)
-    frame = march_inputs(tables, blue_noise, uniforms, width, height)
+    frame = march_inputs(tables, blue_noise, uniforms, width, height, row0, rows)
     meta, pdist = march_paths(*frame["march"], max_steps, seed, 1 + 2 * bounces)
     return shade(meta, pdist, **frame["shade"])
 
 
 def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
-                 width: int, height: int) -> dict:
-    """The march's inputs for one frame and what the shade reads besides.
+                 width: int, height: int, row0: int = 0,
+                 rows: int | None = None) -> dict:
+    """The march's inputs for one frame (or its rows ``row0 .. row0 +
+    rows``) and what the shade reads besides.
 
     ``march``: the positional arguments of ``march_paths`` up to the
     budget (origin and direction (N, 3) f32, the packed noise word (N,)
@@ -418,8 +425,9 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
     other than the march's outputs.
     """
     dev = blue_noise.device
-    origin, ray_dir = camera_rays(uniforms, width, height)
-    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height)
+    rows = height if rows is None else rows
+    origin, ray_dir = camera_rays(uniforms, width, height, row0, rows)
+    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
     sun = shading.sun_direction(uniforms["sun_angle"])
     sunlight = shading.sun_color(sun)
     fscal = torch.cat([torch.stack(sun), torch.zeros(5, device=dev)])
@@ -432,7 +440,7 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
     ]).to(torch.int32)
     nw = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
           | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24))
-    n = width * height
+    n = width * rows
     return {
         "march": (origin.reshape(n, 3), ray_dir.reshape(n, 3).contiguous(),
                   nw.reshape(n), iscal, fscal.to(torch.float32), tables),

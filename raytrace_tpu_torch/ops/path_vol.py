@@ -41,24 +41,31 @@ def legs_of(bounces: int) -> int:
 def render_gbuffers_path(volume: torch.Tensor, tables: dict,
                          blue_noise: torch.Tensor, uniforms: dict, width: int,
                          height: int, max_steps: int = MAX_TRACE_STEPS,
-                         bounces: int = 2) -> dict:
+                         bounces: int = 2, row0: int = 0,
+                         rows: int | None = None) -> dict:
     """G-buffers of one frame of the resident ``volume`` (fused (256^3,)
-    int32) with its ``build_vol_tables`` tables.
+    int32) with its ``build_vol_tables`` tables, or of the frame's image
+    rows ``row0 .. row0 + rows`` (a band of the tile split).
 
     ``uniforms`` holds tensors origin, forward, up, right (3,) f32,
     sun_angle () f32, seed () int32 and lr (3,) f32, all on one device.
-    Returns lighting, albedo, emission and fog (H, W, 3) f32, depth (H, W)
-    uint16 and normal (H, W) uint8.
+    Returns lighting, albedo, emission and fog (rows, W, 3) f32, depth
+    (rows, W) uint16 and normal (rows, W) uint8; a band's equal the same
+    rows of the whole frame's bit for bit (on CPU tensors when
+    ``width * rows`` and ``width * height`` are multiples of 32: see
+    ``integrate.integrate_gbuffers``).
     """
     legs = legs_of(bounces)
-    frame = march_inputs(tables, blue_noise, uniforms, width, height)
+    frame = march_inputs(tables, blue_noise, uniforms, width, height, row0, rows)
     marched = march_paths_vol(*frame["march"], max_steps, legs)
     return shade(volume, *marched, legs=legs, **frame["shade"])
 
 
 def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
-                 width: int, height: int) -> dict:
-    """The march's inputs for one frame and what the shade reads besides.
+                 width: int, height: int, row0: int = 0,
+                 rows: int | None = None) -> dict:
+    """The march's inputs for one frame (or its rows ``row0 .. row0 +
+    rows``) and what the shade reads besides.
 
     ``march``: the positional arguments of ``march_paths_vol`` up to the
     budget: origin and direction (N, 3) f32, the invariants (N, 12) f32
@@ -68,8 +75,9 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
     outputs and the volume.
     """
     dev = blue_noise.device
-    origin, ray_dir = camera_rays(uniforms, width, height)
-    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height)
+    rows = height if rows is None else rows
+    origin, ray_dir = camera_rays(uniforms, width, height, row0, rows)
+    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
     sun = shading.sun_direction(uniforms["sun_angle"])
     sunlight = shading.sun_color(sun)
     inv = []
@@ -78,7 +86,7 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
         inv += normalize(sun[0] + nr * 0.05, sun[1] + ng * 0.05,
                          torch.zeros_like(nr) + sun[2])
         inv += shading.sphere_point(nr, ng)
-    n = width * height
+    n = width * rows
     lri = uniforms["lr"].to(torch.int32)
     iscal = torch.cat([lri, occupancy_world_bounds(tables["any8b"], lri),
                        torch.zeros(1, dtype=torch.int32, device=dev)])

@@ -3,9 +3,11 @@
 Port of ``raytrace_tpu/ops/trace_jax.py:55-56`` (``_normalize``, here
 ``normalize``),
 ``:168-191`` (``camera_rays``, including the ``below`` clause) and
-``:220-265`` (``frame_noise``, full-frame form).  The JAX roll + tile of the
-noise texture is the same modular lookup written as one gather, so the
-per-frame offset can stay a device tensor and no value syncs to the host.
+``:220-265`` (``frame_noise``).  The JAX roll + tile of the noise texture
+is the same modular lookup written as one gather, so the per-frame offset
+can stay a device tensor and no value syncs to the host.  Both take a band
+of image rows (``row0``, ``rows``; the tile split, ``parallel/tiles.py``):
+a band's values equal the same rows of the whole frame bit for bit.
 """
 
 from __future__ import annotations
@@ -24,22 +26,28 @@ def normalize(x, y, z):
     return x * inv, y * inv, z * inv
 
 
-def camera_rays(uniforms: dict, width: int, height: int):
-    """Per-pixel primary ray origins and directions, each (H, W, 3) f32.
+def camera_rays(uniforms: dict, width: int, height: int, row0: int = 0,
+                rows: int | None = None):
+    """Per-pixel primary ray origins and directions, each (rows, W, 3) f32,
+    for image rows ``row0 .. row0 + rows`` (default: the whole frame).
 
     ``uniforms`` holds (3,) float32 tensors ``origin``, ``forward``, ``up``
-    and ``right`` (up/right already scaled by the 0.4 FOV factor).
+    and ``right`` (up/right already scaled by the 0.4 FOV factor).  Screen
+    ``y`` stays relative to the full ``height``.
     """
     dev = uniforms["origin"].device
+    rows = height if rows is None else rows
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    # row0 + i is an exact float32 integer, so a band's rows divide as the
+    # whole frame's do.
+    py = torch.arange(row0, row0 + rows, dtype=torch.float32, device=dev)[:, None]
     sx = fdiv(px, float(width)) * 2.0 - 1.0
     sy = fdiv(py, float(height)) * 2.0 - 1.0
     f, r, u = uniforms["forward"], uniforms["right"], uniforms["up"]
     d = [f[k] + sx * r[k] + sy * u[k] for k in range(3)]
     ray_dir = torch.stack(normalize(*d), -1)
     o = uniforms["origin"]
-    origin = o.expand(height, width, 3)
+    origin = o.expand(rows, width, 3)
     below = -o[1] > _HALF
     space = -o[1] - _HALF
     t = space / ray_dir[..., 1] + 1e-4
@@ -48,8 +56,9 @@ def camera_rays(uniforms: dict, width: int, height: int):
 
 
 def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
-                height: int):
-    """Per-pixel noise planes (noise1, noise2), each (H, W, C) f32.
+                height: int, row0: int = 0, rows: int | None = None):
+    """Per-pixel noise planes (noise1, noise2), each (rows, W, C) f32, for
+    image rows ``row0 .. row0 + rows`` (default: the whole frame).
 
     ``noise1[y, x] = blue_noise[(y + oy) % nh, (x + ox) % nw]`` with the
     per-frame offset read from the texture at ``seed``; ``noise2`` is
@@ -61,7 +70,8 @@ def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
     texel = blue_noise[seed // nw % nh, seed % nw]
     off_x = torch.floor(texel[0] * 255.0 + 0.5).to(torch.int64)
     off_y = torch.floor(texel[1] * 255.0 + 0.5).to(torch.int64)
-    ys = torch.arange(height, device=dev)
+    rows = height if rows is None else rows
+    ys = torch.arange(row0, row0 + rows, device=dev)
     xs = torch.arange(width, device=dev)
 
     def plane(shift):

@@ -120,8 +120,10 @@ def trace_rays(fused_flat: torch.Tensor, origin: torch.Tensor,
 
 def render_gbuffers(fused_flat: torch.Tensor, blue_noise: torch.Tensor,
                     uniforms: dict, width: int, height: int,
-                    max_steps: int = MAX_TRACE_STEPS, bounces: int = 2) -> dict:
-    """G-buffers of one frame through the exact DDA:
+                    max_steps: int = MAX_TRACE_STEPS, bounces: int = 2,
+                    row0: int = 0, rows: int | None = None) -> dict:
+    """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
+    through the exact DDA:
     ``integrate.integrate_gbuffers`` with ``trace_rays``.  Every ray is
     traced, including the bounce rays of sky pixels, as in JAX
     (``trace_jax.py:210-213``)."""
@@ -129,4 +131,5 @@ def render_gbuffers(fused_flat: torch.Tensor, blue_noise: torch.Tensor,
     def trace(o, d, active=None):
         return trace_rays(fused_flat, o, d, uniforms["lr"], max_steps)
 
-    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces)
+    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces, row0,
+                              rows)

@@ -244,8 +244,10 @@ trace_rays_hf.launches = 0
 
 def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
                        width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                       seed: int = 0, bounces: int = 2) -> dict:
-    """G-buffers of one frame through the staged heightfield tracer:
+                       seed: int = 0, bounces: int = 2, row0: int = 0,
+                       rows: int | None = None) -> dict:
+    """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
+    through the staged heightfield tracer:
     ``integrate.integrate_gbuffers`` with ``trace_rays_hf``.  Primaries run
     without the cascade's budget, bounce batches with it, as in JAX
     (``trace_pallas.py:740-749``); ``tables`` from ``build_hf_tables`` for
@@ -256,4 +258,5 @@ def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
         return trace_rays_hf(tables, o, d, uniforms["lr"], max_steps, seed, caps,
                              active)
 
-    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces)
+    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces, row0,
+                              rows)

@@ -619,8 +619,10 @@ trace_rays_vol.launches = 0
 def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Tensor,
                         uniforms: dict, width: int, height: int,
                         max_steps: int = MAX_TRACE_STEPS, bounces: int = 2,
-                        escape: bool = True) -> dict:
-    """G-buffers of one frame through the staged volume tracer:
+                        escape: bool = True, row0: int = 0,
+                        rows: int | None = None) -> dict:
+    """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
+    through the staged volume tracer:
     ``integrate.integrate_gbuffers`` with ``trace_rays_vol``
     (``trace_vol_pallas.py:1210-1246``), one K3s launch for the primaries
     and one for each bounce's sun + diffuse pair.  ``volume`` and ``tables``
@@ -631,4 +633,5 @@ def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Te
         return trace_rays_vol(tables, volume, o, d, uniforms["lr"], max_steps,
                               active=active, escape=escape)
 
-    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces)
+    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces, row0,
+                              rows)

@@ -102,21 +102,32 @@ def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
     ``_rffp_impl``): the G-buffer pass, then the denoise chain with
     finalize.
     """
-    uniforms = unpack_uniforms(packed)
-    if tracer == "fused":
-        gb = render_gbuffers_fused(world, blue_noise, uniforms, width, height,
-                                   max_steps, seed, bounces)
-    elif tracer == "hf":
-        gb = render_gbuffers_hf(world, blue_noise, uniforms, width, height,
-                                max_steps, seed, bounces)
-    elif tracer == "volume_fast":
-        volume, tables = world
-        gb = render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
-                                  height, max_steps, bounces)
-    else:
-        gb = render_gbuffers(world, blue_noise, uniforms, width, height,
-                             max_steps, bounces)
+    gb = frame_gbuffers(world, blue_noise, unpack_uniforms(packed), width, height,
+                        max_steps, seed, bounces, tracer)
     return denoise_finalize(gb, blue_noise), gb
+
+
+def frame_gbuffers(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
+                   height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
+                   bounces: int = 2, tracer: str = "fused", row0: int = 0,
+                   rows: int | None = None) -> dict:
+    """The G-buffer pass of ``tracer`` (``world`` as for ``render_frame``)
+    for the whole frame or its image rows ``row0 .. row0 + rows``."""
+    band = dict(row0=row0, rows=rows)
+    if tracer == "fused":
+        return render_gbuffers_fused(world, blue_noise, uniforms, width, height,
+                                     max_steps, seed, bounces, **band)
+    if tracer == "hf":
+        return render_gbuffers_hf(world, blue_noise, uniforms, width, height,
+                                  max_steps, seed, bounces, **band)
+    if tracer == "volume_fast":
+        volume, tables = world
+        return render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
+                                    height, max_steps, bounces, **band)
+    if tracer == "volume":
+        return render_gbuffers(world, blue_noise, uniforms, width, height,
+                               max_steps, bounces, **band)
+    raise ValueError(f"unknown tracer {tracer!r}; expected one of {TRACERS}")
 
 
 class Pipeline:

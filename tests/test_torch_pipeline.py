@@ -238,6 +238,9 @@ def test_package_renders_without_jax():
         "import raytrace_tpu_torch as rt\n"
         "for m in pkgutil.walk_packages(rt.__path__, 'raytrace_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'raytrace_tpu_torch.parallel.tiles', 'raytrace_tpu_torch.testing.ranks',\n"
+        "        'raytrace_tpu_torch.testing.reference_tracer',\n"
+        "        'raytrace_tpu_torch.testing.shading_np'} <= set(sys.modules)\n"
         "from raytrace_tpu_torch.render.camera import Camera\n"
         "cam = Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3)\n"
         "from raytrace_tpu_torch.render.pipeline import TRACERS\n"
@@ -283,10 +286,15 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 def test_port_sources_import_nothing_of_jax():
-    """Every module of the port, read without running it."""
-    for path in sorted((ROOT / "raytrace_tpu_torch").rglob("*.py")):
+    """Every module of the port, read without running it (the tile split,
+    the reference tracer and its NumPy shading among them)."""
+    paths = sorted((ROOT / "raytrace_tpu_torch").rglob("*.py"))
+    for path in paths:
         top = {name.split(".")[0] for name in _imported_modules(path)}
         assert not top & {"jax", "jaxlib", "raytrace_tpu"}, (path, top)
+    names = {p.relative_to(ROOT / "raytrace_tpu_torch").as_posix() for p in paths}
+    assert {"parallel/tiles.py", "testing/ranks.py", "testing/reference_tracer.py",
+            "testing/shading_np.py"} <= names
 
 
 def test_validate_reports_each_frame(capsys):
