@@ -33,7 +33,11 @@ denoise run band after band in the process (``k2_bands``: halo and gather
 plans), ``render_frame_tiled`` over a one-rank NCCL group and with no
 group (``tiled_nccl``), and config 5 at 3840x2160 (``config5_4k_*``: K1,
 K3 and K2 against plain at the 4K width, then the config for fused and
-volume_fast with its ``parity``).  It times the kernels alone
+volume_fast with its ``parity``).  The frame as one CUDA graph replay
+(``graph_frames_*``): each graphed tracer's ``draw_frame`` against an
+eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
+and a teleport, with its launch counts, its kernels by name in a profiler
+trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
 and against their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
@@ -976,6 +980,176 @@ def phase_hf_frame_ms(torch, pipe):
         pipe.bounces, "hf"), 10)
 
 
+GRAPH_FRAMES = 16  # frames flown at +VOL_DX in x: one slice crossing at least
+# The kernel launches of one b2 frame of each graphed tracer.
+GRAPH_KERNELS = {"fused": {"K1": 1, "K2": 6}, "hf": {"K4": 3, "K2": 6},
+                 "volume_fast": {"K3": 1, "K2": 6}}
+# Each kernel's name in a profiler trace.
+KERNEL_NAMES = {"K1": "march_paths_kernel", "K2": "denoise_pass_kernel",
+                "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel"}
+TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
+
+
+def _synced_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _train_ms(torch, draw, cam, frames=FRAMES) -> float:
+    """Host ms/frame of ``frames`` frames enqueued back to back, one sync
+    at the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(frames):
+        draw(cam, CANON["sun"] + 0.01 * t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / frames
+
+
+def phase_graph_frames(rt, torch, tracer):
+    """The frame as one CUDA graph replay (``render/frame_graph.py``):
+    ``draw_frame`` of ``tracer`` at 1024² against a twin pipeline that
+    renders the same frames eagerly (``apps.profile.eager_frame``: the same
+    streaming, uniforms and ``render_frame`` on its own world), bit for bit
+    on every frame and G-buffer.  The train flies GRAPH_FRAMES frames at
+    +VOL_DX in x (slice crossings; on volume_fast a streamed slab each),
+    then, on volume_fast, edits the volume; then both teleport.  A frame
+    held across the next two draws must not change; the launch counters
+    around the graphed draws must equal GRAPH_KERNELS times the frames, and
+    one graphed frame's profiler trace must name each kernel.  Then the
+    timings, graphed and eager in turns on the same pipeline: the host
+    ms/frame of a FRAMES-frame train, a steady frame, a slice-crossing
+    frame and the frame after a teleport, each alone; then a crossing's
+    parts alone (the region and column tables, or the slab and the
+    occupancy tables' update)."""
+    from raytrace_tpu_torch.apps.profile import eager_frame
+    from raytrace_tpu_torch.ops import lighting
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.testing.measure import same
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = rt.create_instance(width=W, height=H, tracer=tracer)
+    twin = rt.create_instance(width=W, height=H, tracer=tracer)
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    for p in (pipe, twin):
+        p.teleport(cam)
+    base = list(cam.origin)
+    steps = [("fly", [base[0] + VOL_DX * t, base[1], base[2]]) for t in range(GRAPH_FRAMES)]
+    last = steps[-1][1]
+    if tracer == "volume_fast":
+        steps += [("edit", last), ("frame", last)]
+    far = [last[0] + TELEPORT_DX[0], last[1], last[2] + TELEPORT_DX[1]]
+    steps += [("teleport", far), ("frame", far), ("frame", far)]
+    _zero_counts()
+    launched, res = {}, dict(tracer=tracer, frames=0, frame_equal=[], gbuffers_equal=[],
+                             exhausted_px=0, crossings=0, slabs=0, events=[])
+    held = None
+    for t, (event, origin) in enumerate(steps):
+        cam.origin = list(origin)
+        res["events"].append(event)
+        if event == "edit":
+            x, y, z = (int(v) for v in cam.origin)
+            depth_before = pipe.gbuffers["depth"].to(torch.int32)
+            for p in (pipe, twin):  # a snow wall 24 voxels ahead, as volume_edit
+                p.edit_box((x, y + 24, z - 40), (40, 4, 60), 6)
+        if event == "teleport":
+            for p in (pipe, twin):
+                p.teleport(cam)
+        lr = pipe.streamer.get_render_offset()
+        before = _launch_counts()
+        frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
+        for k, n in _launches_since(before).items():
+            launched[k] = launched.get(k, 0) + n
+        want = eager_frame(twin, cam, CANON["sun"] + 0.01 * t)
+        res["frames"] += 1
+        res["crossings"] += event == "fly" and pipe.streamer.get_render_offset() != lr
+        res["frame_equal"].append(same(frame, want) and pipe.uniforms.lr == twin.uniforms.lr)
+        res["gbuffers_equal"].append(all(_gbuffers_equal(pipe.gbuffers, twin.gbuffers).values()))
+        res["exhausted_px"] += _exhausted(pipe.gbuffers, torch, lighting)
+        if event == "edit":
+            res["edit_changed_px"] = int(
+                (pipe.gbuffers["depth"].to(torch.int32) != depth_before).sum())
+        if t == 2:
+            held, held_copy = frame, frame.clone()
+        if t == 4:
+            res["held_frame_unchanged"] = same(held, held_copy)
+    if tracer == "volume_fast":
+        res["slabs"] = res["crossings"]  # each crossing streams one slab in
+    res["launches"] = launched
+    res["launches_want"] = {k: n * res["frames"] for k, n in GRAPH_KERNELS[tracer].items()}
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        pipe.draw_frame(cam, CANON["sun"])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    res["profiled_activities"] = len(names)
+    res["profiled_kernels"] = {k: sum(KERNEL_NAMES[k] in n for n in names)
+                               for k in GRAPH_KERNELS[tracer]}
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["memory_reserved"] = torch.cuda.memory_reserved()
+
+    # Timings on the graphed pipeline: its own path and the eager one, in
+    # turns (graphed, eager, eager, graphed), then the events alone.
+    draws = dict(graphed=pipe.draw_frame, eager=lambda c, a: eager_frame(pipe, c, a))
+    ms = {k: dict(train=[], steady=[], crossing=[], teleport=[], after_teleport=[])
+          for k in draws}
+    for name in ("graphed", "eager", "eager", "graphed"):
+        draw = draws[name]
+        ms[name]["train"].append(_train_ms(torch, draw, cam))
+        ms[name]["steady"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        # Past the slice the region follows: teleport rounds the offset to
+        # within 8 voxels of the camera, and a move needs a drift of 17.
+        cam.origin[0] += 25.0
+        lr = pipe.streamer.get_render_offset()
+        ms[name]["crossing"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        res["crossings_timed_ok"] = (res.get("crossings_timed_ok", True)
+                                     and pipe.streamer.get_render_offset() != lr)
+        cam.origin[2] += TELEPORT_DX[1]
+        ms[name]["teleport"].append(_synced_ms(torch, lambda: pipe.teleport(cam)))
+        ms[name]["after_teleport"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        res["exhausted_px"] += _exhausted(pipe.gbuffers, torch, lighting)
+    # A crossing's parts alone, synced: the region tables (and K1's column
+    # table), or the slab's generation and the occupancy tables' update.
+    reps = range(3)
+    if tracer == "volume_fast":
+        def slab():  # one slice move along +x
+            pipe.streamer.request_increase(0)
+            pipe.streamer.setup_next_request()
+        ms["parts"] = dict(slab=[], vol_tables_update=[])
+        for _ in reps:
+            ms["parts"]["slab"].append(_synced_ms(torch, slab))
+            ms["parts"]["vol_tables_update"].append(_synced_ms(torch, pipe.vol_tables))
+    else:
+        from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
+
+        lr = pipe.streamer.get_render_offset()
+        ms["parts"] = dict(hf_tables=[], column_table=[])
+        for k in reps:
+            lr_k = (lr[0] + 16 * (k + 1), 0, lr[2])
+            tables = {}
+            ms["parts"]["hf_tables"].append(_synced_ms(torch, lambda: tables.update(
+                build_hf_tables(lr_k, seed=pipe.seed, device=pipe.device))))
+            ms["parts"]["column_table"].append(_synced_ms(
+                torch, lambda: with_column_heights(tables, pipe.seed)))
+    res["ms"] = ms
+    res["seconds"] = time.perf_counter() - t_start
+    ok = (all(res["frame_equal"]) and all(res["gbuffers_equal"]) and res["exhausted_px"] == 0
+          and res["held_frame_unchanged"] and res["crossings"] >= 1
+          and res["crossings_timed_ok"] and launched == res["launches_want"]
+          and all(n >= GRAPH_KERNELS[tracer][k] for k, n in res["profiled_kernels"].items()))
+    if tracer == "volume_fast":
+        ok = ok and res["slabs"] >= 1 and res["edit_changed_px"] > 0
+    return ok, res
+
+
 def _scratch_dir(name: str) -> Path:
     """An empty directory inside the checkout's build directory (which
     ``.gitignore`` lists) for the files a phase writes."""
@@ -1699,6 +1873,16 @@ def main() -> int:
     report("column_table", ok, res)
     hf_frame_ms = phase_hf_frame_ms(torch, hpipe)
     del hpipe
+
+    # The frame as one CUDA graph replay: each graphed tracer against its
+    # eager twin across slice crossings, a slab, an edit and a teleport,
+    # and the host ms/frame of both paths in turns.
+    graph_ms = {}
+    for tracer in GRAPH_KERNELS:
+        ok, res = phase_graph_frames(rt, torch, tracer)
+        graph_ms[tracer] = res.pop("ms")
+        report(f"graph_frames_{tracer}", ok, res)
+    print(f"[graph_frames_ms] {json.dumps(dict(card=card, **graph_ms))}", flush=True)
     ok, exact_res = phase_volume_exact(rt, torch)
     report("volume_exact", ok, exact_res)
 

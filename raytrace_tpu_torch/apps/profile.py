@@ -12,6 +12,12 @@ prints for the steady frame:
   activities per frame, and the idle share ``1 - device / train``;
 - the device activities that take the most time.
 
+For the tracers that ``draw_frame`` renders through a CUDA graph ("fused",
+"hf", "volume_fast") it measures two paths on the same pipeline, in turns
+(graphed, eager, eager, graphed): ``graphed``, ``draw_frame`` itself, and
+``eager``, the same frame through ``render_frame`` op by op
+(``eager_frame``).  Each printed key then carries its path's prefix.
+
 ``--tracer volume_staged`` profiles the staged volume frame instead:
 ``render_gbuffers_vol`` (K3s leg by leg) and the denoise chain on the
 volume_fast pipeline's volume and tables, uniforms filled as draw_frame
@@ -33,7 +39,7 @@ import torch
 from ..ops.denoise import denoise_finalize
 from ..ops.trace_vol import render_gbuffers_vol
 from ..render.camera import Camera
-from ..render.pipeline import TRACERS, Pipeline, unpack_uniforms
+from ..render.pipeline import GRAPHED, TRACERS, Pipeline, render_frame, unpack_uniforms
 
 PROFILED_FRAMES = 10
 TOP = 12  # device activities listed
@@ -53,22 +59,62 @@ def staged_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tens
     return denoise_finalize(pipe.gbuffers, pipe.blue_noise)
 
 
+def eager_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tensor:
+    """``draw_frame``'s frame rendered eagerly, op by op: the streaming
+    step and the uniforms as draw_frame makes them, then ``render_frame``
+    on the pipeline's world."""
+    pipe.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
+    pipe.streamer.setup_next_request()
+    pipe.fill_uniforms(camera, sun_angle)
+    packed = torch.from_numpy(pipe.uniforms.packed())
+    if pipe.device.type == "cuda":
+        packed = packed.pin_memory()
+    frame, pipe.gbuffers = render_frame(
+        pipe.world(), pipe.blue_noise, packed.to(pipe.device, non_blocking=True), pipe.width, pipe.height, pipe.max_steps,
+        pipe.seed, pipe.bounces, pipe.tracer)
+    return frame
+
+
 def run(frames: int = 30, width: int = 1024, height: int = 1024,
         tracer: str = "fused") -> dict:
+    """Profile the tracer's frame -> ``{path: results}`` (paths
+    ``graphed`` and ``eager`` for the graphed tracers, else ``eager``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA GPU")
     staged = tracer == STAGED
     pipe = Pipeline(width=width, height=height, tracer="volume_fast" if staged else tracer)
-    draw = (lambda c, a: staged_frame(pipe, c, a)) if staged else pipe.draw_frame
+    if staged:
+        paths = dict(eager=lambda c, a: staged_frame(pipe, c, a))
+    elif tracer in GRAPHED:
+        paths = dict(graphed=pipe.draw_frame, eager=lambda c, a: eager_frame(pipe, c, a))
+    else:
+        paths = dict(eager=pipe.draw_frame)
     cam = Camera(origin=[-30.0, -100.0, 60.0])
     cam.pitch = -0.3
     pipe.teleport(cam)
-    sun = lambda i: 0.6 + 0.01 * i
-    # Warm-up: kernel build and load, tables, allocator.
-    for i in range(3):
-        draw(cam, sun(i))
+    # Warm-up: kernel build and load, tables, allocator, the graph's capture.
+    for draw in paths.values():
+        for i in range(3):
+            draw(cam, 0.6 + 0.01 * i)
     torch.cuda.synchronize()
+    order = list(paths) + list(reversed(paths))
+    res = {}
+    for turn, name in enumerate(order):
+        got = _measure(paths[name], cam, frames, profiled=turn >= len(paths))
+        acc = res.setdefault(name, dict(synced=[], train=[]))
+        acc["synced"] += got.pop("synced")
+        acc["train"] += got.pop("train")
+        acc.update(got)
+    for name, got in res.items():
+        _report(name, got, tracer, width, height, pipe.bounces)
+    return res
 
+
+def _measure(draw, cam: Camera, frames: int, profiled: bool) -> dict:
+    """One turn of a path: its synced frames and its train, and the
+    profile when ``profiled``.  A path's two turns each add their samples
+    (``synced``, ``train``), so its medians span both."""
+    sun = lambda i: 0.6 + 0.01 * i
     synced = []
     for i in range(frames):
         t0 = time.perf_counter()
@@ -82,6 +128,9 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3 / frames
     enqueue_ms = (t_enqueued - t0) * 1e3 / frames
+    got = dict(synced=synced, train=[(train_ms, enqueue_ms)])
+    if not profiled:
+        return got
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -95,26 +144,35 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
             entry = per_name.setdefault(e.name, [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
+    return dict(got, per_name=per_name)
+
+
+def _report(name: str, got: dict, tracer: str, width: int, height: int,
+            bounces: int) -> None:
+    """Print one path's results (each key prefixed with the path's name)
+    and its top device activities; put the summary into ``got``."""
+    synced, per_name = got.pop("synced"), got.pop("per_name")
+    trains = got.pop("train")
+    train_ms = statistics.median(t for t, _ in trains)
     device_ms = sum(ms for ms, _ in per_name.values()) / PROFILED_FRAMES
     launches = sum(n for _, n in per_name.values()) / PROFILED_FRAMES
-
     deciles = statistics.quantiles(synced, n=10)
-    res = dict(
-        tracer=tracer, size=[width, height], frames=frames,
+    got.update(
+        tracer=tracer, size=[width, height], frames=len(synced),
         synced_ms_median=statistics.median(synced),
         synced_ms_p10=deciles[0], synced_ms_p90=deciles[-1],
-        train_ms=train_ms, enqueue_ms=enqueue_ms,
+        train_ms=train_ms, train_ms_turns=[t for t, _ in trains],
+        enqueue_ms=statistics.median(e for _, e in trains),
         device_ms=device_ms, device_activities_per_frame=launches,
         idle_share=1.0 - device_ms / train_ms,
-        mrays_per_s=width * height * (1 + 2 * pipe.bounces) / (train_ms * 1e3),
+        mrays_per_s=width * height * (1 + 2 * bounces) / (train_ms * 1e3),
     )
-    for key, val in res.items():
-        print(f"{key} {val}")
+    for key, val in got.items():
+        print(f"{name}.{key} {val}")
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
-    for name, (ms, n) in ranked[:TOP]:
+    for kernel, (ms, n) in ranked[:TOP]:
         print(f"  {ms / PROFILED_FRAMES:8.4f} ms/frame  x {n / PROFILED_FRAMES:5.1f}"
-              f"  {name[:100]}")
-    return res
+              f"  {kernel[:100]}")
 
 
 def main():

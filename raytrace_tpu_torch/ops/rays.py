@@ -67,7 +67,9 @@ def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
     nh, nw = blue_noise.shape[0], blue_noise.shape[1]
     dev = blue_noise.device
     seed = seed.to(torch.int32)
-    texel = blue_noise[seed // nw % nh, seed % nw]
+    # A (1,) index: indexing with 0-d tensors would read them on the host.
+    at = (seed // nw % nh * nw + seed % nw).reshape(1).long()
+    texel = blue_noise.reshape(nh * nw, -1)[at][0]
     off_x = torch.floor(texel[0] * 255.0 + 0.5).to(torch.int64)
     off_y = torch.floor(texel[1] * 255.0 + 0.5).to(torch.int64)
     rows = height if rows is None else rows

@@ -1,0 +1,140 @@
+"""The frame as one replay: a CUDA graph over static buffers.
+
+The counterpart of the JAX package's frame program: ``_rffp_impl``
+(``raytrace_tpu/render/pipeline.py:198-238``, the interactive fast path:
+one packed upload, one dispatch) together with the jit cache that keeps one
+compiled program per static configuration (``_jit_cache``/``_lazy_jit``,
+``:159-168``).  Where XLA compiles the frame into one program, PyTorch runs
+it op by op, each op costing the host more than the card spends on most of
+them; a ``torch.cuda.CUDAGraph`` captured once replays the whole frame (the
+glue, the G-buffer kernels and the six K2 passes) with one call.
+
+A ``FrameProgram`` holds one configuration (tracer, width, height,
+max_steps, seed, bounces) and its static buffers on the pipeline's device:
+
+- inputs: the packed (16,) f32 uniforms, the blue-noise texture and the
+  world ``render_frame`` reads (the ``build_hf_tables`` dict for "fused",
+  with ``hcol``, and "hf"; the fused (256^3,) volume and the
+  ``build_vol_tables`` dict for "volume_fast");
+- outputs: the frame and the G-buffers.
+
+The program takes the tensors of the world it is built with as its input
+buffers, without a copy, and ``refresh`` copies a later world into them
+(the tensors whose storage differs); a world given to the program is the
+program's from then on.  ``run(packed)`` copies the uniforms in and
+replays.  The first ``run`` is the warm-up that ``torch.cuda.graphs``
+asks for: it renders that frame eagerly on a side stream (building the
+kernel library at first use, outside the capture), then captures the
+graph; every later ``run`` replays it.  On a CPU program ``run`` renders
+the same function eagerly over the same buffers.
+
+``run`` returns a fresh frame (one copy after the replay) and the static
+G-buffers, which the next ``run`` overwrites.  The kernel wrappers count
+their launches in Python, which a replay does not run: the capture's
+counts are taken off again and added back on every replay, so a counter
+still says how often its kernel ran.  Nothing here falls back: a capture
+or replay that fails raises.
+
+The exact DDA (``tracer="volume"``) cannot be captured: it asks the host
+after every step whether a ray is still live (``ops/trace_dda.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import MAX_TRACE_STEPS
+from ..ops import denoise, lighting, trace_hf, trace_vol
+from .pipeline import GRAPHED, render_frame
+
+# Every kernel wrapper's launch counter.
+COUNTED = (lighting.march_paths, denoise.launch_pass, trace_vol.march_paths_vol,
+           trace_vol.trace_rays_vol, trace_hf.trace_rays_hf)
+
+
+def _leaves(world) -> list:
+    """The world's tensors in a fixed order: a table dict by key, or the
+    volume and then its tables."""
+    if isinstance(world, dict):
+        return [world[k] for k in sorted(world)]
+    volume, tables = world
+    return [volume, *_leaves(tables)]
+
+
+def _layout(world) -> list:
+    """The world's keys, shapes, dtypes and devices, in ``_leaves``' order."""
+    keys = sorted(world) if isinstance(world, dict) else ["volume", *sorted(world[1])]
+    return [(k, tuple(t.shape), t.dtype, t.device) for k, t in zip(keys, _leaves(world))]
+
+
+class FrameProgram:
+    """One frame configuration's static buffers and, on the card, its
+    captured graph (see the module docstring)."""
+
+    def __init__(self, world, blue_noise: torch.Tensor, tracer: str, width: int,
+                 height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
+                 bounces: int = 2):
+        if tracer not in GRAPHED:
+            raise ValueError(f"tracer {tracer!r} has no frame program; it runs eagerly "
+                             f"(graphed: {GRAPHED})")
+        self.config = (width, height, max_steps, seed, bounces, tracer)
+        self.device = blue_noise.device
+        self.world = dict(world) if tracer != "volume_fast" else (world[0], dict(world[1]))
+        self._layout = _layout(self.world)
+        self.blue_noise = blue_noise
+        self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)
+        self.graph = None
+        self.frame = self.gbuffers = None  # the graph's outputs
+        self.launches = ()  # (wrapper, launches) of one replay
+
+    def refresh(self, world) -> None:
+        """Copy each tensor of ``world`` whose storage differs from the
+        program's into it; raise if a key, shape, dtype or device changed."""
+        if _layout(world) != self._layout:
+            raise ValueError("FrameProgram.refresh: the world's layout changed: "
+                             f"{_layout(world)} != {self._layout}")
+        for dst, src in zip(_leaves(self.world), _leaves(world)):
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+
+    def _render(self):
+        return render_frame(self.world, self.blue_noise, self.packed, *self.config)
+
+    def run(self, packed: torch.Tensor):
+        """One frame of the packed (16,) f32 uniforms ``packed`` (on the
+        host, pinned for an asynchronous upload, or on the device) ->
+        ``(frame, gbuffers)``: the frame a fresh tensor, the G-buffers the
+        program's, valid until the next ``run``."""
+        self.packed.copy_(packed, non_blocking=True)
+        if self.device.type == "cpu":
+            return self._render()
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+        return self.frame.clone(), self.gbuffers
+
+    def _capture(self):
+        """Render this frame eagerly on a side stream (the warm-up), then
+        capture the graph -> the warm-up's ``(frame, gbuffers)``."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            frame, gbuffers = self._render()
+        current.wait_stream(side)
+        for t in (frame, *gbuffers.values()):
+            t.record_stream(current)
+        before = [wrapper.launches for wrapper in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self.frame, self.gbuffers = self._render()
+        finally:
+            captured = [w.launches - n for w, n in zip(COUNTED, before)]
+            for wrapper, n in zip(COUNTED, before):
+                wrapper.launches = n
+        self.launches = tuple((w, n) for w, n in zip(COUNTED, captured) if n)
+        self.graph = graph
+        return frame, gbuffers

@@ -17,9 +17,13 @@ debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
   exact DDA (``ops/trace_dda.py``, plain PyTorch, slow: the reference).
 
 Then the denoise chain K2 with finalize fused into its last pass.  One
-packed uniform vector is uploaded per frame.  Everything runs on the
-pipeline's ``device``: CUDA tensors go through the kernels, CPU tensors
-through their plain versions.
+packed uniform vector is uploaded per frame.  ``Pipeline.draw_frame``
+renders "fused", "hf" and "volume_fast" through a frame program
+(``frame_graph.FrameProgram``: on the card one CUDA graph replay a frame,
+the counterpart of JAX's jitted ``_rffp_impl``), the exact DDA and
+``validate`` frames eagerly.  Everything runs on the pipeline's ``device``:
+CUDA tensors go through the kernels, CPU tensors through their plain
+versions.
 """
 
 from __future__ import annotations
@@ -51,6 +55,11 @@ TRACERS = ("fused", "hf", "volume", "volume_fast")
 # The tracers that render the streamed resident volume (the others derive
 # the world from its heightfield and cannot show a preloaded or edited one).
 VOLUME_TRACERS = ("volume", "volume_fast")
+# The tracers draw_frame renders through a frame program (frame_graph.py):
+# no step of theirs waits for the host.  The exact DDA asks the host after
+# every step whether a ray is still live (ops/trace_dda.py), so it stays
+# eager.
+GRAPHED = ("fused", "hf", "volume_fast")
 
 
 @dataclasses.dataclass
@@ -196,7 +205,11 @@ class Pipeline:
         self._tables = None
         self._tables_lr = None
         self._vol_tables = None
-        # G-buffers of the last frame drawn (depth, normal, ... on device).
+        # One frame program per (tracer, width, height, max_steps, seed,
+        # bounces), as the JAX package keeps one jitted program per statics.
+        self._programs = {}
+        # G-buffers of the last frame drawn (depth, normal, ... on device);
+        # a graphed frame's are its program's, valid until the next frame.
         self.gbuffers = None
 
     def teleport(self, camera: Camera) -> None:
@@ -278,23 +291,54 @@ class Pipeline:
     def draw_frame(self, camera: Camera, sun_angle: float) -> torch.Tensor:
         """One frame: stream one slice toward the camera, then render.
         Returns the (H, W, 3) f32 frame on the device without waiting
-        for it."""
+        for it: a tensor of its own, which later frames leave as it is.
+
+        With ``validate`` off, "fused", "hf" and "volume_fast" go through
+        the frame program of this configuration (``frame_program``: on the
+        card one CUDA graph replay); ``self.gbuffers`` are then the
+        program's, overwritten by the next frame.  The exact DDA
+        ("volume") and ``validate`` frames run ``render_frame`` eagerly."""
         self.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
         self.streamer.setup_next_request()
         self.fill_uniforms(camera, sun_angle)
-        u = self.uniforms
-        packed = torch.from_numpy(u.packed())
+        packed = torch.from_numpy(self.uniforms.packed())
         if self.device.type == "cuda":
             # Pinned and asynchronous: the host does not wait for the
             # previous frame before queuing this one.
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
+            packed = packed.pin_memory()
+        if self.tracer in GRAPHED and not self.validate:
+            frame, self.gbuffers = self.frame_program().run(packed)
+            return frame
         frame, self.gbuffers = render_frame(
-            self.world(), self.blue_noise, packed, self.width, self.height,
-            self.max_steps, self.seed, self.bounces, self.tracer,
+            self.world(), self.blue_noise, packed.to(self.device, non_blocking=True),
+            self.width, self.height, self.max_steps, self.seed, self.bounces, self.tracer,
         )
         if self.validate:
             self._validate_frame(frame, self.gbuffers)
         return frame
+
+    def frame_program(self):
+        """The frame program of this configuration: built on the current
+        world at first use, else refreshed with it.  The pipeline then
+        keeps its world in those buffers (its region tables, and the
+        streamed volume with its occupancy tables), so that a frame with
+        no region move, slab or edit copies nothing and a streamed slab
+        lands in place in the volume the graph reads."""
+        from .frame_graph import FrameProgram
+
+        key = (self.tracer, self.width, self.height, self.max_steps, self.seed,
+               self.bounces)
+        world = self.world()
+        program = self._programs.get(key)
+        if program is None:
+            program = self._programs[key] = FrameProgram(world, self.blue_noise, *key)
+        else:
+            program.refresh(world)
+        if self.tracer == "volume_fast":
+            self.streamer.volume, self._vol_tables = program.world
+        else:
+            self._tables = program.world
+        return program
 
     def _validate_frame(self, frame, gb) -> dict:
         """Debug checks of one frame, with one wait for the device: count

@@ -1,7 +1,9 @@
 """Terrain heights from the quantized world lattice.
 
-Port of ``raytrace_tpu/world/heightmap.py:57-237``: ``lattice_fields_q``,
-``dequant_lattice``, ``height_from_lattice`` and ``heightmap_grid``.  The
+Port of ``raytrace_tpu/world/heightmap.py:57-247``: ``lattice_fields_q``,
+``dequant_lattice``, ``height_from_lattice``, ``height_at`` (one column
+from its four lattice corners), ``heightmap_grid`` and
+``generate_heightmap`` (a chunk's 64 x 64 heights).  The
 quantized lattice words are bit-exact with JAX; a column height can differ
 by one in rare columns through the last ulp of the float chain, which the
 +1 margin of the region pyramid absorbs (see ``ops/hf_tables.py``).
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import (
+    CHUNK_SIZE,
     WORLDGEN_HEIGHT_MUL,
     WORLDGEN_HEIGHT_OFFSET,
     WORLDGEN_SCALE,
@@ -87,6 +90,33 @@ def height_from_lattice(r, e, fx, fy, seed: int = 0) -> torch.Tensor:
     return torch.floor(h).to(torch.int32)
 
 
+def height_at(x: torch.Tensor, y: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """World terrain height of integer world columns (x, y) -> int32
+    (float coordinates are floored): the four lattice corners, the bilinear
+    blend and the analytic top octave, per column.  ``heightmap_grid``
+    evaluates each lattice point of a grid once instead."""
+    if x.dtype.is_floating_point:
+        x, y = torch.floor(x), torch.floor(y)
+    xi, yi = x.to(torch.int32), y.to(torch.int32)
+    gx0 = (xi >> 3) << 3  # arithmetic shift: floor division for negatives
+    gy0 = (yi >> 3) << 3
+    tx = (xi & 7).to(torch.float32) * (1.0 / _G)
+    ty = (yi & 7).to(torch.float32) * (1.0 / _G)
+    (r00, e00), (r10, e10), (r01, e01), (r11, e11) = (
+        dequant_lattice(*lattice_fields_q(gx0 + ox * _G, gy0 + oy * _G, seed))
+        for oy in (0, 1) for ox in (0, 1))
+
+    def bil(v00, v10, v01, v11):
+        top = v00 + tx * (v10 - v00)
+        bot = v01 + tx * (v11 - v01)
+        return top + ty * (bot - top)
+
+    fx = fdiv(xi.to(torch.float32), WORLDGEN_SCALE)
+    fy = fdiv(yi.to(torch.float32), WORLDGEN_SCALE)
+    return height_from_lattice(bil(r00, r10, r01, r11), bil(e00, e10, e01, e11), fx, fy,
+                               seed)
+
+
 def heightmap_grid(origin_x: int, origin_y: int, shape, seed: int = 0,
                    device=None) -> torch.Tensor:
     """Heights over an integer grid -> (Y, X) int32, ``[y, x]`` is world
@@ -123,3 +153,10 @@ def heightmap_grid(origin_x: int, origin_y: int, shape, seed: int = 0,
     fx = fdiv(gx.to(torch.float32), WORLDGEN_SCALE)
     fy = fdiv(gy.to(torch.float32), WORLDGEN_SCALE)
     return height_from_lattice(bil(r), bil(e), fx, fy, seed)
+
+
+def generate_heightmap(chunk_coord_xy, seed: int = 0, device=None) -> torch.Tensor:
+    """The 64 x 64 heights of chunk column ``(cx, cy)`` -> (Y, X) int32."""
+    cx, cy = chunk_coord_xy
+    return heightmap_grid(cx * CHUNK_SIZE, cy * CHUNK_SIZE, (CHUNK_SIZE, CHUNK_SIZE), seed,
+                          device)

@@ -1,0 +1,162 @@
+"""The frame program (``render/frame_graph.py``) on the CPU.
+
+On the card ``Pipeline.draw_frame`` replays one CUDA graph a frame for
+"fused", "hf" and "volume_fast"; on a CPU pipeline the same frame program
+runs its function eagerly over the same static buffers, so the buffer
+handling (what each world event copies in, what the pipeline keeps) is held
+here against a twin pipeline that renders every frame through
+``render_frame`` on its own world (``apps.profile.eager_frame``), bit for
+bit.  The capture itself, and the launch counters' replay, need the card
+(``chip_smoke.py``'s ``graph_frames_*`` phases).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from raytrace_tpu.render import pipeline as jax_pipeline
+from raytrace_tpu.render.camera import Camera as JaxCamera
+from raytrace_tpu_torch.apps.profile import eager_frame
+from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
+from raytrace_tpu_torch.render import frame_graph
+from raytrace_tpu_torch.render.camera import Camera
+from raytrace_tpu_torch.render.pipeline import GRAPHED, Pipeline, render_frame
+from raytrace_tpu_torch.testing.golden import compare_images
+from raytrace_tpu_torch.utils.blue_noise import get_blue_noise_f32
+
+SIZE = 32
+
+
+def _camera(cls=Camera):
+    return cls(origin=[-30.0, -100.0, 60.0], pitch=-0.3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs several workers
+    on one machine's cores, where eight threads a worker thrash."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _gbuffers_equal(a: dict, b: dict) -> bool:
+    wide = lambda t: t.to(torch.int32) if t.dtype == torch.uint16 else t
+    return set(a) == set(b) and all(torch.equal(wide(a[k]), wide(b[k])) for k in b)
+
+
+@pytest.mark.parametrize("tracer", GRAPHED)
+def test_frames_equal_eager_across_world_events(tracer):
+    """A region move (on volume_fast a streamed slab), an edit
+    (volume_fast) and a teleport: every frame of the program equals the
+    twin's eager frame, the pipeline keeps its world in the program's
+    buffers, and a frame held across later draws is unchanged."""
+    pipe = Pipeline(width=SIZE, height=SIZE, device="cpu", tracer=tracer)
+    twin = Pipeline(width=SIZE, height=SIZE, device="cpu", tracer=tracer)
+    cam = _camera()
+    for p in (pipe, twin):
+        p.teleport(cam)
+    events = ["frame", "move", *(["edit"] if tracer == "volume_fast" else []), "teleport"]
+    held = None
+    for event in events:
+        if event == "move":
+            cam.origin[0] += 25.0  # past a slice: one move
+        if event == "edit":  # a snow wall across the view
+            depth = pipe.gbuffers["depth"].to(torch.int32)
+            for p in (pipe, twin):
+                p.edit_box((int(cam.origin[0]) - 40, -80, 40), (80, 4, 40), 6)
+        if event == "teleport":
+            cam.origin[0] += 600.0
+            for p in (pipe, twin):
+                p.teleport(cam)
+        lr = pipe.streamer.get_render_offset()
+        frame = pipe.draw_frame(cam, 0.6)
+        want = eager_frame(twin, cam, 0.6)
+        assert pipe.uniforms.lr == twin.uniforms.lr
+        assert (pipe.uniforms.lr != lr) == (event == "move"), event
+        assert torch.equal(frame, want), event
+        assert _gbuffers_equal(pipe.gbuffers, twin.gbuffers), event
+        if event == "edit":
+            assert (pipe.gbuffers["depth"].to(torch.int32) != depth).any()
+        if held is None:
+            held, held_copy = frame, frame.clone()
+    assert torch.equal(held, held_copy)
+    (key, program), = pipe._programs.items()
+    assert key == (tracer, SIZE, SIZE, pipe.max_steps, pipe.seed, pipe.bounces)
+    kept = frame_graph._leaves(pipe.world())
+    assert all(a is b for a, b in zip(kept, frame_graph._leaves(program.world)))
+
+
+def test_refresh_copies_a_new_world_in():
+    """A program built on one region's tables renders another region's
+    once refreshed with them, and its buffers are the first world's
+    tensors, not copies."""
+    bn = torch.from_numpy(get_blue_noise_f32())
+    a = with_column_heights(build_hf_tables((0, 0, 0)))
+    b = with_column_heights(build_hf_tables((64, 0, -48)))
+    program = frame_graph.FrameProgram(a, bn, "fused", SIZE, SIZE)
+    assert all(program.world[k] is a[k] for k in a)
+
+    def packed(lr):
+        return torch.tensor([-30.0, -100.0, 60.0, 0.0, 0.955, -0.296, 0.0, 0.118, 0.382,
+                             0.4, 0.0, 0.0, 0.6, 3.0, lr[0], lr[2]])
+
+    want_a = render_frame(a, bn, packed((0, 0, 0)), SIZE, SIZE)[0]
+    assert torch.equal(program.run(packed((0, 0, 0)))[0], want_a)
+    want_b = render_frame(b, bn, packed((64, 0, -48)), SIZE, SIZE)[0]
+    program.refresh(b)
+    assert all(torch.equal(program.world[k], b[k]) for k in b)
+    got_b = program.run(packed((64, 0, -48)))[0]
+    assert torch.equal(got_b, want_b) and not torch.equal(got_b, want_a)
+
+
+def test_refresh_raises_on_a_changed_layout():
+    bn = torch.from_numpy(get_blue_noise_f32())
+    tables = with_column_heights(build_hf_tables((0, 0, 0)))
+    program = frame_graph.FrameProgram(tables, bn, "fused", SIZE, SIZE)
+    with pytest.raises(ValueError, match="layout changed"):
+        program.refresh(dict(tables, hcol=tables["hcol"][:-1]))
+    with pytest.raises(ValueError, match="layout changed"):
+        program.refresh(dict(tables, h3=tables["h3"].to(torch.int64)))
+    with pytest.raises(ValueError, match="layout changed"):
+        program.refresh({k: v for k, v in tables.items() if k != "hcol"})
+    with pytest.raises(ValueError, match="runs eagerly"):
+        frame_graph.FrameProgram(torch.zeros(8), bn, "volume", SIZE, SIZE)
+
+
+def test_validate_and_the_exact_dda_stay_eager(capsys):
+    """``validate`` frames and the exact DDA run ``render_frame`` op by op:
+    no frame program is built for them."""
+    cam = _camera()
+    checked = Pipeline(width=16, height=16, device="cpu", tracer="hf", validate=True)
+    exact = Pipeline(width=16, height=16, device="cpu", tracer="volume")
+    for p in (checked, exact):
+        frame = p.draw_frame(cam, 0.6)
+        assert frame.shape == (16, 16, 3) and bool(torch.isfinite(frame).all())
+        assert p._programs == {}
+    graphed = Pipeline(width=16, height=16, device="cpu", tracer="hf")
+    graphed.draw_frame(cam, 0.6)
+    assert len(graphed._programs) == 1
+    capsys.readouterr()
+
+
+def test_fused_frame_matches_the_jax_fast_path():
+    """One 32² fused frame of a CPU pipeline (its frame program) against
+    the JAX pipeline's one-dispatch fast path (``_rffp_impl``, its Pallas
+    kernels in interpret mode) at the same camera."""
+    ours = Pipeline(width=SIZE, height=SIZE, device="cpu")
+    # A zero volume only stands in for the JAX pipeline's initial region:
+    # the fused tracer renders the heightfield.
+    theirs = jax_pipeline.Pipeline(width=SIZE, height=SIZE, tracer="fused",
+                                   preloaded_volume=jnp.zeros(256 ** 3, jnp.uint32))
+    assert ours.tracer == "fused" and not theirs.validate
+    frame = ours.draw_frame(_camera(), 0.6)
+    want = np.asarray(theirs.draw_frame(_camera(JaxCamera), 0.6))
+    assert len(ours._programs) == 1
+    assert ours.uniforms.lr == theirs.uniforms.lr and ours.uniforms.seed == theirs.uniforms.seed
+    stats = compare_images(frame.numpy(), want)
+    print(stats)
+    assert stats["ok"], stats

@@ -149,3 +149,83 @@ def test_with_column_heights_keeps_the_tables():
     assert all(both[k] is tables[k] for k in tables)
     assert set(tables) == set(hf_tables.TABLE_KEYS) | {"r0"}
     assert torch.equal(both["hcol"], hf_tables.column_heights(tables, 7))
+
+
+# The rest of the public world API (``raytrace_tpu.world``): the noise
+# functions within test_noise.py's tolerance (1e-6: PyTorch's CPU ``sqrt`` and
+# ``pow`` can round the last bit otherwise than XLA's), heights exact.
+NOISE_ATOL = 1e-6
+NOISE_FUNCTIONS = ["worley2", "mountain_noise", "mountain_noise2", "perlin2_grad",
+                   "basic_multi_lowgrad"]
+
+
+def _coords(seed, scale):
+    rng = np.random.default_rng(seed)
+    x, y = (rng.uniform(-300, 300, (48, 48)).astype(np.float32) * np.float32(scale)
+            for _ in range(2))
+    return x, y
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.02])
+@pytest.mark.parametrize("name", NOISE_FUNCTIONS)
+def test_noise_api_matches_jax(name, scale):
+    x, y = _coords(5, scale)
+    got = getattr(noise, name)(torch.from_numpy(x), torch.from_numpy(y), 3)
+    want = getattr(jax_noise, name)(jnp.asarray(x), jnp.asarray(y), 3)
+    got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=NOISE_ATOL)
+
+
+@pytest.mark.parametrize("origin", [(0, 0), (-1000, 500), (40960, -37888)])
+def test_mountain_noise2_grid_matches_jax(origin):
+    got = noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), seed=0).numpy()
+    with jax.disable_jit():
+        eager = np.asarray(jax_noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), 0))
+    jitted = np.asarray(jax_noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), 0))
+    assert got.shape == (40, 48)
+    np.testing.assert_allclose(got, eager, rtol=0, atol=NOISE_ATOL)
+    np.testing.assert_allclose(got, jitted, rtol=0, atol=NOISE_ATOL)
+
+
+def test_height_at_equal():
+    """Integer columns and floored float coordinates, near and far from
+    the origin: the same heights as the JAX function."""
+    xi, yi = _ints(6, 4096, -10**5, 10**5), _ints(7, 4096, -10**5, 10**5)
+    got = heightmap.height_at(torch.from_numpy(xi), torch.from_numpy(yi), 0)
+    want = np.asarray(jax_hm.height_at(jnp.asarray(xi), jnp.asarray(yi), 0))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    x, y = _coords(8, 40.0)
+    got = heightmap.height_at(torch.from_numpy(x), torch.from_numpy(y), 2)
+    want = np.asarray(jax_hm.height_at(jnp.asarray(x), jnp.asarray(y), 2))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("chunk", [(0, 0), (-3, 7), (640, -585)])
+def test_generate_heightmap_equal(chunk):
+    """A chunk's 64 x 64 heights equal JAX's, jitted and op by op, and
+    ``height_at`` of each column."""
+    got = heightmap.generate_heightmap(chunk, seed=0)
+    with jax.disable_jit():
+        eager = np.asarray(jax_hm.generate_heightmap(chunk, seed=0))
+    np.testing.assert_array_equal(got.numpy(), eager)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_hm.generate_heightmap(chunk, 0)))
+    ys, xs = torch.meshgrid(torch.arange(64), torch.arange(64), indexing="ij")
+    at = heightmap.height_at(xs + chunk[0] * 64, ys + chunk[1] * 64, 0)
+    assert torch.equal(at, got)
+
+
+def test_world_package_exports_the_jax_world_api():
+    import raytrace_tpu.world as jax_world
+    import raytrace_tpu_torch.world as world
+
+    names = ["height_at", "generate_heightmap", "mountain_noise2", "basic_multi", "perlin2",
+             *NOISE_FUNCTIONS, "mountain_noise2_grid"]
+    for name in names:
+        assert callable(getattr(world, name)), name
+    for name in ("height_at", "generate_heightmap", "mountain_noise2", "basic_multi",
+                 "perlin2"):
+        assert hasattr(jax_world, name), name
