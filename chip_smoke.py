@@ -3,10 +3,12 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``raytrace_tpu_torch/csrc``, holds each kernel against its
-plain PyTorch version at the shapes the frame gives it, renders the 64²
-golden frame, then drives the frame paths through ``create_instance`` ->
-``teleport`` -> ``draw_frame`` at 1024²: 20 frames of the heightfield path
-(``tracer="fused"``: K1, K2), of the volume path (``tracer="volume_fast"``:
+plain PyTorch version at the shapes the frame gives it (first T1, the
+region tables, word for word at eleven regions, ``hf_tables_kernel``),
+renders the 64² golden frame, then drives the frame paths through
+``create_instance`` -> ``teleport`` -> ``draw_frame`` at 1024²: 20 frames
+of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
+graph), of the volume path (``tracer="volume_fast"``:
 the streamed volume, its occupancy tables, K3, K2) and of the staged
 heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
 the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
@@ -38,7 +40,8 @@ volume_fast with its ``parity``).  The frame as one CUDA graph replay
 eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
 and a teleport, with its launch counts, its kernels by name in a profiler
 trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
-and against their plain versions (K2 per pass of its chain), and prints
+(with the profiler records kept of those asked for, ``kept``) and against
+their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
 ``lane_use``), and each kernel's ptxas line and SASS instruction counts.
@@ -84,6 +87,16 @@ OPS_PER_HEIGHT = 88  # K4, K1's column table: height_from_corners with its perli
 OPS_PER_VOL_MOVE = 36  # K3: move_to_boundary, the texels and the window test
 OPS_PER_TAP = 16  # K2: unpack, weight, and the three weighted channel sums
 DENOISE_TAPS = 36
+# T1: a lattice point's word (the five-octave field 202, the four two-octave
+# slope samples 4 x 82 with their offsets and [0, 1] maps, the two
+# divisions by 600 and the quantization 16; a perlin octave is 36).
+OPS_PER_LATTICE = 548
+# T1's regions, (lr, seed): negative and large offsets (float32 holds lr
+# exactly below 2^24); lr.y off 0 only through the int32 (3,) form.
+T1_REGIONS = [((0, 0, 0), 0), ((16, 0, 0), 7), ((-48, 0, 0), 0), ((1000, 0, -1000), 7),
+              ((-1000, 0, 1000), 0), ((4096, 0, 64), 7), ((-70000, 0, 0), 7),
+              ((1 << 20, 0, 0), 0), ((-(1 << 23), 0, 0), 7), ((256, 512, 0), 0),
+              ((-64, -4096, 0), 7)]
 
 
 def _canonical_uniforms(rt, view=CANON, seed=0):
@@ -171,6 +184,25 @@ def _timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def _alone(fn, reps, kernel) -> dict:
+    """The kernel alone (``measure.kernel_times``): its mean ms over the
+    profiler records kept, and how many of the ``reps`` were kept."""
+    from raytrace_tpu_torch.testing.measure import kernel_times
+
+    times = kernel_times(fn, reps, kernel)
+    return dict(kernel_ms=sum(times) / len(times), kept=f"{len(times)}/{reps}")
+
+
+def _passes(gb, blue, reps) -> dict:
+    """K2 alone per pass (``measure.denoise_pass_times``): ``pass_ms`` the
+    means, ``pass_kept`` the profiler records kept of ``reps``."""
+    from raytrace_tpu_torch.testing.measure import denoise_pass_times
+
+    times = denoise_pass_times(gb, blue, reps)
+    return dict(pass_ms={k: sum(t) / len(t) for k, t in times.items()},
+                pass_kept={k: f"{len(t)}/{reps}" for k, t in times.items()})
+
+
 def _wh(size):
     """(width, height) of a square ``size`` or a (width, height) pair."""
     return (size, size) if isinstance(size, int) else tuple(size)
@@ -190,7 +222,6 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     -> (ok, res, the kernel's G-buffers)."""
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import kernel_ms
 
     frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
                                   *(band or ()))
@@ -228,8 +259,8 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     res["parent_work_bound_ms"] = _bound(
         per_path + 6 * 4096, OPS_PER_HF_MOVE * moves + OPS_PER_HEIGHT * heights)["bound_ms"]
     if timed:
-        res.update(kernel_ms=kernel_ms(lambda: lighting.march_paths(*frame["march"], *budget),
-                                       10, "march_paths_kernel"), plain_ms=t_p)
+        res.update(**_alone(lambda: lighting.march_paths(*frame["march"], *budget), 10,
+                            "march_paths_kernel"), plain_ms=t_p)
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
           and res["max_depth_diff"] <= 1
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
@@ -249,7 +280,6 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
     version (once)."""
     from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import kernel_ms
 
     legs = path_vol.legs_of(bounces)
     frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
@@ -276,7 +306,7 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
     res.update(_bound(n * (12 + 12 + 48 + 16) + 56 + tables_bytes,
                       OPS_PER_VOL_MOVE * res["work"]["moves"]))
     if timed:
-        res.update(kernel_ms=kernel_ms(lambda: trace_vol.march_paths_vol(
+        res.update(**_alone(lambda: trace_vol.march_paths_vol(
             *frame["march"], max_steps, legs), 10, "march_paths_vol_kernel"), plain_ms=t_p)
     ok = (all(v == 1.0 for v in res["equal"].values()) and res["max_abs_err"] == 0.0
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
@@ -422,7 +452,7 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
     -> (ok, res, the batches: (origin, direction, active, hit dict))."""
     from raytrace_tpu_torch.ops import trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms, same
+    from raytrace_tpu_torch.testing.measure import call_ms, same
 
     uniforms = unpack_uniforms(packed)
     _, batches = _k3s_batches(volume, tables, blue, uniforms, size, max_steps, bounces)
@@ -451,8 +481,8 @@ def phase_k3s(torch, volume, tables, blue, packed, size, max_steps, bounces, tim
         if timed:
             batch.update(
                 ms=call_ms(lambda: trace_vol.trace_rays_vol(*args, active=active), 10),
-                kernel_ms=kernel_ms(lambda: trace_vol.trace_rays_vol(*args, active=active),
-                                    10, "trace_rays_vol_kernel"),
+                **_alone(lambda: trace_vol.trace_rays_vol(*args, active=active), 10,
+                         "trace_rays_vol_kernel"),
                 plain_ms=t_p)
         res["batches"].append(batch)
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -627,6 +657,54 @@ def phase_k2(torch, blue, gbs):
     return all(e <= res["atol"] for e in res["max_abs_err"].values()), res
 
 
+def phase_hf_tables_kernel(rt, torch, dev):
+    """T1 (``csrc/hf_tables.cu``) against its plain version on the card: at
+    each of T1_REGIONS, from the packed uniforms (lr.y 0) and from an int32
+    (3,) lr on the device, every table word, ``r0`` and the column table
+    equal to ``build_hf_tables_plain`` (its pyramid from ``heightmap_grid``)
+    and to ``column_heights`` of those tables, each computed by PyTorch on
+    the card.  Then, at the region of a packed vector: T1 alone
+    (torch.profiler, 20 calls), its wrapper's call and the plain build with
+    its column table (CUDA events), and T1's bound."""
+    from raytrace_tpu_torch.ops import hf_tables
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    res, ok = dict(regions=[], max_abs_err=0), True
+    packed_of = lambda lr: torch.from_numpy(
+        rt.render.pipeline.FrameUniforms(lr=lr, seed=3).packed()).to(dev)
+    for lr, seed in T1_REGIONS:
+        want = hf_tables.build_hf_tables_plain(lr, seed, dev)
+        want["hcol"] = hf_tables.column_heights(want, seed)
+        forms = dict(lr=torch.tensor(lr, dtype=torch.int32, device=dev))
+        if lr[1] == 0:
+            forms["packed"] = packed_of(lr)
+        for form, src in forms.items():
+            got = hf_tables.build_hf_tables(src, seed, hcol=True)
+            diff = {k: int((got[k].long() - want[k].long()).abs().max()) for k in want}
+            equal = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+            res["regions"].append(dict(lr=list(lr), seed=seed, form=form, equal=equal,
+                                       mismatched={k: int((got[k] != want[k]).sum())
+                                                   for k in want}))
+            res["max_abs_err"] = max(res["max_abs_err"], *diff.values())
+            ok = ok and equal
+    packed = packed_of((16, 0, 0))
+    out = hf_tables.empty_tables(dev, hcol=True)
+    t1 = lambda: hf_tables.build_hf_tables(packed, 0, out=out, hcol=True)
+
+    def plain():
+        tables = hf_tables.build_hf_tables_plain((16, 0, 0), 0, dev)
+        return hf_tables.column_heights(tables, 0)
+
+    res.update(**_alone(t1, 20, "hf_tables_kernel"), ms=call_ms(t1, 20),
+               plain_ms=call_ms(plain, 3))
+    # Each table written once (six 1,024-word tables, r0, the int16 column
+    # table) and the packed vector read; the 33 x 33 lattice points of the
+    # region and one height per column.
+    res.update(_bound(16 * 4 + 6 * 4096 + 8 + 2 * 256 * 256,
+                      OPS_PER_LATTICE * 33 * 33 + OPS_PER_HEIGHT * 256 * 256))
+    return ok, res
+
+
 def phase_golden(rt, torch, dev):
     """The committed 64² golden frame through the port's kernel path."""
     import numpy as np
@@ -664,8 +742,10 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
 
 
 def phase_main(rt, torch):
-    """The main path: 20 frames at 1024² through create_instance/draw_frame."""
-    from raytrace_tpu_torch.ops import denoise, lighting
+    """The main path: 20 frames at 1024² through create_instance/draw_frame,
+    each of them T1 (the region tables, inside the frame's graph), K1 and
+    six K2 passes."""
+    from raytrace_tpu_torch.ops import denoise, hf_tables, lighting
     from raytrace_tpu_torch.render.camera import Camera
 
     pipe = rt.create_instance(width=W, height=H)
@@ -675,8 +755,7 @@ def phase_main(rt, torch):
     base = list(cam.origin)
     pipe.converge_streaming((base[0], 0, base[2]), max_moves=32)
     torch.cuda.synchronize()
-    lighting.march_paths.launches = 0
-    denoise.launch_pass.launches = 0
+    _zero_counts()
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -688,13 +767,14 @@ def phase_main(rt, torch):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
     k1, k2 = lighting.march_paths.launches, denoise.launch_pass.launches
+    t1 = hf_tables.build_hf_tables.launches
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        k1_launches=k1, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        t1_launches=t1, k1_launches=k1, k2_launches=k2, lr=list(pipe.uniforms.lr),
     )
-    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 >= FRAMES
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 >= FRAMES and t1 == FRAMES
           and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
     return ok, res, pipe
 
@@ -706,7 +786,7 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
     on random G-buffers)."""
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms, kernel_ms
+    from raytrace_tpu_torch.testing.measure import call_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
     tables = pipe.tables()
@@ -724,16 +804,18 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
     k1 = lambda: lighting.march_paths(*inputs["march"], *budget)
+    k1_alone = _alone(k1, 10, "march_paths_kernel")
     times = dict(
         frame_ms=frame_ms, plain_frame_ms=call_ms(plain_frame, 1),
-        k1_ms=call_ms(k1, 10), k1_kernel_ms=kernel_ms(k1, 10, "march_paths_kernel"),
+        k1_ms=call_ms(k1, 10), k1_kernel_ms=k1_alone["kernel_ms"], k1_kept=k1_alone["kept"],
         k1_plain_ms=call_ms(
             lambda: lighting.march_paths_plain(*inputs["march"], *budget), 1),
     )
     for name, gb in gbs.items():
         sfx = "" if name == "main" else f"_{name}"
         times[f"k2_chain_ms{sfx}"] = call_ms(lambda: denoise.denoise_finalize(gb, blue), 10)
-        times[f"k2_pass_ms{sfx}"] = denoise_pass_ms(gb, blue, 10)
+        k2 = _passes(gb, blue, 10)
+        times[f"k2_pass_ms{sfx}"], times[f"k2_pass_kept{sfx}"] = k2["pass_ms"], k2["pass_kept"]
         times[f"k2_chain_plain_ms{sfx}"] = call_ms(
             lambda: denoise.denoise_finalize_plain(gb, blue), 2)
     return times
@@ -746,21 +828,22 @@ def phase_volume_times(torch, dev, pipe):
     ``k3_kernel_ms`` the kernel alone (torch.profiler)."""
     from raytrace_tpu_torch.ops import path_vol, trace_vol
     from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms
+    from raytrace_tpu_torch.testing.measure import call_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
     world = pipe.world()
     legs = path_vol.legs_of(pipe.bounces)
     inputs = path_vol.march_inputs(
         world[1], pipe.blue_noise, unpack_uniforms(packed), W, H)
+    k3_alone = _alone(lambda: trace_vol.march_paths_vol(
+        *inputs["march"], pipe.max_steps, legs), 10, "march_paths_vol_kernel")
     return dict(
         vol_frame_ms=call_ms(lambda: render_frame(
             world, pipe.blue_noise, packed, W, H, pipe.max_steps, pipe.seed,
             pipe.bounces, "volume_fast"), 10),
         k3_ms=call_ms(lambda: trace_vol.march_paths_vol(
             *inputs["march"], pipe.max_steps, legs), 10),
-        k3_kernel_ms=kernel_ms(lambda: trace_vol.march_paths_vol(
-            *inputs["march"], pipe.max_steps, legs), 10, "march_paths_vol_kernel"),
+        k3_kernel_ms=k3_alone["kernel_ms"], k3_kept=k3_alone["kept"],
         k3_plain_ms=call_ms(lambda: trace_vol.march_paths_vol_plain(
             *inputs["march"], pipe.max_steps, legs), 1),
     )
@@ -775,6 +858,7 @@ def phase_staged_vol_times(torch, pipe, cam, k3s_res):
 
     batches = k3s_res["batches"]
     return dict(k3s_kernel_ms=[b["kernel_ms"] for b in batches],
+                k3s_kept=[b["kept"] for b in batches],
                 k3s_ms=[b["ms"] for b in batches],
                 k3s_plain_ms=[b["plain_ms"] for b in batches],
                 staged_vol_frame_ms=call_ms(lambda: staged_frame(pipe, cam, CANON["sun"]), 10))
@@ -810,21 +894,23 @@ def phase_k4(torch, tables, blue, packed, size, max_steps, seed, bounces):
     lane-use census of each batch."""
     from raytrace_tpu_torch.ops import trace_hf
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, kernel_ms, same
+    from raytrace_tpu_torch.testing.measure import call_ms, same
 
     uniforms = unpack_uniforms(packed)
     _, batches = _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces)
     keys = ("position", "normal", "air", "albedo", "distance", "exhausted")
     res = dict(size=size, bounces=bounces, batches=[], max_abs_err=0.0)
     ok = True
-    ms, k_ms, plain_ms, bounds = [], [], [], []
+    ms, k_ms, kept, plain_ms, bounds = [], [], [], [], []
     for b, (o, d, active, caps, _) in enumerate(batches):
         args = (tables, o, d, uniforms["lr"], max_steps, seed, caps, active)
         census = torch.zeros(1, dtype=torch.int64, device=o.device)
         got = trace_hf.trace_rays_hf(*args, census=census)
         want, t_p = _timed_once(torch, lambda: trace_hf.trace_rays_hf_plain(*args))
         ms.append(call_ms(lambda: trace_hf.trace_rays_hf(*args), 10))
-        k_ms.append(kernel_ms(lambda: trace_hf.trace_rays_hf(*args), 10, "trace_hf_kernel"))
+        alone = _alone(lambda: trace_hf.trace_rays_hf(*args), 10, "trace_hf_kernel")
+        k_ms.append(alone["kernel_ms"])
+        kept.append(alone["kept"])
         plain_ms.append(t_p)
         equal = {k: same(got[k], want[k]) for k in keys}
         err = float(torch.nan_to_num(got["position"] - want["position"]).abs().max())
@@ -837,12 +923,12 @@ def phase_k4(torch, tables, blue, packed, size, max_steps, seed, bounces):
         exhausted = int((got["exhausted"] & traced).sum())
         res["batches"].append(dict(rays=n, equal=equal, moves=moves, heights=heights,
                                    exhausted_traced=exhausted, ms=ms[-1],
-                                   kernel_ms=k_ms[-1], plain_ms=plain_ms[-1],
+                                   kernel_ms=k_ms[-1], kept=kept[-1], plain_ms=plain_ms[-1],
                                    census=_census(torch, want["work"][..., 0], census),
                                    **bound))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         ok = ok and all(equal.values()) and (b > 0 or exhausted == 0)
-    res.update(k4_ms=sum(ms) / len(ms), k4_kernel_ms=sum(k_ms) / len(k_ms),
+    res.update(k4_ms=sum(ms) / len(ms), k4_kernel_ms=sum(k_ms) / len(k_ms), kept=kept,
                k4_plain_ms=sum(plain_ms) / len(plain_ms),
                bound_ms=sum(x["bound_ms"] for x in bounds) / len(bounds),
                bound_by=max(bounds, key=lambda x: x["bound_ms"])["bound_by"])
@@ -982,20 +1068,14 @@ def phase_hf_frame_ms(torch, pipe):
 
 GRAPH_FRAMES = 16  # frames flown at +VOL_DX in x: one slice crossing at least
 # The kernel launches of one b2 frame of each graphed tracer.
-GRAPH_KERNELS = {"fused": {"K1": 1, "K2": 6}, "hf": {"K4": 3, "K2": 6},
+GRAPH_KERNELS = {"fused": {"T1": 1, "K1": 1, "K2": 6}, "hf": {"K4": 3, "K2": 6},
                  "volume_fast": {"K3": 1, "K2": 6}}
 # Each kernel's name in a profiler trace.
-KERNEL_NAMES = {"K1": "march_paths_kernel", "K2": "denoise_pass_kernel",
+KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
+                "K2": "denoise_pass_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
-
-
-def _synced_ms(torch, fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+PROFILED_REPLAYS = 3  # steady replays in graph_frames' profiler trace
 
 
 def _train_ms(torch, draw, cam, frames=FRAMES) -> float:
@@ -1018,17 +1098,21 @@ def phase_graph_frames(rt, torch, tracer):
     +VOL_DX in x (slice crossings; on volume_fast a streamed slab each),
     then, on volume_fast, edits the volume; then both teleport.  A frame
     held across the next two draws must not change; the launch counters
-    around the graphed draws must equal GRAPH_KERNELS times the frames, and
-    one graphed frame's profiler trace must name each kernel.  Then the
-    timings, graphed and eager in turns on the same pipeline: the host
-    ms/frame of a FRAMES-frame train, a steady frame, a slice-crossing
-    frame and the frame after a teleport, each alone; then a crossing's
-    parts alone (the region and column tables, or the slab and the
-    occupancy tables' update)."""
+    around the graphed draws must equal GRAPH_KERNELS times the frames (on
+    hf, T1 once per region: the first frame's, each crossing's and the
+    teleport's, built between frames), and a profiler trace of
+    PROFILED_REPLAYS graphed frames must name each kernel (fused: T1 at
+    least once and at most once a replay, its tables rebuilt inside the
+    graph; hf: no T1).  Then the timings, graphed and eager in turns on the
+    same pipeline: the host ms/frame of a FRAMES-frame train,
+    a steady frame, a slice-crossing frame and the frame after a teleport,
+    each alone; then a crossing's parts alone (T1's build of the region
+    tables through ``build_hf_tables``, or the slab and the occupancy
+    tables' update)."""
     from raytrace_tpu_torch.apps.profile import eager_frame
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.camera import Camera
-    from raytrace_tpu_torch.testing.measure import same
+    from raytrace_tpu_torch.testing.measure import same, synced_ms
 
     t_start = time.perf_counter()
     torch.cuda.synchronize()
@@ -1050,7 +1134,7 @@ def phase_graph_frames(rt, torch, tracer):
     _zero_counts()
     launched, res = {}, dict(tracer=tracer, frames=0, frame_equal=[], gbuffers_equal=[],
                              exhausted_px=0, crossings=0, slabs=0, events=[])
-    held = None
+    held, region, regions = None, None, 0
     for t, (event, origin) in enumerate(steps):
         cam.origin = list(origin)
         res["events"].append(event)
@@ -1067,6 +1151,8 @@ def phase_graph_frames(rt, torch, tracer):
         frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
         for k, n in _launches_since(before).items():
             launched[k] = launched.get(k, 0) + n
+        regions += pipe.uniforms.lr != region
+        region = pipe.uniforms.lr
         want = eager_frame(twin, cam, CANON["sun"] + 0.01 * t)
         res["frames"] += 1
         res["crossings"] += event == "fly" and pipe.streamer.get_render_offset() != lr
@@ -1084,15 +1170,25 @@ def phase_graph_frames(rt, torch, tracer):
         res["slabs"] = res["crossings"]  # each crossing streams one slab in
     res["launches"] = launched
     res["launches_want"] = {k: n * res["frames"] for k, n in GRAPH_KERNELS[tracer].items()}
+    if tracer == "hf":
+        res["launches_want"]["T1"] = regions
+    # The profiler can drop the first few records of a trace in a long
+    # process (T1, the replay's first kernel, went missing so), so the
+    # trace takes PROFILED_REPLAYS replays: each kernel must show at least
+    # once, T1 on fused in no more replays than were taken (one a replay).
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
     with prof:
-        pipe.draw_frame(cam, CANON["sun"])
+        for _ in range(PROFILED_REPLAYS):
+            pipe.draw_frame(cam, CANON["sun"])
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     res["profiled_activities"] = len(names)
+    res["profiled_replays"] = PROFILED_REPLAYS
     res["profiled_kernels"] = {k: sum(KERNEL_NAMES[k] in n for n in names)
                                for k in GRAPH_KERNELS[tracer]}
+    if tracer != "volume_fast":  # "fused" rebuilds its tables in every replay; "hf" not
+        res["profiled_kernels"]["T1"] = sum(KERNEL_NAMES["T1"] in n for n in names)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     res["memory_reserved"] = torch.cuda.memory_reserved()
 
@@ -1104,17 +1200,17 @@ def phase_graph_frames(rt, torch, tracer):
     for name in ("graphed", "eager", "eager", "graphed"):
         draw = draws[name]
         ms[name]["train"].append(_train_ms(torch, draw, cam))
-        ms[name]["steady"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        ms[name]["steady"].append(synced_ms(lambda: draw(cam, CANON["sun"])))
         # Past the slice the region follows: teleport rounds the offset to
         # within 8 voxels of the camera, and a move needs a drift of 17.
         cam.origin[0] += 25.0
         lr = pipe.streamer.get_render_offset()
-        ms[name]["crossing"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        ms[name]["crossing"].append(synced_ms(lambda: draw(cam, CANON["sun"])))
         res["crossings_timed_ok"] = (res.get("crossings_timed_ok", True)
                                      and pipe.streamer.get_render_offset() != lr)
         cam.origin[2] += TELEPORT_DX[1]
-        ms[name]["teleport"].append(_synced_ms(torch, lambda: pipe.teleport(cam)))
-        ms[name]["after_teleport"].append(_synced_ms(torch, lambda: draw(cam, CANON["sun"])))
+        ms[name]["teleport"].append(synced_ms(lambda: pipe.teleport(cam)))
+        ms[name]["after_teleport"].append(synced_ms(lambda: draw(cam, CANON["sun"])))
         res["exhausted_px"] += _exhausted(pipe.gbuffers, torch, lighting)
     # A crossing's parts alone, synced: the region tables (and K1's column
     # table), or the slab's generation and the occupancy tables' update.
@@ -1125,26 +1221,29 @@ def phase_graph_frames(rt, torch, tracer):
             pipe.streamer.setup_next_request()
         ms["parts"] = dict(slab=[], vol_tables_update=[])
         for _ in reps:
-            ms["parts"]["slab"].append(_synced_ms(torch, slab))
-            ms["parts"]["vol_tables_update"].append(_synced_ms(torch, pipe.vol_tables))
+            ms["parts"]["slab"].append(synced_ms(slab))
+            ms["parts"]["vol_tables_update"].append(synced_ms(pipe.vol_tables))
     else:
-        from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
+        # T1 through its wrapper as Pipeline.tables() calls it (a host lr
+        # uploaded from pinned memory, one launch; with the column table
+        # for fused), and T1 alone in the profiler.
+        from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
 
         lr = pipe.streamer.get_render_offset()
-        ms["parts"] = dict(hf_tables=[], column_table=[])
-        for k in reps:
-            lr_k = (lr[0] + 16 * (k + 1), 0, lr[2])
-            tables = {}
-            ms["parts"]["hf_tables"].append(_synced_ms(torch, lambda: tables.update(
-                build_hf_tables(lr_k, seed=pipe.seed, device=pipe.device))))
-            ms["parts"]["column_table"].append(_synced_ms(
-                torch, lambda: with_column_heights(tables, pipe.seed)))
+        lr_k = lambda k: (lr[0] + 16 * (k + 1), 0, lr[2])
+        fused = tracer == "fused"
+        ms["parts"] = dict(hf_tables=[synced_ms(lambda: build_hf_tables(
+            lr_k(k), seed=pipe.seed, device=pipe.device, hcol=fused)) for k in reps])
+        ms["parts"]["t1_alone"] = _alone(lambda: build_hf_tables(
+            lr_k(0), seed=pipe.seed, device=pipe.device, hcol=fused), 10, KERNEL_NAMES["T1"])
     res["ms"] = ms
     res["seconds"] = time.perf_counter() - t_start
     ok = (all(res["frame_equal"]) and all(res["gbuffers_equal"]) and res["exhausted_px"] == 0
           and res["held_frame_unchanged"] and res["crossings"] >= 1
           and res["crossings_timed_ok"] and launched == res["launches_want"]
-          and all(n >= GRAPH_KERNELS[tracer][k] for k, n in res["profiled_kernels"].items()))
+          and all(n >= GRAPH_KERNELS[tracer].get(k, 0) for k, n in res["profiled_kernels"].items())
+          and (1 <= res["profiled_kernels"]["T1"] <= PROFILED_REPLAYS if tracer == "fused"
+               else res["profiled_kernels"].get("T1", 0) == 0))
     if tracer == "volume_fast":
         ok = ok and res["slabs"] >= 1 and res["edit_changed_px"] > 0
     return ok, res
@@ -1163,9 +1262,10 @@ def _scratch_dir(name: str) -> Path:
 
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
-    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf, trace_vol
+    from raytrace_tpu_torch.ops import denoise, hf_tables, lighting, trace_hf, trace_vol
 
-    return dict(K1=lighting.march_paths.launches, K2=denoise.launch_pass.launches,
+    return dict(T1=hf_tables.build_hf_tables.launches, K1=lighting.march_paths.launches,
+                K2=denoise.launch_pass.launches,
                 K3=trace_vol.march_paths_vol.launches,
                 K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches)
 
@@ -1310,7 +1410,7 @@ def phase_app_shapes(rt, torch, dev, blue):
     from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
     from raytrace_tpu_torch.render.camera import Camera
-    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms
+    from raytrace_tpu_torch.testing.measure import call_ms
 
     out = {}
     t0 = time.perf_counter()
@@ -1321,7 +1421,7 @@ def phase_app_shapes(rt, torch, dev, blue):
     out["k1_1920x1080_b1"] = (ok, res)
     ok, res = phase_k2(torch, blue, dict(main=gb))
     res.update(chain_ms=call_ms(lambda: denoise.denoise_finalize(gb, blue), 10),
-               pass_ms=denoise_pass_ms(gb, blue, 10),
+               **_passes(gb, blue, 10),
                chain_plain_ms=call_ms(lambda: denoise.denoise_finalize_plain(gb, blue), 2))
     out["k2_1080x1920"] = (ok, res)
     del gb
@@ -1352,8 +1452,9 @@ def phase_app_shapes(rt, torch, dev, blue):
 
 # The kernels each benchmark config must launch (its frames: one warm frame
 # and the timed ones; config 3 twice 64 frames, config 4 one a view).
-CONFIG_KERNELS = {"1": {"K3": 21}, "2": {"K1": 21, "K2": 126},
-                  "3": {"K1": 128, "K2": 768}, "4": {"K1": 30, "K2": 180}}
+CONFIG_KERNELS = {"1": {"K3": 21}, "2": {"T1": 1, "K1": 21, "K2": 126},
+                  "3": {"T1": 128, "K1": 128, "K2": 768},
+                  "4": {"T1": 30, "K1": 30, "K2": 180}}
 
 
 def phase_benchmark_configs(torch):
@@ -1490,10 +1591,9 @@ def phase_debug_and_stage_times(torch):
 
 def _zero_counts() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf, trace_vol
+    from raytrace_tpu_torch.render.frame_graph import COUNTED
 
-    for fn in (lighting.march_paths, denoise.launch_pass, trace_vol.march_paths_vol,
-               trace_vol.trace_rays_vol, trace_hf.trace_rays_hf):
+    for fn in COUNTED:
         fn.launches = 0
 
 
@@ -1673,7 +1773,7 @@ def phase_config5(rt, torch, dev, blue):
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.parallel import tiles
     from raytrace_tpu_torch.render.pipeline import frame_gbuffers, unpack_uniforms
-    from raytrace_tpu_torch.testing.measure import call_ms, denoise_pass_ms, kernel_ms
+    from raytrace_tpu_torch.testing.measure import call_ms
 
     t0 = time.perf_counter()
     w, h = benchmark.CONFIG5_SIZE
@@ -1683,9 +1783,9 @@ def phase_config5(rt, torch, dev, blue):
     ok, res, _ = phase_k1(torch, tables, blue, packed, (w, h), MAX_STEPS, 0, 2, timed=True,
                           band=CONFIG5_BAND)
     inputs = lighting.march_inputs(tables, blue, unpack_uniforms(packed), w, h)
-    res["whole_frame_kernel_ms"] = kernel_ms(
-        lambda: lighting.march_paths(*inputs["march"], MAX_STEPS, 0, 5), 10,
-        "march_paths_kernel")
+    whole = _alone(lambda: lighting.march_paths(*inputs["march"], MAX_STEPS, 0, 5), 10,
+                   "march_paths_kernel")
+    res.update(whole_frame_kernel_ms=whole["kernel_ms"], whole_frame_kept=whole["kept"])
     del inputs
     out["k1"] = (ok, res)
     vol_world = benchmark.config5_world("volume_fast", dev)
@@ -1696,7 +1796,7 @@ def phase_config5(rt, torch, dev, blue):
     frame = tiles.denoise_in_turn(_cut_bands(gb, 8), blue)
     how = tiles.plan(8, h // 8)
     res.update(chain_ms=call_ms(lambda: denoise.denoise_finalize(gb, blue), 10),
-               pass_ms=denoise_pass_ms(gb, blue, 10),
+               **_passes(gb, blue, 10),
                chain_plain_ms=call_ms(lambda: denoise.denoise_finalize_plain(gb, blue), 2),
                bands_8=dict(plan=how, equal=bool(torch.equal(
                    frame, denoise.denoise_finalize(gb, blue)))))
@@ -1709,9 +1809,9 @@ def phase_config5(rt, torch, dev, blue):
         rec["launches"] = _counts()
         main = "K1" if tracer == "fused" else "K3"
         frames = 2 + benchmark.CONFIG5_FRAMES  # the whole frame, the warm one, the timed
+        want = {main: frames, "K2": 6 * frames, **({"T1": 1} if tracer == "fused" else {})}
         out[f"run_{tracer}"] = (rec["exhausted_px"] == 0 and rec["devices"] == 1
-                                and rec["parity"]
-                                and rec["launches"] == {main: frames, "K2": 6 * frames}, rec)
+                                and rec["parity"] and rec["launches"] == want, rec)
     return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
 
 
@@ -1777,9 +1877,11 @@ def main() -> int:
     if "jax" in sys.modules:
         raise RuntimeError("chip_smoke imported jax")
 
+    ok, t1_res = phase_hf_tables_kernel(rt, torch, dev)
+    report("hf_tables_kernel", ok, t1_res)
     blue = _blue_noise(torch, dev)
     canon = torch.from_numpy(_canonical_uniforms(rt).packed()).to(dev)
-    canon_tables = with_column_heights(build_hf_tables((0, 0, 0), seed=0, device=dev), 0)
+    canon_tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=True)
     for bounces in (2, 1):
         ok, res, _ = phase_k1(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
         report(f"k1_vs_plain_b{bounces}", ok, res)
@@ -1948,6 +2050,7 @@ def main() -> int:
         return dict(shape=label, ms=ms, plain_ms=plain_ms, max_abs_err=res["max_abs_err"]
                     if not isinstance(res["max_abs_err"], dict)
                     else max(res["max_abs_err"].values()),
+                    kept=res.get("kept", res.get("pass_kept")),
                     bound_ms=res["bound_ms"], bound_by=res["bound_by"])
 
     def bench_launches(kernel):
@@ -1966,13 +2069,14 @@ def main() -> int:
         return dict(shape="3840x2160 b2", band=res.get("band"), ms=ms, plain_ms=plain_ms,
                     max_abs_err=res["max_abs_err"] if not isinstance(res["max_abs_err"], dict)
                     else max(res["max_abs_err"].values()), bound_ms=res["bound_ms"],
-                    bound_by=res["bound_by"],
+                    bound_by=res["bound_by"], kept=res.get("kept", res.get("pass_kept")),
                     launches=config5[f"run_{tracer}"][1]["launches"].get(kernel), **extra)
 
     k2_4k = config5["k2"][1]
     config5_entries = dict(
         K1=at_4k("k1", config5["k1"][1]["kernel_ms"], config5["k1"][1]["plain_ms"], "K1",
-                 whole_frame_ms=config5["k1"][1]["whole_frame_kernel_ms"]),
+                 whole_frame_ms=config5["k1"][1]["whole_frame_kernel_ms"],
+                 whole_frame_kept=config5["k1"][1]["whole_frame_kept"]),
         K2=at_4k("k2", sum(k2_4k["pass_ms"].values()) / len(denoise.DENOISE_SIZES),
                  k2_4k["chain_plain_ms"] / len(denoise.DENOISE_SIZES), "K2",
                  chain_ms=k2_4k["chain_ms"]),
@@ -1994,11 +2098,20 @@ def main() -> int:
                 launches=bench_launches("K4")),
     )
     kernels = [
+        dict(name="T1 hf_tables (region tables from the device lr)", route="cuda",
+             source="raytrace_tpu_torch/csrc/hf_tables.cu",
+             replaces="raytrace_tpu/ops/trace_pallas.py:60",
+             launches=main_res["t1_launches"], max_abs_err=t1_res["max_abs_err"],
+             ms=t1_res["kernel_ms"], kept=t1_res["kept"], plain_ms=t1_res["plain_ms"],
+             launches_per_frame=main_res["t1_launches"] / main_res["frames"],
+             **bound(t1_res), call_ms=t1_res["ms"],
+             app_shapes=dict(launches=bench_launches("T1"))),
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",
              launches=main_res["k1_launches"], max_abs_err=k1_res["max_abs_err"],
-             ms=times["k1_kernel_ms"], plain_ms=times["k1_plain_ms"], **bound(k1_res),
+             ms=times["k1_kernel_ms"], kept=times["k1_kept"], plain_ms=times["k1_plain_ms"],
+             **bound(k1_res),
              column_table_bound_ms=k1_res["column_table_bound_ms"],
              parent_work_bound_ms=k1_res["parent_work_bound_ms"], app_shapes=app["K1"],
              config5_4k=config5_entries["K1"]),
@@ -2007,7 +2120,8 @@ def main() -> int:
              replaces="raytrace_tpu/ops/denoise_pallas.py:132",
              launches=main_res["k2_launches"],
              max_abs_err=max(k2_res["max_abs_err"].values()),
-             ms=sum(times["k2_pass_ms"].values()) / passes, chain_ms=times["k2_chain_ms"],
+             ms=sum(times["k2_pass_ms"].values()) / passes, kept=times["k2_pass_kept"],
+             chain_ms=times["k2_chain_ms"],
              plain_ms=times["k2_chain_plain_ms"] / passes, **bound(k2_res),
              app_shapes=app["K2"],
              config5_4k=config5_entries["K2"]),
@@ -2015,7 +2129,8 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/trace_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:254",
              launches=vol_res["k3_launches"], max_abs_err=k3_res["max_abs_err"],
-             ms=times["k3_kernel_ms"], plain_ms=times["k3_plain_ms"], **bound(k3_res),
+             ms=times["k3_kernel_ms"], kept=times["k3_kept"], plain_ms=times["k3_plain_ms"],
+             **bound(k3_res),
              census=lanes(k3_res["census"]), app_shapes=app["K3"],
              config5_4k=config5_entries["K3"]),
         dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
@@ -2023,6 +2138,7 @@ def main() -> int:
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",
              launches=staged_res["k3s_launches"], max_abs_err=k3s_res["max_abs_err"],
              ms=sum(times["k3s_kernel_ms"]) / len(times["k3s_kernel_ms"]),
+             kept=times["k3s_kept"],
              plain_ms=sum(times["k3s_plain_ms"]) / len(times["k3s_plain_ms"]),
              **bound(k3s_res), census=[lanes(b["census"]) for b in k3s_res["batches"]],
              app_shapes=app["K3s"]),
@@ -2030,7 +2146,8 @@ def main() -> int:
              source="raytrace_tpu_torch/csrc/trace_hf.cu",
              replaces="raytrace_tpu/ops/trace_pallas.py:208",
              launches=hf_res["k4_launches"], max_abs_err=k4_res["max_abs_err"],
-             ms=k4_res["k4_kernel_ms"], plain_ms=k4_res["k4_plain_ms"], **bound(k4_res),
+             ms=k4_res["k4_kernel_ms"], kept=k4_res["kept"], plain_ms=k4_res["k4_plain_ms"],
+             **bound(k4_res),
              census=[lanes(b["census"]) for b in k4_res["batches"]], app_shapes=app["K4"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

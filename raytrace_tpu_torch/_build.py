@@ -11,8 +11,8 @@ build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
 plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
-with their plain versions step for step, and K2's sums round as the plain
-pass's.
+with their plain versions step for step, T1's table words are the plain
+build's, and K2's sums round as the plain pass's.
 """
 
 from __future__ import annotations
@@ -53,6 +53,8 @@ _SIGNATURES = {
     # origin, direction, active, iscal, any8, all8, any_hi, detail, pos,
     # normal, air, done, n, rounds, steps, next, census, stream
     "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P] * 3,
+    # packed, lr, seed, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
+    "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 9,
 }
 
 _lib = None

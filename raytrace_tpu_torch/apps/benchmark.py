@@ -44,7 +44,7 @@ import torch.distributed as dist
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops.denoise import denoise_finalize
-from ..ops.hf_tables import build_hf_tables, with_column_heights
+from ..ops.hf_tables import build_hf_tables
 from ..ops.lighting import EXHAUSTED_DEPTH, render_gbuffers_fused
 from ..ops.path_vol import render_gbuffers_path
 from ..ops.trace_dda import render_gbuffers
@@ -152,11 +152,9 @@ def config2_world_1080p(tracer="fused"):
     """1920x1080, bounces=1 (3 rays a pixel) of the generated world:
     ``fused`` (K1) or ``hf`` (K4), then the denoise chain (K2)."""
     dev = _device()
-    tables = build_hf_tables((0, 0, 0), seed=0, device=dev)
-    if tracer == "fused":
-        # The column table K1 reads, built once here: bare tables would
-        # have render_gbuffers_fused build it in every timed frame.
-        tables = with_column_heights(tables, 0)
+    # With the column table K1 reads, built once here: bare tables would
+    # have render_gbuffers_fused build it in every timed frame.
+    tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=tracer == "fused")
     bn = torch.from_numpy(get_blue_noise_f32()).to(dev)
     uni = _uniforms(Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3), dev)
     step = torch.tensor([1.0, 1.0, 0.0], device=dev)
@@ -266,8 +264,7 @@ def config5_world(tracer: str, dev):
     the origin, fused, for ``volume``, with its occupancy tables for
     ``volume_fast``."""
     if tracer in ("fused", "hf"):
-        tables = build_hf_tables((0, 0, 0), seed=0, device=dev)
-        return with_column_heights(tables, 0) if tracer == "fused" else tables
+        return build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=tracer == "fused")
     box = generate_box((-128,) * 3, (256,) * 3, seed=0, device=dev)
     fused = fuse_volume(box["materials"], box["minefield"])
     return (fused, build_vol_tables(fused)) if tracer == "volume_fast" else fused

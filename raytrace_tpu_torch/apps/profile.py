@@ -16,7 +16,13 @@ For the tracers that ``draw_frame`` renders through a CUDA graph ("fused",
 "hf", "volume_fast") it measures two paths on the same pipeline, in turns
 (graphed, eager, eager, graphed): ``graphed``, ``draw_frame`` itself, and
 ``eager``, the same frame through ``render_frame`` op by op
-(``eager_frame``).  Each printed key then carries its path's prefix.
+(``eager_frame``).  Each printed key then carries its path's prefix.  On
+the heightfield tracers ("fused", "hf") it then times, in the same turns,
+CROSSINGS frames that each cross a slice, each alone and synced
+(``crossing_ms``), and the crossing's region tables through
+``build_hf_tables`` as ``Pipeline.tables()`` builds them (``tables.call_ms``,
+synced; on the card one T1 launch) and T1 alone (``tables.t1_kernel_ms``,
+``torch.profiler``).
 
 ``--tracer volume_staged`` profiles the staged volume frame instead:
 ``render_gbuffers_vol`` (K3s leg by leg) and the denoise chain on the
@@ -37,11 +43,14 @@ import time
 import torch
 
 from ..ops.denoise import denoise_finalize
+from ..ops.hf_tables import build_hf_tables
 from ..ops.trace_vol import render_gbuffers_vol
 from ..render.camera import Camera
 from ..render.pipeline import GRAPHED, TRACERS, Pipeline, render_frame, unpack_uniforms
+from ..testing.measure import kernel_ms, synced_ms
 
 PROFILED_FRAMES = 10
+CROSSINGS = 5  # slice-crossing frames timed alone per turn (fused, hf)
 TOP = 12  # device activities listed
 STAGED = "volume_staged"  # the staged volume frame on the volume_fast pipeline
 
@@ -105,9 +114,43 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
         acc["synced"] += got.pop("synced")
         acc["train"] += got.pop("train")
         acc.update(got)
+    if tracer in ("fused", "hf"):
+        for name in order:
+            res[name].setdefault("crossing_ms", []).extend(
+                _crossings(paths[name], pipe, cam, CROSSINGS))
     for name, got in res.items():
         _report(name, got, tracer, width, height, pipe.bounces)
+    if tracer in ("fused", "hf"):
+        res["tables"] = _tables(pipe)
+        for key, val in res["tables"].items():
+            print(f"tables.{key} {val}")
     return res
+
+
+def _crossings(draw, pipe: Pipeline, cam: Camera, n: int) -> list:
+    """Host ms of ``n`` frames that each cross a slice, each alone and
+    synced."""
+    out = []
+    for _ in range(n):
+        cam.origin[0] += 25.0  # past the slice that the region follows
+        lr = pipe.streamer.get_render_offset()
+        out.append(synced_ms(lambda: draw(cam, 0.6)))
+        if pipe.streamer.get_render_offset() == lr:
+            raise RuntimeError("profile: a crossing frame moved no slice")
+    return out
+
+
+def _tables(pipe: Pipeline) -> dict:
+    """A crossing's region tables as ``Pipeline.tables()`` builds them (a
+    host lr one slice on; with the column table for "fused"): the call
+    synced, and T1 alone."""
+    lr = pipe.streamer.get_render_offset()
+    lr = (lr[0] + 16, lr[1], lr[2])
+    build = lambda: build_hf_tables(lr, seed=pipe.seed, device=pipe.device,
+                                    hcol=pipe.tracer == "fused")
+    calls = [synced_ms(build) for _ in range(5)]
+    return dict(call_ms=calls, call_ms_median=statistics.median(calls),
+                t1_kernel_ms=kernel_ms(build, 20, "hf_tables_kernel"))
 
 
 def _measure(draw, cam: Camera, frames: int, profiled: bool) -> dict:
@@ -153,6 +196,8 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
     and its top device activities; put the summary into ``got``."""
     synced, per_name = got.pop("synced"), got.pop("per_name")
     trains = got.pop("train")
+    if "crossing_ms" in got:
+        got["crossing_ms_median"] = statistics.median(got["crossing_ms"])
     train_ms = statistics.median(t for t, _ in trains)
     device_ms = sum(ms for ms, _ in per_name.values()) / PROFILED_FRAMES
     launches = sum(n for _, n in per_name.values()) / PROFILED_FRAMES

@@ -1,12 +1,14 @@
-// Heightfield device code shared by kernel K1 (lighting.cu) and kernel K4
-// (trace_hf.cu): the world math that gives a column's exact height (K4; K1
-// reads the region's column table) and a voxel's material band, the
-// region-table classification of a position, and the distance to the next
-// step-aligned boundary.  The plain PyTorch
+// Heightfield device code shared by kernel K1 (lighting.cu), kernel K4
+// (trace_hf.cu) and the region-table build T1 (hf_tables.cu): the world
+// math that gives a lattice point's quantized fields (T1) and a column's
+// exact height (T1, K4; K1 reads the region's column table) and a voxel's
+// material band, the region-table classification of a position, and the
+// distance to the next step-aligned boundary.  The plain PyTorch
 // counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
-// world/generate.py (material_band) and the marches of ops/lighting.py and
-// ops/trace_hf.py; all are built with --fmad=false, so every multiply and
-// add rounds separately, as PyTorch computes them.
+// world/heightmap.py (lattice_fields_q), world/generate.py (material_band)
+// and the marches of ops/lighting.py and ops/trace_hf.py; all are built
+// with --fmad=false, so every multiply and add rounds separately, as
+// PyTorch computes them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,6 +74,53 @@ __device__ float perlin2(float x, float y, int32_t seed) {
   float nx1 = n01 + u * (n11 - n01);
   float n = nx0 + v * (nx1 - nx0);
   return n * kSqrt2;
+}
+
+// float32 values of world/noise.py's lacunarity (2 pi / 3) and of
+// world/heightmap.py's slope offset d = 0.2 and its 0.2 * 2.
+constexpr float kLacunarity = 0x1.0c1524p+1f;
+constexpr float kSlopeD = 0x1.99999ap-3f;
+constexpr float kSlopeTwoD = 0x1.99999ap-2f;
+
+// world/noise.py basic_multi (frequency 2, persistence 0.5).
+__device__ float basic_multi(float x, float y, int32_t seed, int octaves) {
+  float px = x * 2.0f, py = y * 2.0f;
+  float result = perlin2(px, py, seed);
+  float amp = 1.0f;
+  for (int o = 1; o < octaves; ++o) {
+    px = px * kLacunarity;
+    py = py * kLacunarity;
+    amp *= 0.5f;
+    float signal = perlin2(px, py, seed + o) * amp;
+    result = result + signal * result;
+  }
+  return result;
+}
+
+// The five noise samples world/heightmap.py lattice_fields_q takes at
+// (fx, fy): k = 0 the five-octave field r; k = 1..4 the two-octave field
+// mapped to [0, 1] at fx + d, fx - d, fy + d, fy - d.
+__device__ float lattice_sample(int k, float fx, float fy, int32_t seed) {
+  if (k == 0) return basic_multi(fx, fy, seed, 5);
+  float a = fx, b = fy;
+  if (k == 1) a = fx + kSlopeD;
+  if (k == 2) a = fx - kSlopeD;
+  if (k == 3) b = fy + kSlopeD;
+  if (k == 4) b = fy - kSlopeD;
+  return basic_multi(a, b, seed, 2) * 0.5f + 0.5f;
+}
+
+// lattice_fields_q's word r16 | e16 << 16 from its five samples.
+// torch.round rounds half to even, as rintf does; the clamp comes before
+// the conversion.
+__device__ int32_t lattice_word(const float s[5]) {
+  float dx = (s[1] - s[2]) / kSlopeTwoD;
+  float dy = (s[3] - s[4]) / kSlopeTwoD;
+  float slope = sqrtf(dx * dx + dy * dy);
+  float e = (1.0f - slope) * 0.7f;
+  float r16 = fminf(fmaxf(rintf((s[0] - -4.0f) * 8192.0f), 0.0f), 65535.0f);
+  float e16 = fminf(fmaxf(rintf((e - -2.0f) * 16384.0f), 0.0f), 65535.0f);
+  return (int32_t)((uint32_t)(int32_t)r16 | ((uint32_t)(int32_t)e16 << 16));
 }
 
 // ops/hf_tables.py height_from_corners (world/heightmap.py

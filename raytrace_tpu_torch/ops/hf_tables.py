@@ -2,13 +2,17 @@
 lattice-corner words, and what a march reads from them.
 
 Port of ``raytrace_tpu/ops/trace_pallas.py:60-133`` (``build_hf_tables``)
-and ``:172-200`` (``_height_from_corners``).  Plain PyTorch: the tables are
-rebuilt only when the streamed region moves.  Tables are flat (1024,) int32
-tensors, one word per 8x8-column block at ``by * 32 + bx``; the JAX package
-holds the same words as (8, 128).  ``classify``, ``bdist`` and
-``step_reciprocal`` are the steps both heightfield marches (K1 in
-``ops/lighting.py``, K4 in ``ops/trace_hf.py``) share, as their kernels
-share ``csrc/heightfield.cuh``.  ``column_heights`` tabulates every
+and ``:172-200`` (``_height_from_corners``).  ``build_hf_tables`` builds a
+region's tables with kernel T1 (``csrc/hf_tables.cu``) on the card, from
+an ``lr`` that lies in device memory (the packed frame uniforms inside the
+fused frame program's CUDA graph, as JAX's ``_rffp_impl`` rebuilds them
+inside its one dispatch), and with its plain version
+(``build_hf_tables_plain``, then ``column_heights``) on the CPU.  Tables
+are flat (1024,) int32 tensors, one word per 8x8-column block at ``by * 32
++ bx``; the JAX package holds the same words as (8, 128).  ``classify``,
+``bdist`` and ``step_reciprocal`` are the steps both heightfield marches
+(K1 in ``ops/lighting.py``, K4 in ``ops/trace_hf.py``) share, as their
+kernels share ``csrc/heightfield.cuh``.  ``column_heights`` tabulates every
 column's exact height for K1, which reads it instead of evaluating
 ``height_from_corners`` at each fine step.
 """
@@ -32,8 +36,96 @@ _EPS = 1e-4
 TABLE_KEYS = ("hsub", "h3", "cA", "cB", "cC", "cD")
 
 
-def build_hf_tables(lr, seed: int = 0, device=None) -> dict:
+# Each table's dtype and shape; "hcol" only where the column table is asked for.
+LAYOUT = {
+    **{k: (torch.int32, (1024,)) for k in ("h3", "hsub", "cA", "cB", "cC", "cD")},
+    "r0": (torch.int32, (2,)),
+    "hcol": (torch.int16, (ROOT_BLOCK_SIZE ** 2,)),
+}
+
+
+def empty_tables(device, hcol: bool = False) -> dict:
+    """Uninitialized buffers of one region's tables on ``device`` (with the
+    column table ``hcol`` if asked), for ``build_hf_tables(..., out=)``."""
+    return {k: torch.empty(shape, dtype=dtype, device=device)
+            for k, (dtype, shape) in LAYOUT.items() if hcol or k != "hcol"}
+
+
+def _is_packed(lr) -> bool:
+    return isinstance(lr, torch.Tensor) and lr.is_floating_point() and lr.shape == (16,)
+
+
+def host_lr(lr) -> tuple:
+    """``lr`` as host ints (x, y, z): from a sequence, an integer (3,)
+    tensor, or the packed (16,) uniforms, as the JAX frame program reads
+    them (``lr = (packed[14], 0, packed[15])`` truncated to int32)."""
+    if _is_packed(lr):
+        return (int(lr[14].to(torch.int32)), 0, int(lr[15].to(torch.int32)))
+    if isinstance(lr, torch.Tensor):
+        lr = lr.tolist()
+    return tuple(int(v) for v in lr)
+
+
+def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
+                    hcol: bool = False) -> dict:
     """Tables for the region centred at integer ``lr`` (x, y, z).
+
+    ``lr`` is a host sequence, an int32 (3,) tensor, or the packed (16,)
+    float32 frame uniforms (``host_lr``).  A tensor's device is where the
+    tables are built; else ``device`` (the CPU by default).  On the CPU the
+    plain version builds them; on the card T1 (``csrc/hf_tables.cu``)
+    builds them in one launch on the current stream, reading ``lr`` on the
+    device (a host ``lr`` is uploaded from pinned memory without a wait),
+    and ``build_hf_tables.launches`` counts those launches.  Any other
+    device raises.  ``out``: table buffers (``empty_tables``) filled in
+    place and returned.  ``hcol``: with the column table K1 reads
+    (``column_heights`` of the same tables).  ``r0`` must be a multiple of
+    8 (the streamer moves ``lr`` on the 16-voxel slice grid), as in JAX.
+    """
+    if isinstance(lr, torch.Tensor):
+        device = lr.device
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        tables = build_hf_tables_plain(host_lr(lr), seed, device)
+        if hcol:
+            tables = with_column_heights(tables, seed)
+        if out is None:
+            return tables
+        for k, v in tables.items():
+            out[k].copy_(v)
+        return out
+    if device.type != "cuda":
+        raise RuntimeError(f"build_hf_tables: no kernel for device {device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    if not isinstance(lr, torch.Tensor):
+        lr = torch.tensor(host_lr(lr), dtype=torch.int32).pin_memory().to(
+            device, non_blocking=True)
+    dev = lr.device
+    packed = _is_packed(lr)
+    check_tensor("build_hf_tables", lr, torch.float32 if packed else torch.int32,
+                 (16,) if packed else (3,), dev)
+    tables = empty_tables(dev, hcol) if out is None else out
+    for k, (dtype, shape) in LAYOUT.items():
+        if hcol or k != "hcol":
+            check_tensor(f"build_hf_tables out[{k!r}]", tables[k], dtype, shape, dev)
+    err = kernels().rt_hf_tables(
+        lr.data_ptr() if packed else None, None if packed else lr.data_ptr(), seed,
+        *(tables[k].data_ptr() for k in ("h3", "hsub", "cA", "cB", "cC", "cD", "r0")),
+        tables["hcol"].data_ptr() if hcol else None,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch("rt_hf_tables", err)
+    build_hf_tables.launches += 1
+    return tables
+
+
+build_hf_tables.launches = 0
+
+
+def build_hf_tables_plain(lr, seed: int = 0, device=None) -> dict:
+    """T1's plain version: the tables for the region centred at integer
+    ``lr`` (x, y, z), a host sequence, on ``device``.
 
     Returns ``h3`` (8/16/32-block maxima, +1 margin, packed 9 bits each),
     ``hsub`` (four 4-block deltas, one byte each), ``cA``..``cD`` (the

@@ -12,10 +12,16 @@ glue, the G-buffer kernels and the six K2 passes) with one call.
 A ``FrameProgram`` holds one configuration (tracer, width, height,
 max_steps, seed, bounces) and its static buffers on the pipeline's device:
 
-- inputs: the packed (16,) f32 uniforms, the blue-noise texture and the
-  world ``render_frame`` reads (the ``build_hf_tables`` dict for "fused",
-  with ``hcol``, and "hf"; the fused (256^3,) volume and the
-  ``build_vol_tables`` dict for "volume_fast");
+- inputs: the packed (16,) f32 uniforms, the blue-noise texture and, for
+  "hf" and "volume_fast", the world ``render_frame`` reads (the
+  ``build_hf_tables`` dict; the fused (256^3,) volume and the
+  ``build_vol_tables`` dict);
+- the region tables of "fused" (``h3``, ``hsub``, ``cA``..``cD``, ``r0``
+  and the column table ``hcol``), which the program owns and rebuilds at
+  the start of every frame from the ``lr`` in the packed uniforms
+  (``build_hf_tables(packed, out=...)``: kernel T1 inside the graph), as
+  JAX's ``_rffp_impl`` rebuilds them inside its one dispatch, so a slice
+  crossing or a teleport changes nothing but the uniforms;
 - outputs: the frame and the G-buffers.
 
 The program takes the tensors of the world it is built with as its input
@@ -26,7 +32,9 @@ replays.  The first ``run`` is the warm-up that ``torch.cuda.graphs``
 asks for: it renders that frame eagerly on a side stream (building the
 kernel library at first use, outside the capture), then captures the
 graph; every later ``run`` replays it.  On a CPU program ``run`` renders
-the same function eagerly over the same buffers.
+the same function eagerly over the same buffers (the fused tables' plain
+rebuild is skipped while ``lr`` stays: the same words, without the graph
+that would rebuild them on the card).
 
 ``run`` returns a fresh frame (one copy after the replay) and the static
 G-buffers, which the next ``run`` overwrites.  The kernel wrappers count
@@ -44,12 +52,12 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAX_TRACE_STEPS
-from ..ops import denoise, lighting, trace_hf, trace_vol
+from ..ops import denoise, hf_tables, lighting, trace_hf, trace_vol
 from .pipeline import GRAPHED, render_frame
 
 # Every kernel wrapper's launch counter.
-COUNTED = (lighting.march_paths, denoise.launch_pass, trace_vol.march_paths_vol,
-           trace_vol.trace_rays_vol, trace_hf.trace_rays_hf)
+COUNTED = (hf_tables.build_hf_tables, lighting.march_paths, denoise.launch_pass,
+           trace_vol.march_paths_vol, trace_vol.trace_rays_vol, trace_hf.trace_rays_hf)
 
 
 def _leaves(world) -> list:
@@ -69,7 +77,8 @@ def _layout(world) -> list:
 
 class FrameProgram:
     """One frame configuration's static buffers and, on the card, its
-    captured graph (see the module docstring)."""
+    captured graph (see the module docstring).  ``world`` is None for
+    "fused", whose program builds its own tables."""
 
     def __init__(self, world, blue_noise: torch.Tensor, tracer: str, width: int,
                  height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
@@ -77,10 +86,17 @@ class FrameProgram:
         if tracer not in GRAPHED:
             raise ValueError(f"tracer {tracer!r} has no frame program; it runs eagerly "
                              f"(graphed: {GRAPHED})")
+        if (world is None) != (tracer == "fused"):
+            raise ValueError("FrameProgram: the fused program builds its own region "
+                             "tables from the packed lr (world=None); the others take "
+                             "their world")
         self.config = (width, height, max_steps, seed, bounces, tracer)
         self.device = blue_noise.device
+        if tracer == "fused":
+            world = hf_tables.empty_tables(self.device, hcol=True)
         self.world = dict(world) if tracer != "volume_fast" else (world[0], dict(world[1]))
         self._layout = _layout(self.world)
+        self._tables_lr = None  # a CPU program's: the lr its tables hold
         self.blue_noise = blue_noise
         self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)
         self.graph = None
@@ -89,7 +105,11 @@ class FrameProgram:
 
     def refresh(self, world) -> None:
         """Copy each tensor of ``world`` whose storage differs from the
-        program's into it; raise if a key, shape, dtype or device changed."""
+        program's into it; raise if a key, shape, dtype or device changed,
+        or if the program builds its own world ("fused")."""
+        if self.config[-1] == "fused":
+            raise ValueError("FrameProgram.refresh: the fused program rebuilds its "
+                             "tables from each frame's packed lr")
         if _layout(world) != self._layout:
             raise ValueError("FrameProgram.refresh: the world's layout changed: "
                              f"{_layout(world)} != {self._layout}")
@@ -98,7 +118,20 @@ class FrameProgram:
                 dst.copy_(src)
 
     def _render(self):
+        if self.config[-1] == "fused":
+            self._build_tables()
         return render_frame(self.world, self.blue_noise, self.packed, *self.config)
+
+    def _build_tables(self) -> None:
+        """The fused tables of the packed uniforms' ``lr``, in place: on the
+        card T1 reads ``lr`` on the device (inside the graph); a CPU program
+        skips the plain rebuild while ``lr`` stays."""
+        if self.device.type == "cpu":
+            lr = hf_tables.host_lr(self.packed)
+            if lr == self._tables_lr:
+                return
+            self._tables_lr = lr
+        hf_tables.build_hf_tables(self.packed, self.config[3], out=self.world, hcol=True)
 
     def run(self, packed: torch.Tensor):
         """One frame of the packed (16,) f32 uniforms ``packed`` (on the

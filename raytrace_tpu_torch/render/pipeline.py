@@ -6,9 +6,11 @@ the frame program (``_render_frame_impl``, ``:92-149``, packed as
 debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
 ``:261-262, 300``) for every tracer of the JAX package:
 
-- ``fused``: the region's heightfield tables (rebuilt whenever the region
-  offset ``lr`` changes), the path march K1 and its shade.
-- ``hf``: the same tables, traced leg by leg through the staged tracer K4
+- ``fused``: the region's heightfield tables (rebuilt inside the frame
+  program from each frame's ``lr``, by kernel T1 on the card), the path
+  march K1 and its shade.
+- ``hf``: the same tables (rebuilt by T1 between frames whenever the
+  region offset ``lr`` changes), traced leg by leg through the staged tracer K4
   (``ops/trace_hf.py``) and the staged lighting pass (``ops/integrate.py``).
 - ``volume_fast``: the streamed resident volume and its occupancy tables
   (updated per streamed slab, rebuilt after initialize, teleport or an
@@ -41,7 +43,7 @@ from ..constants import (
     MAX_TRACE_STEPS,
 )
 from ..ops.denoise import denoise_finalize
-from ..ops.hf_tables import build_hf_tables, with_column_heights
+from ..ops.hf_tables import build_hf_tables
 from ..ops.lighting import EXHAUSTED_DEPTH, render_gbuffers_fused
 from ..ops.path_vol import render_gbuffers_path
 from ..ops.trace_dda import render_gbuffers
@@ -254,16 +256,19 @@ class Pipeline:
         u.lr = self.streamer.get_render_offset()
 
     def tables(self) -> dict:
-        """Region tables for the current offset, rebuilt when it moved; for
-        the fused tracer with the column table K1 reads beside them
-        (``hcol``).  The CPU's plain march evaluates its heights, but builds
-        the table all the same, so that a CPU pipeline holds the tables the
-        card's does."""
+        """Region tables for the current offset, rebuilt when it moved (one
+        T1 launch on the card, no wait for the host): what "hf" and
+        ``validate`` frames read, as JAX's ``draw_frame`` builds them
+        outside its frame program.  For the fused tracer with the column
+        table K1 reads beside them (``hcol``); the CPU's plain march
+        evaluates its heights, but builds the table all the same, so that a
+        CPU pipeline holds the tables the card's does.  A graphed fused
+        frame builds its own (``frame_program``); these are then its
+        buffers, as long as the offset stays."""
         lr = self.uniforms.lr
         if self._tables_lr != lr:
-            self._tables = build_hf_tables(lr, seed=self.seed, device=self.device)
-            if self.tracer == "fused":
-                self._tables = with_column_heights(self._tables, self.seed)
+            self._tables = build_hf_tables(lr, seed=self.seed, device=self.device,
+                                           hcol=self.tracer == "fused")
             self._tables_lr = lr
         return self._tables
 
@@ -323,21 +328,24 @@ class Pipeline:
         keeps its world in those buffers (its region tables, and the
         streamed volume with its occupancy tables), so that a frame with
         no region move, slab or edit copies nothing and a streamed slab
-        lands in place in the volume the graph reads."""
+        lands in place in the volume the graph reads.  The fused program
+        takes no world: it rebuilds its tables from each frame's packed
+        ``lr``, and the pipeline's tables are its buffers."""
         from .frame_graph import FrameProgram
 
         key = (self.tracer, self.width, self.height, self.max_steps, self.seed,
                self.bounces)
-        world = self.world()
+        world = None if self.tracer == "fused" else self.world()
         program = self._programs.get(key)
         if program is None:
             program = self._programs[key] = FrameProgram(world, self.blue_noise, *key)
-        else:
+        elif world is not None:
             program.refresh(world)
         if self.tracer == "volume_fast":
             self.streamer.volume, self._vol_tables = program.world
         else:
-            self._tables = program.world
+            # Fused: what the program's next run builds in stream order.
+            self._tables, self._tables_lr = program.world, self.uniforms.lr
         return program
 
     def _validate_frame(self, frame, gb) -> dict:

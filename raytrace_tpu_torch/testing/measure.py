@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import re
 import subprocess
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -38,6 +39,15 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def synced_ms(fn) -> float:
+    """Host milliseconds of one ``fn()`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 # Profiles of a train taken before kernel_ms gives up.
 PROFILE_TRIES = 3
 
@@ -63,12 +73,13 @@ def launch_times(events, kernel: str, reps: int) -> list:
     return [e.time_range.elapsed_us() / 1e3 for e in found]
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds of the kernel whose name contains
-    ``kernel``, launched once by each of ``reps`` calls of ``fn`` after a
-    warm-up, from ``torch.profiler``: the kernel alone, without the rest of
-    the call.  A profile that ``launch_times`` refuses is taken again, at
-    most ``PROFILE_TRIES`` times."""
+def kernel_times(fn, reps: int, kernel: str) -> list:
+    """Device milliseconds of the kernel whose name contains ``kernel``,
+    launched once by each of ``reps`` calls of ``fn`` after a warm-up, from
+    ``torch.profiler``: the kernel alone, without the rest of the call, one
+    entry per record ``launch_times`` keeps (1 to ``reps``; their count says
+    how many records the profiler kept).  A profile that ``launch_times``
+    refuses is taken again, at most ``PROFILE_TRIES`` times."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -79,11 +90,16 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
                 fn()
             torch.cuda.synchronize()
         try:
-            times = launch_times(prof.events(), kernel, reps)
-            return sum(times) / len(times)
+            return launch_times(prof.events(), kernel, reps)
         except ValueError as err:
             faults.append(str(err))
-    raise RuntimeError(f"kernel_ms: no profile kept the launches: {faults}")
+    raise RuntimeError(f"kernel_times: no profile kept the launches: {faults}")
+
+
+def kernel_ms(fn, reps: int, kernel: str) -> float:
+    """The mean of ``kernel_times``."""
+    times = kernel_times(fn, reps, kernel)
+    return sum(times) / len(times)
 
 
 def pass_keys(sizes) -> list:
@@ -96,16 +112,21 @@ def pass_keys(sizes) -> list:
     return keys
 
 
-def denoise_pass_ms(gb: dict, blue_noise, reps: int) -> dict:
-    """K2 alone (``kernel_ms``) for each pass of the chain on the G-buffers
-    ``gb``, keyed by ``pass_keys``.  The passes are timed in the chain's
-    order, each launched alone, so that each reads what the chain gives
-    it."""
+def denoise_pass_times(gb: dict, blue_noise, reps: int) -> dict:
+    """K2 alone (``kernel_times``) for each pass of the chain on the
+    G-buffers ``gb``, keyed by ``pass_keys``.  The passes are timed in the
+    chain's order, each launched alone, so that each reads what the chain
+    gives it."""
     from ..ops import denoise
 
     _, passes = denoise.chain_passes(gb, blue_noise)
-    return {key: kernel_ms(one_pass, reps, "denoise_pass_kernel")
+    return {key: kernel_times(one_pass, reps, "denoise_pass_kernel")
             for key, one_pass in zip(pass_keys(denoise.DENOISE_SIZES), passes)}
+
+
+def denoise_pass_ms(gb: dict, blue_noise, reps: int) -> dict:
+    """The mean of each pass's ``denoise_pass_times``."""
+    return {k: sum(t) / len(t) for k, t in denoise_pass_times(gb, blue_noise, reps).items()}
 
 
 # Opcodes counted apart in sass_counts: loads, the reciprocal and the

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from raytrace_tpu.render import pipeline as jax_pipeline
 from raytrace_tpu.render.camera import Camera as JaxCamera
 from raytrace_tpu_torch.apps.profile import eager_frame
+from raytrace_tpu_torch.constants import MAX_TRACE_STEPS
+from raytrace_tpu_torch.ops import hf_tables
 from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
 from raytrace_tpu_torch.render import frame_graph
 from raytrace_tpu_torch.render.camera import Camera
@@ -90,41 +92,47 @@ def test_frames_equal_eager_across_world_events(tracer):
     assert all(a is b for a, b in zip(kept, frame_graph._leaves(program.world)))
 
 
+def _packed(lr):
+    return torch.tensor([-30.0, -100.0, 60.0, 0.0, 0.955, -0.296, 0.0, 0.118, 0.382,
+                         0.4, 0.0, 0.0, 0.6, 3.0, lr[0], lr[2]])
+
+
 def test_refresh_copies_a_new_world_in():
     """A program built on one region's tables renders another region's
     once refreshed with them, and its buffers are the first world's
-    tensors, not copies."""
+    tensors, not copies ("hf": the fused program builds its own)."""
     bn = torch.from_numpy(get_blue_noise_f32())
-    a = with_column_heights(build_hf_tables((0, 0, 0)))
-    b = with_column_heights(build_hf_tables((64, 0, -48)))
-    program = frame_graph.FrameProgram(a, bn, "fused", SIZE, SIZE)
+    a = build_hf_tables((0, 0, 0))
+    b = build_hf_tables((64, 0, -48))
+    program = frame_graph.FrameProgram(a, bn, "hf", SIZE, SIZE)
     assert all(program.world[k] is a[k] for k in a)
-
-    def packed(lr):
-        return torch.tensor([-30.0, -100.0, 60.0, 0.0, 0.955, -0.296, 0.0, 0.118, 0.382,
-                             0.4, 0.0, 0.0, 0.6, 3.0, lr[0], lr[2]])
-
-    want_a = render_frame(a, bn, packed((0, 0, 0)), SIZE, SIZE)[0]
-    assert torch.equal(program.run(packed((0, 0, 0)))[0], want_a)
-    want_b = render_frame(b, bn, packed((64, 0, -48)), SIZE, SIZE)[0]
+    want_a = render_frame(a, bn, _packed((0, 0, 0)), SIZE, SIZE, tracer="hf")[0]
+    assert torch.equal(program.run(_packed((0, 0, 0)))[0], want_a)
+    want_b = render_frame(b, bn, _packed((64, 0, -48)), SIZE, SIZE, tracer="hf")[0]
     program.refresh(b)
     assert all(torch.equal(program.world[k], b[k]) for k in b)
-    got_b = program.run(packed((64, 0, -48)))[0]
+    got_b = program.run(_packed((64, 0, -48)))[0]
     assert torch.equal(got_b, want_b) and not torch.equal(got_b, want_a)
 
 
 def test_refresh_raises_on_a_changed_layout():
     bn = torch.from_numpy(get_blue_noise_f32())
-    tables = with_column_heights(build_hf_tables((0, 0, 0)))
-    program = frame_graph.FrameProgram(tables, bn, "fused", SIZE, SIZE)
+    tables = build_hf_tables((0, 0, 0))
+    program = frame_graph.FrameProgram(tables, bn, "hf", SIZE, SIZE)
     with pytest.raises(ValueError, match="layout changed"):
-        program.refresh(dict(tables, hcol=tables["hcol"][:-1]))
+        program.refresh(dict(tables, h3=tables["h3"][:-1]))
     with pytest.raises(ValueError, match="layout changed"):
         program.refresh(dict(tables, h3=tables["h3"].to(torch.int64)))
     with pytest.raises(ValueError, match="layout changed"):
-        program.refresh({k: v for k, v in tables.items() if k != "hcol"})
+        program.refresh({k: v for k, v in tables.items() if k != "cA"})
     with pytest.raises(ValueError, match="runs eagerly"):
         frame_graph.FrameProgram(torch.zeros(8), bn, "volume", SIZE, SIZE)
+    # The fused program takes no world and no refresh: it builds its tables.
+    with pytest.raises(ValueError, match="builds its own"):
+        frame_graph.FrameProgram(with_column_heights(tables), bn, "fused", SIZE, SIZE)
+    fused = frame_graph.FrameProgram(None, bn, "fused", SIZE, SIZE)
+    with pytest.raises(ValueError, match="rebuilds its tables"):
+        fused.refresh(with_column_heights(tables))
 
 
 def test_validate_and_the_exact_dda_stay_eager(capsys):
@@ -160,3 +168,35 @@ def test_fused_frame_matches_the_jax_fast_path():
     stats = compare_images(frame.numpy(), want)
     print(stats)
     assert stats["ok"], stats
+
+
+def test_fused_program_rebuilds_its_tables_across_a_crossing(monkeypatch):
+    """A CPU fused program run on packed vectors that differ only in lr (a
+    slice crossing): each frame within ``compare_images`` of JAX's
+    one-dispatch fast path (``_render_frame_fused_packed``, which rebuilds
+    the tables inside it) on the same vector, and the program's table
+    buffers equal to ``with_column_heights(build_hf_tables(lr))`` word for
+    word.  On the CPU the plain rebuild runs once per lr."""
+    regions = [(0, 0, 0), (16, 0, 0)]
+    want_tables = [with_column_heights(build_hf_tables(lr)) for lr in regions]
+    built = []
+    plain = hf_tables.build_hf_tables_plain
+    monkeypatch.setattr(hf_tables, "build_hf_tables_plain",
+                        lambda lr, *a, **k: built.append(lr) or plain(lr, *a, **k))
+    bn = torch.from_numpy(get_blue_noise_f32())
+    program = frame_graph.FrameProgram(None, bn, "fused", SIZE, SIZE)
+    jax_bn = jnp.asarray(get_blue_noise_f32())
+    for lr, want in zip(regions, want_tables):
+        packed = _packed(lr)
+        frame = program.run(packed)[0]
+        theirs = np.asarray(jax_pipeline._render_frame_fused_packed(
+            jax_bn, jnp.asarray(packed.numpy()), SIZE, SIZE, MAX_TRACE_STEPS, 0, 2))
+        stats = compare_images(frame.numpy(), theirs)
+        print(lr, stats)
+        assert stats["ok"], (lr, stats)
+        assert set(program.world) == set(want)
+        assert all(torch.equal(program.world[k], want[k]) for k in want), lr
+    again = _packed(regions[-1])
+    again[12] = 0.9  # another sun, the same region
+    assert not torch.equal(program.run(again)[0], frame)
+    assert built == regions
