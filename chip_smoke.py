@@ -4,7 +4,11 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``raytrace_tpu_torch/csrc``, holds each kernel against its
 plain PyTorch version at the shapes the frame gives it (first T1, the
-region tables, word for word at eleven regions, ``hf_tables_kernel``),
+region tables, word for word at eleven regions, ``hf_tables_kernel``; G1,
+the streamed slabs and regions written in place, word for word against
+its plain version and the old enclosure-and-roll path,
+``worldgen_kernel``; O1, the occupancy tables built and updated in place,
+against the plain build and update, ``vol_tables_kernel``),
 renders the 64² golden frame, then drives the frame paths through
 ``create_instance`` -> ``teleport`` -> ``draw_frame`` at 1024²: 20 frames
 of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
@@ -38,8 +42,9 @@ K3 and K2 against plain at the 4K width, then the config for fused and
 volume_fast with its ``parity``).  The frame as one CUDA graph replay
 (``graph_frames_*``): each graphed tracer's ``draw_frame`` against an
 eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
-and a teleport, with its launch counts, its kernels by name in a profiler
-trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
+and a teleport, with its launch counts (on volume_fast G1 once a slab and
+a teleport, O1 once a table rebuild or slab update), its kernels by name
+in a profiler trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
 (with the profiler records kept of those asked for, ``kept``) and against
 their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
@@ -342,8 +347,9 @@ def _generated_volume(dev):
 def phase_volume_main(rt, torch):
     """The volume path: 20 frames at 1024² through create_instance/
     draw_frame with tracer="volume_fast", the camera moving +VOL_DX in x per
-    frame so that slices stream in and the occupancy tables update."""
-    from raytrace_tpu_torch.ops import denoise, lighting, trace_vol
+    frame so that slices stream in (G1) and the occupancy tables update
+    (O1): one G1 launch and one O1 launch a slab."""
+    from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
     from raytrace_tpu_torch.render.camera import Camera
 
@@ -364,8 +370,7 @@ def phase_volume_main(rt, torch):
     pipe.vol_tables()  # the teleported volume's full build, outside the count
     drained.clear()
     torch.cuda.synchronize()
-    trace_vol.march_paths_vol.launches = 0
-    denoise.launch_pass.launches = 0
+    _zero_counts()
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -376,14 +381,16 @@ def phase_volume_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k3, k2 = trace_vol.march_paths_vol.launches, denoise.launch_pass.launches
+    counts = _launch_counts()
+    k3, k2 = counts["K3"], counts["K2"]
     rebuilt = build_vol_tables(pipe.streamer.volume)
     tables = pipe.vol_tables()
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        k3_launches=k3, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        k3_launches=k3, k2_launches=k2, g1_launches=counts["G1"],
+        o1_launches=counts["O1"], lr=list(pipe.uniforms.lr),
         slabs_drained=sum(len(log) for log in drained if log),
         full_rebuilds=sum(log is None for log in drained),
         tables_equal_rebuild={k: bool(torch.equal(tables[k], rebuilt[k])) for k in rebuilt},
@@ -391,6 +398,8 @@ def phase_volume_main(rt, torch):
     ok = (res["all_finite"] and res["exhausted_px"] == 0 and k3 >= FRAMES
           and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3)
           and res["slabs_drained"] >= 1 and res["full_rebuilds"] == 0
+          and res["g1_launches"] == res["slabs_drained"]
+          and res["o1_launches"] == res["slabs_drained"]
           and all(res["tables_equal_rebuild"].values()))
     return ok, res, pipe
 
@@ -702,6 +711,138 @@ def phase_hf_tables_kernel(rt, torch, dev):
     # region and one height per column.
     res.update(_bound(16 * 4 + 6 * 4096 + 8 + 2 * 256 * 256,
                       OPS_PER_LATTICE * 33 * 33 + OPS_PER_HEIGHT * 256 * 256))
+    return ok, res
+
+
+def _max_word_diff(torch, a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def phase_worldgen_kernel(rt, torch, dev):
+    """G1 (``csrc/worldgen.cu``) against its plain version and against the
+    old enclosure-and-roll path (``testing/enclosure.py``), word for word,
+    on every ``STREAM_CASES`` entry: slabs on each axis in both directions,
+    off-axis texel ranges that wrap (ns 15), offsets near +-2^20, a
+    teleport's region and the initial region, each written into a copy of
+    the generated world volume.  Then G1 alone (torch.profiler, 20 calls),
+    its wrapper's call synced, the plain version and the old path (CUDA
+    events), for a slab and for a region, with G1's bound."""
+    from raytrace_tpu_torch.ops.worldgen import generate_into, generate_into_plain
+    from raytrace_tpu_torch.testing import enclosure
+    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+
+    base = _generated_volume(dev)
+    res, ok = dict(cases=[], max_abs_err=0), True
+    for label, origin, ns, axis, seed in enclosure.STREAM_CASES:
+        w0, shape = enclosure.stream_box(origin, ns, axis)
+        got = generate_into(base.clone(), w0, shape, seed)
+        plain = generate_into_plain(base.clone(), w0, shape, seed)
+        old = enclosure.stream_old(base.clone(), origin, ns, axis, seed)
+        case = dict(label=label, w0=list(w0), shape=list(shape), seed=seed,
+                    equal_plain=bool(torch.equal(got, plain)),
+                    equal_old=bool(torch.equal(got, old)),
+                    mismatched_plain=int((got != plain).sum()),
+                    mismatched_old=int((got != old).sum()))
+        res["cases"].append(case)
+        res["max_abs_err"] = max(res["max_abs_err"], _max_word_diff(torch, got, plain),
+                                 _max_word_diff(torch, got, old))
+        ok = ok and case["equal_plain"] and case["equal_old"]
+    torch.cuda.synchronize()
+    for kind, (label, origin, ns, axis, seed) in (("slab", enclosure.STREAM_CASES[2]),
+                                                 ("region", enclosure.STREAM_CASES[-2])):
+        w0, shape = enclosure.stream_box(origin, ns, axis)
+        volume = base.clone()
+        g1 = lambda: generate_into(volume, w0, shape, seed)
+        alone = _alone(g1, 20, "worldgen_kernel")
+        # Each word written once; the lattice points and heights of the
+        # box's 32-aligned column cover (the per-voxel work is integer).
+        cover = [((w + s + 31) & -32) - (w & -32) for w, s in zip(w0[:2], shape[:2])]
+        res[kind] = dict(label=label, kernel_ms=alone["kernel_ms"], kept=alone["kept"],
+                         call_synced_ms=[synced_ms(g1) for _ in range(3)],
+                         plain_ms=call_ms(lambda: generate_into_plain(volume, w0, shape, seed), 3),
+                         old_path_ms=call_ms(lambda: enclosure.stream_old(
+                             volume, origin, ns, axis, seed), 3),
+                         **_bound(4 * shape[0] * shape[1] * shape[2],
+                                  OPS_PER_LATTICE * (cover[0] // 8 + 1) * (cover[1] // 8 + 1)
+                                  + OPS_PER_HEIGHT * cover[0] * cover[1]))
+    res.update(kernel_ms=res["slab"]["kernel_ms"], kept=res["slab"]["kept"],
+               plain_ms=res["slab"]["plain_ms"], bound_ms=res["slab"]["bound_ms"],
+               bound_by=res["slab"]["bound_by"])
+    return ok, res
+
+
+def phase_vol_tables_kernel(rt, torch, dev):
+    """O1 (``csrc/vol_tables.cu``) against its plain versions on the weird
+    scene and the generated world: the full build on each key, and at every
+    array axis and texel start 0 and 240 a slab of the other scene written
+    in, updated functionally and in place (``out=``), against the plain
+    update and the plain rebuild.  Then O1 alone (its two launches, the
+    bricks and the pyramid, each in torch.profiler, 20 calls), its call
+    synced and the plain version, for a slab update and a full build, with
+    the bounds."""
+    from raytrace_tpu_torch.ops import vol_tables as vt
+    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+
+    scenes = {k: v[0] for k, v in _volumes(torch, dev).items()}
+    res, ok = dict(builds={}, updates=[], max_abs_err=0), True
+
+    def compare(got, want):
+        nonlocal ok
+        eq = {k: bool(torch.equal(got[k], want[k])) for k in vt.LAYOUT}
+        res["max_abs_err"] = max(res["max_abs_err"], *(
+            _max_word_diff(torch, got[k], want[k]) for k in vt.LAYOUT))
+        ok = ok and all(eq.values())
+        return all(eq.values()), [k for k, e in eq.items() if not e]
+
+    for name, volume in scenes.items():
+        res["builds"][name] = compare(vt.build_vol_tables(volume),
+                                      vt.build_vol_tables_plain(volume))
+    names = list(scenes)
+    for k, name in enumerate(names):
+        base, other = scenes[name], scenes[names[1 - k]]
+        before = vt.build_vol_tables(base)
+        for arr_axis in (0, 1, 2):
+            for t in (0, 240):
+                new = base.clone()
+                new.view(256, 256, 256).narrow(arr_axis, t, 16).copy_(
+                    other.view(256, 256, 256).narrow(arr_axis, t, 16))
+                want = vt.update_vol_tables_plain(before, new, t, arr_axis)
+                functional = vt.update_vol_tables(before, new, t, arr_axis)
+                in_place = {key: v.clone() for key, v in before.items()}
+                vt.update_vol_tables(in_place, new, t, arr_axis, out=in_place)
+                res["updates"].append(dict(
+                    scene=name, arr_axis=arr_axis, t=t,
+                    functional=compare(functional, want), in_place=compare(in_place, want),
+                    rebuild=compare(in_place, vt.build_vol_tables_plain(new))))
+        unchanged = compare(before, vt.build_vol_tables_plain(base))
+        res["builds"][f"{name}_unchanged_by_update"] = unchanged
+    torch.cuda.synchronize()
+    volume = scenes["world"]
+    tables = vt.build_vol_tables(volume)
+    update = lambda: vt.update_vol_tables(tables, volume, 240, 2, out=tables)
+    build = lambda: vt.build_vol_tables(volume, out=tables)
+    detail_bytes = 4 * vt.DETAIL_WORDS
+    packed_bytes = 4 * (8 * 128 * 2 + 2 * 128)  # any8, all8, any_hi
+    for kind, fn, bricks in (("update", update, 2 * vt.NB * vt.NB),
+                             ("build", build, vt.NUM_BRICKS)):
+        bricks_alone = _alone(fn, 20, "vol_bricks_kernel")
+        pyramid_alone = _alone(fn, 20, "vol_pyramid_kernel")
+        # The slab's or the volume's words read once; the bricks' detail
+        # rows and flags and the packed pyramid written once (the other
+        # bricks' flags read once by the pyramid).
+        res[kind] = dict(kernel_ms=bricks_alone["kernel_ms"] + pyramid_alone["kernel_ms"],
+                         bricks_ms=bricks_alone["kernel_ms"], bricks_kept=bricks_alone["kept"],
+                         pyramid_ms=pyramid_alone["kernel_ms"],
+                         pyramid_kept=pyramid_alone["kept"],
+                         call_synced_ms=[synced_ms(fn) for _ in range(3)],
+                         plain_ms=call_ms(lambda: vt.build_vol_tables_plain(volume) if kind ==
+                                          "build" else vt.update_vol_tables_plain(
+                                              tables, volume, 240, 2), 3),
+                         **_bound(4 * 512 * bricks + bricks * (detail_bytes + 2)
+                                  + 2 * (vt.NUM_BRICKS - bricks) + packed_bytes, 0))
+    res.update(kernel_ms=res["update"]["kernel_ms"], kept=res["update"]["bricks_kept"],
+               plain_ms=res["update"]["plain_ms"], bound_ms=res["update"]["bound_ms"],
+               bound_by=res["update"]["bound_by"])
     return ok, res
 
 
@@ -1073,7 +1214,8 @@ GRAPH_KERNELS = {"fused": {"T1": 1, "K1": 1, "K2": 6}, "hf": {"K4": 3, "K2": 6},
 # Each kernel's name in a profiler trace.
 KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
                 "K2": "denoise_pass_kernel",
-                "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel"}
+                "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
+                "G1": "worldgen_kernel", "O1": "vol_bricks_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
 PROFILED_REPLAYS = 3  # steady replays in graph_frames' profiler trace
 
@@ -1133,26 +1275,47 @@ def phase_graph_frames(rt, torch, tracer):
     steps += [("teleport", far), ("frame", far), ("frame", far)]
     _zero_counts()
     launched, res = {}, dict(tracer=tracer, frames=0, frame_equal=[], gbuffers_equal=[],
-                             exhausted_px=0, crossings=0, slabs=0, events=[])
+                             exhausted_px=0, crossings=0, slabs=0, teleports=0, events=[])
+    # The graphed pipeline's slabs (G1 each) and table drains (O1: a
+    # rebuild, or one update a slab), counted by the streamer's own calls.
+    streamed, drains = [], []
+    setup, drain = pipe.streamer.setup_next_request, pipe.streamer.drain_slab_log
+
+    def counted_setup():
+        streamed.append(setup())
+        return streamed[-1]
+
+    def counted_drain():
+        drains.append(drain())
+        return drains[-1]
+
+    pipe.streamer.setup_next_request = counted_setup
+    pipe.streamer.drain_slab_log = counted_drain
     held, region, regions = None, None, 0
     for t, (event, origin) in enumerate(steps):
         cam.origin = list(origin)
         res["events"].append(event)
+        # The graphed pipeline's world event and frame, counted; then the
+        # twin's, outside the count.
+        before = _launch_counts()
         if event == "edit":
             x, y, z = (int(v) for v in cam.origin)
             depth_before = pipe.gbuffers["depth"].to(torch.int32)
-            for p in (pipe, twin):  # a snow wall 24 voxels ahead, as volume_edit
-                p.edit_box((x, y + 24, z - 40), (40, 4, 60), 6)
+            edit = ((x, y + 24, z - 40), (40, 4, 60), 6)  # a snow wall, as volume_edit
+            pipe.edit_box(*edit)
         if event == "teleport":
-            for p in (pipe, twin):
-                p.teleport(cam)
+            pipe.teleport(cam)
+            res["teleports"] += 1
         lr = pipe.streamer.get_render_offset()
-        before = _launch_counts()
         frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
         for k, n in _launches_since(before).items():
             launched[k] = launched.get(k, 0) + n
         regions += pipe.uniforms.lr != region
         region = pipe.uniforms.lr
+        if event == "edit":
+            twin.edit_box(*edit)
+        if event == "teleport":
+            twin.teleport(cam)
         want = eager_frame(twin, cam, CANON["sun"] + 0.01 * t)
         res["frames"] += 1
         res["crossings"] += event == "fly" and pipe.streamer.get_render_offset() != lr
@@ -1166,12 +1329,17 @@ def phase_graph_frames(rt, torch, tracer):
             held, held_copy = frame, frame.clone()
         if t == 4:
             res["held_frame_unchanged"] = same(held, held_copy)
-    if tracer == "volume_fast":
-        res["slabs"] = res["crossings"]  # each crossing streams one slab in
+    pipe.streamer.setup_next_request, pipe.streamer.drain_slab_log = setup, drain
     res["launches"] = launched
     res["launches_want"] = {k: n * res["frames"] for k, n in GRAPH_KERNELS[tracer].items()}
     if tracer == "hf":
         res["launches_want"]["T1"] = regions
+    if tracer == "volume_fast":
+        # G1 once a slab and once a teleport's region; O1 once a drain that
+        # rebuilds (an edit, a teleport) and once a slab it updates.
+        res["slabs"] = sum(streamed)
+        res["launches_want"]["G1"] = res["slabs"] + res["teleports"]
+        res["launches_want"]["O1"] = sum(1 if log is None else len(log) for log in drains)
     # The profiler can drop the first few records of a trace in a long
     # process (T1, the replay's first kernel, went missing so), so the
     # trace takes PROFILED_REPLAYS replays: each kernel must show at least
@@ -1216,13 +1384,18 @@ def phase_graph_frames(rt, torch, tracer):
     # table), or the slab's generation and the occupancy tables' update.
     reps = range(3)
     if tracer == "volume_fast":
-        def slab():  # one slice move along +x
+        def slab():  # one slice move along +x: G1
             pipe.streamer.request_increase(0)
             pipe.streamer.setup_next_request()
         ms["parts"] = dict(slab=[], vol_tables_update=[])
         for _ in reps:
             ms["parts"]["slab"].append(synced_ms(slab))
-            ms["parts"]["vol_tables_update"].append(synced_ms(pipe.vol_tables))
+            ms["parts"]["vol_tables_update"].append(synced_ms(pipe.vol_tables))  # O1
+        # G1 and O1 alone on the same path (each call streams one slab).
+        ms["parts"]["g1_alone"] = _alone(slab, 10, KERNEL_NAMES["G1"])
+        pipe.vol_tables()
+        ms["parts"]["o1_bricks_alone"] = _alone(lambda: (slab(), pipe.vol_tables()), 10,
+                                                KERNEL_NAMES["O1"])
     else:
         # T1 through its wrapper as Pipeline.tables() calls it (a host lr
         # uploaded from pinned memory, one launch; with the column table
@@ -1262,12 +1435,15 @@ def _scratch_dir(name: str) -> Path:
 
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
-    from raytrace_tpu_torch.ops import denoise, hf_tables, lighting, trace_hf, trace_vol
+    from raytrace_tpu_torch.ops import (
+        denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen)
 
     return dict(T1=hf_tables.build_hf_tables.launches, K1=lighting.march_paths.launches,
                 K2=denoise.launch_pass.launches,
                 K3=trace_vol.march_paths_vol.launches,
-                K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches)
+                K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches,
+                G1=worldgen.generate_into.launches,
+                O1=vol_tables.build_vol_tables.launches + vol_tables.update_vol_tables.launches)
 
 
 def _launches_since(before: dict) -> dict:
@@ -1452,7 +1628,7 @@ def phase_app_shapes(rt, torch, dev, blue):
 
 # The kernels each benchmark config must launch (its frames: one warm frame
 # and the timed ones; config 3 twice 64 frames, config 4 one a view).
-CONFIG_KERNELS = {"1": {"K3": 21}, "2": {"T1": 1, "K1": 21, "K2": 126},
+CONFIG_KERNELS = {"1": {"O1": 1, "K3": 21}, "2": {"T1": 1, "K1": 21, "K2": 126},
                   "3": {"T1": 128, "K1": 128, "K2": 768},
                   "4": {"T1": 30, "K1": 30, "K2": 180}}
 
@@ -1809,7 +1985,7 @@ def phase_config5(rt, torch, dev, blue):
         rec["launches"] = _counts()
         main = "K1" if tracer == "fused" else "K3"
         frames = 2 + benchmark.CONFIG5_FRAMES  # the whole frame, the warm one, the timed
-        want = {main: frames, "K2": 6 * frames, **({"T1": 1} if tracer == "fused" else {})}
+        want = {main: frames, "K2": 6 * frames, **({"T1": 1} if tracer == "fused" else {"O1": 1})}
         out[f"run_{tracer}"] = (rec["exhausted_px"] == 0 and rec["devices"] == 1
                                 and rec["parity"] and rec["launches"] == want, rec)
     return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
@@ -1861,15 +2037,18 @@ def main() -> int:
     _build.kernels()
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
-    # The kernels keep their state in registers: no spills, and K1, K3 and
-    # K3s no stack.
+    # The kernels keep their state in registers: no spills (K2, K4, G1, O1),
+    # and K1, K3 and K3s no stack.
     frame = lambda k: [int(v) for v in re.findall(r"\d+", ptxas[k]["frame"] or "-")]
     k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
                                and frame("trace_hf_kernel")[1:] == [0, 0]
                                and frame("trace_rays_vol_kernel") == [0, 0, 0]
-                               and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2))
+                               and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2)
+                               and all(frame(k)[1:] == [0, 0] for k in (
+                                   "worldgen_kernel", "vol_bricks_kernel",
+                                   "vol_pyramid_kernel")))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
                                cached=build["cached"], ptxas=ptxas, sass=sass))
@@ -1879,6 +2058,10 @@ def main() -> int:
 
     ok, t1_res = phase_hf_tables_kernel(rt, torch, dev)
     report("hf_tables_kernel", ok, t1_res)
+    ok, g1_res = phase_worldgen_kernel(rt, torch, dev)
+    report("worldgen_kernel", ok, g1_res)
+    ok, o1_res = phase_vol_tables_kernel(rt, torch, dev)
+    report("vol_tables_kernel", ok, o1_res)
     blue = _blue_noise(torch, dev)
     canon = torch.from_numpy(_canonical_uniforms(rt).packed()).to(dev)
     canon_tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=True)
@@ -2106,6 +2289,20 @@ def main() -> int:
              launches_per_frame=main_res["t1_launches"] / main_res["frames"],
              **bound(t1_res), call_ms=t1_res["ms"],
              app_shapes=dict(launches=bench_launches("T1"))),
+        dict(name="G1 worldgen (a streamed slab or region, in place)", route="cuda",
+             source="raytrace_tpu_torch/csrc/worldgen.cu",
+             replaces="raytrace_tpu/render/streaming.py:79",
+             launches=vol_res["g1_launches"], max_abs_err=g1_res["max_abs_err"],
+             ms=g1_res["kernel_ms"], kept=g1_res["kept"], plain_ms=g1_res["plain_ms"],
+             **bound(g1_res), call_synced_ms=g1_res["slab"]["call_synced_ms"],
+             old_path_ms=g1_res["slab"]["old_path_ms"], region=g1_res["region"]),
+        dict(name="O1 vol_tables (occupancy tables, built or updated in place)",
+             route="cuda", source="raytrace_tpu_torch/csrc/vol_tables.cu",
+             replaces="raytrace_tpu/ops/trace_vol_pallas.py:163",
+             launches=vol_res["o1_launches"], max_abs_err=o1_res["max_abs_err"],
+             ms=o1_res["kernel_ms"], kept=o1_res["kept"], plain_ms=o1_res["plain_ms"],
+             **bound(o1_res), call_synced_ms=o1_res["update"]["call_synced_ms"],
+             build=o1_res["build"]),
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",

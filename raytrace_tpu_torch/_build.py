@@ -11,8 +11,8 @@ build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
 plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
-with their plain versions step for step, T1's table words are the plain
-build's, and K2's sums round as the plain pass's.
+with their plain versions step for step, T1's table words and G1's voxel
+words are the plain versions', and K2's sums round as the plain pass's.
 """
 
 from __future__ import annotations
@@ -55,6 +55,11 @@ _SIGNATURES = {
     "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P] * 3,
     # packed, lr, seed, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
     "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 9,
+    # volume, x0, y0, z0, sx, sy, sz, seed, grass, rock, snow, stream
+    "rt_worldgen": [_P] + [_I] * 10 + [_P],
+    # volume, detail, any8b, all8b, any8, all8, any_hi, bz0, nbz, by0, nby,
+    # bx0, nbx, stream
+    "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None

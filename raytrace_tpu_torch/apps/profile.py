@@ -16,13 +16,16 @@ For the tracers that ``draw_frame`` renders through a CUDA graph ("fused",
 "hf", "volume_fast") it measures two paths on the same pipeline, in turns
 (graphed, eager, eager, graphed): ``graphed``, ``draw_frame`` itself, and
 ``eager``, the same frame through ``render_frame`` op by op
-(``eager_frame``).  Each printed key then carries its path's prefix.  On
-the heightfield tracers ("fused", "hf") it then times, in the same turns,
-CROSSINGS frames that each cross a slice, each alone and synced
-(``crossing_ms``), and the crossing's region tables through
-``build_hf_tables`` as ``Pipeline.tables()`` builds them (``tables.call_ms``,
-synced; on the card one T1 launch) and T1 alone (``tables.t1_kernel_ms``,
-``torch.profiler``).
+(``eager_frame``).  Each printed key then carries its path's prefix.  It
+then times, in the same turns, CROSSINGS frames that each cross a slice
+(on "volume_fast" each streams a slab: G1 and O1), each alone and synced
+(``crossing_ms``), and TELEPORTS teleports, each ``Pipeline.teleport``
+alone and synced (``teleport_ms``; on "volume_fast" G1 regenerates the
+region in place) and the frame after it (``after_teleport_ms``).  On the
+heightfield tracers ("fused", "hf") it times the crossing's region tables
+through ``build_hf_tables`` as ``Pipeline.tables()`` builds them
+(``tables.call_ms``, synced; on the card one T1 launch) and T1 alone
+(``tables.t1_kernel_ms``, ``torch.profiler``).
 
 ``--tracer volume_staged`` profiles the staged volume frame instead:
 ``render_gbuffers_vol`` (K3s leg by leg) and the denoise chain on the
@@ -50,7 +53,9 @@ from ..render.pipeline import GRAPHED, TRACERS, Pipeline, render_frame, unpack_u
 from ..testing.measure import kernel_ms, synced_ms
 
 PROFILED_FRAMES = 10
-CROSSINGS = 5  # slice-crossing frames timed alone per turn (fused, hf)
+CROSSINGS = 5  # slice-crossing frames timed alone per turn
+TELEPORTS = 3  # teleports (and the frames after them) timed alone per turn
+TELEPORT_DZ = -300.0  # z step of each timed teleport
 TOP = 12  # device activities listed
 STAGED = "volume_staged"  # the staged volume frame on the volume_fast pipeline
 
@@ -114,10 +119,12 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
         acc["synced"] += got.pop("synced")
         acc["train"] += got.pop("train")
         acc.update(got)
-    if tracer in ("fused", "hf"):
+    if tracer in GRAPHED:
         for name in order:
             res[name].setdefault("crossing_ms", []).extend(
                 _crossings(paths[name], pipe, cam, CROSSINGS))
+            for key, ms in _teleports(paths[name], pipe, cam, TELEPORTS).items():
+                res[name].setdefault(key, []).extend(ms)
     for name, got in res.items():
         _report(name, got, tracer, width, height, pipe.bounces)
     if tracer in ("fused", "hf"):
@@ -137,6 +144,17 @@ def _crossings(draw, pipe: Pipeline, cam: Camera, n: int) -> list:
         out.append(synced_ms(lambda: draw(cam, 0.6)))
         if pipe.streamer.get_render_offset() == lr:
             raise RuntimeError("profile: a crossing frame moved no slice")
+    return out
+
+
+def _teleports(draw, pipe: Pipeline, cam: Camera, n: int) -> dict:
+    """Host ms of ``n`` teleports (``Pipeline.teleport``) and of the frame
+    after each, each alone and synced."""
+    out = dict(teleport_ms=[], after_teleport_ms=[])
+    for _ in range(n):
+        cam.origin[2] += TELEPORT_DZ
+        out["teleport_ms"].append(synced_ms(lambda: pipe.teleport(cam)))
+        out["after_teleport_ms"].append(synced_ms(lambda: draw(cam, 0.6)))
     return out
 
 
@@ -196,8 +214,9 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
     and its top device activities; put the summary into ``got``."""
     synced, per_name = got.pop("synced"), got.pop("per_name")
     trains = got.pop("train")
-    if "crossing_ms" in got:
-        got["crossing_ms_median"] = statistics.median(got["crossing_ms"])
+    for key in ("crossing_ms", "teleport_ms", "after_teleport_ms"):
+        if key in got:
+            got[f"{key}_median"] = statistics.median(got[key])
     train_ms = statistics.median(t for t, _ in trains)
     device_ms = sum(ms for ms, _ in per_name.values()) / PROFILED_FRAMES
     launches = sum(n for _, n in per_name.values()) / PROFILED_FRAMES

@@ -1,9 +1,10 @@
 // Heightfield device code shared by kernel K1 (lighting.cu), kernel K4
-// (trace_hf.cu) and the region-table build T1 (hf_tables.cu): the world
-// math that gives a lattice point's quantized fields (T1) and a column's
-// exact height (T1, K4; K1 reads the region's column table) and a voxel's
-// material band, the region-table classification of a position, and the
-// distance to the next step-aligned boundary.  The plain PyTorch
+// (trace_hf.cu), the region-table build T1 (hf_tables.cu) and the world
+// generator G1 (worldgen.cu): the world math that gives a lattice point's
+// quantized fields and a column's exact height (T1 and G1 through the tile
+// stage `tile_column_height`; K4 per step; K1 reads the region's column
+// table) and a voxel's material band, the region-table classification of a
+// position, and the distance to the next step-aligned boundary.  The plain PyTorch
 // counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
 // world/heightmap.py (lattice_fields_q), world/generate.py (material_band)
 // and the marches of ops/lighting.py and ops/trace_hf.py; all are built
@@ -151,6 +152,47 @@ __device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
   float n = eroded >= 0.0f ? powf(fabsf(eroded) / 1.5f, 2.6f) : 0.0f;
   float h = n * 120.0f + 10.0f;
   return (int32_t)floorf(h);
+}
+
+// The tile stage of T1 and G1: a block of kTileThreads threads, one per
+// column of the 32 x 32-column tile whose first column is (x0, y0), x0 and
+// y0 multiples of 8.  125 threads take the tile's 5 x 5 lattice points
+// (every 8 columns, the tile's edges included) times the five noise
+// samples of `lattice_fields_q`, so a point's samples run side by side; 25
+// threads quantize each point into its word r16 | e16 << 16 (`lat`).  Each
+// thread then blends its column's height, column (x0 + t % 32, y0 + t / 32)
+// for thread t, from its 8-block's four corner words
+// (`height_from_corners`), which is what world/heightmap.py heightmap_grid
+// computes for that column.  Every thread of the block must call it.
+constexpr int kTile = 32;                    // columns per tile side
+constexpr int kTileLat = kTile / 8 + 1;      // lattice points per tile side
+constexpr int kTileThreads = kTile * kTile;  // one per column
+constexpr int kLatticeSamples = 5;           // noise samples per lattice point
+
+struct TileStage {
+  float samples[kTileLat * kTileLat][kLatticeSamples];
+  int32_t lat[kTileLat][kTileLat];
+};
+
+__device__ int32_t tile_column_height(TileStage& s, int32_t x0, int32_t y0,
+                                      int32_t seed) {
+  const int t = threadIdx.x;
+  if (t < kTileLat * kTileLat * kLatticeSamples) {
+    int p = t / kLatticeSamples, k = t % kLatticeSamples;
+    int32_t wx = x0 + 8 * (p % kTileLat);
+    int32_t wy = y0 + 8 * (p / kTileLat);
+    s.samples[p][k] =
+        lattice_sample(k, (float)wx / 600.0f, (float)wy / 600.0f, seed);
+  }
+  __syncthreads();
+  if (t < kTileLat * kTileLat)
+    s.lat[t / kTileLat][t % kTileLat] = lattice_word(s.samples[t]);
+  __syncthreads();
+  const int cx = t % kTile, cy = t / kTile;
+  const int lx = cx >> 3, ly = cy >> 3;
+  return height_from_corners(s.lat[ly][lx], s.lat[ly][lx + 1],
+                             s.lat[ly + 1][lx], s.lat[ly + 1][lx + 1],
+                             x0 + cx, y0 + cy, seed);
 }
 
 // world/generate.py material_band of the voxel's hash: material id 2

@@ -13,11 +13,9 @@
 //
 // One block per 32 x 32-column tile of the 256 x 256-column region (64
 // blocks, the tiles of the 32-block pyramid level), one thread per column:
-//   1. 125 threads take the 25 lattice points of the tile (5 x 5, every
-//      8 columns, the tile's edges included) times the five noise samples
-//      of `lattice_fields_q` (the five-octave field and the four two-octave
-//      slope samples), so a point's samples run side by side; 25 threads
-//      then quantize each point into its word r16 | e16 << 16.
+//   1. The tile stage that T1 shares with G1 (heightfield.cuh
+//      `tile_column_height`): the tile's 5 x 5 lattice words, five noise
+//      samples of a point side by side.
 //   2. Each thread blends its column's height from its block's four
 //      corner words (`height_from_corners`) and writes `hcol` (when it is
 //      asked for); max(h, 0) + 1 goes to shared memory.
@@ -46,11 +44,8 @@
 
 namespace {
 
-constexpr int kTile = 32;                 // columns per tile side
 constexpr int kTilesPerSide = kRegion / kTile;  // 8
-constexpr int kLat = kTile / 8 + 1;       // lattice points per tile side
-constexpr int kSamples = 5;               // noise samples per lattice point
-constexpr int kThreads = kTile * kTile;   // one per column
+constexpr int kThreads = kTileThreads;          // one per column
 
 __global__ void __launch_bounds__(kThreads)
     hf_tables_kernel(const float* __restrict__ packed,
@@ -59,8 +54,7 @@ __global__ void __launch_bounds__(kThreads)
                      int32_t* __restrict__ ca, int32_t* __restrict__ cb,
                      int32_t* __restrict__ cc, int32_t* __restrict__ cd,
                      int32_t* __restrict__ r0, int16_t* __restrict__ hcol) {
-  __shared__ float samples[kLat * kLat][kSamples];
-  __shared__ int32_t lat[kLat][kLat];
+  __shared__ TileStage stage;
   __shared__ int32_t hs[kTile][kTile];
   __shared__ int32_t h2s[kTile / 4][kTile / 4];
   __shared__ int32_t h3s[kTile / 8][kTile / 8];
@@ -76,23 +70,11 @@ __global__ void __launch_bounds__(kThreads)
     r0[1] = r0y;
   }
 
-  // 1. The tile's lattice words.
-  if (t < kLat * kLat * kSamples) {
-    int p = t / kSamples, k = t % kSamples;
-    int32_t wx = r0x + 8 * (tile_x * (kTile / 8) + p % kLat);
-    int32_t wy = r0y + 8 * (tile_y * (kTile / 8) + p / kLat);
-    samples[p][k] = lattice_sample(k, (float)wx / 600.0f, (float)wy / 600.0f, seed);
-  }
-  __syncthreads();
-  if (t < kLat * kLat) lat[t / kLat][t % kLat] = lattice_word(samples[t]);
-  __syncthreads();
-
-  // 2. The thread's column.
+  // 1-2. The tile's lattice words, then the thread's column.
   const int cx = t % kTile, cy = t / kTile;
   const int rx = tile_x * kTile + cx, ry = tile_y * kTile + cy;
-  const int lx = cx >> 3, ly = cy >> 3;
-  int32_t h = height_from_corners(lat[ly][lx], lat[ly][lx + 1], lat[ly + 1][lx],
-                                  lat[ly + 1][lx + 1], rx + r0x, ry + r0y, seed);
+  int32_t h = tile_column_height(stage, r0x + tile_x * kTile,
+                                 r0y + tile_y * kTile, seed);
   h = max(h, 0);
   if (hcol != nullptr) hcol[ry * kRegion + rx] = (int16_t)h;
   hs[cy][cx] = h + 1;
@@ -130,10 +112,10 @@ __global__ void __launch_bounds__(kThreads)
     int w = (tile_y * nb + by) * (kRegion / 8) + tile_x * nb + bx;
     h3[w] = h8 | (h16 << 9) | (h32 << 18);
     hsub[w] = (int32_t)sub;
-    ca[w] = lat[by][bx];
-    cb[w] = lat[by][bx + 1];
-    cc[w] = lat[by + 1][bx];
-    cd[w] = lat[by + 1][bx + 1];
+    ca[w] = stage.lat[by][bx];
+    cb[w] = stage.lat[by][bx + 1];
+    cc[w] = stage.lat[by + 1][bx];
+    cd[w] = stage.lat[by + 1][bx + 1];
   }
 }
 

@@ -2,8 +2,12 @@
 
 Port of ``raytrace_tpu/ops/trace_vol_pallas.py:86-246``: ``_pack_bits32``,
 ``_pack_pyramid``, ``_brick_major``, ``_detail_rows``, ``build_vol_tables``,
-``update_vol_tables`` and ``_occupancy_world_bounds``.  Plain PyTorch, as
-the JAX versions are plain XLA.  Solidity is minefield step == 0.
+``update_vol_tables`` and ``_occupancy_world_bounds``.  ``build_vol_tables``
+and ``update_vol_tables`` run kernel O1 (``csrc/vol_tables.cu``) on a CUDA
+volume, in place into given buffers (``out=``), and their plain versions
+(``build_vol_tables_plain``, ``update_vol_tables_plain``, plain PyTorch as
+the JAX versions are plain XLA) on a CPU volume.  Solidity is minefield
+step == 0.
 
 Keys and shapes are the JAX package's:
   ``any8``/``all8`` (8, 128) int32: bit ``b & 31`` of word ``b >> 5`` is the
@@ -29,6 +33,12 @@ NB = _N // 8  # bricks per side
 NUM_BRICKS = NB ** 3
 DETAIL_WORDS = 512 // 32
 TABLE_KEYS = ("any8", "all8", "any_hi", "detail", "any8b", "all8b")
+# Each table's dtype and shape.
+LAYOUT = {
+    "any8": (torch.int32, (8, 128)), "all8": (torch.int32, (8, 128)),
+    "any_hi": (torch.int32, (2, 128)), "detail": (torch.int32, (NUM_BRICKS, DETAIL_WORDS)),
+    "any8b": (torch.bool, (NB, NB, NB)), "all8b": (torch.bool, (NB, NB, NB)),
+}
 
 
 def pack_bits32(bits_flat: torch.Tensor) -> torch.Tensor:
@@ -83,9 +93,95 @@ def _solid(words: torch.Tensor) -> torch.Tensor:
     return (words >> STEP_SHIFT) == 0
 
 
-def build_vol_tables(fused_flat: torch.Tensor) -> dict:
+def empty_vol_tables(device) -> dict:
+    """Uninitialized table buffers on ``device``, for ``out=``."""
+    return {k: torch.empty(shape, dtype=dtype, device=device)
+            for k, (dtype, shape) in LAYOUT.items()}
+
+
+def build_vol_tables(fused_flat: torch.Tensor, out: dict | None = None) -> dict:
     """The occupancy pyramid of a fused (256^3,) int32 volume (see the
-    module docstring for the keys)."""
+    module docstring for the keys), in the buffers ``out`` when given
+    (``empty_vol_tables``), else in new ones.
+
+    A CUDA volume gets kernel O1 over every brick (one call, two launches
+    on the current stream; ``build_vol_tables.launches`` counts the
+    calls), a CPU volume the plain version.  Any other device raises.
+    """
+    if fused_flat.device.type == "cpu":
+        return _into(out, build_vol_tables_plain(fused_flat))
+    tables = empty_vol_tables(fused_flat.device) if out is None else out
+    _launch(build_vol_tables, fused_flat, tables, [(0, NB)] * 3)
+    return tables
+
+
+build_vol_tables.launches = 0
+
+
+def update_vol_tables(tables: dict, fused_flat: torch.Tensor, t: int, arr_axis: int,
+                      out: dict | None = None) -> dict:
+    """The tables after one streamed slab write: ``SLICE_SIZE`` texels from
+    ``t`` (a multiple of 8) along array axis ``arr_axis`` of the (z, y, x)
+    volume.  Only the two brick planes the slab covers are recomputed; the
+    result equals ``build_vol_tables`` of the new volume.  Without ``out``
+    ``tables`` is left unchanged and the result is new; with it the result
+    lands in ``out``, which may be ``tables`` itself (in place).
+
+    A CUDA volume gets kernel O1 over the slab's bricks (counted on
+    ``update_vol_tables.launches``), a CPU volume the plain version.
+    """
+    t, arr_axis = int(t), int(arr_axis)
+    if arr_axis not in (0, 1, 2) or t % 8 or not 0 <= t <= _N - SLICE_SIZE:
+        raise ValueError(f"update_vol_tables: no slab at texel {t} on array axis {arr_axis}")
+    if fused_flat.device.type == "cpu":
+        return _into(out, update_vol_tables_plain(tables, fused_flat, t, arr_axis))
+    if out is None:
+        out = {k: tables[k].clone() for k in LAYOUT}
+    else:
+        for k in LAYOUT:
+            if out[k].data_ptr() != tables[k].data_ptr():
+                out[k].copy_(tables[k])
+    box = [(0, NB)] * 3
+    box[arr_axis] = (t >> 3, SLICE_SIZE // 8)
+    _launch(update_vol_tables, fused_flat, out, box)
+    return out
+
+
+update_vol_tables.launches = 0
+
+
+def _into(out: dict | None, tables: dict) -> dict:
+    """``tables``, or ``out`` with ``tables`` copied into it."""
+    if out is None:
+        return tables
+    for k in LAYOUT:
+        out[k].copy_(tables[k])
+    return out
+
+
+def _launch(wrapper, fused_flat: torch.Tensor, tables: dict, box) -> None:
+    """O1 on the brick box ``box`` ((first, count) per array axis z, y, x)
+    of ``fused_flat`` into ``tables``, on the current stream."""
+    dev = fused_flat.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"vol_tables: no kernel for device {dev}")
+    from .._build import check_launch, check_tensor, kernels
+
+    check_tensor("vol_tables volume", fused_flat, torch.int32, (_N ** 3,), dev)
+    for k, (dtype, shape) in LAYOUT.items():
+        check_tensor(f"vol_tables out[{k!r}]", tables[k], dtype, shape, dev)
+    err = kernels().rt_vol_tables(
+        fused_flat.data_ptr(), *(tables[k].data_ptr() for k in (
+            "detail", "any8b", "all8b", "any8", "all8", "any_hi")),
+        *(v for first_count in box for v in first_count),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch("rt_vol_tables", err)
+    wrapper.launches += 1
+
+
+def build_vol_tables_plain(fused_flat: torch.Tensor) -> dict:
+    """O1's plain version of a full build."""
     solid = _solid(fused_flat.reshape(_N, _N, _N))
     bricks = solid.reshape(NB, 8, NB, 8, NB, 8)
     any8b = _any(bricks, (1, 3, 5))
@@ -95,13 +191,9 @@ def build_vol_tables(fused_flat: torch.Tensor) -> dict:
             "detail": detail_rows(solid), "any8b": any8b, "all8b": all8b}
 
 
-def update_vol_tables(tables: dict, fused_flat: torch.Tensor, t: int,
-                      arr_axis: int) -> dict:
-    """The tables after one streamed slab write: ``SLICE_SIZE`` texels from
-    ``t`` along array axis ``arr_axis`` of the (z, y, x) volume.  Only the
-    two brick planes the slab covers are recomputed; the result equals
-    ``build_vol_tables`` of the new volume.  ``tables`` is left unchanged.
-    """
+def update_vol_tables_plain(tables: dict, fused_flat: torch.Tensor, t: int,
+                            arr_axis: int) -> dict:
+    """O1's plain version of a slab update (``tables`` left unchanged)."""
     slab = fused_flat.reshape(_N, _N, _N).narrow(arr_axis, t, SLICE_SIZE)
     solid = _solid(slab)
     bdims = [s // 8 for s in solid.shape]

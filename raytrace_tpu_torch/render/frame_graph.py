@@ -15,7 +15,8 @@ max_steps, seed, bounces) and its static buffers on the pipeline's device:
 - inputs: the packed (16,) f32 uniforms, the blue-noise texture and, for
   "hf" and "volume_fast", the world ``render_frame`` reads (the
   ``build_hf_tables`` dict; the fused (256^3,) volume and the
-  ``build_vol_tables`` dict);
+  ``build_vol_tables`` dict, which the streamer (G1) and the pipeline (O1)
+  then write in place);
 - the region tables of "fused" (``h3``, ``hsub``, ``cA``..``cD``, ``r0``
   and the column table ``hcol``), which the program owns and rebuilds at
   the start of every frame from the ``lr`` in the packed uniforms
@@ -52,12 +53,14 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAX_TRACE_STEPS
-from ..ops import denoise, hf_tables, lighting, trace_hf, trace_vol
+from ..ops import denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen
 from .pipeline import GRAPHED, render_frame
 
 # Every kernel wrapper's launch counter.
 COUNTED = (hf_tables.build_hf_tables, lighting.march_paths, denoise.launch_pass,
-           trace_vol.march_paths_vol, trace_vol.trace_rays_vol, trace_hf.trace_rays_hf)
+           trace_vol.march_paths_vol, trace_vol.trace_rays_vol, trace_hf.trace_rays_hf,
+           worldgen.generate_into, vol_tables.build_vol_tables,
+           vol_tables.update_vol_tables)
 
 
 def _leaves(world) -> list:

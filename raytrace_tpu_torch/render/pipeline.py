@@ -12,9 +12,10 @@ debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
 - ``hf``: the same tables (rebuilt by T1 between frames whenever the
   region offset ``lr`` changes), traced leg by leg through the staged tracer K4
   (``ops/trace_hf.py``) and the staged lighting pass (``ops/integrate.py``).
-- ``volume_fast``: the streamed resident volume and its occupancy tables
-  (updated per streamed slab, rebuilt after initialize, teleport or an
-  edit), the path march K3 and its shade.
+- ``volume_fast``: the streamed resident volume (slabs and teleports
+  generated in place by kernel G1) and its occupancy tables (updated in
+  place per streamed slab, rebuilt in place after initialize, teleport or
+  an edit, by kernel O1), the path march K3 and its shade.
 - ``volume``: the streamed resident volume itself, traced leg by leg by the
   exact DDA (``ops/trace_dda.py``, plain PyTorch, slow: the reference).
 
@@ -275,14 +276,19 @@ class Pipeline:
     def vol_tables(self) -> dict:
         """Occupancy tables of the resident volume: updated for each slab
         streamed in since the last call, rebuilt when the whole volume
-        changed (initialize, teleport, edit)."""
+        changed (initialize, teleport, edit), in place in the pipeline's
+        buffers (the frame program's once it exists: kernel O1 on the card,
+        no table copied into the program)."""
         log = self.streamer.drain_slab_log()
-        if self._vol_tables is None or log is None:
-            self._vol_tables = build_vol_tables(self.streamer.volume)
+        volume = self.streamer.volume
+        if self._vol_tables is None:
+            self._vol_tables = build_vol_tables(volume)
+        elif log is None:
+            build_vol_tables(volume, out=self._vol_tables)
         else:
             for arr_axis, t0 in log:
-                self._vol_tables = update_vol_tables(
-                    self._vol_tables, self.streamer.volume, t0, arr_axis)
+                update_vol_tables(self._vol_tables, volume, t0, arr_axis,
+                                  out=self._vol_tables)
         return self._vol_tables
 
     def world(self):

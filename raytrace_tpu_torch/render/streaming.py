@@ -8,23 +8,28 @@ and ``_store_slab`` (``:349-363``), and ``TerrainStreamer``'s
 ``teleport`` (``:189-214``), ``edit_box`` (``:216-231``), the request
 methods, ``setup_next_request`` with its slab log (``:234-311``),
 ``drain_slab_log`` (``:313-320``) and ``get_render_offset``, with both
-sources of voxels: ``source="device"`` generates a slab on the streamer's
-device, ``source="cache"`` reads the chunks of ``storage`` (a
-``world.storage.ChunkStorage``, which generates a missing chunk and stores
-it), assembles the region (``initialize``, ``:167-187``) or the slab
-(``_apply_from_cache``, ``:322-343``) on the host with ``native.copy3d``,
-and copies it to the device once.  One slice request per frame moves the
-region 16 voxels along the axis of largest camera drift.
+sources of voxels: ``source="device"`` generates a slab, a teleport's
+region or the initial region in place in the resident volume
+(``ops/worldgen.generate_into``: kernel G1 on the card, one launch with no
+host wait, where JAX runs one jitted program), ``source="cache"`` reads the
+chunks of ``storage`` (a ``world.storage.ChunkStorage``, which generates a
+missing chunk and stores it), assembles the region (``initialize``,
+``:167-187``) or the slab (``_apply_from_cache``, ``:322-343``) on the host
+with ``native.copy3d``, and copies it to the device once.  One slice
+request per frame moves the region 16 voxels along the axis of largest
+camera drift.
 
 The resident volume is a fused (256^3,) int32 tensor in (z, y, x) texel
 order; world voxel ``w`` lives at texel ``(w + 128) mod 256``.  It exists
 once ``initialize`` has run (the volume tracers); until then the streamer
 only tracks positions, which is all the heightfield path reads.  The
-streamer owns its volume (``initialize`` copies a supplied one) and writes
-slabs into it in place; the slab log tells a consumer of derived tables
-which slabs changed.  As in JAX, ``teleport`` needs the device source
-(``:200``), and with the heightfield tracers, which never initialize a
-volume, no chunk is read.
+streamer owns its volume (``initialize`` copies a supplied one) and
+writes every later change into the same storage: slabs, a teleport's
+region, an edit and a later ``initialize``, so a consumer that holds the
+tensor (the frame program's buffer) sees them without a copy.  The slab
+log tells a consumer of derived tables which slabs changed.  As in JAX,
+``teleport`` needs the device source (``:200``), and with the heightfield
+tracers, which never initialize a volume, no chunk is read.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from ..constants import (
 )
 from .. import native
 from ..ops.volume import fuse_volume
-from ..world.generate import generate_box
+from ..ops.worldgen import generate_into
 
 AXIS_X, AXIS_Y, AXIS_Z = 0, 1, 2
 _HALF_CHUNKS = ROOT_CHUNK_SIZE // 2
@@ -83,45 +88,13 @@ def _slab_world_box(req: SliceRequest):
     return w0, tuple(shape)
 
 
-def _fused_box(origin, shape, seed: int, device):
-    box = generate_box(origin, shape, seed=seed, device=device)
-    return fuse_volume(box["materials"], box["minefield"]).reshape(
-        shape[2], shape[1], shape[0])
-
-
-def _generate_and_apply(volume, w0, ns, axis: int, shape_xyz, seed: int) -> None:
-    """Generate a world slab and write it at its toroidal offset, in place.
-
-    The slab's world box is not 64-aligned and the minefield's LOD blocks
-    are globally 64-aligned, so terrain is generated for the 64-aligned
-    enclosure (slab origins are 16-aligned: at most 48 voxels of lead) and
-    the slab is sliced out of it.
-    """
-    aligned0 = [v - v % CHUNK_SIZE for v in w0]
-    enclosure = tuple(
-        -(-(s + CHUNK_SIZE - SLICE_SIZE) // CHUNK_SIZE) * CHUNK_SIZE for s in shape_xyz)
-    fused = _fused_box(aligned0, enclosure, seed, volume.device)
-    start = [w0[2] - aligned0[2], w0[1] - aligned0[1], w0[0] - aligned0[0]]
-    slab = fused[start[0]:start[0] + shape_xyz[2], start[1]:start[1] + shape_xyz[1],
-                 start[2]:start[2] + shape_xyz[0]]
-    _store_slab(volume, slab, ns, axis)
-
-
-def _generate_region(origin_chunks, ns, seed: int, device) -> torch.Tensor:
-    """A full 256^3 region at slice-granular world offset, in texel order.
-
-    ``w0 = origin * 64 + ns * 16`` is not chunk-aligned when ``ns != 0``, so
-    terrain comes from the 64-aligned 320^3 enclosure, is sliced, then
-    rolled into texel space.
-    """
+def _generate_region(volume, origin_chunks, ns, seed: int) -> None:
+    """A full 256^3 region at slice-granular world offset ``w0 = origin *
+    64 + ns * 16``, generated in place into ``volume``: world voxel ``w``
+    lands at texel ``(w + 128) & 255``, where JAX's roll of its 320^3
+    enclosure puts it (the origin keeps ``o = -2 (mod 4)`` chunks)."""
     w0 = [o * CHUNK_SIZE + n * SLICE_SIZE for o, n in zip(origin_chunks, ns)]
-    aligned0 = [v - v % CHUNK_SIZE for v in w0]
-    enc = ROOT_BLOCK_SIZE + CHUNK_SIZE
-    fused = _fused_box(aligned0, (enc,) * 3, seed, device)
-    s = [w - a for w, a in zip(w0, aligned0)]
-    region = fused[s[2]:s[2] + _N, s[1]:s[1] + _N, s[0]:s[0] + _N]
-    t = [n * SLICE_SIZE for n in ns]
-    return torch.roll(region, (t[2], t[1], t[0]), (0, 1, 2)).reshape(-1)
+    generate_into(volume, w0, (_N,) * 3, seed)
 
 
 def _store_slab(volume, slab, ns, axis: int) -> None:
@@ -192,27 +165,29 @@ class TerrainStreamer:
     def initialize(self, volume=None) -> torch.Tensor:
         """Generate (or, from the cache, load) the initial 4^3-chunk region,
         or take a private copy of a supplied fused volume (256^3 words in
-        any integer dtype holding the uint32 bits)."""
+        any integer dtype holding the uint32 bits), into the streamer's
+        volume: new storage the first time, the same storage after."""
         origin = tuple(c * CHUNK_SIZE for c in self.cpu_position.origin)
+        if self.volume is None:
+            self.volume = torch.empty(_N ** 3, dtype=torch.int32, device=self.device)
         if isinstance(volume, torch.Tensor):
-            self.volume = volume.reshape(-1).to(self.device, torch.int32, copy=True)
+            self.volume.copy_(volume.reshape(-1).to(self.device, torch.int32))
         elif volume is not None:
             words = np.asarray(volume).astype(np.uint32).reshape(-1).view(np.int32)
-            self.volume = torch.from_numpy(words).to(self.device)
+            self.volume.copy_(torch.from_numpy(words))
         elif self.source == "cache":
             region = _assemble_from_cache(self.storage, origin, (ROOT_BLOCK_SIZE,) * 3)
-            self.volume = region.reshape(-1).to(self.device)
+            self.volume.copy_(region.reshape(-1))
         else:
-            self.volume = _fused_box(origin, (ROOT_BLOCK_SIZE,) * 3, self.seed,
-                                     self.device).reshape(-1)
+            generate_into(self.volume, origin, (ROOT_BLOCK_SIZE,) * 3, self.seed)
         self._slab_log = None
         return self.volume
 
     def teleport(self, center) -> None:
         """Recenter the region on a world position, quantized to the slice
         grid, keeping the o = -2 (mod 4) chunk invariant of the origin, and
-        regenerate the resident volume there if there is one.  Needs the
-        device source, as in JAX."""
+        regenerate the resident volume there, in place, if there is one.
+        Needs the device source, as in JAX."""
         if self.source != "device":
             raise ValueError("teleport needs the device source (source='device')")
         origin, ns = [], []
@@ -226,21 +201,21 @@ class TerrainStreamer:
         self.gpu_position = pos
         self.request_queue.clear()
         if self.volume is not None:
-            self.volume = _generate_region(pos.origin, ns, self.seed, self.device)
+            _generate_region(self.volume, pos.origin, ns, self.seed)
             self._slab_log = None
 
     def edit_box(self, world_min, shape, material_id=None) -> None:
         """Write an axis-aligned world box into the resident volume: solid
-        ``material_id``, or carved air when None (``world/edit.py``).
-        Derived tables must then be rebuilt."""
+        ``material_id``, or carved air when None (``world/edit.py``), in
+        place.  Derived tables must then be rebuilt."""
         from ..world.edit import edit_fused_volume
 
         if self.volume is None:
             raise RuntimeError("edit_box needs a resident volume (initialize first)")
-        self.volume = edit_fused_volume(
+        self.volume.copy_(edit_fused_volume(
             self.volume, self.gpu_position.render_offset(), world_min, shape,
             material_id,
-        )
+        ))
         self._slab_log = None
 
     def request_increase(self, axis: int) -> None:
@@ -292,8 +267,8 @@ class TerrainStreamer:
 
     def setup_next_request(self) -> bool:
         """Apply one queued slice move; True if one ran.  With a resident
-        volume, the slab is generated (or assembled from the cache) and
-        written, and logged."""
+        volume, the slab is generated in place (or assembled from the
+        cache and written), and logged."""
         if not self.request_queue:
             return False
         req = self.request_queue.pop(0)
@@ -302,8 +277,9 @@ class TerrainStreamer:
             if self.source == "cache":
                 self._apply_from_cache(req, w0, shape)
             else:
-                _generate_and_apply(self.volume, w0, req.num_slices, req.axis, shape,
-                                    self.seed)
+                # At texel (w + 128) & 255: ns * 16 on each axis, where the
+                # region origin's o = -2 (mod 4) chunks put texel 0.
+                generate_into(self.volume, w0, shape, self.seed)
             if self._slab_log is not None:
                 # The volume is (z, y, x): array axis 2 - axis.
                 self._slab_log.append(

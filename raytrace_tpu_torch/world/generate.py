@@ -8,8 +8,10 @@ their height band.  Packed materials are uint32 bits held in int32 tensors
 (all below 2^24).
 
 ``generate_box`` fills its materials a block of z planes at a time, so the
-int64 temporaries of the band's unsigned modulo stay a few MB even for the
-streamer's 320^3 region enclosure (33M voxels).
+int64 temporaries of the band's unsigned modulo stay a few MB even for a
+256^3 box (16.7M voxels).  The streamer generates its slabs and regions in
+place with ``ops/worldgen.generate_into`` (kernel G1) instead; the chunk
+cache, ``generate_world`` and the benchmark's configs call this.
 """
 
 from __future__ import annotations

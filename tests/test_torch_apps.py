@@ -60,12 +60,12 @@ def test_capture_matches_jax(fused_words, monkeypatch, tmp_path):
     32²: the same manifest, and frames within compare_images.  Teleport's
     region generation is held to JAX elsewhere
     (test_streamer_volume_matches_jax); here both packages teleport onto
-    the fixture's region, so that no 320^3 region is generated."""
+    the fixture's region, so that no region is generated."""
     words = torch.from_numpy(fused_words.view(np.int32))
     monkeypatch.setattr(jax_streaming, "_generate_region",
                         lambda o, n, seed: jnp.asarray(fused_words))
     monkeypatch.setattr(streaming, "_generate_region",
-                        lambda o, n, seed, device: words.clone())
+                        lambda volume, o, n, seed: volume.copy_(words))
     kw = dict(width=32, height=32, max_steps=128, tracer="volume",
               preloaded_volume=fused_words)
     theirs = jax_pipeline.Pipeline(**kw)
