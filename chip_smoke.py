@@ -7,8 +7,11 @@ plain PyTorch version at the shapes the frame gives it (first T1, the
 region tables, word for word at eleven regions, ``hf_tables_kernel``; G1,
 the streamed slabs and regions written in place, word for word against
 its plain version and the old enclosure-and-roll path,
-``worldgen_kernel``; O1, the occupancy tables built and updated in place,
-against the plain build and update, ``vol_tables_kernel``),
+``worldgen_kernel``; G1's box mode, ``generate_box`` on the card, word
+for word against ``generate_box_plain`` on chunks, 512- and 4096-wide
+rows and a 256³ box, ``generate_box_kernel``; O1, the occupancy tables
+built and updated in place, against the plain build and update,
+``vol_tables_kernel``),
 renders the 64² golden frame, then drives the frame paths through
 ``create_instance`` -> ``teleport`` -> ``draw_frame`` at 1024²: 20 frames
 of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
@@ -26,11 +29,13 @@ holds the column table K1 reads equal to the plain march's heights on
 every column of each region it renders, and renders a fused frame from
 bare region tables.  Then the apps: the host codec (``native_codec``),
 ``generate_world`` and a cache-streamed ``volume_fast`` pipeline held bit
-for bit to a device-streamed one (``cache_stream``), each kernel against
-its plain version at the apps' shapes (``app_shapes_*``: 1920x1080 b1,
-512² b0 and b2), the benchmark's configs 1-4 (``benchmark_configs``: each
-with ``exhausted_px`` 0), ``capture`` (its four-deep pinned readback
-against a synchronous one, PNGs against the ``.dat`` bytes),
+for bit to a device-streamed one (``cache_stream``; the chunk misses
+through G1's box mode), each kernel against its plain version at the
+apps' shapes (``app_shapes_*``: 1920x1080 b1, 512² b0 and b2), the
+benchmark's configs 1-4 (``benchmark_configs``: each with
+``exhausted_px`` 0; configs 1 and 2 one CUDA graph replay a frame, each
+against an eager twin, bit for bit), ``capture`` (its four-deep pinned
+readback against a synchronous one, PNGs against the ``.dat`` bytes),
 ``flythrough`` (scripted, and the ``b`` edit), ``debug_view --gbuffers``
 and ``stage_times``.  Then the row bands and the tile split: each tracer's
 bands against the same rows of its whole frame (``row_bands``), K2's
@@ -771,6 +776,65 @@ def phase_worldgen_kernel(rt, torch, dev):
     return ok, res
 
 
+# generate_box's boxes on the card (label, origin xyz, shape xyz, seed): the
+# chunk cache's chunks, an all-solid and an all-air chunk, x-rows of chunks
+# 512 and 4096 wide (generate_world's at radius 4 and 32) and config 5's
+# 256³ world.
+BOX_CASES = [("chunk_0_0_0", (0, 0, 0), (64, 64, 64), 0),
+             ("chunk_-1_2_0", (-64, 128, 0), (64, 64, 64), 0),
+             ("all_solid", (0, 0, -64), (64, 64, 64), 7),
+             ("all_air", (0, 0, 1024), (64, 64, 64), 7),
+             ("row_512", (-256, 64, 0), (512, 64, 64), 0),
+             ("row_4096", (-2048, -64, 0), (4096, 64, 64), 7),
+             ("box_256", (-128, -128, -128), (256, 256, 256), 0)]
+BOX_TIMED = ("chunk_0_0_0", "row_512", "box_256")
+
+
+def phase_generate_box_kernel(rt, torch, dev):
+    """G1's box mode (``world/generate.generate_box`` on the card: one
+    launch) against its plain version ``generate_box_plain`` on the card,
+    word for word on materials, minefield and solid, at each of BOX_CASES.
+    Then for a chunk, a 512x64x64 row and the 256³ box: the kernel alone
+    (torch.profiler, 20 calls), its call synced, the plain version (CUDA
+    events) and the bound (6 B written a voxel; the lattice points and the
+    heights of its columns)."""
+    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+    from raytrace_tpu_torch.world.generate import generate_box, generate_box_plain
+
+    res, ok = dict(cases=[], max_abs_err=0), True
+    for label, origin, shape, seed in BOX_CASES:
+        before = generate_box.launches
+        got = generate_box(origin, shape, seed=seed, device=dev)
+        launches = generate_box.launches - before
+        want = generate_box_plain(origin, shape, seed=seed, device=dev)
+        equal = {k: set(got) == set(want) and got[k].dtype == want[k].dtype
+                 and bool(torch.equal(got[k], want[k])) for k in want}
+        solid = float(want["solid"].float().mean())
+        res["cases"].append(dict(label=label, origin=list(origin), shape=list(shape),
+                                 seed=seed, launches=launches, equal=equal, solid_share=solid,
+                                 mismatched={k: int((got[k] != want[k]).sum()) for k in want}))
+        res["max_abs_err"] = max(res["max_abs_err"], *(_max_word_diff(torch, got[k], want[k])
+                                                       for k in want))
+        expected = {"all_solid": solid == 1.0, "all_air": solid == 0.0}.get(label, 0 < solid < 1)
+        ok = ok and all(equal.values()) and launches == 1 and expected
+        del got, want
+    for label, origin, shape, seed in BOX_CASES:
+        if label not in BOX_TIMED:
+            continue
+        g1 = lambda: generate_box(origin, shape, seed=seed, device=dev)
+        alone = _alone(g1, 20, "worldgen_box_kernel")
+        voxels, columns = shape[0] * shape[1] * shape[2], shape[0] * shape[1]
+        res[label] = dict(
+            kernel_ms=alone["kernel_ms"], kept=alone["kept"],
+            call_synced_ms=[synced_ms(g1) for _ in range(3)],
+            plain_ms=call_ms(lambda: generate_box_plain(origin, shape, seed=seed,
+                                                        device=dev), 3),
+            **_bound(6 * voxels, OPS_PER_LATTICE * (shape[0] // 8 + 1) * (shape[1] // 8 + 1)
+                     + OPS_PER_HEIGHT * columns))
+    torch.cuda.synchronize()
+    return ok, res
+
+
 def phase_vol_tables_kernel(rt, torch, dev):
     """O1 (``csrc/vol_tables.cu``) against its plain versions on the weird
     scene and the generated world: the full build on each key, and at every
@@ -1437,12 +1501,13 @@ def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
     from raytrace_tpu_torch.ops import (
         denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen)
+    from raytrace_tpu_torch.world import generate
 
     return dict(T1=hf_tables.build_hf_tables.launches, K1=lighting.march_paths.launches,
                 K2=denoise.launch_pass.launches,
                 K3=trace_vol.march_paths_vol.launches,
                 K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches,
-                G1=worldgen.generate_into.launches,
+                G1=worldgen.generate_into.launches, G1box=generate.generate_box.launches,
                 O1=vol_tables.build_vol_tables.launches + vol_tables.update_vol_tables.launches)
 
 
@@ -1452,8 +1517,9 @@ def _launches_since(before: dict) -> dict:
 
 def phase_native_codec(torch, dev):
     """The port's host codec: the library builds with g++, a chunk generated
-    on the card survives encode and decode through ``ChunkStorage`` (a miss,
-    then a hit), its file starts with ``RTL4``, and ``native.copy3d`` equals
+    on the card (G1's box mode) survives encode and decode through
+    ``ChunkStorage`` (a miss, generated by G1's box mode too, then a hit),
+    its file starts with ``RTL4``, and ``native.copy3d`` equals
     ``coords.copy_3d_clipped`` on a box clipped on every axis."""
     import numpy as np
 
@@ -1467,10 +1533,12 @@ def phase_native_codec(torch, dev):
                library=native.library_path().name)
     storage = ChunkStorage(_scratch_dir("codec"), seed=0, device=dev)
     coord = (0, 0, 0)
+    before = _launch_counts()
     mats, mf = (t.cpu().numpy() for t in generate_chunk(coord, seed=0, device=dev))
     miss = storage.borrow_packed_chunk_data(coord)
     blob = storage.path_for(coord).read_bytes()
     hit = storage.borrow_packed_chunk_data(coord)
+    res.update(launches=_launches_since(before))
     res.update(magic=blob[:4].decode("latin-1"), file_bytes=len(blob),
                solid_voxels=int((mats != 0).sum()),
                miss_equal=bool(np.array_equal(miss[0], mats) and np.array_equal(miss[1], mf)),
@@ -1485,7 +1553,7 @@ def phase_native_codec(torch, dev):
         copies[name] = bool(np.array_equal(got, want)) and bool(got.any() or not src.any())
     res.update(copy3d_equal=copies, seconds=time.perf_counter() - t0)
     ok = (res["lz4"] and res["magic"] == "RTL4" and res["miss_equal"] and res["hit_equal"]
-          and all(copies.values()))
+          and all(copies.values()) and res["launches"] == {"G1box": 2})
     return ok, res
 
 
@@ -1495,12 +1563,15 @@ CACHE_FRAMES = 20
 
 def phase_cache_stream(rt, torch):
     """``apps.generate_world.run(radius=2)`` writes the 64 chunks of the
-    initial region; then a ``volume_fast`` pipeline streaming from that
-    cache and one generating on the card fly CACHE_FRAMES frames at +VOL_DX
-    x a frame.  The slabs beyond the region are cache misses, generated on
-    the card and stored.  Their volumes must be bit-equal after every frame,
-    and so must their frames.  Times each frame of each pipeline on the
-    host clock, synchronized, apart for the frames that streamed a slab."""
+    initial region (16 x-rows: 16 launches of G1's box mode); then a
+    ``volume_fast`` pipeline streaming from that cache and one generating
+    on the card fly CACHE_FRAMES frames at +VOL_DX x a frame.  The slabs
+    beyond the region are cache misses, each chunk generated on the card
+    by one launch of G1's box mode and stored.  Their volumes must be
+    bit-equal after every frame, and so must their frames.  Times each
+    frame of each pipeline on the host clock, synchronized, apart for the
+    frames that streamed a slab, and those of the cache pipeline apart for
+    the slabs with misses and those of hits only."""
     import os
 
     from raytrace_tpu_torch.apps import generate_world
@@ -1509,7 +1580,9 @@ def phase_cache_stream(rt, torch):
 
     t0 = time.perf_counter()
     cache_dir = _scratch_dir("world")
+    before = _launch_counts()
     generate_world.run(radius=2, storage_dir=cache_dir)
+    world_launches = _launches_since(before)
     written = sorted(os.listdir(cache_dir))
     magics = {(cache_dir / f).read_bytes()[:4] for f in written}
     gen_s = time.perf_counter() - t0
@@ -1517,16 +1590,19 @@ def phase_cache_stream(rt, torch):
     pipes = dict(cache=rt.create_instance(source="cache",
                                           storage=ChunkStorage(cache_dir, seed=0), **kw),
                  device=rt.create_instance(**kw))
-    res = dict(generate_world_seconds=gen_s, chunks_written=len(written),
+    res = dict(generate_world_seconds=gen_s, generate_world_launches=world_launches,
+               chunks_written=len(written),
                magics=sorted(m.decode("latin-1") for m in magics),
                initial_volume_equal=bool(torch.equal(pipes["cache"].streamer.volume,
                                                      pipes["device"].streamer.volume)))
     cam = Camera(origin=[8.0, -100.0, 60.0], pitch=-0.3)
     ms = {k: [] for k in pipes}
-    streamed, volume_equal, frame_equal = [], [], []
+    streamed, misses, volume_equal, frame_equal = [], [], [], []
+    flight = _launch_counts()
     for t in range(CACHE_FRAMES):
         cam.origin = [8.0 + VOL_DX * t, -100.0, 60.0]
         frames = {}
+        stored = len(os.listdir(cache_dir))
         for name, pipe in pipes.items():
             before = pipe.streamer.get_render_offset()
             torch.cuda.synchronize()
@@ -1536,16 +1612,22 @@ def phase_cache_stream(rt, torch):
             ms[name].append((time.perf_counter() - t1) * 1e3)
             moved = before != pipe.streamer.get_render_offset()
         streamed.append(moved)
+        misses.append(len(os.listdir(cache_dir)) - stored)
         volume_equal.append(bool(torch.equal(pipes["cache"].streamer.volume,
                                              pipes["device"].streamer.volume)))
         frame_equal.append(bool(torch.equal(frames["cache"], frames["device"])))
     # Frame 0 also builds the occupancy tables: it is left out of the means.
     mean = lambda xs: sum(xs) / len(xs) if xs else None
+    flight_launches = _launches_since(flight)
     for name in pipes:
         later = list(zip(ms[name], streamed))[1:]
         res[f"{name}_ms_slab_frames"] = mean([m for m, moved in later if moved])
         res[f"{name}_ms_other_frames"] = mean([m for m, moved in later if not moved])
         res[f"{name}_ms"] = ms[name]
+    slabs = [(m, n) for m, moved, n in list(zip(ms["cache"], streamed, misses))[1:] if moved]
+    res.update(cache_ms_miss_slabs=[m for m, n in slabs if n],
+               cache_ms_hit_slabs=[m for m, n in slabs if not n],
+               misses_per_slab=[n for _, n in slabs], flight_launches=flight_launches)
     stored = sorted(os.listdir(cache_dir))
     res.update(frames=CACHE_FRAMES, size=CACHE_SIZE, slab_frames=[t for t, s in
                                                                    enumerate(streamed) if s],
@@ -1559,7 +1641,9 @@ def phase_cache_stream(rt, torch):
     ok = (len(written) == 64 and magics == {b"RTL4"} and res["magics_after"] == ["RTL4"]
           and res["initial_volume_equal"]
           and res["volume_equal_every_frame"] and res["frame_equal_every_frame"]
-          and res["misses_stored"] > 0 and len(res["slab_frames"]) > 0)
+          and res["misses_stored"] > 0 and len(res["slab_frames"]) > 0
+          and world_launches == {"G1box": 16} and sum(misses) == res["misses_stored"]
+          and flight_launches.get("G1box") == res["misses_stored"])
     return ok, res
 
 
@@ -1627,30 +1711,77 @@ def phase_app_shapes(rt, torch, dev, blue):
 
 
 # The kernels each benchmark config must launch (its frames: one warm frame
-# and the timed ones; config 3 twice 64 frames, config 4 one a view).
-CONFIG_KERNELS = {"1": {"O1": 1, "K3": 21}, "2": {"T1": 1, "K1": 21, "K2": 126},
-                  "3": {"T1": 128, "K1": 128, "K2": 768},
-                  "4": {"T1": 30, "K1": 30, "K2": 180}}
+# and the timed ones; config 1's world one box of G1, config 2 hf's K4 one
+# launch a leg batch, two at b1; config 3 twice 64 frames, config 4 one a
+# view), by config and tracer.
+CONFIG_KERNELS = {("1", "volume_fast"): {"G1box": 1, "O1": 1, "K3": 21},
+                  ("1", "volume"): {"G1box": 1},
+                  ("2", "fused"): {"T1": 1, "K1": 21, "K2": 126},
+                  ("2", "hf"): {"T1": 1, "K4": 42, "K2": 126},
+                  ("3", "fused"): {"T1": 128, "K1": 128, "K2": 768},
+                  ("4", "fused"): {"T1": 30, "K1": 30, "K2": 180}}
+# The outputs an eager twin must equal, by graphed config.
+TWIN_OUTPUTS = {("1", "volume_fast"): ("depth", "albedo"), ("2", "fused"): ("frame",),
+                ("2", "hf"): ("frame",)}
 
 
-def phase_benchmark_configs(torch):
+def _twin(torch, dev, key):
+    """A graphed config's frame function at the app's size: its step
+    program timed as the app times it and an eager twin of the same
+    function (``graphed=False``) timed in turns (graphed, eager, eager,
+    graphed), the graph's outputs after each graphed train against one
+    eager call at the train's last step, bit for bit."""
+    from raytrace_tpu_torch.apps import benchmark
+    from raytrace_tpu_torch.testing.measure import same
+
+    config, tracer = key
+    frame_of_step = (benchmark.config1_frame(dev, 512, 512, tracer) if config == "1"
+                     else benchmark.config2_frame(dev, 1920, 1080, tracer))
+    programs = dict(graphed=benchmark.StepProgram(frame_of_step, dev),
+                    eager=benchmark.StepProgram(frame_of_step, dev, graphed=False))
+    t_last = torch.tensor(benchmark.step_of_frame(benchmark.TRAIN - 1), dtype=torch.float32,
+                          device=dev)
+    res = dict(graphed=[], eager=[], equal=[])
+    for turn in ("graphed", "eager", "eager", "graphed"):
+        program = programs[turn]
+        res[turn].append(benchmark.time_steps(program))
+        if turn == "graphed":
+            got = {k: program.call.outputs[k].clone() for k in TWIN_OUTPUTS[key]}
+            want = frame_of_step(t_last)
+            res["equal"].append({k: same(_wide(got[k]), _wide(want[k])) for k in got})
+            del got, want
+    ok = (all(all(e.values()) for e in res["equal"])
+          and all(r["graphed"] and r["exhausted_px"] == 0 for r in res["graphed"])
+          and all(not r["graphed"] and r["exhausted_px"] == 0 for r in res["eager"]))
+    return ok, res
+
+
+def phase_benchmark_configs(torch, dev):
     """``apps.benchmark`` configs 1-4 as the app runs them (each prints its
-    JSON line), with each config's kernel launches; every config must have
-    ``exhausted_px == 0`` and launch exactly the kernels of its path
-    (CONFIG_KERNELS)."""
+    JSON line; config 1 also ``--tracer volume``, config 2 also ``--tracer
+    hf``), with each config's kernel launches: every config must have
+    ``exhausted_px == 0``, configs 1 and 2 ``graphed`` but for the exact
+    DDA, and launch exactly the kernels of its path (CONFIG_KERNELS).  Then
+    each graphed config of 1 and 2 against its eager twin (``_twin``)."""
     from raytrace_tpu_torch.apps import benchmark
 
     t0 = time.perf_counter()
     records, launches = [], {}
-    for key in ("1", "2", "3", "4"):
-        before = _launch_counts()
-        got = benchmark.CONFIGS[key]()
+    for key in CONFIG_KERNELS:
+        config, tracer = key
+        _zero_counts()
+        got = benchmark.CONFIGS[config](tracer=tracer)
         torch.cuda.synchronize()
-        launches[key] = _launches_since(before)
+        launches[f"{config}_{tracer}"] = _counts()
         records += list(got) if isinstance(got, tuple) else [got]
-    res = dict(records=records, launches=launches, seconds=time.perf_counter() - t0)
-    ok = (len(records) == 5 and all(r["exhausted_px"] == 0 for r in records)
-          and launches == CONFIG_KERNELS)
+    twins = {f"{c}_{t}": _twin(torch, dev, (c, t)) for c, t in TWIN_OUTPUTS}
+    res = dict(records=records, launches=launches, twins={k: r for k, (_, r) in twins.items()},
+               seconds=time.perf_counter() - t0)
+    graphed = {r["tracer"]: r["graphed"] for r in records[:4]}
+    ok = (len(records) == 7 and all(r["exhausted_px"] == 0 for r in records)
+          and graphed == {"volume_fast": True, "volume": False, "fused": True, "hf": True}
+          and launches == {f"{c}_{t}": v for (c, t), v in CONFIG_KERNELS.items()}
+          and all(ok for ok, _ in twins.values()))
     return ok, res
 
 
@@ -1985,7 +2116,8 @@ def phase_config5(rt, torch, dev, blue):
         rec["launches"] = _counts()
         main = "K1" if tracer == "fused" else "K3"
         frames = 2 + benchmark.CONFIG5_FRAMES  # the whole frame, the warm one, the timed
-        want = {main: frames, "K2": 6 * frames, **({"T1": 1} if tracer == "fused" else {"O1": 1})}
+        world = {"T1": 1} if tracer == "fused" else {"G1box": 1, "O1": 1}
+        want = {main: frames, "K2": 6 * frames, **world}
         out[f"run_{tracer}"] = (rec["exhausted_px"] == 0 and rec["devices"] == 1
                                 and rec["parity"] and rec["launches"] == want, rec)
     return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
@@ -2060,6 +2192,8 @@ def main() -> int:
     report("hf_tables_kernel", ok, t1_res)
     ok, g1_res = phase_worldgen_kernel(rt, torch, dev)
     report("worldgen_kernel", ok, g1_res)
+    ok, box_res = phase_generate_box_kernel(rt, torch, dev)
+    report("generate_box_kernel", ok, box_res)
     ok, o1_res = phase_vol_tables_kernel(rt, torch, dev)
     report("vol_tables_kernel", ok, o1_res)
     blue = _blue_noise(torch, dev)
@@ -2175,13 +2309,13 @@ def main() -> int:
     # any app is timed, then the apps themselves.
     ok, res = phase_native_codec(torch, dev)
     report("native_codec", ok, res)
-    ok, res = phase_cache_stream(rt, torch)
-    report("cache_stream", ok, res)
+    ok, cache_res = phase_cache_stream(rt, torch)
+    report("cache_stream", ok, cache_res)
     ok, app_shapes, app_shapes_s = phase_app_shapes(rt, torch, dev, blue)
     for label, (ok, res) in app_shapes.items():
         report(f"app_shapes_{label}", ok, res)
     print(f"[app_shapes] seconds {app_shapes_s:.3f}", flush=True)
-    ok, bench_res = phase_benchmark_configs(torch)
+    ok, bench_res = phase_benchmark_configs(torch, dev)
     report("benchmark_configs", ok, bench_res)
     ok, res = phase_capture(rt, torch)
     report("capture", ok, res)
@@ -2295,7 +2429,17 @@ def main() -> int:
              launches=vol_res["g1_launches"], max_abs_err=g1_res["max_abs_err"],
              ms=g1_res["kernel_ms"], kept=g1_res["kept"], plain_ms=g1_res["plain_ms"],
              **bound(g1_res), call_synced_ms=g1_res["slab"]["call_synced_ms"],
-             old_path_ms=g1_res["slab"]["old_path_ms"], region=g1_res["region"]),
+             old_path_ms=g1_res["slab"]["old_path_ms"], region=g1_res["region"],
+             box=dict(replaces="raytrace_tpu/world/generate.py:66",
+                      max_abs_err=box_res["max_abs_err"],
+                      **{label: box_res[label] for label in BOX_TIMED},
+                      launches=dict(bench_launches("G1box"),
+                                    config_5=config5["run_volume_fast"][1]["launches"].get(
+                                        "G1box", 0),
+                                    generate_world=cache_res["generate_world_launches"].get(
+                                        "G1box", 0),
+                                    cache_stream=cache_res["flight_launches"].get(
+                                        "G1box", 0)))),
         dict(name="O1 vol_tables (occupancy tables, built or updated in place)",
              route="cuda", source="raytrace_tpu_torch/csrc/vol_tables.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:163",

@@ -57,6 +57,9 @@ _SIGNATURES = {
     "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 9,
     # volume, x0, y0, z0, sx, sy, sz, seed, grass, rock, snow, stream
     "rt_worldgen": [_P] + [_I] * 10 + [_P],
+    # materials, minefield, solid, x0, y0, z0, sx, sy, sz, seed, grass,
+    # rock, snow, stream
+    "rt_worldgen_box": [_P] * 3 + [_I] * 10 + [_P],
     # volume, detail, any8b, all8b, any8, all8, any_hi, bz0, nbz, by0, nby,
     # bx0, nbx, stream
     "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],

@@ -9,15 +9,21 @@ JSON line (``_emit``):
   4. batch dataset capture of 30 views at 512²: views/s
   5. the tile split at 3840x2160, bounces 2, over every rank: Mrays/s
 
+Configs 1 and 2 run their frame of step ``t`` (``config1_frame``,
+``config2_frame``) through a ``StepProgram``, the counterpart of JAX's
+jitted ``_time_chained``: one CUDA graph replay a frame with ``t`` in a
+static device buffer (``graphed: true``); config 1 ``--tracer volume``,
+the exact DDA, asks the host and runs eagerly (``graphed: false``).
+
 Every line carries ``exhausted_px``, the count of timed pixels whose
 primary ray was cut by its step budget (depth == ``EXHAUSTED_DEPTH``):
-configs 1-2 count it on every timed frame, config 3 sums each frame's
-count on the device and reads it once at the end, config 4 counts over the
-views, config 5 over every timed frame and every rank.  A number whose
-``exhausted_px`` is not 0 rendered error pixels instead of doing the work.
-Trains are timed on the host clock between ``torch.cuda.synchronize()``
-calls (``value``, ``ms_per_frame``), with the device ms from CUDA events
-beside them (``device_ms_per_frame``).
+configs 1-3 sum each timed frame's count on the device and read it once
+at the end, config 4 counts over the views, config 5 over every timed
+frame and every rank.  A number whose ``exhausted_px`` is not 0 rendered
+error pixels instead of doing the work.  Trains are timed on the host
+clock between ``torch.cuda.synchronize()`` calls (``value``,
+``ms_per_frame``), with the device ms from CUDA events beside them
+(``device_ms_per_frame``).
 
 Config 5 renders through ``parallel.tiles.render_frame_tiled`` over the
 default process group: one rank on one GPU, or N under
@@ -53,6 +59,7 @@ from ..ops.vol_tables import build_vol_tables
 from ..ops.volume import fuse_volume
 from ..parallel import tiles
 from ..render.camera import Camera
+from ..render.frame_graph import CapturedCall
 from ..render.pipeline import Pipeline, frame_gbuffers
 from ..utils.blue_noise import get_blue_noise_f32
 from ..world.generate import generate_box, generate_chunk
@@ -90,29 +97,78 @@ def _uniforms(cam: Camera, dev, sun_angle=0.6, seed=7, lr=(0, 0, 0)) -> dict:
                 lr=vec([float(v) for v in lr]))
 
 
-def _time_train(depth_of_step, n: int) -> dict:
-    """Time ``n`` frames enqueued back to back with one synchronize at the
-    end, after one warm frame.  ``depth_of_step(t)`` enqueues the frame at
-    step ``t`` and returns its primary depth, counted after the train.
-    -> host ms/frame, device ms/frame (CUDA events), exhausted_px."""
-    depth_of_step(0.0)
+class StepProgram:
+    """The counterpart of JAX's ``_time_chained``
+    (``raytrace_tpu/apps/benchmark.py:35-58``), which jits a config's frame
+    of step ``t``: one frame function run as one program a frame.
+
+    ``frame_of_step(t)`` takes the step as a 0-d float32 tensor on
+    ``device`` and returns a dict of the frame's outputs with the primary
+    ``depth``.  The program holds ``t`` in a static buffer and adds each
+    frame's count of exhausted pixels to a static device counter,
+    ``exhausted``.  With ``graphed`` on a CUDA device the first ``run``
+    renders eagerly (the warm-up) and captures the frame and the counter's
+    add as one CUDA graph (``frame_graph.CapturedCall``); every later
+    ``run`` writes ``t`` into the buffer (a ``fill_``: no host sync) and
+    replays.  Otherwise (the CPU, or the exact DDA, which asks the host
+    after every few moves) every ``run`` renders eagerly over the same
+    buffers.
+    """
+
+    def __init__(self, frame_of_step, device, graphed: bool = True):
+        self.frame_of_step = frame_of_step
+        self.device = torch.device(device)
+        self.graphed = graphed and self.device.type == "cuda"
+        self.t = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.exhausted = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.call = CapturedCall(self._frame, self.device)
+
+    def _frame(self) -> dict:
+        out = self.frame_of_step(self.t)
+        self.exhausted += exhausted_px(out["depth"])
+        return out
+
+    def run(self, t: float) -> dict:
+        """The frame at step ``t`` -> its outputs (a graph's own, valid
+        until the next ``run``)."""
+        self.t.fill_(t)
+        if not self.graphed:
+            return self._frame()
+        if not self.call.captured:
+            return self.call.capture()
+        return self.call.replay()
+
+
+def step_of_frame(i: int) -> float:
+    """The step of timed frame ``i`` (JAX's ``_time_chained``)."""
+    return 0.001 + 0.03 * i
+
+
+def time_steps(program: StepProgram, n: int = TRAIN) -> dict:
+    """Time ``n`` frames of ``program`` enqueued back to back with one
+    synchronize at the end, after one warm frame at step 0 (on the card,
+    the capture).  -> host ms/frame, device ms/frame (CUDA events),
+    ``exhausted_px`` over the timed frames (the device counter, read once
+    after the train) and ``graphed``."""
+    program.run(0.0)
     torch.cuda.synchronize()
+    program.exhausted.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    depths = []
     t0 = time.perf_counter()
     start.record()
     for i in range(n):
-        depths.append(depth_of_step(0.001 + 0.03 * i))
+        program.run(step_of_frame(i))
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / n
-    exhausted = int(sum(exhausted_px(d) for d in depths))
     return dict(ms_per_frame=host_ms, device_ms_per_frame=start.elapsed_time(end) / n,
-                exhausted_px=exhausted)
+                exhausted_px=int(program.exhausted), graphed=program.graphed)
 
 
 CONFIG1_CAMERA = dict(origin=[32.0, -40.0, 60.0], pitch=-0.5)
+CONFIG2_CAMERA = dict(origin=[-30.0, -100.0, 60.0], pitch=-0.3)
+STEP = (1.0, 1.0, 0.0)  # the camera's move per unit of the step t
 
 
 def single_chunk_volume(dev) -> torch.Tensor:
@@ -126,47 +182,69 @@ def single_chunk_volume(dev) -> torch.Tensor:
     return fuse_volume(vol_m, vol_f)
 
 
-def config1_single_chunk(tracer="volume_fast"):
-    """512x512 primary-only over one generated chunk at texels 128:192 of
-    an empty 256^3 volume: the volume_fast path (K3), or with
-    ``tracer="volume"`` the exact DDA it is held to."""
-    dev = _device()
+def _moved(camera: dict, dev):
+    """The uniforms of ``camera`` moved ``t · STEP``, as a function of a
+    0-d step tensor (or a float)."""
+    uni = _uniforms(Camera(**camera), dev)
+    step = torch.tensor(STEP, device=dev)
+    return lambda t: dict(uni, origin=uni["origin"] + t * step)
+
+
+def config1_frame(dev, width: int = 512, height: int = 512, tracer="volume_fast"):
+    """Config 1's frame of step ``t`` (JAX ``config1_single_chunk``'s
+    ``gb``): the G-buffers at b0, max_steps 1024, of ``single_chunk_volume``
+    from ``CONFIG1_CAMERA`` moved ``t · STEP``, by the volume_fast path (K3,
+    over tables built once here) or with ``tracer="volume"`` the exact DDA
+    it is held to."""
     fused = single_chunk_volume(dev)
     bn = torch.from_numpy(get_blue_noise_f32()).to(dev)
-    uni = _uniforms(Camera(**CONFIG1_CAMERA), dev)
-    step = torch.tensor([1.0, 1.0, 0.0], device=dev)
-    moved = lambda t: dict(uni, origin=uni["origin"] + t * step)
+    moved = _moved(CONFIG1_CAMERA, dev)
     if tracer == "volume":
-        gb = lambda t: render_gbuffers(fused, bn, moved(t), 512, 512, 1024, bounces=0)
-    else:
-        tables = build_vol_tables(fused)
-        gb = lambda t: render_gbuffers_path(fused, tables, bn, moved(t), 512, 512, 1024,
-                                            bounces=0)
-    res = _time_train(lambda t: gb(t)["depth"], TRAIN)
+        return lambda t: render_gbuffers(fused, bn, moved(t), width, height, 1024, bounces=0)
+    tables = build_vol_tables(fused)
+    return lambda t: render_gbuffers_path(fused, tables, bn, moved(t), width, height, 1024,
+                                          bounces=0)
+
+
+def config2_frame(dev, width: int = 1920, height: int = 1080, tracer="fused"):
+    """Config 2's frame of step ``t`` (JAX ``config2_world_1080p``'s
+    ``frame``): the G-buffers at b1 of the lr 0 region from
+    ``CONFIG2_CAMERA`` moved ``t · STEP``, by ``fused`` (K1) or ``hf`` (K4),
+    and the denoised ``frame`` (K2).  The tables are built once here (for
+    ``fused`` with the column table K1 reads), as JAX's config 2 builds
+    them once outside its frame."""
+    tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=tracer == "fused")
+    bn = torch.from_numpy(get_blue_noise_f32()).to(dev)
+    moved = _moved(CONFIG2_CAMERA, dev)
+    render = render_gbuffers_fused if tracer == "fused" else render_gbuffers_hf
+
+    def frame_of_step(t):
+        gb = render(tables, bn, moved(t), width, height, MAX_TRACE_STEPS, 0, bounces=1)
+        return dict(gb, frame=denoise_finalize(gb, bn))
+
+    return frame_of_step
+
+
+def config1_single_chunk(tracer="volume_fast"):
+    """512x512 primary-only over one generated chunk at texels 128:192 of
+    an empty 256^3 volume: the volume_fast path (K3) as one CUDA graph a
+    frame, or with ``tracer="volume"`` the exact DDA, eagerly."""
+    dev = _device()
+    tracer = "volume" if tracer == "volume" else "volume_fast"
+    program = StepProgram(config1_frame(dev, 512, 512, tracer), dev,
+                          graphed=tracer == "volume_fast")
+    res = time_steps(program)
     return _emit("1_single_chunk_primary", 512 * 512 / res["ms_per_frame"] / 1e3,
-                 "Mrays/s", {**res, "tracer": "volume" if tracer == "volume" else
-                             "volume_fast"})
+                 "Mrays/s", {**res, "tracer": tracer})
 
 
 def config2_world_1080p(tracer="fused"):
     """1920x1080, bounces=1 (3 rays a pixel) of the generated world:
-    ``fused`` (K1) or ``hf`` (K4), then the denoise chain (K2)."""
+    ``fused`` (K1) or ``hf`` (K4), then the denoise chain (K2), as one CUDA
+    graph a frame."""
     dev = _device()
-    # With the column table K1 reads, built once here: bare tables would
-    # have render_gbuffers_fused build it in every timed frame.
-    tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=tracer == "fused")
-    bn = torch.from_numpy(get_blue_noise_f32()).to(dev)
-    uni = _uniforms(Camera(origin=[-30.0, -100.0, 60.0], pitch=-0.3), dev)
-    step = torch.tensor([1.0, 1.0, 0.0], device=dev)
-    render = render_gbuffers_fused if tracer == "fused" else render_gbuffers_hf
-
-    def depth_of_step(t):
-        u = dict(uni, origin=uni["origin"] + t * step)
-        gb = render(tables, bn, u, 1920, 1080, MAX_TRACE_STEPS, 0, bounces=1)
-        denoise_finalize(gb, bn)
-        return gb["depth"]
-
-    res = _time_train(depth_of_step, TRAIN)
+    tracer = "fused" if tracer == "fused" else "hf"
+    res = time_steps(StepProgram(config2_frame(dev, 1920, 1080, tracer), dev))
     rays = 1920 * 1080 * 3  # primary + sun + diffuse
     return _emit("2_world_1080p_1bounce", rays / res["ms_per_frame"] / 1e3, "Mrays/s",
                  {**res, "tracer": tracer})

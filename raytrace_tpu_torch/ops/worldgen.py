@@ -17,6 +17,8 @@ over its columns, so an air voxel's minefield step is the smallest l in
 1..5 with ``(z & ~(2^l - 1)) < Hmax_l``, else 6; a solid voxel carries the
 packed material of its height band.  That equals ``generate_box`` over any
 64-aligned enclosure of the box, sliced (``tests/test_torch_worldgen.py``).
+G1's box mode, which ``world/generate.generate_box`` launches, computes it
+into dense outputs; ``box_plain`` is that mode in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..world.generate import (
 )
 from ..world.heightmap import heightmap_grid
 from ..world.noise import hash3_u32
-from .volume import STEP_SHIFT
+from .volume import MATERIAL_MASK, STEP_SHIFT
 
 _N = ROOT_BLOCK_SIZE
 _HALF = _N // 2
@@ -121,6 +123,16 @@ def box_words_plain(w0, shape_xyz, seed: int = 0, device=None) -> torch.Tensor:
         words[k:k + _Z_BLOCK] = torch.where(solid, packed_for_band(band),
                                             step << STEP_SHIFT)
     return words
+
+
+def box_plain(w0, shape_xyz, seed: int = 0, device=None) -> dict:
+    """G1's box mode in plain PyTorch: ``box_words_plain`` split into
+    ``generate_box``'s outputs, ``materials`` (the word's low 24 bits),
+    ``solid`` (step 0) and ``minefield`` (the step), each (Z, Y, X)."""
+    words = box_words_plain(w0, shape_xyz, seed, device)
+    step = words >> STEP_SHIFT
+    return {"materials": words & MATERIAL_MASK, "solid": step == 0,
+            "minefield": step.to(torch.uint8)}
 
 
 def store_box(volume: torch.Tensor, words: torch.Tensor, w0) -> torch.Tensor:

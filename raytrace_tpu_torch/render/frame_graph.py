@@ -32,17 +32,16 @@ program's from then on.  ``run(packed)`` copies the uniforms in and
 replays.  The first ``run`` is the warm-up that ``torch.cuda.graphs``
 asks for: it renders that frame eagerly on a side stream (building the
 kernel library at first use, outside the capture), then captures the
-graph; every later ``run`` replays it.  On a CPU program ``run`` renders
+graph; every later ``run`` replays it (``CapturedCall``, which the
+benchmark's step programs share).  On a CPU program ``run`` renders
 the same function eagerly over the same buffers (the fused tables' plain
 rebuild is skipped while ``lr`` stays: the same words, without the graph
 that would rebuild them on the card).
 
 ``run`` returns a fresh frame (one copy after the replay) and the static
-G-buffers, which the next ``run`` overwrites.  The kernel wrappers count
-their launches in Python, which a replay does not run: the capture's
-counts are taken off again and added back on every replay, so a counter
-still says how often its kernel ran.  Nothing here falls back: a capture
-or replay that fails raises.
+G-buffers, which the next ``run`` overwrites.  A replay adds the capture's
+launches to each kernel wrapper's counter.  Nothing here falls back: a
+capture or replay that fails raises.
 
 The exact DDA (``tracer="volume"``) cannot be captured: it asks the host
 after every step whether a ray is still live (``ops/trace_dda.py``).
@@ -54,13 +53,79 @@ import torch
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops import denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen
+from ..world import generate
 from .pipeline import GRAPHED, render_frame
 
 # Every kernel wrapper's launch counter.
 COUNTED = (hf_tables.build_hf_tables, lighting.march_paths, denoise.launch_pass,
            trace_vol.march_paths_vol, trace_vol.trace_rays_vol, trace_hf.trace_rays_hf,
-           worldgen.generate_into, vol_tables.build_vol_tables,
+           worldgen.generate_into, generate.generate_box, vol_tables.build_vol_tables,
            vol_tables.update_vol_tables)
+
+
+def _tensors(tree) -> list:
+    """The tensors of nested tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    if not isinstance(tree, (dict, tuple, list)):
+        items = ()
+    return [t for item in items for t in _tensors(item)]
+
+
+class CapturedCall:
+    """``fn()`` on a CUDA device as one captured graph.
+
+    ``capture()`` is the warm-up that ``torch.cuda.graphs`` asks for: it
+    runs ``fn`` eagerly on a side stream (building the kernel library at
+    first use, outside the capture) and returns that run's outputs, then
+    captures ``fn`` into a ``torch.cuda.CUDAGraph`` whose outputs are
+    ``outputs``.  ``replay()`` runs the graph and returns ``outputs``,
+    which the next replay overwrites.  The kernel wrappers count their
+    launches in Python, which a replay does not run: the capture's counts
+    are taken off again and added back on every replay (``launches``), so
+    a counter still says how often its kernel ran.  A capture or replay
+    that fails raises.
+    """
+
+    def __init__(self, fn, device: torch.device):
+        self.fn = fn
+        self.device = device
+        self.graph = None
+        self.outputs = None
+        self.launches = ()  # (wrapper, launches) of one replay
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def capture(self):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            warm = self.fn()
+        current.wait_stream(side)
+        for t in _tensors(warm):
+            t.record_stream(current)
+        before = [wrapper.launches for wrapper in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self.outputs = self.fn()
+        finally:
+            counts = [w.launches - n for w, n in zip(COUNTED, before)]
+            for wrapper, n in zip(COUNTED, before):
+                wrapper.launches = n
+        self.launches = tuple((w, n) for w, n in zip(COUNTED, counts) if n)
+        self.graph = graph
+        return warm
+
+    def replay(self):
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+        return self.outputs
 
 
 def _leaves(world) -> list:
@@ -102,9 +167,7 @@ class FrameProgram:
         self._tables_lr = None  # a CPU program's: the lr its tables hold
         self.blue_noise = blue_noise
         self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)
-        self.graph = None
-        self.frame = self.gbuffers = None  # the graph's outputs
-        self.launches = ()  # (wrapper, launches) of one replay
+        self.call = CapturedCall(self._render, self.device)
 
     def refresh(self, world) -> None:
         """Copy each tensor of ``world`` whose storage differs from the
@@ -144,33 +207,7 @@ class FrameProgram:
         self.packed.copy_(packed, non_blocking=True)
         if self.device.type == "cpu":
             return self._render()
-        if self.graph is None:
-            return self._capture()
-        self.graph.replay()
-        for wrapper, n in self.launches:
-            wrapper.launches += n
-        return self.frame.clone(), self.gbuffers
-
-    def _capture(self):
-        """Render this frame eagerly on a side stream (the warm-up), then
-        capture the graph -> the warm-up's ``(frame, gbuffers)``."""
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            frame, gbuffers = self._render()
-        current.wait_stream(side)
-        for t in (frame, *gbuffers.values()):
-            t.record_stream(current)
-        before = [wrapper.launches for wrapper in COUNTED]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                self.frame, self.gbuffers = self._render()
-        finally:
-            captured = [w.launches - n for w, n in zip(COUNTED, before)]
-            for wrapper, n in zip(COUNTED, before):
-                wrapper.launches = n
-        self.launches = tuple((w, n) for w, n in zip(COUNTED, captured) if n)
-        self.graph = graph
-        return frame, gbuffers
+        if not self.call.captured:
+            return self.call.capture()
+        frame, gbuffers = self.call.replay()
+        return frame.clone(), gbuffers

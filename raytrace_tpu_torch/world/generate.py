@@ -7,11 +7,17 @@ column height or below z = 0, and solid voxels take the packed material of
 their height band.  Packed materials are uint32 bits held in int32 tensors
 (all below 2^24).
 
-``generate_box`` fills its materials a block of z planes at a time, so the
-int64 temporaries of the band's unsigned modulo stay a few MB even for a
-256^3 box (16.7M voxels).  The streamer generates its slabs and regions in
-place with ``ops/worldgen.generate_into`` (kernel G1) instead; the chunk
-cache, ``generate_world`` and the benchmark's configs call this.
+``generate_box`` is the jitted JAX ``generate_box`` (with
+``minefield_from_solid``) as one program: on a CUDA device one launch of
+kernel G1's box mode (``csrc/worldgen.cu``, counted on
+``generate_box.launches``), on the CPU its plain version
+``generate_box_plain``, the op-by-op formulation of JAX's program.  The
+chunk cache's misses, ``generate_world``'s x-rows and the benchmark's worlds
+call it; the streamer writes its slabs and regions in place with
+``ops/worldgen.generate_into`` (G1's slab mode) instead.
+``generate_box_plain`` fills its materials a block of z planes at a time,
+so the int64 temporaries of the band's unsigned modulo stay a few MB even
+for a 256^3 box (16.7M voxels).
 """
 
 from __future__ import annotations
@@ -57,16 +63,62 @@ def packed_for_band(m: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32)
 
 
+def _check_box(origin, shape) -> tuple:
+    origin = tuple(int(o) for o in origin)
+    shape = tuple(int(s) for s in shape)
+    if len(origin) != 3 or len(shape) != 3 or any(s < 1 for s in shape) \
+            or any(v % CHUNK_SIZE for v in origin + shape):
+        raise ValueError(f"generate_box: want a {CHUNK_SIZE}-aligned origin and "
+                         f"{CHUNK_SIZE}-multiple extents, got origin {origin}, "
+                         f"shape {shape}")
+    return origin, shape
+
+
 def generate_box(origin, shape, seed: int = 0, device=None) -> dict:
     """Terrain of the world box at integer ``origin`` (x0, y0, z0) with
-    extents ``shape`` (X, Y, Z); the box must be 64-aligned with 64-multiple
-    extents, as the minefield's LOD blocks are.
+    extents ``shape`` (X, Y, Z) on ``device`` (the CPU when None); the box
+    must be 64-aligned with 64-multiple extents, as the minefield's LOD
+    blocks are (``ValueError`` otherwise).
 
     Returns ``materials`` (Z, Y, X) int32 packed materials, ``solid``
-    (Z, Y, X) bool and ``minefield`` (Z, Y, X) uint8.
+    (Z, Y, X) bool and ``minefield`` (Z, Y, X) uint8.  A CUDA device gets
+    kernel G1's box mode, one launch on the current stream writing all
+    three (``generate_box.launches`` counts them); a CPU device the plain
+    version.  Any other device raises.
     """
-    nx, ny, nz = (int(s) for s in shape)
-    x0, y0, z0 = (int(o) for o in origin)
+    origin, shape = _check_box(origin, shape)
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cpu":
+        return generate_box_plain(origin, shape, seed, dev)
+    if dev.type != "cuda":
+        raise RuntimeError(f"generate_box: no kernel for device {dev}")
+    from .._build import check_launch, kernels
+
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    zyx = tuple(reversed(shape))
+    out = {"materials": torch.empty(zyx, dtype=torch.int32, device=dev),
+           "solid": torch.empty(zyx, dtype=torch.bool, device=dev),
+           "minefield": torch.empty(zyx, dtype=torch.uint8, device=dev)}
+    err = kernels().rt_worldgen_box(
+        out["materials"].data_ptr(), out["minefield"].data_ptr(), out["solid"].data_ptr(),
+        *origin, *shape, seed, PACKED_GRASS, PACKED_ROCK, PACKED_SNOW,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch("rt_worldgen_box", err)
+    generate_box.launches += 1
+    return out
+
+
+generate_box.launches = 0
+
+
+def generate_box_plain(origin, shape, seed: int = 0, device=None) -> dict:
+    """``generate_box``'s plain version on ``device``: the JAX program op
+    by op (heights, solidity, materials, then ``minefield_from_solid``)."""
+    origin, shape = _check_box(origin, shape)
+    nx, ny, nz = shape
+    x0, y0, z0 = origin
     heights = heightmap_grid(x0, y0, (ny, nx), seed=seed, device=device)
     ar = lambda n: torch.arange(n, dtype=torch.int32, device=device)
     wx = (x0 + ar(nx))[None, None, :]

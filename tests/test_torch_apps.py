@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from raytrace_tpu.apps import benchmark as jax_benchmark
 from raytrace_tpu.apps import capture as jax_capture
+from raytrace_tpu.apps import generate_world as jax_generate_world
 from raytrace_tpu.render import pipeline as jax_pipeline
 from raytrace_tpu.render import streaming as jax_streaming
 from raytrace_tpu.testing import golden as jax_golden
@@ -216,12 +217,19 @@ def test_terminal_input_hold_release(monkeypatch):
 
 def test_generate_world_matches_the_fixture(full_world_volume, tmp_path):
     """The 8 chunks of radius 1, generated an x-row at a time, decode (in
-    both packages) to the fixture's voxels."""
+    both packages) to the fixture's voxels, and each file is byte for byte
+    the one JAX's ``generate_world`` writes."""
     mats, mf = full_world_volume
-    tracker = generate_world.run(radius=1, storage_dir=tmp_path, device="cpu")
-    assert tracker.done == 8 and len(list(tmp_path.iterdir())) == 8
-    theirs = jax_storage.ChunkStorage(tmp_path)
-    ours = ChunkStorage(tmp_path, device="cpu")
+    port, jax_dir = tmp_path / "port", tmp_path / "jax"
+    tracker = generate_world.run(radius=1, storage_dir=port, device="cpu")
+    jax_generate_world.run(radius=1, storage_dir=jax_dir)
+    names = sorted(p.name for p in port.iterdir())
+    assert tracker.done == 8 and len(names) == 8
+    assert names == sorted(p.name for p in jax_dir.iterdir())
+    for name in names:
+        assert (port / name).read_bytes() == (jax_dir / name).read_bytes()
+    theirs = jax_storage.ChunkStorage(port)
+    ours = ChunkStorage(port, device="cpu")
     for coord in [(cx, cy, cz) for cz in (-1, 0) for cy in (-1, 0) for cx in (-1, 0)]:
         sl = tuple(slice((c + 2) * 64, (c + 3) * 64) for c in reversed(coord))
         assert ours.path_for(coord).read_bytes()[:4] == b"RTL4"

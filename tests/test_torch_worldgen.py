@@ -7,9 +7,11 @@ voxel's step and material); it must equal JAX's ``generate_box`` run op by
 op (``jax.disable_jit``) over the box's 64-aligned enclosure, sliced, word
 for word, and ``generate_into`` on a CPU volume must equal the old
 enclosure-and-roll path (``testing/enclosure.py``) on every streamed box.
-The kernels themselves run on the card only: ``chip_smoke.py``
-(``worldgen_kernel``, ``vol_tables_kernel``) holds them against these plain
-versions.
+``generate_box`` on the CPU (its plain version) and the formulation of
+G1's box mode (``box_plain``) must equal JAX's ``generate_box`` op by op,
+materials, minefield and solid.  The kernels themselves run on the card
+only: ``chip_smoke.py`` (``worldgen_kernel``, ``generate_box_kernel``,
+``vol_tables_kernel``) holds them against these plain versions.
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from raytrace_tpu_torch.render.pipeline import Pipeline
 from raytrace_tpu_torch.render.camera import Camera
 from raytrace_tpu_torch.render.streaming import TerrainStreamer
 from raytrace_tpu_torch.testing import enclosure
+from raytrace_tpu_torch.world import generate
 
 # World boxes (label, w0 xyz, shape xyz, seed), each inside one 64^3 chunk
 # so that JAX's enclosure stays 64^3: slabs along x, y and z, at negative
@@ -101,6 +104,77 @@ def test_generate_into_refuses_what_no_kernel_takes():
         worldgen.generate_into(meta, (0, 0, 0), (16, 16, 16))
     with pytest.raises(RuntimeError, match="no kernel"):
         vol_tables.build_vol_tables(meta)
+
+
+# generate_box's boxes (label, origin xyz, shape xyz, seed): a chunk at a
+# negative origin, an x-row of two chunks, an all-solid chunk (z < 0) and
+# an all-air chunk (high z).
+GENERATE_BOXES = [
+    ("chunk_negative", (-128, -64, 0), (64, 64, 64), 7),
+    ("x_row", (-64, 64, 0), (128, 64, 64), 0),
+    ("all_solid", (64, -64, -128), (64, 64, 64), 7),
+    ("all_air", (0, 0, 512), (64, 64, 64), 0),
+]
+
+
+@pytest.fixture(scope="module", params=GENERATE_BOXES, ids=[b[0] for b in GENERATE_BOXES])
+def jax_box(request):
+    """(label, origin, shape, seed, JAX's generate_box op by op)."""
+    label, origin, shape, seed = request.param
+    with jax.disable_jit():
+        box = jax_gen.generate_box(origin, shape, seed=seed)
+        return label, origin, shape, seed, {k: np.asarray(v) for k, v in box.items()}
+
+
+def _check_box(got: dict, want: dict, label: str, shape) -> None:
+    zyx = tuple(reversed(shape))
+    assert set(got) == {"materials", "solid", "minefield"}
+    assert got["materials"].dtype == torch.int32 and got["solid"].dtype == torch.bool
+    assert got["minefield"].dtype == torch.uint8
+    for k in got:
+        assert tuple(got[k].shape) == zyx, k
+    np.testing.assert_array_equal(got["materials"].numpy().view(np.uint32),
+                                  want["materials"], err_msg="materials")
+    np.testing.assert_array_equal(got["minefield"].numpy(), want["minefield"],
+                                  err_msg="minefield")
+    np.testing.assert_array_equal(got["solid"].numpy(), want["solid"], err_msg="solid")
+    solid = want["solid"]
+    assert solid.all() if label == "all_solid" else (
+        not solid.any() if label == "all_air" else 0 < solid.mean() < 1)
+
+
+def test_generate_box_on_the_cpu_matches_jax(jax_box):
+    """``generate_box`` on the CPU is the plain version, word for word
+    JAX's ``generate_box`` run op by op, and launches nothing."""
+    label, origin, shape, seed, want = jax_box
+    launches = generate.generate_box.launches
+    got = generate.generate_box(origin, shape, seed=seed, device="cpu")
+    assert generate.generate_box.launches == launches
+    _check_box(got, want, label, shape)
+    plain = generate.generate_box_plain(origin, shape, seed=seed)
+    assert all(torch.equal(got[k], plain[k]) for k in got)
+
+
+def test_box_mode_formulation_matches_jax(jax_box):
+    """The formulation G1's box mode computes (``box_words_plain`` split
+    into the three outputs, ``worldgen.box_plain``) equals JAX's
+    ``generate_box`` word for word."""
+    label, origin, shape, seed, want = jax_box
+    _check_box(worldgen.box_plain(origin, shape, seed, "cpu"), want, label, shape)
+
+
+def test_generate_box_refuses_what_no_kernel_takes():
+    """A box that is not 64-aligned raises ``ValueError`` on every device;
+    a device with no kernel (neither CPU nor CUDA) raises."""
+    for origin, shape in (((32, 0, 0), (64, 64, 64)), ((0, 0, 0), (64, 96, 64)),
+                          ((0, 0, 0), (0, 64, 64)), ((0, 0), (64, 64, 64))):
+        for device in ("cpu", "meta"):
+            with pytest.raises(ValueError, match="64-aligned"):
+                generate.generate_box(origin, shape, device=device)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        generate.generate_box((0, 0, 0), (64, 64, 64), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        generate.generate_chunk((0, 0, 0), device="meta")
 
 
 @pytest.fixture(scope="module")
