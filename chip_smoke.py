@@ -123,7 +123,10 @@ def _canonical_uniforms(rt, view=CANON, seed=0):
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` name inside a mangled entry name (its length prefix
     may follow the digits of an anonymous namespace's hash), with the
-    integer arguments of a template instance ("denoise_pass_kernel<2,2>")."""
+    integer arguments of a template instance ("denoise_pass_kernel<2,2>").
+    Of the candidates, the last: the hash's own digits may spell a length
+    that runs to the same end ("...3e76711918shade_fused_kernel")."""
+    found = None
     for m in re.finditer(r"\d+", mangled):
         run = m.group()
         for k in range(len(run)):
@@ -133,8 +136,8 @@ def _kernel_name(mangled: str) -> str:
                 args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + length:])
                 if args:
                     name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
-                return name
-    return mangled
+                found = name
+    return found or mangled
 
 
 def _ptxas(log: str) -> dict:
@@ -353,7 +356,8 @@ def phase_volume_main(rt, torch):
     """The volume path: 20 frames at 1024² through create_instance/
     draw_frame with tracer="volume_fast", the camera moving +VOL_DX in x per
     frame so that slices stream in (G1) and the occupancy tables update
-    (O1): one G1 launch and one O1 launch a slab."""
+    (O1): one G1 launch and one O1 launch a slab; each frame R1, K3, S3 once
+    and K2 six times."""
     from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
     from raytrace_tpu_torch.render.camera import Camera
@@ -394,13 +398,15 @@ def phase_volume_main(rt, torch):
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        k3_launches=k3, k2_launches=k2, g1_launches=counts["G1"],
+        r1_launches=counts["R1"], k3_launches=k3, s3_launches=counts["S3"],
+        k2_launches=k2, g1_launches=counts["G1"],
         o1_launches=counts["O1"], lr=list(pipe.uniforms.lr),
         slabs_drained=sum(len(log) for log in drained if log),
         full_rebuilds=sum(log is None for log in drained),
         tables_equal_rebuild={k: bool(torch.equal(tables[k], rebuilt[k])) for k in rebuilt},
     )
-    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k3 >= FRAMES
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k3 == FRAMES
+          and counts["R1"] == FRAMES and counts["S3"] == FRAMES
           and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3)
           and res["slabs_drained"] >= 1 and res["full_rebuilds"] == 0
           and res["g1_launches"] == res["slabs_drained"]
@@ -946,11 +952,238 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
     return ok, res
 
 
+# R1's shapes: (label, (width, height), band (row0, rows) or None, view).
+# The main path's 1024², a band that starts on no band boundary, the apps'
+# 1920x1080 and 512², one band of config 5's 4K frame, and a camera below
+# the region (origin y < -128: the rays start on its floor).
+BELOW = dict(origin=(-30.0, -200.0, 60.0), pitch=0.3, sun=0.6)
+R1_CASES = [("1024", (1024, 1024), None, CANON), ("1024_band_300+200", (1024, 1024),
+                                                   (300, 200), CANON),
+            ("1920x1080", (1920, 1080), None, CANON), ("512", (512, 512), None, CANON),
+            ("4k_band_1080+270", (3840, 2160), (1080, 270), CANON),
+            ("below_256", (256, 256), None, BELOW)]
+# float32 operations of a pixel (counted from csrc/frame_rays.cu and
+# csrc/shade.cu, at least): R1's rays, noise offset and noise bytes, and its
+# volume_fast invariants besides (the sun, two jittered sun directions and
+# two sphere points); a sample_sky; S1's and S3's work around their skies.
+OPS_R1_FUSED = 42
+OPS_R1_VOLUME = 105
+OPS_PER_SKY = 41
+OPS_S1_OTHER = 60  # two bounce directions, the albedos, the radiance sums
+OPS_S3_OTHER = 20  # the albedos, the radiance sums, depth and fog
+R1_UNIFORM_BYTES = 4 * (4 * 3 + 1 + 1 + 3)  # origin, forward, up, right, sun_angle, seed, lr
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal in shape, type and every bit (floats compared as int32 words:
+    -0 is not +0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(_wide(a), _wide(b)))
+
+
+def _max_abs(a, b) -> float:
+    import torch
+
+    if not a.is_floating_point():
+        return float((_wide(a).to(torch.int64) - _wide(b).to(torch.int64)).abs().max())
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
+    """R1 against its plain version in both forms (fused: the region tables
+    ``tables``; volume: the world ``vol_world``'s occupancy tables), every
+    output bit for bit, at each shape of R1_CASES; R1 alone
+    (torch.profiler, ``kept``), its call synced, the plain version (once)
+    and the bound of each."""
+    from raytrace_tpu_torch.ops import rays
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    t0 = time.perf_counter()
+    res, ok = {}, True
+    for label, (w, h), band, view in R1_CASES:
+        uni = unpack_uniforms(torch.from_numpy(
+            _canonical_uniforms(rt, view, seed=7).packed()).to(dev))
+        row0, rows = band or (0, h)
+        n = w * rows
+        for form, tabs in (("fused", tables), ("volume", vol_world[1])):
+            args = (uni, blue, w, h, row0, rows)
+            kw = dict(tables=tabs, form=form)
+            got = rays.frame_rays(*args, **kw)
+            want, plain_ms = _timed_once(torch, lambda: rays.frame_rays_plain(*args, **kw))
+            equal = {k: _bits_equal(got[k], want[k]) for k in want}
+            # Inputs read once: the uniforms, the two channels R1 reads of
+            # each texel the band touches (its rows and columns and the two
+            # beyond, wrapped; the offset texel besides), and the tables.
+            texels = min(rows + 2, blue.shape[0]) * min(w + 2, blue.shape[1]) + 1
+            in_bytes = R1_UNIFORM_BYTES + texels * 2 * 4
+            if form == "fused":
+                out_bytes = n * 28 + 8 * 4 + 8 * 4
+                in_bytes += 1024 * 4 + 2 * 4
+                ops = OPS_R1_FUSED * n
+            else:
+                out_bytes = n * (12 + 12 + 48) + 10 * 4 + 4 * 4 + 8 * 4
+                in_bytes += 32 ** 3 + 256 * 8
+                ops = OPS_R1_VOLUME * n
+            one = dict(equal=equal, max_abs_err=max(_max_abs(got[k], want[k]) for k in want),
+                       below=bool(-float(uni["origin"][1]) > 128.0),
+                       call_ms=call_ms(lambda: rays.frame_rays(*args, **kw), 10),
+                       plain_ms=plain_ms, **_alone(lambda: rays.frame_rays(*args, **kw), 10,
+                                                   KERNEL_NAMES["R1"]),
+                       **_bound(out_bytes + in_bytes, ops))
+            res[f"{form}_{label}"] = one
+            ok = ok and all(equal.values()) and one["below"] == (view is BELOW)
+    # The sun (sinf and cosf in R1, torch.sin and torch.cos in the plain
+    # version) at 181 angles: the frames' 0.6 + 0.01 k and -7 .. 7.
+    angles = [0.6 + 0.01 * k for k in range(40)] + [-7.0 + 0.1 * k for k in range(141)]
+    uni = unpack_uniforms(torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev))
+    sun_equal = []
+    for a in angles:
+        uni["sun_angle"] = torch.tensor(a, dtype=torch.float32, device=dev)
+        for form, tabs in (("fused", tables), ("volume", vol_world[1])):
+            kw = dict(tables=tabs, form=form)
+            got = rays.frame_rays(uni, blue, 8, 8, **kw)
+            want = rays.frame_rays_plain(uni, blue, 8, 8, **kw)
+            sun_equal.append(all(_bits_equal(got[k], want[k]) for k in ("sun", "inv")
+                                 if k in want))
+    res["sun_angles"] = dict(angles=len(angles), equal=sum(sun_equal), of=len(sun_equal))
+    ok = ok and all(sun_equal)
+    res["seconds"] = time.perf_counter() - t0
+    return ok, res
+
+
+def _random_meta(torch, dev, n, seed, fused):
+    """``n`` seeded random meta words over every leg (0-5), normal id (0-7),
+    material code (0-3) and sky bit, in K1's layout (``fused``) or K3's."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r = lambda hi: rng.integers(0, hi, n, dtype=np.int64)
+    if fused:
+        acc = r(32) | (r(4) << 5) | (r(4) << 7)
+        meta = r(6) | (r(8) << 3) | (r(8) << 6) | (r(8) << 9) | (acc << 12)
+    else:
+        meta = (r(6) << 6) | (r(8) << 9) | (r(8) << 12) | (r(32) << 15)
+    return torch.from_numpy(meta.astype(np.int32)).to(dev)
+
+
+def _random_rays(torch, dev, n, seed):
+    """(N, 3) f32 seeded random unit directions and (N,) f32 distances,
+    some past the depth clamp (65535 / 32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = rng.uniform(0.0, 3000.0, n)
+    dist[:16] = [0.0, 2047.96875, 2048.0, 2999.0] * 4
+    return (torch.from_numpy(d.astype(np.float32)).to(dev),
+            torch.from_numpy(dist.astype(np.float32)).to(dev))
+
+
+def phase_shade_kernel(rt, torch, pipe, vpipe):
+    """S1 and S3 against their plain versions, every G-buffer bit for bit:
+    S1 on the main path's K1 outputs (``pipe``'s tables and uniforms, 1024²)
+    and on 4096 seeded random meta words (every leg, normal id, material
+    code and sky bit; exhausted pixels; distances past the depth clamp);
+    S3 on K3's outputs at b0, b1 and b2 on the volume path (``vpipe``'s
+    volume, tables and uniforms, 1024²; hit pixels whose dif1 ray found no
+    voxel, ``dif1_lin < 0``, counted) and on 4096 random words at each of
+    legs 1, 3, 5.  Each timed alone (torch.profiler, ``kept``), its call
+    synced and its plain version once, at the main path's shapes."""
+    import numpy as np
+
+    from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    t0 = time.perf_counter()
+    dev = pipe.device
+    res = {}
+
+    def held(got, want):
+        return dict(equal={k: _bits_equal(got[k], want[k]) for k in want},
+                    max_abs_err=max(_max_abs(got[k], want[k]) for k in want))
+
+    # S1 on the main path's K1 outputs.
+    uni = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(dev))
+    frame = lighting.march_inputs(pipe.tables(), pipe.blue_noise, uni, W, H)
+    meta, pd = lighting.march_paths(*frame["march"], pipe.max_steps, pipe.seed,
+                                    1 + 2 * pipe.bounces)
+    s1 = lambda: lighting.shade(meta, pd, **frame["shade"])
+    want, plain_ms = _timed_once(torch, lambda: lighting.shade_plain(meta, pd, **frame["shade"]))
+    n = W * H
+    skies = 3 * OPS_PER_SKY + OPS_S1_OTHER
+    res["s1_main"] = dict(**held(s1(), want), call_ms=call_ms(s1, 10), plain_ms=plain_ms,
+                          **_alone(s1, 10, KERNEL_NAMES["S1"]),
+                          **_bound(n * (24 + 51) + 8 * 4 + 256 * 8, n * skies),
+                          exhausted_px=int(((meta & 7) == 0).sum()))
+    # S1 on random words.
+    k = 4096
+    rmeta = _random_meta(torch, dev, k, 11, fused=True)
+    rdir, rdist = _random_rays(torch, dev, k, 12)
+    rnw = torch.from_numpy(np.random.default_rng(13).integers(
+        -2 ** 31, 2 ** 31, k, dtype=np.int64).astype(np.int32)).to(dev)
+    shade_kw = dict(direction=rdir, nw=rnw, sun=frame["shade"]["sun"], shape=(64, 64))
+    res["s1_random"] = held(lighting.shade(rmeta, rdist, **shade_kw),
+                            lighting.shade_plain(rmeta, rdist, **shade_kw))
+    res["s1_random"]["legs_seen"] = sorted({int(v) for v in (rmeta & 7).unique()})
+
+    # S3 on K3's outputs at b0, b1, b2.
+    volume, tables = vpipe.world()
+    vuni = unpack_uniforms(torch.from_numpy(vpipe.uniforms.packed()).to(dev))
+    for bounces in (0, 1, 2):
+        legs = path_vol.legs_of(bounces)
+        vframe = path_vol.march_inputs(tables, vpipe.blue_noise, vuni, W, H)
+        marched = trace_vol.march_paths_vol(*vframe["march"], vpipe.max_steps, legs)
+        s3 = lambda: path_vol.shade(volume, *marched, legs=legs, **vframe["shade"])
+        want, plain_ms = _timed_once(torch, lambda: path_vol.shade_plain(
+            volume, *marched, legs=legs, **vframe["shade"]))
+        vmeta, prim_lin, dif1_lin = marched[:3]
+        hit = prim_lin >= 0
+        # The skies this run's data needs: the primary's, and a bounce's
+        # where its ray reached the sky.
+        bits = lambda b: ((vmeta >> (trace_vol.SKY_SHIFT + b)) & 1) == 1
+        bounce_skies = (int((hit & bits(2)).sum()) if legs >= 3 else 0) + (
+            int((hit & ~bits(2) & bits(4)).sum()) if legs >= 5 else 0)
+        one = dict(**held(s3(), want), legs=legs, hit_px=int(hit.sum()),
+                   dif1_missed_px=int((hit & (dif1_lin < 0)).sum()) if legs >= 5 else None,
+                   **_bound(n * (84 + 51) + 8 * 4,
+                            n * (OPS_PER_SKY + OPS_S3_OTHER) + bounce_skies * OPS_PER_SKY))
+        if bounces == vpipe.bounces:
+            one.update(call_ms=call_ms(s3, 10), plain_ms=plain_ms,
+                       **_alone(s3, 10, KERNEL_NAMES["S3"]))
+        res[f"s3_main_b{bounces}"] = one
+        vsun = vframe["shade"]["sun"]
+        del marched, vframe
+        # S3 on random words, this frame's sun.
+        rmeta = _random_meta(torch, dev, k, 20 + bounces, fused=False)
+        rng = np.random.default_rng(30 + bounces)
+        lin = lambda: torch.from_numpy(np.where(
+            rng.random(k) < 0.3, -1, rng.integers(0, 256 ** 3, k)).astype(np.int32)).to(dev)
+        rinv = torch.from_numpy(rng.uniform(-1, 1, (k, 12)).astype(np.float32)).to(dev)
+        rkw = dict(direction=rdir, inv=rinv, sun=vsun,
+                   shape=(64, 64), legs=legs)
+        args = (volume, rmeta, lin(), lin(), rdist)
+        res[f"s3_random_b{bounces}"] = held(path_vol.shade(*args, **rkw),
+                                            path_vol.shade_plain(*args, **rkw))
+    res["seconds"] = time.perf_counter() - t0
+    ok = all(all(r["equal"].values()) for r in res.values() if isinstance(r, dict))
+    ok = ok and res["s1_random"]["legs_seen"] == [0, 1, 2, 3, 4, 5]
+    ok = ok and res["s3_main_b2"]["dif1_missed_px"] > 0
+    return ok, res
+
+
 def phase_main(rt, torch):
     """The main path: 20 frames at 1024² through create_instance/draw_frame,
-    each of them T1 (the region tables, inside the frame's graph), K1 and
-    six K2 passes."""
-    from raytrace_tpu_torch.ops import denoise, hf_tables, lighting
+    each of them T1 (the region tables, inside the frame's graph), R1 (the
+    rays, noise and march scalars), K1, S1 (the shade) and six K2 passes."""
+    from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.camera import Camera
 
     pipe = rt.create_instance(width=W, height=H)
@@ -971,25 +1204,28 @@ def phase_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k1, k2 = lighting.march_paths.launches, denoise.launch_pass.launches
-    t1 = hf_tables.build_hf_tables.launches
+    counts = _launch_counts()
+    k1, k2, t1 = counts["K1"], counts["K2"], counts["T1"]
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        t1_launches=t1, k1_launches=k1, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        t1_launches=t1, r1_launches=counts["R1"], k1_launches=k1, s1_launches=counts["S1"],
+        k2_launches=k2, lr=list(pipe.uniforms.lr),
     )
-    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 >= FRAMES and t1 == FRAMES
+    # Each frame: T1, R1, K1, S1 once, K2 six times.
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 == FRAMES and t1 == FRAMES
+          and counts["R1"] == FRAMES and counts["S1"] == FRAMES
           and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
     return ok, res, pipe
 
 
 def phase_times(rt, torch, dev, pipe, gbs, blue):
-    """Kernel against plain at 1024²: whole frame, K1 (the wrapper's call
-    and the kernel alone), K2 (the chain's call, and each pass's kernel
-    alone), on the main path's own tables, uniforms and G-buffers (K2 also
-    on random G-buffers)."""
-    from raytrace_tpu_torch.ops import denoise, lighting
+    """Kernel against plain at 1024²: whole frame (plain: R1's, K1's, S1's
+    and K2's plain versions), K1 (the wrapper's call and the kernel alone),
+    K2 (the chain's call, and each pass's kernel alone), on the main path's
+    own tables, uniforms and G-buffers (K2 also on random G-buffers)."""
+    from raytrace_tpu_torch.ops import denoise, lighting, rays
     from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
     from raytrace_tpu_torch.testing.measure import call_ms
 
@@ -1002,10 +1238,11 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
         tables, pipe.blue_noise, unpack_uniforms(packed), W, H)
 
     def plain_frame():
-        inputs = lighting.march_inputs(
-            tables, pipe.blue_noise, unpack_uniforms(packed), W, H)
-        meta, pd, _ = lighting.march_paths_plain(*inputs["march"], *budget)
-        gb = lighting.shade(meta, pd, **inputs["shade"])
+        f = rays.frame_rays_plain(unpack_uniforms(packed), pipe.blue_noise, W, H,
+                                  tables=tables, form="fused")
+        meta, pd, _ = lighting.march_paths_plain(
+            f["origin"], f["direction"], f["nw"], f["iscal"], f["fscal"], tables, *budget)
+        gb = lighting.shade_plain(meta, pd, f["direction"], f["nw"], f["sun"], (H, W))
         return denoise.denoise_finalize_plain(gb, pipe.blue_noise)
 
     k1 = lambda: lighting.march_paths(*inputs["march"], *budget)
@@ -1273,11 +1510,13 @@ def phase_hf_frame_ms(torch, pipe):
 
 GRAPH_FRAMES = 16  # frames flown at +VOL_DX in x: one slice crossing at least
 # The kernel launches of one b2 frame of each graphed tracer.
-GRAPH_KERNELS = {"fused": {"T1": 1, "K1": 1, "K2": 6}, "hf": {"K4": 3, "K2": 6},
-                 "volume_fast": {"K3": 1, "K2": 6}}
+GRAPH_KERNELS = {"fused": {"T1": 1, "R1": 1, "K1": 1, "S1": 1, "K2": 6},
+                 "hf": {"K4": 3, "K2": 6},
+                 "volume_fast": {"R1": 1, "K3": 1, "S3": 1, "K2": 6}}
 # Each kernel's name in a profiler trace.
 KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
-                "K2": "denoise_pass_kernel",
+                "K2": "denoise_pass_kernel", "R1": "frame_rays_kernel",
+                "S1": "shade_fused_kernel", "S3": "shade_vol_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
                 "G1": "worldgen_kernel", "O1": "vol_bricks_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
@@ -1416,6 +1655,7 @@ def phase_graph_frames(rt, torch, tracer):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     res["profiled_activities"] = len(names)
+    res["profiled_activities_per_replay"] = len(names) / PROFILED_REPLAYS
     res["profiled_replays"] = PROFILED_REPLAYS
     res["profiled_kernels"] = {k: sum(KERNEL_NAMES[k] in n for n in names)
                                for k in GRAPH_KERNELS[tracer]}
@@ -1500,10 +1740,12 @@ def _scratch_dir(name: str) -> Path:
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
     from raytrace_tpu_torch.ops import (
-        denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen)
+        denoise, hf_tables, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables, worldgen)
     from raytrace_tpu_torch.world import generate
 
-    return dict(T1=hf_tables.build_hf_tables.launches, K1=lighting.march_paths.launches,
+    return dict(T1=hf_tables.build_hf_tables.launches, R1=rays.frame_rays.launches,
+                K1=lighting.march_paths.launches, S1=lighting.shade.launches,
+                S3=path_vol.shade.launches,
                 K2=denoise.launch_pass.launches,
                 K3=trace_vol.march_paths_vol.launches,
                 K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches,
@@ -1714,12 +1956,12 @@ def phase_app_shapes(rt, torch, dev, blue):
 # and the timed ones; config 1's world one box of G1, config 2 hf's K4 one
 # launch a leg batch, two at b1; config 3 twice 64 frames, config 4 one a
 # view), by config and tracer.
-CONFIG_KERNELS = {("1", "volume_fast"): {"G1box": 1, "O1": 1, "K3": 21},
+CONFIG_KERNELS = {("1", "volume_fast"): {"G1box": 1, "O1": 1, "R1": 21, "K3": 21, "S3": 21},
                   ("1", "volume"): {"G1box": 1},
-                  ("2", "fused"): {"T1": 1, "K1": 21, "K2": 126},
+                  ("2", "fused"): {"T1": 1, "R1": 21, "K1": 21, "S1": 21, "K2": 126},
                   ("2", "hf"): {"T1": 1, "K4": 42, "K2": 126},
-                  ("3", "fused"): {"T1": 128, "K1": 128, "K2": 768},
-                  ("4", "fused"): {"T1": 30, "K1": 30, "K2": 180}}
+                  ("3", "fused"): {"T1": 128, "R1": 128, "K1": 128, "S1": 128, "K2": 768},
+                  ("4", "fused"): {"T1": 30, "R1": 30, "K1": 30, "S1": 30, "K2": 180}}
 # The outputs an eager twin must equal, by graphed config.
 TWIN_OUTPUTS = {("1", "volume_fast"): ("depth", "albedo"), ("2", "fused"): ("frame",),
                 ("2", "hf"): ("frame",)}
@@ -2114,10 +2356,10 @@ def phase_config5(rt, torch, dev, blue):
         rec = benchmark.config5_tiled_4k(tracer)
         torch.cuda.synchronize()
         rec["launches"] = _counts()
-        main = "K1" if tracer == "fused" else "K3"
+        main = ("K1", "S1") if tracer == "fused" else ("K3", "S3")
         frames = 2 + benchmark.CONFIG5_FRAMES  # the whole frame, the warm one, the timed
         world = {"T1": 1} if tracer == "fused" else {"G1box": 1, "O1": 1}
-        want = {main: frames, "K2": 6 * frames, **world}
+        want = {"R1": frames, **{k: frames for k in main}, "K2": 6 * frames, **world}
         out[f"run_{tracer}"] = (rec["exhausted_px"] == 0 and rec["devices"] == 1
                                 and rec["parity"] and rec["launches"] == want, rec)
     return all(ok for ok, _ in out.values()), out, time.perf_counter() - t0
@@ -2169,9 +2411,11 @@ def main() -> int:
     _build.kernels()
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
-    # The kernels keep their state in registers: no spills (K2, K4, G1, O1),
-    # and K1, K3 and K3s no stack.
-    frame = lambda k: [int(v) for v in re.findall(r"\d+", ptxas[k]["frame"] or "-")]
+    # The kernels keep their state in registers: no spills (K2, K4, G1, O1,
+    # R1, S1, S3), and K1, K3 and K3s no stack.
+    # A kernel missing from the parse reads as a frame of -1: not lean.
+    frame = lambda k: [int(v) for v in re.findall(
+        r"\d+", ptxas[k]["frame"] or "-")] if k in ptxas else [-1]
     k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
@@ -2180,7 +2424,8 @@ def main() -> int:
                                and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2)
                                and all(frame(k)[1:] == [0, 0] for k in (
                                    "worldgen_kernel", "vol_bricks_kernel",
-                                   "vol_pyramid_kernel")))
+                                   "vol_pyramid_kernel", "frame_rays_kernel",
+                                   "shade_fused_kernel", "shade_vol_kernel")))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
                                cached=build["cached"], ptxas=ptxas, sass=sass))
@@ -2199,6 +2444,10 @@ def main() -> int:
     blue = _blue_noise(torch, dev)
     canon = torch.from_numpy(_canonical_uniforms(rt).packed()).to(dev)
     canon_tables = build_hf_tables((0, 0, 0), seed=0, device=dev, hcol=True)
+    r1_world = _world_volume(dev)
+    ok, r1_res = phase_frame_rays_kernel(rt, torch, dev, blue, canon_tables, r1_world)
+    report("frame_rays_kernel", ok, r1_res)
+    del r1_world
     for bounces in (2, 1):
         ok, res, _ = phase_k1(torch, canon_tables, blue, canon, 256, 2048, 0, bounces)
         report(f"k1_vs_plain_b{bounces}", ok, res)
@@ -2248,6 +2497,8 @@ def main() -> int:
         torch.from_numpy(vpipe.uniforms.packed()).to(dev), W, vpipe.max_steps,
         vpipe.bounces)
     report("k3_vs_plain_main", ok, k3_res)
+    ok, shade_res = phase_shade_kernel(rt, torch, pipe, vpipe)
+    report("shade_kernel", ok, shade_res)
     times.update(phase_volume_times(torch, dev, vpipe))
     # The staged volume path on the same pipeline: K3s on its three 1024²
     # batches, 20 staged frames, and the staged G-buffers against K3's.
@@ -2354,7 +2605,8 @@ def main() -> int:
     # beside it), K3s's and K4's the mean over a frame's batches.
     passes = len(denoise.DENOISE_SIZES)
     # No single PyTorch call computes any of these functions (an edge-aware
-    # a-trous pass or a voxel march), so library_ms is null.
+    # a-trous pass, a voxel march, a frame's rays or its shade), so
+    # library_ms is null.
     bound = lambda res: dict(bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                              library_ms=None)
     # The lane-use census of the main path's run (per batch for K3s and K4).
@@ -2414,7 +2666,39 @@ def main() -> int:
                         for label in ("k4_512_b2_debug_view", "k4_1920x1080_b1")],
                 launches=bench_launches("K4")),
     )
+    r1_main, r1_vol = r1_res["fused_1024"], r1_res["volume_1024"]
+    s1_main, s3_main = shade_res["s1_main"], shade_res["s3_main_b2"]
+    err = lambda res, prefix="": max(v["max_abs_err"] for k, v in res.items()
+                                     if k.startswith(prefix) and isinstance(v, dict)
+                                     and "max_abs_err" in v)
     kernels = [
+        dict(name="R1 frame_rays (rays, noise and march scalars of a frame)", route="cuda",
+             source="raytrace_tpu_torch/csrc/frame_rays.cu",
+             replaces="raytrace_tpu/ops/lighting_pallas.py:849",
+             also_replaces=["raytrace_tpu/ops/trace_jax.py:168",
+                            "raytrace_tpu/ops/path_vol.py:373"],
+             launches=main_res["r1_launches"], max_abs_err=err(r1_res),
+             ms=r1_main["kernel_ms"], kept=r1_main["kept"], plain_ms=r1_main["plain_ms"],
+             call_ms=r1_main["call_ms"], **bound(r1_main),
+             volume_form=dict(launches=vol_res["r1_launches"], ms=r1_vol["kernel_ms"],
+                              kept=r1_vol["kept"], plain_ms=r1_vol["plain_ms"],
+                              call_ms=r1_vol["call_ms"], bound_ms=r1_vol["bound_ms"],
+                              bound_by=r1_vol["bound_by"]),
+             app_shapes=dict(launches=bench_launches("R1"))),
+        dict(name="S1 shade_fused (the fused frame's planar shade)", route="cuda",
+             source="raytrace_tpu_torch/csrc/shade.cu",
+             replaces="raytrace_tpu/ops/lighting_pallas.py:1007",
+             launches=main_res["s1_launches"], max_abs_err=err(shade_res, "s1_"),
+             ms=s1_main["kernel_ms"], kept=s1_main["kept"], plain_ms=s1_main["plain_ms"],
+             call_ms=s1_main["call_ms"], **bound(s1_main),
+             app_shapes=dict(launches=bench_launches("S1"))),
+        dict(name="S3 shade_vol (the volume_fast frame's planar shade)", route="cuda",
+             source="raytrace_tpu_torch/csrc/shade.cu",
+             replaces="raytrace_tpu/ops/path_vol.py:605",
+             launches=vol_res["s3_launches"], max_abs_err=err(shade_res, "s3_"),
+             ms=s3_main["kernel_ms"], kept=s3_main["kept"], plain_ms=s3_main["plain_ms"],
+             call_ms=s3_main["call_ms"], **bound(s3_main),
+             app_shapes=dict(launches=bench_launches("S3"))),
         dict(name="T1 hf_tables (region tables from the device lr)", route="cuda",
              source="raytrace_tpu_torch/csrc/hf_tables.cu",
              replaces="raytrace_tpu/ops/trace_pallas.py:60",

@@ -12,7 +12,8 @@ build takes seconds.
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
 plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
 with their plain versions step for step, T1's table words and G1's voxel
-words are the plain versions', and K2's sums round as the plain pass's.
+words are the plain versions', K2's sums round as the plain pass's, and the
+frame's rays (R1) and shades (S1, S3) are the plain glue's bits.
 """
 
 from __future__ import annotations
@@ -63,6 +64,16 @@ _SIGNATURES = {
     # volume, detail, any8b, all8b, any8, all8, any_hi, bz0, nbz, by0, nby,
     # bx0, nbx, stream
     "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],
+    # cam, forward, up, right, sun_angle, seed, lr, blue, trig, h3, r0,
+    # any8b, origin, direction, nw, inv, iscal, fscal, sun, width, height,
+    # row0, rows, nh, nw, nch, stream
+    "rt_frame_rays": [_P] * 19 + [_I] * 7 + [_P],
+    # meta, pd, direction, nw, sun, trig, lighting, albedo, emission, fog,
+    # depth, normal, n, grass, rock, snow, stream
+    "rt_shade_fused": [_P] * 12 + [_I] * 4 + [_P],
+    # meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, volume,
+    # lighting, albedo, emission, fog, depth, normal, n, legs, stream
+    "rt_shade_vol": [_P] * 14 + [_I] * 2 + [_P],
 }
 
 _lib = None

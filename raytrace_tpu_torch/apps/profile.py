@@ -10,6 +10,10 @@ prints for the steady frame:
   host's enqueue time per frame within it;
 - device ms/frame (the sum of the profiled device activities), device
   activities per frame, and the idle share ``1 - device / train``;
+- the same split in two: the port's own kernels (``csrc/``: K1-K4, T1, G1,
+  O1, R1, S1, S3; ``kernels_ms``, ``kernel_activities_per_frame``) and
+  everything else PyTorch launches, its glue and copies (``glue_ms``,
+  ``glue_activities_per_frame``);
 - the device activities that take the most time.
 
 For the tracers that ``draw_frame`` renders through a CUDA graph ("fused",
@@ -40,8 +44,10 @@ Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import time
+from pathlib import Path
 
 import torch
 
@@ -58,6 +64,23 @@ TELEPORTS = 3  # teleports (and the frames after them) timed alone per turn
 TELEPORT_DZ = -300.0  # z step of each timed teleport
 TOP = 12  # device activities listed
 STAGED = "volume_staged"  # the staged volume frame on the volume_fast pipeline
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def port_kernels() -> frozenset:
+    """The names of the port's own kernels: every ``__global__`` function of
+    ``csrc/``."""
+    names = set()
+    for src in CSRC.glob("*.cu"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                src.read_text()))
+    return frozenset(names)
+
+
+def is_port_kernel(activity: str, names: frozenset) -> bool:
+    """Whether a profiled device activity is one of the port's kernels (its
+    demangled name holds ``<name>(`` or ``<name><``)."""
+    return any(re.search(rf"\b{n}[(<]", activity) for n in names)
 
 
 def staged_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tensor:
@@ -220,6 +243,10 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
     train_ms = statistics.median(t for t, _ in trains)
     device_ms = sum(ms for ms, _ in per_name.values()) / PROFILED_FRAMES
     launches = sum(n for _, n in per_name.values()) / PROFILED_FRAMES
+    names = port_kernels()
+    ours = {k: v for k, v in per_name.items() if is_port_kernel(k, names)}
+    kernels_ms = sum(ms for ms, _ in ours.values()) / PROFILED_FRAMES
+    kernel_launches = sum(n for _, n in ours.values()) / PROFILED_FRAMES
     deciles = statistics.quantiles(synced, n=10)
     got.update(
         tracer=tracer, size=[width, height], frames=len(synced),
@@ -228,6 +255,8 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
         train_ms=train_ms, train_ms_turns=[t for t, _ in trains],
         enqueue_ms=statistics.median(e for _, e in trains),
         device_ms=device_ms, device_activities_per_frame=launches,
+        kernels_ms=kernels_ms, kernel_activities_per_frame=kernel_launches,
+        glue_ms=device_ms - kernels_ms, glue_activities_per_frame=launches - kernel_launches,
         idle_share=1.0 - device_ms / train_ms,
         mrays_per_s=width * height * (1 + 2 * bounces) / (train_ms * 1e3),
     )

@@ -48,6 +48,7 @@
 
 #include "heightfield.cuh"
 #include "lanes.cuh"
+#include "shading.cuh"
 
 namespace {
 
@@ -59,26 +60,6 @@ constexpr int kThreads = 128;
 __device__ int32_t mat_code(int32_t xi, int32_t yi, int32_t zi, int32_t seed) {
   int32_t band = material_band(xi, yi, zi, seed);
   return band == 2 ? 1 : (band == 5 ? 2 : 3);
-}
-
-// ops/shading.py sphere_point, with sin and cos of its angle 2 pi k / 255
-// from the wrapper's table (ops/lighting.py sphere_trig, computed by the
-// plain version's own operations: no trigonometric call here).
-__device__ __forceinline__ Vec3 sphere_point(float sin_t1, float cos_t1,
-                                             float ng) {
-  float cos_t2 = fminf(fmaxf(1.0f - 2.0f * ng, -1.0f), 1.0f);
-  float sin_t2 = sqrtf(fmaxf(1.0f - cos_t2 * cos_t2, 0.0f));
-  return {sin_t1 * sin_t2, cos_t1 * sin_t2, cos_t2};
-}
-
-// ops/shading.py diffuse_from_sphere, with its degenerate guard.
-__device__ __forceinline__ Vec3 diffuse_from_sphere(Vec3 sp, int32_t id) {
-  Vec3 n = face_normal(id);
-  float dx = sp.x + n.x, dy = sp.y + n.y, dz = sp.z + n.z;
-  float norm = sqrtf(dx * dx + dy * dy + dz * dz);
-  if (norm < 1e-6f) return n;
-  norm = fmaxf(norm, 1e-20f);
-  return {dx / norm, dy / norm, dz / norm};
 }
 
 // A path: the current ray (position, direction and its per-leg move terms:

@@ -7,7 +7,10 @@ Port of ``raytrace_tpu/ops/lighting_pallas.py``: ``render_gbuffers_fused``
 written for Hopper in ``csrc/lighting.cu``, one thread per pixel, reading
 the column heights from the region's column table; ``march_paths_plain``
 below is the same function in plain PyTorch, which evaluates every height
-itself.
+itself.  Around the march, the frame's rays, noise and scalars come from
+``rays.frame_rays`` (kernel R1 on the card) and the planar shade
+(``:1007-1073``, which XLA fuses) is kernel S1 (``csrc/shade.cu``), with
+``shade_plain`` below as its plain version: a frame is three launches.
 
 Each pixel walks primary -> sun1 -> dif1 -> sun2 -> dif2, capped at
 ``1 + 2 * bounces`` legs, over the region tables of ``ops/hf_tables.py``.
@@ -45,7 +48,8 @@ from ..world.generate import material_band
 from ..world.noise import hash3_u32
 from . import shading
 from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal, with_column_heights
-from .rays import camera_rays, frame_noise, normalize
+from .rays import frame_rays, normalize
+from .shading import sphere_trig
 
 _HALF = ROOT_BLOCK_SIZE // 2
 LEG_DONE = 5
@@ -104,11 +108,16 @@ def mat_code(xi, yi, zi, seed: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def noise_bytes(nw):
+    """The four noise values of the packed noise word, each byte k as
+    k/255: noise1 r, g and noise2 r, g."""
+    return tuple(fdiv(((nw >> (8 * k)) & 255).to(torch.float32), 255.0) for k in range(4))
+
+
 def _noise_terms(nw, fscal):
     """Per-pixel jittered sun directions and sphere points from the noise
     word; pure functions of the noise, so both versions compute them once."""
-    byte = lambda k: fdiv(((nw >> (8 * k)) & 255).to(torch.float32), 255.0)
-    n1r, n1g, n2r, n2g = byte(0), byte(1), byte(2), byte(3)
+    n1r, n1g, n2r, n2g = noise_bytes(nw)
     sun = fscal[0], fscal[1], fscal[2]
     sz = torch.zeros_like(n1r) + sun[2]
     sj1 = normalize(sun[0] + n1r * 0.05, sun[1] + n1g * 0.05, sz)
@@ -307,22 +316,6 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
 # The wrapper: plain version on the CPU, kernel K1 on the card
 # ---------------------------------------------------------------------------
 
-_SPHERE_TRIG: dict = {}
-
-
-def sphere_trig(device) -> torch.Tensor:
-    """(256, 2) f32: sin and cos of the sphere point's angle ``2 pi k / 255``
-    for each noise byte ``k``, computed once per device by the operations
-    ``shading.sphere_point`` runs on it.  K1 reads them from this table."""
-    key = str(torch.device(device))
-    if key not in _SPHERE_TRIG:
-        nr = fdiv(torch.arange(256, dtype=torch.float32, device=device), 255.0)
-        theta = shading.TWO_PI * nr
-        _SPHERE_TRIG[key] = torch.stack([torch.sin(theta), torch.cos(theta)], -1).contiguous()
-    return _SPHERE_TRIG[key]
-
-
-
 def march_paths(origin, direction, nw, iscal, fscal, tables,
                 max_steps: int, seed: int, legs: int, census=None):
     """Walk every pixel's light path -> ``(meta, pd)``.
@@ -379,24 +372,22 @@ march_paths.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _byte(img):
-    return torch.round(img * 255.0).to(torch.int32)
-
-
 def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           uniforms: dict, width: int, height: int,
                           max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
                           bounces: int = 2, row0: int = 0,
                           rows: int | None = None) -> dict:
     """G-buffers of one frame, or of its image rows ``row0 .. row0 + rows``
-    (a band of the tile split): march every pixel's path, then shade.
+    (a band of the tile split): the frame's rays (R1), every pixel's path
+    (K1), then the shade (S1); three launches on the card.
 
     ``tables`` from ``build_hf_tables``, with or without the column table K1
     reads (``hf_tables.with_column_heights``): bare tables get it built here
     for this call (``Pipeline.tables()`` builds it once per region, so its
     frames build nothing); ``blue_noise`` (nh, nw, 4) f32 whose
-    values are exact k/255 (the march traces from the u8-requantized noise,
-    the shade from the float texture); ``uniforms`` holds tensors origin,
+    values are exact k/255 (the march and the shade both read the
+    u8-requantized noise word, which is the texture's value only then);
+    ``uniforms`` holds tensors origin,
     forward, up, right (3,) f32, sun_angle () f32, seed () int32 and
     lr (3,) f32, all on one device.  Returns lighting, albedo, emission and
     fog (rows, W, 3) f32, depth (rows, W) uint16 and normal (rows, W) uint8;
@@ -416,36 +407,22 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
                  width: int, height: int, row0: int = 0,
                  rows: int | None = None) -> dict:
     """The march's inputs for one frame (or its rows ``row0 .. row0 +
-    rows``) and what the shade reads besides.
+    rows``) and what the shade reads besides, from ``rays.frame_rays``
+    (R1 on the card).
 
     ``march``: the positional arguments of ``march_paths`` up to the
     budget (origin and direction (N, 3) f32, the packed noise word (N,)
     int32, iscal (8,) int32 = r0x, r0y, lr xyz, maxh, fscal (8,) f32 =
-    sun xyz, and the tables).  ``shade``: keyword arguments of ``shade``
-    other than the march's outputs.
+    sun xyz, sunlight rgb, and the tables).  ``shade``: keyword arguments
+    of ``shade`` other than the march's outputs.
     """
-    dev = blue_noise.device
     rows = height if rows is None else rows
-    origin, ray_dir = camera_rays(uniforms, width, height, row0, rows)
-    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
-    sun = shading.sun_direction(uniforms["sun_angle"])
-    sunlight = shading.sun_color(sun)
-    fscal = torch.cat([torch.stack(sun), torch.zeros(5, device=dev)])
-    # Region-wide max column height for the sky-escape rule, from the
-    # pyramid's 8-block level, so it keeps the +1 margin.
-    maxh = (tables["h3"] & 511).max()
-    iscal = torch.cat([
-        tables["r0"], uniforms["lr"].to(torch.int32), maxh.reshape(1),
-        torch.zeros(2, dtype=torch.int32, device=dev),
-    ]).to(torch.int32)
-    nw = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
-          | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24))
-    n = width * rows
+    f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
+                   form="fused")
     return {
-        "march": (origin.reshape(n, 3), ray_dir.reshape(n, 3).contiguous(),
-                  nw.reshape(n), iscal, fscal.to(torch.float32), tables),
-        "shade": dict(ray_dir=ray_dir, noise1=noise1, noise2=noise2, sun=sun,
-                      sunlight=sunlight),
+        "march": (f["origin"], f["direction"], f["nw"], f["iscal"], f["fscal"], tables),
+        "shade": dict(direction=f["direction"], nw=f["nw"], sun=f["sun"],
+                      shape=(rows, width)),
     }
 
 
@@ -458,12 +435,13 @@ def _mat_albedo(code):
     ]
 
 
-def shade(meta, pdist, ray_dir, noise1, noise2, sun, sunlight) -> dict:
-    """Planar shade: radiance, depth, normal, albedo and fog from the path
-    bits (lighting_pallas.py:1007-1073).  ``meta``/``pdist`` are the
-    march's (N,) outputs for the (H, W) frame of ``ray_dir``."""
-    meta = meta.reshape(ray_dir.shape[:2])
-    pdist = pdist.reshape(ray_dir.shape[:2])
+def shade_plain(meta, pdist, direction, nw, sun, shape) -> dict:
+    """S1's plain PyTorch version (see ``shade``)."""
+    meta = meta.reshape(shape)
+    pdist = pdist.reshape(shape)
+    direction = direction.reshape(*shape, 3)
+    n1r, n1g, n2r, n2g = (t.reshape(shape) for t in noise_bytes(nw))
+    sun, sunlight = (sun[0], sun[1], sun[2]), (sun[3], sun[4], sun[5])
     leg = meta & 7
     pn = (meta >> 6) & 7
     nn = (meta >> 9) & 7
@@ -472,9 +450,9 @@ def shade(meta, pdist, ray_dir, noise1, noise2, sun, sunlight) -> dict:
     a1, a2, a3, a4 = (((acc >> k) & 1).to(torch.float32) for k in (1, 2, 3, 4))
     alb_p = _mat_albedo((acc >> 5) & 3)
     alb_d = _mat_albedo((acc >> 7) & 3)
-    d1 = shading.diffuse_direction(noise1[..., 0], noise1[..., 1], pn)
-    d2 = shading.diffuse_direction(noise2[..., 0], noise2[..., 1], nn)
-    rd = (ray_dir[..., 0], ray_dir[..., 1], ray_dir[..., 2])
+    d1 = shading.diffuse_direction(n1r, n1g, pn)
+    d2 = shading.diffuse_direction(n2r, n2g, nn)
+    rd = (direction[..., 0], direction[..., 1], direction[..., 2])
     sky0 = shading.sample_sky(rd, sun, sunlight, True)
     sky1 = shading.sample_sky(d1, sun, sunlight, True)
     sky2 = shading.sample_sky(d2, sun, sunlight, True)
@@ -506,3 +484,59 @@ def shade(meta, pdist, ray_dir, noise1, noise2, sun, sunlight) -> dict:
         "emission": torch.zeros_like(lighting),
         "fog": fog,
     }
+
+
+def shade(meta, pdist, direction, nw, sun, shape) -> dict:
+    """Planar shade: radiance, depth, normal, albedo and fog from the path
+    bits (lighting_pallas.py:1007-1073).
+
+    ``meta``/``pdist`` are the march's (N,) outputs for the (rows, W)
+    ``shape`` of pixels, ``direction`` (N, 3) f32 their primary rays,
+    ``nw`` (N,) int32 their noise words (the bounce directions' noise, k/255
+    of each byte: the texture's own values, as the texture holds exact
+    k/255) and ``sun`` (8,) f32 the frame's sun and sunlight
+    (``march_inputs``).  Returns the six G-buffers of
+    ``render_gbuffers_fused``.
+
+    CPU tensors take ``shade_plain``; CUDA tensors launch S1
+    (``csrc/shade.cu``) on the current stream, and ``shade.launches``
+    counts those launches.  Any other device raises.
+    """
+    if meta.device.type == "cpu":
+        return shade_plain(meta, pdist, direction, nw, sun, shape)
+    if meta.device.type != "cuda":
+        raise RuntimeError(f"shade: no kernel for device {meta.device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    dev = meta.device
+    n = shape[0] * shape[1]
+    ins = [meta, pdist, direction, nw, sun, shading.sphere_trig(dev)]
+    want = [(torch.int32, (n,)), (torch.float32, (n,)), (torch.float32, (n, 3)),
+            (torch.int32, (n,)), (torch.float32, (8,)), (torch.float32, (256, 2))]
+    for t, (dtype, shp) in zip(ins, want):
+        check_tensor("shade", t, dtype, shp, dev)
+    out = gbuffers_like(shape, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_shade_fused(
+        *(t.data_ptr() for t in ins), *(out[k].data_ptr() for k in GBUFFER_KEYS), n,
+        *(int(materials.PACKED_MATERIALS[mid]) for mid in (2, 5, 6)), stream,
+    )
+    check_launch("rt_shade_fused", err)
+    shade.launches += 1
+    return out
+
+
+shade.launches = 0
+
+# The G-buffers in the order the shade kernels take them.
+GBUFFER_KEYS = ("lighting", "albedo", "emission", "fog", "depth", "normal")
+
+
+def gbuffers_like(shape, device) -> dict:
+    """Empty G-buffers of the (rows, W) ``shape``: lighting, albedo,
+    emission and fog (rows, W, 3) f32, depth (rows, W) uint16, normal
+    (rows, W) uint8."""
+    f3 = lambda: torch.empty((*shape, 3), dtype=torch.float32, device=device)
+    return dict(lighting=f3(), albedo=f3(), emission=f3(), fog=f3(),
+                depth=torch.empty(shape, dtype=torch.uint16, device=device),
+                normal=torch.empty(shape, dtype=torch.uint8, device=device))

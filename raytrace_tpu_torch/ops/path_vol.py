@@ -2,12 +2,14 @@
 resident volume, then a planar shade.
 
 Port of ``raytrace_tpu/ops/path_vol.py`` (``render_gbuffers_path``,
-``:313-714``): the planar invariants from the frame noise (jittered sun
-directions and unit-sphere points, ``:373-392``), the occupancy escape
-scalars (``:438-440``), the path march (kernel K3 and its plain version,
-``ops/trace_vol.py``; the meta word is laid out there) and the final planar
-pass (``:605-714``): albedo from the hit voxels' linear indices, sky, sun,
-the second bounce, depth with the 0xFFFF sky sentinel, fog, and the pink
+``:313-714``): the rays, the planar invariants from the frame noise
+(jittered sun directions and unit-sphere points, ``:373-392``) and the
+occupancy escape scalars (``:438-440``), which ``rays.frame_rays`` makes
+(kernel R1 on the card); the path march (kernel K3 and its plain version,
+``ops/trace_vol.py``; the meta word is laid out there); and the final
+planar pass (``:605-714``, kernel S3 on the card, ``shade_plain`` its
+plain version): albedo from the hit voxels' linear indices, sky, sun, the
+second bounce, depth with the 0xFFFF sky sentinel, fog, and the pink
 exhausted case.  The TPU round schedule (``PATH_LEVELS``, ``DEFAULT_CAP``,
 slotted views, state trimming, row gathers) has no counterpart: each path
 has its own budget (``trace_vol.path_budget``).
@@ -17,20 +19,18 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import LIGHTING_SCALE, MAX_TRACE_STEPS, NORMAL_SKY
+from ..constants import LIGHTING_SCALE, MAX_TRACE_STEPS, NORMAL_SKY, ROOT_BLOCK_SIZE
 from .._f32 import fdiv
 from . import shading
-from .lighting import EXHAUSTED_DEPTH
-from .rays import camera_rays, frame_noise, normalize
+from .lighting import EXHAUSTED_DEPTH, GBUFFER_KEYS, gbuffers_like
+from .rays import INV_WIDTH, frame_rays
 from .trace_vol import (
     DIF1_NORMAL_SHIFT,
-    INV_WIDTH,
     LEG_SHIFT,
     PRIM_NORMAL_SHIFT,
     SKY_SHIFT,
     march_paths_vol,
 )
-from .vol_tables import occupancy_world_bounds
 from .volume import MATERIAL_MASK
 
 
@@ -45,7 +45,9 @@ def render_gbuffers_path(volume: torch.Tensor, tables: dict,
                          rows: int | None = None) -> dict:
     """G-buffers of one frame of the resident ``volume`` (fused (256^3,)
     int32) with its ``build_vol_tables`` tables, or of the frame's image
-    rows ``row0 .. row0 + rows`` (a band of the tile split).
+    rows ``row0 .. row0 + rows`` (a band of the tile split): the frame's
+    rays (R1), every pixel's path (K3), then the shade (S3); three launches
+    on the card.
 
     ``uniforms`` holds tensors origin, forward, up, right (3,) f32,
     sun_angle () f32, seed () int32 and lr (3,) f32, all on one device.
@@ -65,7 +67,8 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
                  width: int, height: int, row0: int = 0,
                  rows: int | None = None) -> dict:
     """The march's inputs for one frame (or its rows ``row0 .. row0 +
-    rows``) and what the shade reads besides.
+    rows``) and what the shade reads besides, from ``rays.frame_rays``
+    (R1 on the card).
 
     ``march``: the positional arguments of ``march_paths_vol`` up to the
     budget: origin and direction (N, 3) f32, the invariants (N, 12) f32
@@ -74,29 +77,13 @@ def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
     ``shade``: keyword arguments of ``shade`` other than the march's
     outputs and the volume.
     """
-    dev = blue_noise.device
     rows = height if rows is None else rows
-    origin, ray_dir = camera_rays(uniforms, width, height, row0, rows)
-    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
-    sun = shading.sun_direction(uniforms["sun_angle"])
-    sunlight = shading.sun_color(sun)
-    inv = []
-    for noise in (noise1, noise2):
-        nr, ng = noise[..., 0], noise[..., 1]
-        inv += normalize(sun[0] + nr * 0.05, sun[1] + ng * 0.05,
-                         torch.zeros_like(nr) + sun[2])
-        inv += shading.sphere_point(nr, ng)
-    n = width * rows
-    lri = uniforms["lr"].to(torch.int32)
-    iscal = torch.cat([lri, occupancy_world_bounds(tables["any8b"], lri),
-                       torch.zeros(1, dtype=torch.int32, device=dev)])
-    fscal = torch.cat([uniforms["origin"].to(torch.float32),
-                       torch.zeros(1, dtype=torch.float32, device=dev)])
-    inv = torch.stack(inv, -1)
+    f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
+                   form="volume")
     return {
-        "march": (origin.reshape(n, 3), ray_dir.reshape(n, 3).contiguous(),
-                  inv.reshape(n, INV_WIDTH), iscal, fscal, tables),
-        "shade": dict(ray_dir=ray_dir, inv=inv, sun=sun, sunlight=sunlight),
+        "march": (f["origin"], f["direction"], f["inv"], f["iscal"], f["fscal"], tables),
+        "shade": dict(direction=f["direction"], inv=f["inv"], sun=f["sun"],
+                      shape=(rows, width)),
     }
 
 
@@ -109,13 +96,15 @@ def albedo_at(volume: torch.Tensor, lin: torch.Tensor, valid: torch.Tensor):
                         for sh in (14, 7, 0)], -1)
 
 
-def shade(volume, meta, prim_lin, dif1_lin, prim_dist, ray_dir, inv, sun,
-          sunlight, legs: int) -> dict:
-    """The final planar pass (path_vol.py:605-714) from the march's (N,)
-    outputs for the (H, W) frame of ``ray_dir``."""
-    hw = ray_dir.shape[:2]
+def shade_plain(volume, meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, shape,
+                legs: int) -> dict:
+    """S3's plain PyTorch version (see ``shade``)."""
     meta, prim_lin, dif1_lin, prim_dist = (
-        t.reshape(hw) for t in (meta, prim_lin, dif1_lin, prim_dist))
+        t.reshape(shape) for t in (meta, prim_lin, dif1_lin, prim_dist))
+    ray_dir = direction.reshape(*shape, 3)
+    inv = inv.reshape(*shape, INV_WIDTH)
+    sunlight = (sun[3], sun[4], sun[5])
+    sun = (sun[0], sun[1], sun[2])
     leg = (meta >> LEG_SHIFT) & 7
     sky_bit = [((meta >> (SKY_SHIFT + k)) & 1) == 1 for k in range(5)]
     prim_air = sky_bit[0]
@@ -163,3 +152,51 @@ def shade(volume, meta, prim_lin, dif1_lin, prim_dist, ray_dir, inv, sun,
         "emission": torch.zeros_like(light),
         "fog": fog,
     }
+
+
+def shade(volume, meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, shape,
+          legs: int) -> dict:
+    """The final planar pass (path_vol.py:605-714): albedo from the hit
+    voxels, sky, sun, the second bounce, depth with the 0xFFFF sky
+    sentinel, fog and the pink exhausted case.
+
+    ``meta``, ``prim_lin``, ``dif1_lin`` and ``prim_dist`` are the march's
+    (N,) outputs for the (rows, W) ``shape`` of pixels, ``direction`` (N, 3)
+    f32 their primary rays, ``inv`` (N, 12) f32 their invariants and ``sun``
+    (8,) f32 the frame's sun and sunlight (``march_inputs``); ``volume`` the
+    fused (256^3,) int32 volume; ``legs`` 1, 3 or 5.  Returns the six
+    G-buffers of ``render_gbuffers_path``.
+
+    CPU tensors take ``shade_plain``; CUDA tensors launch S3
+    (``csrc/shade.cu``) on the current stream, and ``shade.launches`` counts
+    those launches.  Any other device raises.
+    """
+    if meta.device.type == "cpu":
+        return shade_plain(volume, meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun,
+                           shape, legs)
+    if meta.device.type != "cuda":
+        raise RuntimeError(f"shade: no kernel for device {meta.device}")
+    if legs not in (1, 3, 5):
+        raise ValueError(f"shade: legs {legs} is not 1, 3 or 5")
+    from .._build import check_launch, check_tensor, kernels
+
+    dev = meta.device
+    n = shape[0] * shape[1]
+    ins = [meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, volume]
+    want = [(torch.int32, (n,))] * 3 + [
+        (torch.float32, (n,)), (torch.float32, (n, 3)), (torch.float32, (n, INV_WIDTH)),
+        (torch.float32, (8,)), (torch.int32, (ROOT_BLOCK_SIZE ** 3,))]
+    for t, (dtype, shp) in zip(ins, want):
+        check_tensor("shade", t, dtype, shp, dev)
+    out = gbuffers_like(shape, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_shade_vol(
+        *(t.data_ptr() for t in ins), *(out[k].data_ptr() for k in GBUFFER_KEYS), n, legs,
+        stream,
+    )
+    check_launch("rt_shade_vol", err)
+    shade.launches += 1
+    return out
+
+
+shade.launches = 0

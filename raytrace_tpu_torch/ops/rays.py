@@ -1,4 +1,5 @@
-"""Primary camera rays and per-frame blue-noise planes.
+"""Primary camera rays, per-frame blue-noise planes, and the front of the
+fused and volume_fast frame programs.
 
 Port of ``raytrace_tpu/ops/trace_jax.py:55-56`` (``_normalize``, here
 ``normalize``),
@@ -8,6 +9,13 @@ is the same modular lookup written as one gather, so the per-frame offset
 can stay a device tensor and no value syncs to the host.  Both take a band
 of image rows (``row0``, ``rows``; the tile split, ``parallel/tiles.py``):
 a band's values equal the same rows of the whole frame bit for bit.
+
+``frame_rays`` is the front of the fused and volume_fast frame programs in
+one call: the rays, the noise the march reads, the sun and the march's
+scalars (``raytrace_tpu/ops/lighting_pallas.py:846-899`` and
+``raytrace_tpu/ops/path_vol.py:366-392, 437-440``, which XLA fuses inside
+the jitted program).  On the card it is kernel R1 (``csrc/frame_rays.cu``),
+one launch; ``frame_rays_plain`` is the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ import torch
 
 from ..constants import ROOT_BLOCK_SIZE
 from .._f32 import fdiv
+from . import shading
+from .vol_tables import occupancy_world_bounds
 
 _HALF = ROOT_BLOCK_SIZE // 2
 
@@ -82,3 +92,131 @@ def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
         return blue_noise[rows[:, None], cols[None, :]]
 
     return plane(0), plane(2)
+
+
+FORMS = ("fused", "volume")
+INV_WIDTH = 12  # volume_fast's per-pixel invariants: sd1, sp1, sd2, sp2
+
+
+def _byte(img):
+    return torch.round(img * 255.0).to(torch.int32)
+
+
+def frame_rays_plain(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int,
+                     row0: int = 0, rows: int | None = None, *, tables: dict,
+                     form: str) -> dict:
+    """R1's plain PyTorch version (see ``frame_rays``)."""
+    rows = height if rows is None else rows
+    n = width * rows
+    dev = blue_noise.device
+    origin, direction = camera_rays(uniforms, width, height, row0, rows)
+    noise1, noise2 = frame_noise(blue_noise, uniforms["seed"], width, height, row0, rows)
+    sun = shading.sun_vector(uniforms["sun_angle"])
+    lri = uniforms["lr"].to(torch.int32)
+    out = dict(origin=origin.reshape(n, 3), direction=direction.reshape(n, 3), sun=sun)
+    if form == "fused":
+        # Region-wide max column height for the sky-escape rule, from the
+        # pyramid's 8-block level, so it keeps the +1 margin.
+        maxh = (tables["h3"] & 511).max()
+        out["nw"] = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
+                     | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24)).reshape(n)
+        out["iscal"] = torch.cat([tables["r0"], lri, maxh.reshape(1),
+                                  torch.zeros(2, dtype=torch.int32, device=dev)]).to(torch.int32)
+        out["fscal"] = sun
+        return out
+    inv = []
+    for noise in (noise1, noise2):
+        nr, ng = noise[..., 0], noise[..., 1]
+        inv += normalize(sun[0] + nr * 0.05, sun[1] + ng * 0.05, torch.zeros_like(nr) + sun[2])
+        inv += shading.sphere_point(nr, ng)
+    out["inv"] = torch.stack(inv, -1).reshape(n, INV_WIDTH)
+    out["iscal"] = torch.cat([lri, occupancy_world_bounds(tables["any8b"], lri),
+                              torch.zeros(1, dtype=torch.int32, device=dev)])
+    out["fscal"] = torch.cat([uniforms["origin"].to(torch.float32),
+                              torch.zeros(1, dtype=torch.float32, device=dev)])
+    return out
+
+
+_UNIFORMS = (("origin", torch.float32, (3,)), ("forward", torch.float32, (3,)),
+             ("up", torch.float32, (3,)), ("right", torch.float32, (3,)),
+             ("sun_angle", torch.float32, ()), ("seed", torch.int32, ()),
+             ("lr", torch.float32, (3,)))
+
+
+def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int,
+               row0: int = 0, rows: int | None = None, *, tables: dict,
+               form: str) -> dict:
+    """The front of a frame program for image rows ``row0 .. row0 + rows``
+    (default: the whole frame) of a ``width`` x ``height`` frame, N =
+    ``width * rows`` pixels.
+
+    ``uniforms`` holds tensors origin, forward, up, right (3,) f32,
+    sun_angle () f32, seed () int32 and lr (3,) f32; ``blue_noise`` (nh, nw,
+    C >= 2) f32 of exact k/255 values (``utils/blue_noise.py``).  Returns
+    origin and direction (N, 3) f32 (``camera_rays``) and ``sun`` (8,) f32
+    (``shading.sun_vector``), and by ``form``:
+
+    - "fused" (``tables`` from ``build_hf_tables``): ``nw`` (N,) int32, the
+      four noise bytes (noise1 r, g, noise2 r, g) K1 and the shade read;
+      ``iscal`` (8,) int32 = r0 xy, lr xyz, maxh (the max of ``h3 & 511``),
+      0, 0; ``fscal`` = ``sun`` (K1 reads the sun's xyz);
+    - "volume" (``tables`` from ``build_vol_tables``): ``inv`` (N, 12) f32,
+      the jittered sun directions and unit-sphere points sd1, sp1, sd2, sp2
+      of the two noise texels; ``iscal`` (10,) int32 = lr xyz, the
+      occupancy bounds (``occupancy_world_bounds``), 0; ``fscal`` (4,) f32 =
+      the camera origin, 0.
+
+    CPU tensors take ``frame_rays_plain``; CUDA tensors launch R1
+    (``csrc/frame_rays.cu``) on the current stream, one launch that reads
+    every value on the device, and ``frame_rays.launches`` counts those
+    launches.  Any other device raises.
+    """
+    if form not in FORMS:
+        raise ValueError(f"frame_rays: form {form!r} is not one of {FORMS}")
+    dev = blue_noise.device
+    if dev.type == "cpu":
+        return frame_rays_plain(uniforms, blue_noise, width, height, row0, rows,
+                                tables=tables, form=form)
+    if dev.type != "cuda":
+        raise RuntimeError(f"frame_rays: no kernel for device {dev}")
+    from .._build import check_launch, check_tensor, kernels
+
+    rows = height if rows is None else rows
+    n = width * rows
+    fused = form == "fused"
+    u = [uniforms[k] for k, _, _ in _UNIFORMS]
+    for t, (k, dt, shape) in zip(u, _UNIFORMS):
+        check_tensor(f"frame_rays: uniforms[{k!r}]", t, dt, shape, dev)
+    nh, nwid, nch = blue_noise.shape
+    check_tensor("frame_rays: blue_noise", blue_noise, torch.float32, (nh, nwid, nch), dev)
+    if nch < 2:
+        raise ValueError(f"frame_rays: the noise texture has {nch} channels, want >= 2")
+    f32, i32 = torch.float32, torch.int32
+    empty = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
+    out = dict(origin=empty((n, 3)), direction=empty((n, 3)), sun=empty(8))
+    if fused:
+        check_tensor("frame_rays: tables['h3']", tables["h3"], i32, (1024,), dev)
+        check_tensor("frame_rays: tables['r0']", tables["r0"], i32, (2,), dev)
+        out.update(nw=empty(n, i32), iscal=empty(8, i32))
+        out["fscal"] = out["sun"]
+        trig, h3, r0, any8b = None, tables["h3"].data_ptr(), tables["r0"].data_ptr(), None
+    else:
+        check_tensor("frame_rays: tables['any8b']", tables["any8b"], torch.bool,
+                     (32, 32, 32), dev)
+        out.update(inv=empty((n, INV_WIDTH)), iscal=empty(10, i32), fscal=empty(4))
+        trig, h3, r0 = shading.sphere_trig(dev).data_ptr(), None, None
+        any8b = tables["any8b"].data_ptr()
+    ptr = lambda k: out[k].data_ptr() if k in out else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_frame_rays(
+        *(t.data_ptr() for t in u), blue_noise.data_ptr(), trig, h3, r0, any8b,
+        ptr("origin"), ptr("direction"), ptr("nw"), ptr("inv"), ptr("iscal"),
+        None if fused else ptr("fscal"), ptr("sun"),
+        width, height, row0, rows, nh, nwid, nch, stream,
+    )
+    check_launch("rt_frame_rays", err)
+    frame_rays.launches += 1
+    return out
+
+
+frame_rays.launches = 0

@@ -3,13 +3,19 @@
 Port of ``raytrace_tpu/ops/shading.py`` (all of it).  The JAX module takes
 an array-module argument; these take tensors, and every Python constant is
 a float32 operand as in JAX's weak typing.  Vectors are (x, y, z) tuples of
-tensors.  The CUDA kernel ``csrc/lighting.cu`` spells out the same
-``sphere_point``, ``diffuse_from_sphere`` and ``face_normal_vector``.
+tensors.  ``csrc/shading.cuh`` spells out the same ``sun_direction``,
+``sun_color``, ``sample_sky``, ``sphere_point`` and ``diffuse_from_sphere``
+for the kernels K1, R1, S1 and S3 (``face_normal_vector`` is
+``heightfield.cuh``'s ``face_normal``).  ``sun_vector`` packs a frame's sun
+and sunlight as those kernels read them, and ``sphere_trig`` tabulates the
+sphere points' sin and cos for them.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .._f32 import fdiv
 
 SUN_MAIN_COLOR = (0.9647 * 2.0, 0.7843 * 2.0, 0.8824 * 2.0)
 SUN_SUNSET_COLOR = (0.7412 * 2.0, 0.2157 * 2.0, 0.1686 * 2.0)
@@ -25,6 +31,29 @@ def sun_direction(sun_angle: torch.Tensor):
     sz = torch.cos(sun_angle)
     norm = torch.sqrt(sx * sx + sy * sy + sz * sz)
     return sx / norm, sy / norm, sz / norm
+
+
+def sun_vector(sun_angle: torch.Tensor) -> torch.Tensor:
+    """(8,) f32: the sun direction xyz and the sunlight rgb of a 0-d angle,
+    then 0, 0 (the frame's ``sun``, which K1 reads as its ``fscal``)."""
+    sun = sun_direction(sun_angle)
+    zero = torch.zeros((), dtype=torch.float32, device=sun_angle.device)
+    return torch.stack([*sun, *sun_color(sun), zero, zero])
+
+
+_SPHERE_TRIG: dict = {}
+
+
+def sphere_trig(device) -> torch.Tensor:
+    """(256, 2) f32: sin and cos of the sphere point's angle ``2 pi k / 255``
+    for each noise byte ``k``, computed once per device by the operations
+    ``sphere_point`` runs on it.  The kernels read them from this table."""
+    key = str(torch.device(device))
+    if key not in _SPHERE_TRIG:
+        nr = fdiv(torch.arange(256, dtype=torch.float32, device=device), 255.0)
+        theta = TWO_PI * nr
+        _SPHERE_TRIG[key] = torch.stack([torch.sin(theta), torch.cos(theta)], -1).contiguous()
+    return _SPHERE_TRIG[key]
 
 
 def _mix(a, b, t):

@@ -72,7 +72,7 @@ import torch
 from ..constants import MAX_TRACE_STEPS, ROOT_BLOCK_SIZE
 from . import shading
 from .integrate import flat_rays, hit_result, integrate_gbuffers
-from .rays import normalize
+from .rays import INV_WIDTH, normalize
 from .vol_tables import occupancy_world_bounds
 from .volume import MATERIAL_MASK
 
@@ -87,7 +87,6 @@ DIF1_NORMAL_SHIFT = 12
 SKY_SHIFT = 15  # bit 15 + leg: that leg's ray reached sky
 MAX_CROSSINGS = 23  # voxel crossings of one brick resolve
 ROUND_CAP = 416  # coarse steps per JAX round (path_vol.DEFAULT_CAP)
-INV_WIDTH = 12  # per-pixel invariants: sd1, sp1, sd2, sp2 (xyz each)
 RAYS_CAP = 96  # K3s: coarse steps per round (trace_rays_vol's cap)
 _EPS = 1e-4
 _BIG = 1 << 30  # escape=False bounds: never reached in the window

@@ -7,7 +7,8 @@ compiled program per static configuration (``_jit_cache``/``_lazy_jit``,
 ``:159-168``).  Where XLA compiles the frame into one program, PyTorch runs
 it op by op, each op costing the host more than the card spends on most of
 them; a ``torch.cuda.CUDAGraph`` captured once replays the whole frame (the
-glue, the G-buffer kernels and the six K2 passes) with one call.
+frame's rays R1, the G-buffer kernels, the shade S1 or S3 and the six K2
+passes, with what glue remains) with one call.
 
 A ``FrameProgram`` holds one configuration (tracer, width, height,
 max_steps, seed, bounces) and its static buffers on the pipeline's device:
@@ -49,18 +50,21 @@ after every step whether a ray is still live (``ops/trace_dda.py``).
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 from ..constants import MAX_TRACE_STEPS
-from ..ops import denoise, hf_tables, lighting, trace_hf, trace_vol, vol_tables, worldgen
+from ..ops import (
+    denoise, hf_tables, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables, worldgen)
 from ..world import generate
 from .pipeline import GRAPHED, render_frame
 
 # Every kernel wrapper's launch counter.
-COUNTED = (hf_tables.build_hf_tables, lighting.march_paths, denoise.launch_pass,
-           trace_vol.march_paths_vol, trace_vol.trace_rays_vol, trace_hf.trace_rays_hf,
-           worldgen.generate_into, generate.generate_box, vol_tables.build_vol_tables,
-           vol_tables.update_vol_tables)
+COUNTED = (hf_tables.build_hf_tables, rays.frame_rays, lighting.march_paths, lighting.shade,
+           denoise.launch_pass, trace_vol.march_paths_vol, path_vol.shade,
+           trace_vol.trace_rays_vol, trace_hf.trace_rays_hf, worldgen.generate_into,
+           generate.generate_box, vol_tables.build_vol_tables, vol_tables.update_vol_tables)
 
 
 def _tensors(tree) -> list:
@@ -110,10 +114,19 @@ class CapturedCall:
             t.record_stream(current)
         before = [wrapper.launches for wrapper in COUNTED]
         graph = torch.cuda.CUDAGraph()
+        # An earlier program's graph left in a dead reference cycle must not
+        # be destroyed mid-capture (its reset is not permitted while a stream
+        # captures, and invalidates the capture): collect such cycles first,
+        # and keep the cyclic collector off until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 self.outputs = self.fn()
         finally:
+            if collecting:
+                gc.enable()
             counts = [w.launches - n for w, n in zip(COUNTED, before)]
             for wrapper, n in zip(COUNTED, before):
                 wrapper.launches = n
