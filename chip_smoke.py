@@ -17,14 +17,17 @@ renders the 64² golden frame, then drives the frame paths through
 of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
 graph), of the volume path (``tracer="volume_fast"``:
 the streamed volume, its occupancy tables, K3, K2) and of the staged
-heightfield path (``tracer="hf"``: K4 once per leg batch, K2), an edit of
-the volume, and 2 frames of the exact DDA (``tracer="volume"``, plain
-PyTorch).  On the volume path's own volume, tables and uniforms it also
-drives the staged volume tracer: K3s against its plain version on the three
-1024² leg batches and, at tight round budgets (rounds 1-3, caps 2 and 8), on
-the 256² batches and one 1024² pair batch, 20 frames of
-``render_gbuffers_vol`` + denoise (K3s three times a frame), and the staged
-G-buffers against K3's whole-path ones.  It
+heightfield path (``tracer="hf"``: R1, K4 once per leg batch with the leg
+batch P1 between, the shade S2, K2), an edit of the volume, and 2 frames of
+the exact DDA (``tracer="volume"``, plain PyTorch).  On the volume path's
+own volume, tables and uniforms it also drives the staged volume tracer:
+K3s against its plain version on the three 1024² leg batches and, at tight
+round budgets (rounds 1-3, caps 2 and 8), on the 256² batches and one 1024²
+pair batch, 20 frames of ``render_gbuffers_vol`` + denoise (R1, K3s three
+times a frame, P1 twice, S2), and the staged G-buffers against K3's
+whole-path ones.  P1 and S2 are held to their plain versions on the hf and
+staged volume frames' records, config 2's, two bands' and random ones
+(``staged_glue_kernel``).  It
 holds the column table K1 reads equal to the plain march's heights on
 every column of each region it renders, and renders a fused frame from
 bare region tables.  Then the apps: the host codec (``native_codec``),
@@ -550,16 +553,17 @@ def phase_staged_vol_main(torch, pipe):
     denoise_finalize at 1024² on the volume_fast pipeline's own volume and
     tables (``apps.profile.staged_frame``: the uniforms as draw_frame fills
     them, at the pipeline's last camera position, the sun moving per
-    frame).  K3s launches once per leg batch: (1 + bounces) per frame."""
+    frame).  Each frame launches R1 (its volume form) once, K3s once per leg
+    batch (1 + bounces), P1 once per bounce, S2 once and K2 six times, and
+    nothing else."""
     from raytrace_tpu_torch.apps.profile import staged_frame
-    from raytrace_tpu_torch.ops import denoise, lighting, trace_vol
+    from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.camera import Camera
 
     cam = Camera(origin=list(pipe.uniforms.origin))
     cam.pitch = CANON["pitch"]
     torch.cuda.synchronize()
-    trace_vol.trace_rays_vol.launches = 0
-    denoise.launch_pass.launches = 0
+    _zero_counts()
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -569,16 +573,18 @@ def phase_staged_vol_main(torch, pipe):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k3s, k2 = trace_vol.trace_rays_vol.launches, denoise.launch_pass.launches
+    counts = _counts()
+    want = {"R1": FRAMES, "K3s": (1 + pipe.bounces) * FRAMES, "P1": pipe.bounces * FRAMES,
+            "S2": FRAMES, "K2": len(denoise.DENOISE_SIZES) * FRAMES}
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        k3s_launches=k3s, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        k3s_launches=counts.get("K3s", 0), launches=counts, launches_want=want,
+        lr=list(pipe.uniforms.lr),
     )
-    ok = (res["all_finite"] and res["exhausted_px"] == 0
-          and k3s == (1 + pipe.bounces) * FRAMES
-          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and counts == want
+          and tuple(frame.shape) == (H, W, 3))
     return ok, res, cam
 
 
@@ -995,8 +1001,9 @@ def _max_abs(a, b) -> float:
 
 
 def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
-    """R1 against its plain version in both forms (fused: the region tables
-    ``tables``; volume: the world ``vol_world``'s occupancy tables), every
+    """R1 against its plain version in its three forms (fused and hf: the
+    region tables ``tables``; volume: the world ``vol_world``'s occupancy
+    tables), every
     output bit for bit, at each shape of R1_CASES; R1 alone
     (torch.profiler, ``kept``), its call synced, the plain version (once)
     and the bound of each."""
@@ -1011,7 +1018,7 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
             _canonical_uniforms(rt, view, seed=7).packed()).to(dev))
         row0, rows = band or (0, h)
         n = w * rows
-        for form, tabs in (("fused", tables), ("volume", vol_world[1])):
+        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables)):
             args = (uni, blue, w, h, row0, rows)
             kw = dict(tables=tabs, form=form)
             got = rays.frame_rays(*args, **kw)
@@ -1022,9 +1029,9 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
             # beyond, wrapped; the offset texel besides), and the tables.
             texels = min(rows + 2, blue.shape[0]) * min(w + 2, blue.shape[1]) + 1
             in_bytes = R1_UNIFORM_BYTES + texels * 2 * 4
-            if form == "fused":
+            if form != "volume":  # hf reads no pyramid words: its iscal has no maxh
                 out_bytes = n * 28 + 8 * 4 + 8 * 4
-                in_bytes += 1024 * 4 + 2 * 4
+                in_bytes += (1024 * 4 if form == "fused" else 0) + 2 * 4
                 ops = OPS_R1_FUSED * n
             else:
                 out_bytes = n * (12 + 12 + 48) + 10 * 4 + 4 * 4 + 8 * 4
@@ -1045,7 +1052,7 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
     sun_equal = []
     for a in angles:
         uni["sun_angle"] = torch.tensor(a, dtype=torch.float32, device=dev)
-        for form, tabs in (("fused", tables), ("volume", vol_world[1])):
+        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables)):
             kw = dict(tables=tabs, form=form)
             got = rays.frame_rays(uni, blue, 8, 8, **kw)
             want = rays.frame_rays_plain(uni, blue, 8, 8, **kw)
@@ -1380,8 +1387,10 @@ def phase_k4(torch, tables, blue, packed, size, max_steps, seed, bounces):
 def phase_hf_main(rt, torch):
     """The staged heightfield path: 20 frames at 1024² through
     create_instance(tracer="hf")/draw_frame, the camera moving as on the
-    main path.  K4 launches once per leg batch: (1 + bounces) per frame."""
-    from raytrace_tpu_torch.ops import denoise, lighting, trace_hf
+    main path.  Each frame's graph launches R1 (its hf form) once, K4 once
+    per leg batch (1 + bounces), P1 once per bounce, S2 once and K2 six
+    times; T1 runs between frames, at most once (the region's tables)."""
+    from raytrace_tpu_torch.ops import denoise, lighting
     from raytrace_tpu_torch.render.camera import Camera
 
     pipe = rt.create_instance(width=W, height=H, tracer="hf")
@@ -1391,8 +1400,7 @@ def phase_hf_main(rt, torch):
     base = list(cam.origin)
     pipe.converge_streaming((base[0], 0, base[2]), max_moves=32)
     torch.cuda.synchronize()
-    trace_hf.trace_rays_hf.launches = 0
-    denoise.launch_pass.launches = 0
+    _zero_counts()
     finite, exhausted = [], []
     t0 = time.perf_counter()
     for t in range(FRAMES):
@@ -1403,16 +1411,20 @@ def phase_hf_main(rt, torch):
                           == lighting.EXHAUSTED_DEPTH).sum())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    k4, k2 = trace_hf.trace_rays_hf.launches, denoise.launch_pass.launches
+    counts = _counts()
+    t1 = counts.pop("T1", 0)
+    want = {"R1": FRAMES, "K4": (1 + pipe.bounces) * FRAMES, "P1": pipe.bounces * FRAMES,
+            "S2": FRAMES, "K2": len(denoise.DENOISE_SIZES) * FRAMES}
     res = dict(
         frames=FRAMES, shape=list(frame.shape), ms_per_frame=ms,
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
-        k4_launches=k4, k2_launches=k2, lr=list(pipe.uniforms.lr),
+        k4_launches=counts.get("K4", 0), p1_launches=counts.get("P1", 0),
+        s2_launches=counts.get("S2", 0), t1_launches=t1, launches=counts,
+        launches_want=want, lr=list(pipe.uniforms.lr),
     )
-    ok = (res["all_finite"] and res["exhausted_px"] == 0
-          and k4 == (1 + pipe.bounces) * FRAMES
-          and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
+    ok = (res["all_finite"] and res["exhausted_px"] == 0 and counts == want
+          and t1 <= 1 and tuple(frame.shape) == (H, W, 3))
     return ok, res, pipe
 
 
@@ -1508,16 +1520,255 @@ def phase_hf_frame_ms(torch, pipe):
         pipe.bounces, "hf"), 10)
 
 
+# float32 operations of a pixel (counted from csrc/staged.cu, at least):
+# P1's nudge and diffuse direction, and in the hf mode the noise bytes, the
+# jittered sun and the sphere point besides; S2's work around its skies
+# (the nudge, the radiance sums, the albedos, the depth and the fog).
+OPS_P1_HF = 42
+OPS_P1_VOLUME = 18
+OPS_S2_OTHER = 30
+
+
+def _held(a, b) -> bool:
+    """Equal in shape, type and every bit, a NaN matching a NaN (-0 is not
+    +0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return bool(torch.equal(_wide(a), _wide(b)))
+    eq = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return bool(eq.all())
+
+
+def _staged_front(torch, mode, world, blue, uniforms, size, band=None):
+    """The staged frame's front and raw tracer for ``mode`` ("hf": world =
+    the region tables; "volume": (volume, tables)) at ``size`` (square or
+    (width, height)) and ``band`` (row0, rows) or the whole frame:
+    (front, noise, trace, volume, (rows, width))."""
+    from raytrace_tpu_torch.ops import rays, trace_hf, trace_vol
+    from raytrace_tpu_torch.ops.integrate import HF, Record
+
+    w, h = _wh(size)
+    row0, rows = band or (0, h)
+    if mode == HF:
+        tables, volume = world, None
+    else:
+        volume, tables = world
+    front = rays.frame_rays(uniforms, blue, w, h, row0, rows, tables=tables, form=mode)
+    if mode == HF:
+        def trace(o, d, active):
+            caps = () if active is None else trace_hf.COMPACT_CAPS
+            return Record(*trace_hf.march_rays_hf(o, d, active, front["iscal"], tables,
+                                                  trace_hf.hf_budget(MAX_STEPS, caps), 0))
+        return front, front["nw"], trace, volume, (rows, w)
+    rounds = trace_vol.rays_vol_rounds(MAX_STEPS)
+
+    def trace(o, d, active):
+        return Record(*trace_vol.march_rays_vol(o, d, active, front["iscal"], tables, rounds))
+    return front, front["inv"], trace, volume, (rows, w)
+
+
+def _p1_bound(mode, n, chained) -> dict:
+    """P1's bound for n pixels: each input read once (the hit, its flags,
+    the earlier flags of a chained batch, the noise), each output written
+    once (two rays a pixel)."""
+    hf = mode == "hf"
+    reads = n * (12 + 4 + (4 if hf else 2) + (1 if chained else 0) + (4 if hf else 24))
+    reads += 8 * 4 + (256 * 8 if hf else 0)
+    return _bound(reads + n * 2 * (12 + 12 + 1), n * (OPS_P1_HF if hf else OPS_P1_VOLUME))
+
+
+def _s2_bound(torch, mode, records, volume_hits, n) -> dict:
+    """S2's bound for n pixels from this run's records: the primary's hit,
+    flags and direction, each pair's two air flags and diffuse direction,
+    the first diffuse hit's material (and position, in the volume mode),
+    one volume word a hit that gathers one, the six G-buffers written; a
+    sky for each pixel and for each diffuse ray that reached the sky."""
+    hf = mode == "hf"
+    flag = 4 if hf else 1
+    bounces = len(records) - 1
+    reads = n * (12 + 4 + 2 * flag + 12) + 8 * 4 + 3 * 4 + volume_hits * 4
+    reads += n * bounces * (2 * flag + 12) + (n * (flag + (0 if hf else 12)) if bounces == 2
+                                              else 0)
+    air = lambda r: (r.air[n:] != 0) if hf else r.air[n:]
+    skies = n + sum(int(air(r).sum()) for r in records[1:])
+    return _bound(reads + n * 51, skies * OPS_PER_SKY + n * OPS_S2_OTHER)
+
+
+def _staged_glue_case(torch, mode, world, blue, uniforms, size, bounces, band=None,
+                      timed=False):
+    """P1 and S2 against their plain versions on one staged frame's own
+    records: the tracer's raw hits of each batch, each P1 call (its whole
+    2N-ray output: both halves) and the S2 call, every output bit for bit
+    (a NaN matching a NaN).  ``timed``: each call alone (torch.profiler,
+    ``kept``), its call (CUDA events) and its plain version (once)."""
+    from raytrace_tpu_torch.ops import integrate
+    from raytrace_tpu_torch.ops.lighting import EXHAUSTED_DEPTH
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    front, noise, trace, volume, shape = _staged_front(torch, mode, world, blue, uniforms,
+                                                       size, band)
+    n = shape[0] * shape[1]
+    res = dict(mode=mode, shape=list(shape), bounces=bounces, band=band, p1=[], equal={},
+               p1_max_abs_err=0.0, s2_max_abs_err=0.0)
+    records = [trace(front["origin"], front["direction"], None)]
+    directions = [front["direction"]]
+    active = None
+    for bounce in range(bounces):
+        args = (mode, records[-1], noise, front["sun"], bounce, active)
+        got = integrate.leg_batch(*args)
+        want, plain_ms = _timed_once(torch, lambda: integrate.leg_batch_plain(*args))
+        for k, g, w_ in zip(("origin", "direction", "active"), got, want):
+            res["equal"][f"p1_{bounce}_{k}"] = _held(g, w_)
+            res["p1_max_abs_err"] = max(res["p1_max_abs_err"], _max_abs(
+                torch.nan_to_num(g.float()), torch.nan_to_num(w_.float())))
+        one = dict(rays=2 * n, active=int(got[2].sum()), **_p1_bound(mode, n, bounce > 0))
+        if timed:
+            p1 = lambda: integrate.leg_batch(*args)
+            one.update(call_ms=call_ms(p1, 10), plain_ms=plain_ms,
+                       **_alone(p1, 10, KERNEL_NAMES["P1"]))
+        res["p1"].append(one)
+        origin, direction, active = got
+        records.append(trace(origin, direction, active))
+        directions.append(direction)
+    args = (mode, records, directions, front["sun"], uniforms["origin"], shape, volume)
+    got = integrate.shade_staged(*args)
+    want, plain_ms = _timed_once(torch, lambda: integrate.shade_staged_plain(*args))
+    for k in want:
+        res["equal"][f"s2_{k}"] = _held(got[k], want[k])
+        res["s2_max_abs_err"] = max(res["s2_max_abs_err"], _max_abs(
+            torch.nan_to_num(_wide(got[k]).float()), torch.nan_to_num(_wide(want[k]).float())))
+    hits = 0
+    if mode != "hf":  # volume words gathered: the primary's hits and the first diffuse hits'
+        hit = lambda r, lo, hi: (r.mat[lo:hi] & ~r.air[lo:hi])
+        hits = int(hit(records[0], 0, n).sum()) + (
+            int(hit(records[1], n, 2 * n).sum()) if bounces == 2 else 0)
+    exhausted = int((got["depth"].to(torch.int32) == EXHAUSTED_DEPTH).sum())
+    res["s2"] = dict(exhausted_px=exhausted, sky_px=int(
+        (got["depth"].to(torch.int32) == 0xFFFF).sum()), **_s2_bound(torch, mode, records,
+                                                                      hits, n))
+    if timed:
+        s2 = lambda: integrate.shade_staged(*args)
+        res["s2"].update(call_ms=call_ms(s2, 10), plain_ms=plain_ms,
+                         **_alone(s2, 10, KERNEL_NAMES["S2"]))
+    return all(res["equal"].values()) and exhausted == 0, res
+
+
+def _random_record(torch, dev, mode, m, seed):
+    """``m`` seeded random raw hits of ``mode``: positions over the region
+    (a tenth on texel faces, a twentieth NaN), normal ids 0-7, air, and
+    packed words (a quarter 0) or done flags (some air rays not done)."""
+    import numpy as np
+
+    from raytrace_tpu_torch.ops.integrate import Record
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-140.0, 140.0, (m, 3)).astype(np.float32)
+    face = rng.random(m) < 0.1
+    pos[face] = np.floor(pos[face])
+    pos[rng.random(m) < 0.05] = np.nan
+    normal = rng.integers(0, 8, m).astype(np.int32)
+    air = rng.random(m) < 0.3
+    if mode == "hf":
+        mat = rng.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
+        mat[rng.random(m) < 0.25] = 0
+        air = air.astype(np.int32)
+    else:
+        mat = air | (rng.random(m) < 0.8)
+        mat[rng.random(m) < 0.03] = False
+    return Record(*(torch.from_numpy(a).to(dev) for a in (pos, normal, air, mat)))
+
+
+def _staged_glue_random(torch, dev, mode, volume, n, seed) -> dict:
+    """P1 and S2 against their plain versions on random raw records at b0,
+    b1 and b2 (``_random_record``), random noise, earlier flags, bounce
+    directions and camera: every output bit for bit (a NaN matching a
+    NaN)."""
+    import numpy as np
+
+    from raytrace_tpu_torch.ops import integrate, shading
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    noise = (t(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32))
+             if mode == "hf" else t(rng.uniform(-1, 1, (n, 12)).astype(np.float32)))
+    sun = shading.sun_vector(torch.tensor(0.6, dtype=torch.float32, device=dev))
+    cam = t(rng.uniform(-100, 100, 3).astype(np.float32))
+    records = [_random_record(torch, dev, mode, n if b == 0 else 2 * n, seed + b)
+               for b in range(3)]
+    dirs, _ = _random_rays(torch, dev, 5 * n, seed + 3)
+    directions = [dirs[:n], dirs[n:3 * n], dirs[3 * n:]]
+    prev = t(rng.random(2 * n) < 0.6)
+    prev[n:] = prev[:n]
+    equal = {}
+    for bounce, rec, act in ((0, records[0], None), (1, records[1], prev)):
+        args = (mode, rec, noise, sun, bounce, act)
+        got, want = integrate.leg_batch(*args), integrate.leg_batch_plain(*args)
+        for k, g, w_ in zip(("origin", "direction", "active"), got, want):
+            equal[f"p1_{bounce}_{k}"] = _held(g, w_)
+    for bounces in (0, 1, 2):
+        args = (mode, records[:1 + bounces], directions[:1 + bounces], sun, cam, (n // 64, 64),
+                volume)
+        got, want = integrate.shade_staged(*args), integrate.shade_staged_plain(*args)
+        for k in want:
+            equal[f"s2_b{bounces}_{k}"] = _held(got[k], want[k])
+    return dict(mode=mode, pixels=n, equal=equal)
+
+
+def phase_staged_glue_kernel(torch, dev, blue, hf_world, vol_world):
+    """P1 and S2 against their plain versions, every output bit for bit
+    (a NaN matching a NaN), on the records of the staged frames: hf on the
+    hf path's tables and uniforms (``hf_world``: (tables, packed)) and the
+    staged volume frame on the volume_fast path's world (``vol_world``:
+    ((volume, tables), packed)), both at 1024² b2 (P1 both bounces, both
+    halves of each batch; timed: each kernel alone, its call, its plain
+    version, its bound); config 2's hf frame at 1920x1080 b1; a 270-row
+    band of each (hf 1920x1080 rows 270-539, volume 1024² rows 300-569, b2);
+    then 4096 random raw records of each mode at b0, b1 and b2."""
+    from raytrace_tpu_torch.apps import benchmark
+    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    t0 = time.perf_counter()
+    hf_uni = unpack_uniforms(hf_world[1])
+    vol_uni = unpack_uniforms(vol_world[1])
+    res, ok = {}, True
+    cases = {
+        "hf_main_b2": ("hf", hf_world[0], hf_uni, W, 2, None, True),
+        "volume_main_b2": ("volume", vol_world[0], vol_uni, W, 2, None, True),
+        "hf_config2_1920x1080_b1": (
+            "hf", build_hf_tables((0, 0, 0), seed=0, device=dev),
+            benchmark._moved(benchmark.CONFIG2_CAMERA, dev)(0.0), (1920, 1080), 1, None,
+            False),
+        "hf_band_1920x1080_270+270_b2": ("hf", hf_world[0], hf_uni, (1920, 1080), 2,
+                                         (270, 270), False),
+        "volume_band_300+270_b2": ("volume", vol_world[0], vol_uni, W, 2, (300, 270), False),
+    }
+    for label, (mode, world, uni, size, bounces, band, timed) in cases.items():
+        one_ok, res[label] = _staged_glue_case(torch, mode, world, blue, uni, size, bounces,
+                                               band, timed)
+        ok = ok and one_ok
+    for mode, volume in (("hf", None), ("volume", vol_world[0][0])):
+        res[f"{mode}_random"] = _staged_glue_random(torch, dev, mode, volume, 4096, 60)
+        ok = ok and all(res[f"{mode}_random"]["equal"].values())
+    res["seconds"] = time.perf_counter() - t0
+    return ok, res
+
+
 GRAPH_FRAMES = 16  # frames flown at +VOL_DX in x: one slice crossing at least
 # The kernel launches of one b2 frame of each graphed tracer.
 GRAPH_KERNELS = {"fused": {"T1": 1, "R1": 1, "K1": 1, "S1": 1, "K2": 6},
-                 "hf": {"K4": 3, "K2": 6},
+                 "hf": {"R1": 1, "K4": 3, "P1": 2, "S2": 1, "K2": 6},
                  "volume_fast": {"R1": 1, "K3": 1, "S3": 1, "K2": 6}}
 # Each kernel's name in a profiler trace.
 KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
                 "K2": "denoise_pass_kernel", "R1": "frame_rays_kernel",
                 "S1": "shade_fused_kernel", "S3": "shade_vol_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
+                "K3s": "trace_rays_vol_kernel", "P1": "leg_batch_kernel",
+                "S2": "shade_staged_kernel",
                 "G1": "worldgen_kernel", "O1": "vol_bricks_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
 PROFILED_REPLAYS = 3  # steady replays in graph_frames' profiler trace
@@ -1740,15 +1991,17 @@ def _scratch_dir(name: str) -> Path:
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
     from raytrace_tpu_torch.ops import (
-        denoise, hf_tables, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables, worldgen)
+        denoise, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol,
+        vol_tables, worldgen)
     from raytrace_tpu_torch.world import generate
 
     return dict(T1=hf_tables.build_hf_tables.launches, R1=rays.frame_rays.launches,
+                P1=integrate.leg_batch.launches, S2=integrate.shade_staged.launches,
                 K1=lighting.march_paths.launches, S1=lighting.shade.launches,
                 S3=path_vol.shade.launches,
                 K2=denoise.launch_pass.launches,
                 K3=trace_vol.march_paths_vol.launches,
-                K3s=trace_vol.trace_rays_vol.launches, K4=trace_hf.trace_rays_hf.launches,
+                K3s=trace_vol.march_rays_vol.launches, K4=trace_hf.march_rays_hf.launches,
                 G1=worldgen.generate_into.launches, G1box=generate.generate_box.launches,
                 O1=vol_tables.build_vol_tables.launches + vol_tables.update_vol_tables.launches)
 
@@ -1954,12 +2207,13 @@ def phase_app_shapes(rt, torch, dev, blue):
 
 # The kernels each benchmark config must launch (its frames: one warm frame
 # and the timed ones; config 1's world one box of G1, config 2 hf's K4 one
-# launch a leg batch, two at b1; config 3 twice 64 frames, config 4 one a
+# launch a leg batch, two at b1, with R1, one P1 and S2 a frame; config 3
+# twice 64 frames, config 4 one a
 # view), by config and tracer.
 CONFIG_KERNELS = {("1", "volume_fast"): {"G1box": 1, "O1": 1, "R1": 21, "K3": 21, "S3": 21},
                   ("1", "volume"): {"G1box": 1},
                   ("2", "fused"): {"T1": 1, "R1": 21, "K1": 21, "S1": 21, "K2": 126},
-                  ("2", "hf"): {"T1": 1, "K4": 42, "K2": 126},
+                  ("2", "hf"): {"T1": 1, "R1": 21, "K4": 42, "P1": 21, "S2": 21, "K2": 126},
                   ("3", "fused"): {"T1": 128, "R1": 128, "K1": 128, "S1": 128, "K2": 768},
                   ("4", "fused"): {"T1": 30, "R1": 30, "K1": 30, "S1": 30, "K2": 180}}
 # The outputs an eager twin must equal, by graphed config.
@@ -2412,7 +2666,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
     # The kernels keep their state in registers: no spills (K2, K4, G1, O1,
-    # R1, S1, S3), and K1, K3 and K3s no stack.
+    # R1, S1, S3, P1, S2), and K1, K3 and K3s no stack.
     # A kernel missing from the parse reads as a frame of -1: not lean.
     frame = lambda k: [int(v) for v in re.findall(
         r"\d+", ptxas[k]["frame"] or "-")] if k in ptxas else [-1]
@@ -2425,7 +2679,8 @@ def main() -> int:
                                and all(frame(k)[1:] == [0, 0] for k in (
                                    "worldgen_kernel", "vol_bricks_kernel",
                                    "vol_pyramid_kernel", "frame_rays_kernel",
-                                   "shade_fused_kernel", "shade_vol_kernel")))
+                                   "shade_fused_kernel", "shade_vol_kernel",
+                                   "leg_batch_kernel", "shade_staged_kernel")))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
     report("build", lean, dict(seconds=build_s, nvcc_seconds=build["seconds"],
                                cached=build["cached"], ptxas=ptxas, sass=sass))
@@ -2517,6 +2772,8 @@ def main() -> int:
     ok, res = phase_staged_vs_path(torch, vpipe)
     report("staged_vs_path_main", ok, res)
     times.update(phase_staged_vol_times(torch, vpipe, cam, k3s_res))
+    # The staged volume frame's world and uniforms, for staged_glue_kernel.
+    staged_world = (vpipe.world(), torch.from_numpy(vpipe.uniforms.packed()).to(dev))
     ok, res = phase_volume_edit(torch, vpipe)
     report("volume_edit", ok, res)
     del vpipe
@@ -2542,7 +2799,12 @@ def main() -> int:
     ok, res = phase_column_table(torch, regions)
     report("column_table", ok, res)
     hf_frame_ms = phase_hf_frame_ms(torch, hpipe)
-    del hpipe
+    # P1 and S2 against their plain versions on the hf and staged volume
+    # frames' own records, config 2's, two bands' and random ones.
+    hf_world = (hpipe.tables(), torch.from_numpy(hpipe.uniforms.packed()).to(dev))
+    ok, glue_res = phase_staged_glue_kernel(torch, dev, blue, hf_world, staged_world)
+    report("staged_glue_kernel", ok, glue_res)
+    del hpipe, hf_world, staged_world
 
     # The frame as one CUDA graph replay: each graphed tracer against its
     # eager twin across slice crossings, a slab, an edit and a teleport,
@@ -2666,12 +2928,42 @@ def main() -> int:
                         for label in ("k4_512_b2_debug_view", "k4_1920x1080_b1")],
                 launches=bench_launches("K4")),
     )
-    r1_main, r1_vol = r1_res["fused_1024"], r1_res["volume_1024"]
+    r1_main, r1_vol, r1_hf = r1_res["fused_1024"], r1_res["volume_1024"], r1_res["hf_1024"]
     s1_main, s3_main = shade_res["s1_main"], shade_res["s3_main_b2"]
     err = lambda res, prefix="": max(v["max_abs_err"] for k, v in res.items()
                                      if k.startswith(prefix) and isinstance(v, dict)
                                      and "max_abs_err" in v)
+    # P1 and S2 on the hf frame's records at 1024² b2 (P1: the mean of its
+    # two calls), with the staged volume frame's beside them.
+    glue_err = lambda k: max(v[f"{k}_max_abs_err"] for v in glue_res.values()
+                             if isinstance(v, dict) and f"{k}_max_abs_err" in v)
+
+    def glue(case, k):
+        calls = case["p1"] if k == "p1" else [case["s2"]]
+        mean = lambda key: sum(c[key] for c in calls) / len(calls)
+        return dict(ms=mean("kernel_ms"), kept=[c["kept"] for c in calls],
+                    plain_ms=mean("plain_ms"), call_ms=mean("call_ms"),
+                    bound_ms=mean("bound_ms"),
+                    bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"])
+
+    hf_glue, vol_glue = glue_res["hf_main_b2"], glue_res["volume_main_b2"]
     kernels = [
+        dict(name="P1 leg_batch (a bounce's sun + diffuse ray batch, staged frames)",
+             route="cuda", source="raytrace_tpu_torch/csrc/staged.cu",
+             replaces="raytrace_tpu/ops/trace_jax.py:310",
+             launches=hf_res["p1_launches"], launches_per_frame=hf_res["p1_launches"] / FRAMES,
+             max_abs_err=glue_err("p1"), **glue(hf_glue, "p1"), library_ms=None,
+             volume_mode=dict(launches=staged_res["launches"].get("P1", 0),
+                              **glue(vol_glue, "p1")),
+             app_shapes=dict(launches=bench_launches("P1"))),
+        dict(name="S2 shade_staged (the staged frames' G-buffers)", route="cuda",
+             source="raytrace_tpu_torch/csrc/staged.cu",
+             replaces="raytrace_tpu/ops/trace_jax.py:330",
+             launches=hf_res["s2_launches"], launches_per_frame=hf_res["s2_launches"] / FRAMES,
+             max_abs_err=glue_err("s2"), **glue(hf_glue, "s2"), library_ms=None,
+             volume_mode=dict(launches=staged_res["launches"].get("S2", 0),
+                              **glue(vol_glue, "s2")),
+             app_shapes=dict(launches=bench_launches("S2"))),
         dict(name="R1 frame_rays (rays, noise and march scalars of a frame)", route="cuda",
              source="raytrace_tpu_torch/csrc/frame_rays.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:849",
@@ -2683,7 +2975,12 @@ def main() -> int:
              volume_form=dict(launches=vol_res["r1_launches"], ms=r1_vol["kernel_ms"],
                               kept=r1_vol["kept"], plain_ms=r1_vol["plain_ms"],
                               call_ms=r1_vol["call_ms"], bound_ms=r1_vol["bound_ms"],
-                              bound_by=r1_vol["bound_by"]),
+                              bound_by=r1_vol["bound_by"],
+                              staged_volume_launches=staged_res["launches"].get("R1", 0)),
+             hf_form=dict(launches=hf_res["launches"].get("R1", 0), ms=r1_hf["kernel_ms"],
+                          kept=r1_hf["kept"], plain_ms=r1_hf["plain_ms"],
+                          call_ms=r1_hf["call_ms"], bound_ms=r1_hf["bound_ms"],
+                          bound_by=r1_hf["bound_by"]),
              app_shapes=dict(launches=bench_launches("R1"))),
         dict(name="S1 shade_fused (the fused frame's planar shade)", route="cuda",
              source="raytrace_tpu_torch/csrc/shade.cu",

@@ -13,7 +13,8 @@ build takes seconds.
 plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
 with their plain versions step for step, T1's table words and G1's voxel
 words are the plain versions', K2's sums round as the plain pass's, and the
-frame's rays (R1) and shades (S1, S3) are the plain glue's bits.
+frame's rays (R1), shades (S1, S3) and the staged frames' leg batches
+(P1) and shade (S2) are the plain glue's bits.
 """
 
 from __future__ import annotations
@@ -66,14 +67,21 @@ _SIGNATURES = {
     "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],
     # cam, forward, up, right, sun_angle, seed, lr, blue, trig, h3, r0,
     # any8b, origin, direction, nw, inv, iscal, fscal, sun, width, height,
-    # row0, rows, nh, nw, nch, stream
-    "rt_frame_rays": [_P] * 19 + [_I] * 7 + [_P],
+    # row0, rows, nh, nw, nch, hf, grass, rock, snow, stream
+    "rt_frame_rays": [_P] * 19 + [_I] * 11 + [_P],
     # meta, pd, direction, nw, sun, trig, lighting, albedo, emission, fog,
     # depth, normal, n, grass, rock, snow, stream
     "rt_shade_fused": [_P] * 12 + [_I] * 4 + [_P],
     # meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, volume,
     # lighting, albedo, emission, fog, depth, normal, n, legs, stream
     "rt_shade_vol": [_P] * 14 + [_I] * 2 + [_P],
+    # pos, normal, air, mat, prev_active, nw, inv, sun, trig, origin,
+    # direction, active, n, off, bounce, mode, stream
+    "rt_leg_batch": [_P] * 12 + [_I] * 4 + [_P],
+    # pos0, normal0, air0, mat0, dir0, pos1, air1, mat1, dir1, air2, dir2,
+    # sun, cam, volume, lighting, albedo, emission, fog, depth, normal, n,
+    # bounces, mode, stream
+    "rt_shade_staged": [_P] * 20 + [_I] * 3 + [_P],
 }
 
 _lib = None

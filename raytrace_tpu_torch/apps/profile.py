@@ -10,8 +10,9 @@ prints for the steady frame:
   host's enqueue time per frame within it;
 - device ms/frame (the sum of the profiled device activities), device
   activities per frame, and the idle share ``1 - device / train``;
-- the same split in two: the port's own kernels (``csrc/``: K1-K4, T1, G1,
-  O1, R1, S1, S3; ``kernels_ms``, ``kernel_activities_per_frame``) and
+- the same split in two: the port's own kernels (``csrc/``: K1-K4, K3s,
+  T1, G1, O1, R1, S1, S3, P1, S2; ``kernels_ms``,
+  ``kernel_activities_per_frame``) and
   everything else PyTorch launches, its glue and copies (``glue_ms``,
   ``glue_activities_per_frame``);
 - the device activities that take the most time.
@@ -32,7 +33,8 @@ through ``build_hf_tables`` as ``Pipeline.tables()`` builds them
 (``tables.t1_kernel_ms``, ``torch.profiler``).
 
 ``--tracer volume_staged`` profiles the staged volume frame instead:
-``render_gbuffers_vol`` (K3s leg by leg) and the denoise chain on the
+``render_gbuffers_vol`` (R1, then K3s leg by leg with P1 between the legs,
+then S2) and the denoise chain on the
 volume_fast pipeline's volume and tables, uniforms filled as draw_frame
 fills them.
 

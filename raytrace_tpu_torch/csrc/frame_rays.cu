@@ -15,7 +15,7 @@
 // in the same order (built with --fmad=false), so every output is the
 // plain version's bit for bit.
 //
-// Two forms, one per frame program:
+// Three forms, one per frame program:
 //  - fused (K1 reads it): origin and direction (N, 3) f32 and the packed
 //    noise word `nw` (N,) int32 (the four noise bytes K1 and S1 rebuild as
 //    k / 255); `sun` (8,) f32 = sun xyz, sunlight rgb, 0, 0 (K1's fscal);
@@ -26,7 +26,12 @@
 //    sd1, sp1, sd2, sp2 of the two noise texels; `sun` as above; `fscal`
 //    (4,) f32 = camera origin, 0; `iscal` (10,) int32 = lr xyz, the
 //    occupancy bounds of ops/vol_tables.py `occupancy_world_bounds` (from
-//    any8b, (32, 32, 32) bool), 0.
+//    any8b, (32, 32, 32) bool), 0.  The staged volume frame (K3s, P1, S2)
+//    reads it too: its `iscal` is K3s's scalars with the escape bounds.
+//  - hf (K4, P1 and S2 read it, the staged heightfield frame): the fused
+//    form's origin, direction, `nw` and `sun`, with K4's `iscal` (8,)
+//    int32 = r0 xy, lr xyz, and the packed grass, rock and snow words of
+//    the material bands (launch arguments), in place of maxh.
 // Pixels are image rows row0 .. row0 + rows of a width x height frame, one
 // thread each; a band's values are the whole frame's rows.  The last block
 // of the grid writes the frame scalars (the reduction over h3 or any8b),
@@ -71,6 +76,8 @@ struct FrameRaysArgs {
   float* fscal;  // volume_fast
   float* sun;
   int width, height, row0, rows, nh, nwid, nch;
+  bool hf;                     // the hf form: iscal holds the band words
+  int32_t grass, rock, snow;  // the hf form's packed band words
 };
 
 // Python's // and % for a positive divisor (torch.floor_divide and
@@ -118,11 +125,12 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
   __shared__ int32_t red[kThreads];
   __shared__ uint32_t occ[3];
   const int t = threadIdx.x;
-  if (a.nw != nullptr) {
+  const bool fused = a.nw != nullptr && !a.hf;
+  if (fused) {
     int32_t m = 0;
     for (int k = t; k < kWords; k += kThreads) m = max(m, a.h3[k] & 511);
     red[t] = m;
-  } else {
+  } else if (!a.hf) {
     if (t < 3) occ[t] = 0u;
     __syncthreads();
     uint32_t ox = 0u, oy = 0u, oz = 0u;
@@ -139,7 +147,7 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
   }
   __syncthreads();
   for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (a.nw != nullptr && t < s) red[t] = max(red[t], red[t + s]);
+    if (fused && t < s) red[t] = max(red[t], red[t + s]);
     __syncthreads();
   }
   if (t != 0) return;
@@ -148,7 +156,12 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
   const float sv[8] = {sun.x, sun.y, sun.z, light.x, light.y, light.z, 0.0f, 0.0f};
   for (int k = 0; k < 8; ++k) a.sun[k] = sv[k];
   const int32_t lr[3] = {(int32_t)a.lr[0], (int32_t)a.lr[1], (int32_t)a.lr[2]};
-  if (a.nw != nullptr) {
+  if (a.hf) {
+    const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], a.grass, a.rock, a.snow};
+    for (int k = 0; k < 8; ++k) a.iscal[k] = iv[k];
+    return;
+  }
+  if (fused) {
     const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], red[0], 0, 0};
     for (int k = 0; k < 8; ++k) a.iscal[k] = iv[k];
     return;
@@ -247,8 +260,10 @@ __global__ void __launch_bounds__(kThreads) frame_rays_kernel(const FrameRaysArg
 
 }  // namespace
 
-// Exactly one of `nw` (the fused form: `h3` and `r0` given) and `inv` (the
-// volume_fast form: `any8b`, `trig` and `fscal` given) is non-null.
+// Exactly one of `nw` (the fused and hf forms: `h3` and `r0` given) and
+// `inv` (the volume_fast form: `any8b`, `trig` and `fscal` given) is
+// non-null; `hf` nonzero (with `nw`) asks for the hf form's iscal, the
+// band words `grass`, `rock` and `snow`.
 extern "C" int rt_frame_rays(const float* cam, const float* forward, const float* up,
                              const float* right, const float* sun_angle,
                              const int32_t* seed, const float* lr, const float* blue,
@@ -256,15 +271,17 @@ extern "C" int rt_frame_rays(const float* cam, const float* forward, const float
                              const uint8_t* any8b, float* origin, float* direction,
                              int32_t* nw, float* inv, int32_t* iscal, float* fscal,
                              float* sun, int width, int height, int row0, int rows,
-                             int nh, int nwid, int nch, void* stream) {
+                             int nh, int nwid, int nch, int hf, int grass, int rock,
+                             int snow, void* stream) {
   const bool fused = nw != nullptr;
   if (fused == (inv != nullptr) || (fused && (h3 == nullptr || r0 == nullptr)) ||
       (!fused && (any8b == nullptr || trig == nullptr || fscal == nullptr)) ||
-      width <= 0 || rows <= 0 || nch < 2)
+      (hf && !fused) || width <= 0 || rows <= 0 || nch < 2)
     return (int)cudaErrorInvalidValue;
   FrameRaysArgs a{cam,    forward, up,    right,     sun_angle, seed,  lr,   blue, trig,
                   h3,     r0,      any8b, origin,    direction, nw,    inv,  iscal, fscal,
-                  sun,    width,   height, row0,     rows,      nh,    nwid, nch};
+                  sun,    width,   height, row0,     rows,      nh,    nwid, nch,
+                  hf != 0, grass,  rock,   snow};
   const int blocks = (width * rows + kThreads - 1) / kThreads + 1;
   frame_rays_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -35,54 +35,16 @@
 // for S3 (with the invariants and two volume words); the four skies are
 // ~200 float operations a pixel, three powf each.
 
-#include "shading.cuh"
+#include "gbuffer.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNormalSky = 16;           // constants.NORMAL_SKY
-constexpr int kExhaustedDepth = 256 * 254;  // lighting.EXHAUSTED_DEPTH
-constexpr int32_t kMaterialMask = (1 << 24) - 1;  // volume.MATERIAL_MASK
-
-// The albedo of a packed material word: its three 7-bit channels over 127.
-__device__ __forceinline__ Vec3 albedo_of(int32_t packed) {
-  return {(float)((packed >> 14) & 0x7F) / 127.0f, (float)((packed >> 7) & 0x7F) / 127.0f,
-          (float)(packed & 0x7F) / 127.0f};
-}
 
 // lighting._mat_albedo's packed word of a 2-bit material code (0 none).
 __device__ __forceinline__ int32_t code_material(int32_t code, int32_t grass, int32_t rock,
                                                  int32_t snow) {
   return code == 1 ? grass : (code == 2 ? rock : (code == 3 ? snow : 0));
-}
-
-// The G-buffer outputs of one pixel.
-struct Out {
-  float *lighting, *albedo, *emission, *fog;
-  uint16_t* depth;
-  uint8_t* normal;
-};
-
-__device__ __forceinline__ void put3(float* p, int i, Vec3 v) {
-  p[3 * i] = v.x;
-  p[3 * i + 1] = v.y;
-  p[3 * i + 2] = v.z;
-}
-
-// The depth, fog, normal and emission every shade writes alike; the sky
-// pixel's depth is 0xFFFF, an exhausted one's 256 * 254 and fogged pink.
-__device__ __forceinline__ void put_common(const Out& o, int i, bool sky, bool exhausted,
-                                           float dist, Vec3 fog, int32_t pn) {
-  // torch.clamp(max=) keeps a NaN, which .to(int32) makes 0.
-  float scaled = dist * 32.0f;
-  scaled = scaled > 65535.0f ? 65535.0f : scaled;
-  int32_t depth = sky ? 0xFFFF : (int32_t)scaled;
-  if (exhausted) depth = kExhaustedDepth;
-  o.depth[i] = (uint16_t)depth;
-  put3(o.fog, i, exhausted ? Vec3{1.0f, 0.0f, 1.0f}
-                           : Vec3{fog.x * 0.5f, fog.y * 0.5f, fog.z * 0.5f});
-  o.normal[i] = (uint8_t)(sky ? kNormalSky : pn);
-  put3(o.emission, i, Vec3{0.0f, 0.0f, 0.0f});
 }
 
 __device__ __forceinline__ Vec3 sun_terms(const float* sun, int k) {
@@ -139,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
 // `lin`, 0 where not `valid`.
 __device__ __forceinline__ Vec3 albedo_at(const int32_t* __restrict__ volume, int32_t lin,
                                           bool valid) {
-  return albedo_of(valid ? (__ldg(volume + lin) & kMaterialMask) : 0);
+  return albedo_of(valid ? material_at(volume, lin) : 0);
 }
 
 __device__ __forceinline__ Vec3 bounce(const float* __restrict__ inv, int i, int at,

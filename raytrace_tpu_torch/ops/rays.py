@@ -10,11 +10,13 @@ can stay a device tensor and no value syncs to the host.  Both take a band
 of image rows (``row0``, ``rows``; the tile split, ``parallel/tiles.py``):
 a band's values equal the same rows of the whole frame bit for bit.
 
-``frame_rays`` is the front of the fused and volume_fast frame programs in
-one call: the rays, the noise the march reads, the sun and the march's
-scalars (``raytrace_tpu/ops/lighting_pallas.py:846-899`` and
-``raytrace_tpu/ops/path_vol.py:366-392, 437-440``, which XLA fuses inside
-the jitted program).  On the card it is kernel R1 (``csrc/frame_rays.cu``),
+``frame_rays`` is the front of the frame programs in one call: the rays,
+the noise the march reads, the sun and the march's scalars
+(``raytrace_tpu/ops/lighting_pallas.py:846-899``,
+``raytrace_tpu/ops/path_vol.py:366-392, 437-440`` and, for the staged
+frames, ``raytrace_tpu/ops/trace_jax.py:289-298`` with the tracers'
+scalars, ``trace_pallas.py:573-577`` and ``trace_vol_pallas.py:906-914``,
+which XLA fuses inside the jitted programs).  On the card it is kernel R1 (``csrc/frame_rays.cu``),
 one launch; ``frame_rays_plain`` is the same function in plain PyTorch.
 """
 
@@ -24,6 +26,7 @@ import torch
 
 from ..constants import ROOT_BLOCK_SIZE
 from .._f32 import fdiv
+from ..world.generate import PACKED_GRASS, PACKED_ROCK, PACKED_SNOW
 from . import shading
 from .vol_tables import occupancy_world_bounds
 
@@ -94,8 +97,10 @@ def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
     return plane(0), plane(2)
 
 
-FORMS = ("fused", "volume")
+FORMS = ("fused", "volume", "hf")
 INV_WIDTH = 12  # volume_fast's per-pixel invariants: sd1, sp1, sd2, sp2
+# K4's packed material words of the grass, rock and snow bands.
+BAND_WORDS = (PACKED_GRASS, PACKED_ROCK, PACKED_SNOW)
 
 
 def _byte(img):
@@ -114,12 +119,16 @@ def frame_rays_plain(uniforms: dict, blue_noise: torch.Tensor, width: int, heigh
     sun = shading.sun_vector(uniforms["sun_angle"])
     lri = uniforms["lr"].to(torch.int32)
     out = dict(origin=origin.reshape(n, 3), direction=direction.reshape(n, 3), sun=sun)
-    if form == "fused":
+    if form in ("fused", "hf"):
+        out["nw"] = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
+                     | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24)).reshape(n)
+        if form == "hf":
+            words = torch.tensor(BAND_WORDS, dtype=torch.int32, device=dev)
+            out["iscal"] = torch.cat([tables["r0"], lri, words])
+            return out
         # Region-wide max column height for the sky-escape rule, from the
         # pyramid's 8-block level, so it keeps the +1 margin.
         maxh = (tables["h3"] & 511).max()
-        out["nw"] = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
-                     | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24)).reshape(n)
         out["iscal"] = torch.cat([tables["r0"], lri, maxh.reshape(1),
                                   torch.zeros(2, dtype=torch.int32, device=dev)]).to(torch.int32)
         out["fscal"] = sun
@@ -163,8 +172,12 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
     - "volume" (``tables`` from ``build_vol_tables``): ``inv`` (N, 12) f32,
       the jittered sun directions and unit-sphere points sd1, sp1, sd2, sp2
       of the two noise texels; ``iscal`` (10,) int32 = lr xyz, the
-      occupancy bounds (``occupancy_world_bounds``), 0; ``fscal`` (4,) f32 =
-      the camera origin, 0.
+      occupancy bounds (``occupancy_world_bounds``), 0, which is also
+      K3s's ``rays_vol_iscal`` with the escape rule; ``fscal`` (4,) f32 =
+      the camera origin, 0;
+    - "hf" (``tables`` from ``build_hf_tables``): ``nw`` as for "fused";
+      ``iscal`` (8,) int32 = K4's ``march_iscal``: r0 xy, lr xyz and the
+      packed grass, rock and snow words (``BAND_WORDS``).
 
     CPU tensors take ``frame_rays_plain``; CUDA tensors launch R1
     (``csrc/frame_rays.cu``) on the current stream, one launch that reads
@@ -183,7 +196,7 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
 
     rows = height if rows is None else rows
     n = width * rows
-    fused = form == "fused"
+    fused = form in ("fused", "hf")
     u = [uniforms[k] for k, _, _ in _UNIFORMS]
     for t, (k, dt, shape) in zip(u, _UNIFORMS):
         check_tensor(f"frame_rays: uniforms[{k!r}]", t, dt, shape, dev)
@@ -198,7 +211,8 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
         check_tensor("frame_rays: tables['h3']", tables["h3"], i32, (1024,), dev)
         check_tensor("frame_rays: tables['r0']", tables["r0"], i32, (2,), dev)
         out.update(nw=empty(n, i32), iscal=empty(8, i32))
-        out["fscal"] = out["sun"]
+        if form == "fused":
+            out["fscal"] = out["sun"]
         trig, h3, r0, any8b = None, tables["h3"].data_ptr(), tables["r0"].data_ptr(), None
     else:
         check_tensor("frame_rays: tables['any8b']", tables["any8b"], torch.bool,
@@ -212,7 +226,7 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
         *(t.data_ptr() for t in u), blue_noise.data_ptr(), trig, h3, r0, any8b,
         ptr("origin"), ptr("direction"), ptr("nw"), ptr("inv"), ptr("iscal"),
         None if fused else ptr("fscal"), ptr("sun"),
-        width, height, row0, rows, nh, nwid, nch, stream,
+        width, height, row0, rows, nh, nwid, nch, int(form == "hf"), *BAND_WORDS, stream,
     )
     check_launch("rt_frame_rays", err)
     frame_rays.launches += 1

@@ -5,9 +5,10 @@ Port of ``raytrace_tpu/ops/trace_pallas.py``: ``trace_rays_hf``
 (``:512-706``), ``render_gbuffers_hf`` (``:709-753``) and
 ``_packed_material`` (``:478-489``).  The march is kernel K4,
 ``_make_kernel`` (``:208-475``), written for Hopper in ``csrc/trace_hf.cu``
-as persistent lanes that each trace ray after ray; ``march_rays_hf_plain``
-below is the same march in plain PyTorch, one step of every live ray per
-iteration.
+as persistent lanes that each trace ray after ray (``march_rays_hf``);
+``march_rays_hf_plain`` below is the same march in plain PyTorch, one step
+of every live ray per iteration.  The frame's glue around K4 is R1's hf
+form (``rays.frame_rays``), P1 and S2 (``integrate.stage_gbuffers``).
 
 One step is the JAX unified body ``body_f`` (``:362-438``): classify the
 current voxel from the region tables (``hf_tables.classify``); where the
@@ -34,14 +35,16 @@ count as exhausted; the caller masks them.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from ..constants import MAX_TRACE_STEPS, ROOT_BLOCK_SIZE
 from ..world.generate import PACKED_GRASS, PACKED_ROCK, PACKED_SNOW, material_band
 from ..world.noise import hash3_u32
 from .hf_tables import TABLE_KEYS, bdist, classify, step_reciprocal
-from .integrate import flat_rays, hit_result, integrate_gbuffers
-from .rays import normalize
+from .integrate import HF, Record, flat_rays, record_hits, stage_gbuffers
+from .rays import frame_rays, normalize
 
 _HALF = ROOT_BLOCK_SIZE // 2
 _EPS = 1e-4
@@ -168,12 +171,59 @@ def _step(s: dict, live, tables, r0x: int, r0y: int, lrf, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _result(origin, pos, normal, air, packed) -> dict:
-    shape = origin.shape[:-1]
-    air = air.reshape(shape) != 0
-    packed = packed.reshape(shape)
-    return hit_result(origin, pos.reshape(origin.shape), normal.reshape(shape), air,
-                      packed, ~air & (packed == 0))
+def march_rays_hf(origin, direction, active, iscal, tables, budget: int, seed: int,
+                  census=None, counter=None):
+    """K4 on a batch of rays -> ``(position (N, 3) f32 before the nudge,
+    normal, air, packed (N,) int32)``, the raw hits (``integrate.Record``,
+    mode HF).
+
+    origin, direction: (N, 3) f32 contiguous; active: (N,) bool or None;
+    iscal: (8,) int32 from ``march_iscal`` (or R1's hf form); ``budget``
+    iterations a ray (``hf_budget``).  CPU tensors take
+    ``march_rays_hf_plain``; CUDA tensors launch K4 (``csrc/trace_hf.cu``)
+    on the current stream, and ``march_rays_hf.launches`` counts those
+    launches.  Any other device raises.  ``census``, a (1,) int64 tensor on
+    the same device, or None: K4 adds the loop iterations of each of its
+    warps to it (the lane-use census of ``testing/census.py``).
+    ``counter``, a (1,) int32 tensor of zero, or None (one is made): the
+    lanes' ray counter, which the launch uses up.
+    """
+    if origin.device.type == "cpu":
+        return march_rays_hf_plain(origin, direction, active, iscal, tables, budget,
+                                   seed)[:4]
+    if origin.device.type != "cuda":
+        raise RuntimeError(f"march_rays_hf: no kernel for device {origin.device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    n = origin.shape[0]
+    dev = origin.device
+    ins = [origin, direction] + ([] if active is None else [active]) + [iscal] \
+        + [tables[k] for k in TABLE_KEYS]
+    want = [(torch.float32, (n, 3))] * 2 + ([] if active is None else [(torch.bool, (n,))]) \
+        + [(torch.int32, (8,))] + [(torch.int32, (1024,))] * 6
+    for t, (dtype, shape) in zip(ins, want):
+        check_tensor("march_rays_hf", t, dtype, shape, dev)
+    if census is not None:
+        check_tensor("march_rays_hf", census, torch.int64, (1,), dev)
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    check_tensor("march_rays_hf", counter, torch.int32, (1,), dev)
+    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    normal, air, packed = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_trace_hf(
+        origin.data_ptr(), direction.data_ptr(), None if active is None else active.data_ptr(),
+        iscal.data_ptr(), *(tables[k].data_ptr() for k in TABLE_KEYS),
+        pos.data_ptr(), normal.data_ptr(), air.data_ptr(), packed.data_ptr(),
+        n, budget, seed, counter.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
+    )
+    check_launch("rt_trace_hf", err)
+    march_rays_hf.launches += 1
+    return pos, normal, air, packed
+
+
+march_rays_hf.launches = 0
 
 
 def trace_rays_hf_plain(tables: dict, origin, direction, lr,
@@ -185,7 +235,7 @@ def trace_rays_hf_plain(tables: dict, origin, direction, lr,
     o, d, a = flat_rays(origin, direction, active)
     *out, work = march_rays_hf_plain(o, d, a, march_iscal(tables, lr), tables,
                                      hf_budget(max_steps, caps), seed)
-    res = _result(origin, *out)
+    res = record_hits(HF, origin, Record(*out))
     res["work"] = work.reshape(*origin.shape[:-1], 2)
     return res
 
@@ -199,47 +249,18 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
     (..., 3) f32 (directions need not be unit); ``active`` (...,) bool or
     None.  Returns the hit dict of ``integrate.hit_result``.  CPU tensors
     take the plain march (``trace_rays_hf_plain``); CUDA tensors launch K4
-    (``csrc/trace_hf.cu``) on the current stream, and
-    ``trace_rays_hf.launches`` counts those launches.  Any other device
-    raises.  ``census``, a (1,) int64 tensor on the same device, or None:
-    K4 adds the loop iterations of each of its warps to it (the lane-use
-    census of ``testing/census.py``).
+    through ``march_rays_hf`` (counted on ``march_rays_hf.launches``).  Any
+    other device raises.  ``census`` as for ``march_rays_hf``.
     """
     if origin.device.type == "cpu":
         return trace_rays_hf_plain(tables, origin, direction, lr, max_steps, seed,
                                    caps, active)
     if origin.device.type != "cuda":
         raise RuntimeError(f"trace_rays_hf: no kernel for device {origin.device}")
-    from .._build import check_launch, check_tensor, kernels
-
     o, d, a = flat_rays(origin, direction, active)
-    n = o.shape[0]
-    dev = o.device
-    iscal = march_iscal(tables, lr)
-    ins = [o, d] + ([] if a is None else [a]) + [iscal] + [tables[k] for k in TABLE_KEYS]
-    want = [(torch.float32, (n, 3))] * 2 + ([] if a is None else [(torch.bool, (n,))]) \
-        + [(torch.int32, (8,))] + [(torch.int32, (1024,))] * 6
-    for t, (dtype, shape) in zip(ins, want):
-        check_tensor("trace_rays_hf", t, dtype, shape, dev)
-    if census is not None:
-        check_tensor("trace_rays_hf", census, torch.int64, (1,), dev)
-    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    normal, air, packed = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
-    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' ray counter
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = kernels().rt_trace_hf(
-        o.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(),
-        iscal.data_ptr(), *(tables[k].data_ptr() for k in TABLE_KEYS),
-        pos.data_ptr(), normal.data_ptr(), air.data_ptr(), packed.data_ptr(),
-        n, hf_budget(max_steps, caps), seed, nxt.data_ptr(),
-        None if census is None else census.data_ptr(), stream,
-    )
-    check_launch("rt_trace_hf", err)
-    trace_rays_hf.launches += 1
-    return _result(origin, pos, normal, air, packed)
-
-
-trace_rays_hf.launches = 0
+    out = march_rays_hf(o, d, a, march_iscal(tables, lr), tables, hf_budget(max_steps, caps),
+                        seed, census)
+    return record_hits(HF, origin, Record(*out))
 
 
 def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
@@ -247,16 +268,27 @@ def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
                        seed: int = 0, bounces: int = 2, row0: int = 0,
                        rows: int | None = None) -> dict:
     """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
-    through the staged heightfield tracer:
-    ``integrate.integrate_gbuffers`` with ``trace_rays_hf``.  Primaries run
-    without the cascade's budget, bounce batches with it, as in JAX
-    (``trace_pallas.py:740-749``); ``tables`` from ``build_hf_tables`` for
-    the region at ``uniforms["lr"]``."""
+    through the staged heightfield tracer (``trace_pallas.py:709-753``):
+    ``integrate.stage_gbuffers`` over K4's raw hits.  On the card R1 (its
+    hf form: the rays, the noise word, the sun and K4's scalars), K4, then
+    P1 and K4 for each bounce, then S2: 3 + 2 * ``bounces`` launches.
+    Primaries run without the cascade's budget, bounce batches with it, as
+    in JAX (``trace_pallas.py:740-749``); ``tables`` from
+    ``build_hf_tables`` for the region at ``uniforms["lr"]``.  The result
+    equals ``integrate_gbuffers`` with ``trace_rays_hf`` bit for bit."""
+    rows = height if rows is None else rows
+    f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
+                   form="hf")
+    # K4's ray counters, one a batch, zeroed at once.
+    counters = torch.zeros(1 + bounces, dtype=torch.int32, device=blue_noise.device)
+    batch = itertools.count()
 
-    def trace(o, d, active=None):
+    def trace(o, d, active):
+        k = next(batch)
         caps = () if active is None else COMPACT_CAPS
-        return trace_rays_hf(tables, o, d, uniforms["lr"], max_steps, seed, caps,
-                             active)
+        return Record(*march_rays_hf(o, d, active, f["iscal"], tables,
+                                     hf_budget(max_steps, caps), seed,
+                                     counter=counters[k:k + 1]))
 
-    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces, row0,
-                              rows)
+    return stage_gbuffers(trace, HF, f, f["nw"], uniforms["origin"], bounces,
+                          (rows, width))

@@ -19,9 +19,11 @@ two kernels share is ``csrc/vol_march.cuh``.
   (``trace_vol_pallas.py:799-1200``, its plain round loop ``:924-1006``):
   in ``csrc/trace_rays_vol.cu`` persistent lanes walk ray after ray, one
   move per loop iteration, with the round loop's budget in each lane's
-  state, and ``march_rays_vol_plain`` below runs one coarse step of every
-  live ray per loop iteration.  ``render_gbuffers_vol`` is the staged
-  G-buffer pass built on it (``:1210-1246``).
+  state (``march_rays_vol``), and ``march_rays_vol_plain`` below runs one
+  coarse step of every live ray per loop iteration.
+  ``render_gbuffers_vol`` is the staged G-buffer pass built on it
+  (``:1203-1246``): R1's volume form, K3s and the glue P1 and S2
+  (``integrate.stage_gbuffers``).
 
 One step of a ray:
   1. coarse step: a ray out of the window, or past the occupancy bounds
@@ -71,10 +73,9 @@ import torch
 
 from ..constants import MAX_TRACE_STEPS, ROOT_BLOCK_SIZE
 from . import shading
-from .integrate import flat_rays, hit_result, integrate_gbuffers
-from .rays import INV_WIDTH, normalize
+from .integrate import VOLUME, Record, flat_rays, record_hits, stage_gbuffers
+from .rays import INV_WIDTH, frame_rays, normalize
 from .vol_tables import occupancy_world_bounds
-from .volume import MATERIAL_MASK
 
 _HALF = ROOT_BLOCK_SIZE // 2
 _N = ROOT_BLOCK_SIZE
@@ -506,19 +507,58 @@ def march_rays_vol_plain(origin, direction, active, iscal, tables, rounds: int,
         s["status"] = torch.where(live, status, s["status"])
 
 
-def _rays_result(volume, origin, pos, normal, air, done) -> dict:
-    """JAX's hit dict (``:1140-1200``) from the march's (N,) outputs: the
-    packed material of each hit voxel, ``floor(p + 128) mod 256`` of the
-    position before the nudge, and the 0.001 nudge on hits only (air and
-    exhausted rays keep their raw resume position)."""
-    shape = origin.shape[:-1]
-    pos = pos.reshape(origin.shape)
-    normal, air, done = (t.reshape(shape) for t in (normal, air, done))
-    hit = done & ~air
-    t = torch.remainder(torch.floor(pos + float(_HALF)).to(torch.int32), _N)
-    lin = (t[..., 2] * _N + t[..., 1]) * _N + t[..., 0]
-    packed = torch.where(hit, volume[torch.where(hit, lin, 0).long()] & MATERIAL_MASK, 0)
-    return hit_result(origin, pos, normal, air, packed, ~done, nudge=hit)
+def march_rays_vol(origin, direction, active, iscal, tables, rounds: int,
+                   cap: int = RAYS_CAP, census=None):
+    """K3s on a batch of rays -> ``(position (N, 3) f32 before any nudge,
+    normal (N,) int32, air (N,) bool, done (N,) bool)``, the raw hits
+    (``integrate.Record``, mode VOLUME; see ``march_rays_vol_plain``).
+
+    origin, direction: (N, 3) f32 contiguous; active: (N,) bool or None;
+    iscal: (10,) int32 from ``rays_vol_iscal`` (or R1's volume form, the
+    escape bounds).  CPU tensors take ``march_rays_vol_plain``; CUDA
+    tensors launch K3s (``csrc/trace_rays_vol.cu``) on the current stream,
+    and ``march_rays_vol.launches`` counts those launches.  Any other device
+    raises.  ``census``, a (1,) int64 tensor on the card, or None: K3s adds
+    the loop iterations of each of its warps to it (the lane-use census of
+    ``testing/census.py``).
+    """
+    if origin.device.type == "cpu":
+        return march_rays_vol_plain(origin, direction, active, iscal, tables, rounds,
+                                    cap)[:4]
+    if origin.device.type != "cuda":
+        raise RuntimeError(f"march_rays_vol: no kernel for device {origin.device}")
+    from .._build import check_launch, check_tensor, kernels
+
+    n = origin.shape[0]
+    dev = origin.device
+    keys = ("any8", "all8", "any_hi", "detail")
+    ins = [origin, direction] + ([] if active is None else [active]) + [iscal] \
+        + [tables[k] for k in keys]
+    want = [(torch.float32, (n, 3))] * 2 + ([] if active is None else [(torch.bool, (n,))]) \
+        + [(torch.int32, (10,)), (torch.int32, (8, 128)), (torch.int32, (8, 128)),
+           (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
+    for t, (dtype, shape) in zip(ins, want):
+        check_tensor("march_rays_vol", t, dtype, shape, dev)
+    if census is not None:
+        check_tensor("march_rays_vol", census, torch.int64, (1,), dev)
+    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty(n, dtype=torch.int32, device=dev)
+    air, done = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
+    nxt = torch.empty(1, dtype=torch.int32, device=dev)  # the lanes' ray counter
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels().rt_trace_rays_vol(
+        origin.data_ptr(), direction.data_ptr(), None if active is None else active.data_ptr(),
+        iscal.data_ptr(), *(tables[k].data_ptr() for k in keys),
+        pos.data_ptr(), normal.data_ptr(), air.data_ptr(), done.data_ptr(),
+        n, rounds, round_steps(cap), nxt.data_ptr(),
+        None if census is None else census.data_ptr(), stream,
+    )
+    check_launch("rt_trace_rays_vol", err)
+    march_rays_vol.launches += 1
+    return pos, normal, air, done
+
+
+march_rays_vol.launches = 0
 
 
 def trace_rays_vol_plain(tables: dict, volume, origin, direction, lr,
@@ -531,7 +571,7 @@ def trace_rays_vol_plain(tables: dict, volume, origin, direction, lr,
     rounds = rays_vol_rounds(max_steps, cap) if rounds is None else rounds
     *out, moves = march_rays_vol_plain(o, d, a, rays_vol_iscal(tables, lr, escape),
                                        tables, rounds, cap)
-    res = _rays_result(volume, origin, *out)
+    res = record_hits(VOLUME, origin, Record(*out), volume)
     res["moves"] = moves.reshape(origin.shape[:-1])
     return res
 
@@ -552,16 +592,16 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
     occupancy bounds moving away (False: bounds never reached).  Returns
     the hit dict: ``position`` (nudged 0.001 off the face for hits only),
     ``normal``, ``air``, ``albedo``, ``distance`` (before the nudge) and
-    ``exhausted``.  Inactive rays are born done: they come back as hits at
-    their origin with its voxel's material and ``exhausted`` False (the
-    caller masks them).
+    ``exhausted``; the packed material of a hit is the volume's word at
+    ``floor(p + 128) mod 256`` of the position before the nudge (``:1140-
+    1200``; ``integrate.record_hits``).  Inactive rays are born done: they
+    come back as hits at their origin with its voxel's material and
+    ``exhausted`` False (the caller masks them).
 
     CPU tensors take the plain march (``trace_rays_vol_plain``); CUDA
-    tensors launch K3s (``csrc/trace_rays_vol.cu``) on the current stream,
-    and ``trace_rays_vol.launches`` counts those launches.  Any other
-    device raises.  ``census``, a (1,) int64 tensor on the card, or None:
-    K3s adds the loop iterations of each of its warps to it (the lane-use
-    census of ``testing/census.py``).
+    tensors launch K3s through ``march_rays_vol`` (counted on
+    ``march_rays_vol.launches``).  Any other device raises.  ``census`` as
+    for ``march_rays_vol``.
 
     Every ray equals JAX's plain round loop (``cascade=False``).  JAX turns
     on its straggler cascade by itself when ``rounds >= 12`` and the batch
@@ -579,40 +619,11 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
                                     rounds, cap, active, escape)
     if origin.device.type != "cuda":
         raise RuntimeError(f"trace_rays_vol: no kernel for device {origin.device}")
-    from .._build import check_launch, check_tensor, kernels
-
     o, d, a = flat_rays(origin, direction, active)
-    n = o.shape[0]
-    dev = o.device
     rounds = rays_vol_rounds(max_steps, cap) if rounds is None else rounds
-    iscal = rays_vol_iscal(tables, lr, escape)
-    keys = ("any8", "all8", "any_hi", "detail")
-    ins = [o, d] + ([] if a is None else [a]) + [iscal] + [tables[k] for k in keys]
-    want = [(torch.float32, (n, 3))] * 2 + ([] if a is None else [(torch.bool, (n,))]) \
-        + [(torch.int32, (10,)), (torch.int32, (8, 128)), (torch.int32, (8, 128)),
-           (torch.int32, (2, 128)), (torch.int32, (NB ** 3, 16))]
-    for t, (dtype, shape) in zip(ins, want):
-        check_tensor("trace_rays_vol", t, dtype, shape, dev)
-    if census is not None:
-        check_tensor("trace_rays_vol", census, torch.int64, (1,), dev)
-    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty(n, dtype=torch.int32, device=dev)
-    air, done = (torch.empty(n, dtype=torch.bool, device=dev) for _ in range(2))
-    nxt = torch.empty(1, dtype=torch.int32, device=dev)  # the lanes' ray counter
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = kernels().rt_trace_rays_vol(
-        o.data_ptr(), d.data_ptr(), None if a is None else a.data_ptr(),
-        iscal.data_ptr(), *(tables[k].data_ptr() for k in keys),
-        pos.data_ptr(), normal.data_ptr(), air.data_ptr(), done.data_ptr(),
-        n, rounds, round_steps(cap), nxt.data_ptr(),
-        None if census is None else census.data_ptr(), stream,
-    )
-    check_launch("rt_trace_rays_vol", err)
-    trace_rays_vol.launches += 1
-    return _rays_result(volume, origin, pos, normal, air, done)
-
-
-trace_rays_vol.launches = 0
+    out = march_rays_vol(o, d, a, rays_vol_iscal(tables, lr, escape), tables, rounds, cap,
+                         census)
+    return record_hits(VOLUME, origin, Record(*out), volume)
 
 
 def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Tensor,
@@ -621,16 +632,23 @@ def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Te
                         escape: bool = True, row0: int = 0,
                         rows: int | None = None) -> dict:
     """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
-    through the staged volume tracer:
-    ``integrate.integrate_gbuffers`` with ``trace_rays_vol``
-    (``trace_vol_pallas.py:1210-1246``), one K3s launch for the primaries
-    and one for each bounce's sun + diffuse pair.  ``volume`` and ``tables``
-    as for ``trace_rays_vol``, the region centre ``uniforms["lr"]``;
-    returns the six G-buffers of ``integrate_gbuffers``."""
+    through the staged volume tracer (``trace_vol_pallas.py:1203-1246``):
+    ``integrate.stage_gbuffers`` over K3s's raw hits.  On the card R1 (its
+    volume form: the rays, the invariants sd1, sp1, sd2, sp2, the sun and
+    K3s's scalars with the escape bounds), K3s, then P1 and K3s for each
+    bounce, then S2: 3 + 2 * ``bounces`` launches.  ``volume`` and
+    ``tables`` as for ``trace_rays_vol``, the region centre
+    ``uniforms["lr"]``; ``escape`` False takes the never-reached bounds
+    (``rays_vol_iscal``).  The result equals ``integrate_gbuffers`` with
+    ``trace_rays_vol`` bit for bit."""
+    rows = height if rows is None else rows
+    f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
+                   form="volume")
+    iscal = f["iscal"] if escape else rays_vol_iscal(tables, uniforms["lr"], escape=False)
+    rounds = rays_vol_rounds(max_steps)
 
-    def trace(o, d, active=None):
-        return trace_rays_vol(tables, volume, o, d, uniforms["lr"], max_steps,
-                              active=active, escape=escape)
+    def trace(o, d, active):
+        return Record(*march_rays_vol(o, d, active, iscal, tables, rounds))
 
-    return integrate_gbuffers(trace, blue_noise, uniforms, width, height, bounces, row0,
-                              rows)
+    return stage_gbuffers(trace, VOLUME, f, f["inv"], uniforms["origin"], bounces,
+                          (rows, width), volume)

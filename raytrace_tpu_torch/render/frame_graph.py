@@ -7,8 +7,8 @@ compiled program per static configuration (``_jit_cache``/``_lazy_jit``,
 ``:159-168``).  Where XLA compiles the frame into one program, PyTorch runs
 it op by op, each op costing the host more than the card spends on most of
 them; a ``torch.cuda.CUDAGraph`` captured once replays the whole frame (the
-frame's rays R1, the G-buffer kernels, the shade S1 or S3 and the six K2
-passes, with what glue remains) with one call.
+frame's rays R1, the G-buffer kernels, the shade S1 or S3, or on "hf" the
+leg batches P1 and the shade S2, and the six K2 passes) with one call.
 
 A ``FrameProgram`` holds one configuration (tracer, width, height,
 max_steps, seed, bounces) and its static buffers on the pipeline's device:
@@ -56,15 +56,17 @@ import torch
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops import (
-    denoise, hf_tables, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables, worldgen)
+    denoise, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables,
+    worldgen)
 from ..world import generate
 from .pipeline import GRAPHED, render_frame
 
 # Every kernel wrapper's launch counter.
 COUNTED = (hf_tables.build_hf_tables, rays.frame_rays, lighting.march_paths, lighting.shade,
            denoise.launch_pass, trace_vol.march_paths_vol, path_vol.shade,
-           trace_vol.trace_rays_vol, trace_hf.trace_rays_hf, worldgen.generate_into,
-           generate.generate_box, vol_tables.build_vol_tables, vol_tables.update_vol_tables)
+           trace_vol.march_rays_vol, trace_hf.march_rays_hf, integrate.leg_batch,
+           integrate.shade_staged, worldgen.generate_into, generate.generate_box,
+           vol_tables.build_vol_tables, vol_tables.update_vol_tables)
 
 
 def _tensors(tree) -> list:
