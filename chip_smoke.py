@@ -12,6 +12,9 @@ for word against ``generate_box_plain`` on chunks, 512- and 4096-wide
 rows and a 256³ box, ``generate_box_kernel``; O1, the occupancy tables
 built and updated in place, against the plain build and update,
 ``vol_tables_kernel``),
+holds JAX's public ``denoise_chain`` (six K2 launches) and
+``finalize_frame`` (F1, one launch) to their plain versions on the main
+path's G-buffers, whole, in a band and unflipped (``finalize_kernel``),
 renders the 64² golden frame, then drives the frame paths through
 ``create_instance`` -> ``teleport`` -> ``draw_frame`` at 1024²: 20 frames
 of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
@@ -683,6 +686,62 @@ def phase_k2(torch, blue, gbs):
     return all(e <= res["atol"] for e in res["max_abs_err"].values()), res
 
 
+# F1's cases: (label, first row, rows, row0 of the dither, flip, the light
+# read: the chain's working plane (4 floats a pixel) or the contiguous
+# G-buffer (3)).
+F1_CASES = [("1024", 0, H, 0, True, "chain"), ("band_300+300", 300, 300, 300, True, "chain"),
+            ("1024_no_flip", 0, H, 0, False, "chain"), ("1024_contiguous", 0, H, 0, True,
+                                                        "gbuffer")]
+OPS_F1 = 15  # float32 operations of a channel: composite, fog, the filmic curve, dither
+
+
+def phase_finalize_kernel(torch, blue, gb):
+    """JAX's ``denoise_chain`` and ``finalize_frame`` on the card
+    (``ops/denoise.py``, ``ops/finalize.py``): the chain (six K2 launches)
+    against the plain chain and F1 against its plain version on the main
+    path's G-buffers, every output bit for bit, at F1_CASES; the chain then
+    F1 against K2's fused finalize (``denoise_finalize``); F1 alone
+    (torch.profiler, ``kept``), its call, the plain version and the bound
+    at 1024²."""
+    from raytrace_tpu_torch.ops import denoise, finalize
+    from raytrace_tpu_torch.testing.measure import call_ms
+
+    t0 = time.perf_counter()
+    light, depth, normal = gb["lighting"], gb["depth"], gb["normal"]
+    before = _launch_counts()
+    den = denoise.denoise_chain(light, depth, normal)
+    chain = dict(launches=_launches_since(before),
+                 equal=_bits_equal(den.contiguous(),
+                                   denoise.denoise_chain_plain(light, depth, normal)),
+                 plane_view=list(den.stride()),
+                 call_ms=call_ms(lambda: denoise.denoise_chain(light, depth, normal), 10))
+    res, ok = dict(chain=chain), chain["equal"] and chain["launches"] == {"K2": 6}
+    for label, first, rows, row0, flip, read in F1_CASES:
+        cut = lambda t: t[first:first + rows]
+        args = (cut(gb["albedo"]), cut(gb["emission"]), cut(gb["fog"]),
+                cut(den if read == "chain" else light), cut(depth), blue)
+        before = _launch_counts()
+        got = finalize.finalize_frame(*args, row0=row0, flip=flip)
+        launches = _launches_since(before)
+        want, plain_ms = _timed_once(torch, lambda: finalize.finalize_frame_plain(
+            *args, row0=row0, flip=flip))
+        one = dict(equal=_bits_equal(got, want), max_abs_err=_max_abs(got, want),
+                   launches=launches, lstride=args[3].stride(1), plain_ms=plain_ms)
+        if label == "1024":
+            f1 = lambda: finalize.finalize_frame(*args, row0=row0, flip=flip)
+            n = W * H
+            texels = min(H, blue.shape[0]) * min(W, blue.shape[1])
+            one.update(call_ms=call_ms(f1, 10), **_alone(f1, 10, KERNEL_NAMES["F1"]),
+                       **_bound(n * 62 + texels * 3 * 4, n * 3 * OPS_F1))
+            # The chain then F1 is K2's chain with finalize fused, bit for bit.
+            one["equals_denoise_finalize"] = _bits_equal(got, denoise.denoise_finalize(gb, blue))
+            ok = ok and one["equals_denoise_finalize"]
+        res[label] = one
+        ok = ok and one["equal"] and launches == {"F1": 1}
+    res["seconds"] = time.perf_counter() - t0
+    return ok, res
+
+
 def phase_hf_tables_kernel(rt, torch, dev):
     """T1 (``csrc/hf_tables.cu``) against its plain version on the card: at
     each of T1_REGIONS, from the packed uniforms (lr.y 0) and from an int32
@@ -963,7 +1022,8 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
 # 1920x1080 and 512², one band of config 5's 4K frame, and a camera below
 # the region (origin y < -128: the rays start on its floor).
 BELOW = dict(origin=(-30.0, -200.0, 60.0), pitch=0.3, sun=0.6)
-R1_CASES = [("1024", (1024, 1024), None, CANON), ("1024_band_300+200", (1024, 1024),
+R1_CASES = [("8x8", (8, 8), None, CANON),
+            ("1024", (1024, 1024), None, CANON), ("1024_band_300+200", (1024, 1024),
                                                    (300, 200), CANON),
             ("1920x1080", (1920, 1080), None, CANON), ("512", (512, 512), None, CANON),
             ("4k_band_1080+270", (3840, 2160), (1080, 270), CANON),
@@ -976,8 +1036,36 @@ OPS_R1_FUSED = 42
 OPS_R1_VOLUME = 105
 OPS_PER_SKY = 41
 OPS_S1_OTHER = 60  # two bounce directions, the albedos, the radiance sums
+# S1's path bits (meta >> 12): p_air, and the bounce weights a2, a4.
+S1_P_AIR, S1_BOUNCE_WEIGHTS = 1 << 12, (1 << 14) | (1 << 16)
+S1_TABLE_KERNEL = "sky_table_kernel"  # S1's first launch: the frame's bounce skies
+NIGHT_SUN = -2.0  # a sun angle whose sunlight has negative components
 OPS_S3_OTHER = 20  # the albedos, the radiance sums, depth and fog
 R1_UNIFORM_BYTES = 4 * (4 * 3 + 1 + 1 + 3)  # origin, forward, up, right, sun_angle, seed, lr
+# The region centres of R1's any8b cases: on the 8-voxel lattice, and two
+# off it, whose windows cut a brick slot at the wrap on every axis.
+R1_OCC_LR = [(0, 0, 0), (5, -3, 203), (-130, 7, -77)]
+
+
+def _occupancy_cases(torch, dev, lr) -> dict:
+    """R1's any8b tables (32, 32, 32) bool, indexed (bz, by, bx): empty,
+    full, one brick at the slot that straddles the wrap on each axis (with
+    a second brick elsewhere), and seeded random ones at three densities."""
+    import numpy as np
+
+    def straddling(axis):
+        slots = [bt for bt in range(32) if (8 * bt - lr[axis]) % 256 > 248]
+        return slots[0] if slots else 0
+
+    wrap = np.zeros((32, 32, 32), bool)
+    wrap[straddling(2), straddling(1), straddling(0)] = True
+    wrap[7, 20, 13] = True
+    cases = dict(empty=np.zeros((32, 32, 32), bool), full=np.ones((32, 32, 32), bool),
+                 wrap=wrap)
+    rng = np.random.default_rng(sum(lr) & 0xFFFF)
+    for p in (0.002, 0.05, 0.5):
+        cases[f"random_{p}"] = rng.random((32, 32, 32)) < p
+    return {k: torch.from_numpy(v).to(dev) for k, v in cases.items()}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1003,7 +1091,8 @@ def _max_abs(a, b) -> float:
 def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
     """R1 against its plain version in its three forms (fused and hf: the
     region tables ``tables``; volume: the world ``vol_world``'s occupancy
-    tables), every
+    tables, and any8b tables that are empty, full, straddle the wrap or are
+    random at R1_OCC_LR), every
     output bit for bit, at each shape of R1_CASES; R1 alone
     (torch.profiler, ``kept``), its call synced, the plain version (once)
     and the bound of each."""
@@ -1060,6 +1149,21 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
                                  if k in want))
     res["sun_angles"] = dict(angles=len(angles), equal=sum(sun_equal), of=len(sun_equal))
     ok = ok and all(sun_equal)
+    # The volume form's occupancy bounds (the scalars' block) on any8b
+    # tables that are empty, full, straddle the wrap or are random, at
+    # region centres on and off the brick lattice.
+    occ_equal, occ_bounds = [], {}
+    for lr in R1_OCC_LR:
+        uni = unpack_uniforms(torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev))
+        uni["lr"] = torch.tensor(lr, dtype=torch.float32, device=dev)
+        for label, any8b in _occupancy_cases(torch, dev, lr).items():
+            kw = dict(tables=dict(vol_world[1], any8b=any8b), form="volume")
+            got = rays.frame_rays(uni, blue, 64, 64, **kw)
+            want = rays.frame_rays_plain(uni, blue, 64, 64, **kw)
+            occ_equal.append(all(_bits_equal(got[k], want[k]) for k in want))
+            occ_bounds[f"{label}_{lr[0]}_{lr[1]}_{lr[2]}"] = want["iscal"][3:9].tolist()
+    res["occupancy_cases"] = dict(equal=sum(occ_equal), of=len(occ_equal), bounds=occ_bounds)
+    ok = ok and all(occ_equal)
     res["seconds"] = time.perf_counter() - t0
     return ok, res
 
@@ -1093,11 +1197,39 @@ def _random_rays(torch, dev, n, seed):
             torch.from_numpy(dist.astype(np.float32)).to(dev))
 
 
+def _s1_alone(call) -> dict:
+    """S1's two kernels alone (torch.profiler): the frame's table of bounce
+    skies and the shade, and their sum ``kernel_ms``, S1's time."""
+    shade, table = _alone(call, 10, KERNEL_NAMES["S1"]), _alone(call, 10, S1_TABLE_KERNEL)
+    return dict(kernel_ms=shade["kernel_ms"] + table["kernel_ms"],
+                shade_kernel_ms=shade["kernel_ms"], table_kernel_ms=table["kernel_ms"],
+                kept=shade["kept"], table_kept=table["kept"])
+
+
+def _s1_bound(meta) -> dict:
+    """S1's bound on the words ``meta``: its bytes (meta, the distance, the
+    direction and the noise word in, four 12-byte G-buffers, depth and
+    normal out; the sun and the trig table) and the skies these words need,
+    the primary's of every pixel and a bounce's of each weight a terrain
+    pixel has (the table is how S1 computes them, not a part of the
+    function)."""
+    terrain = (meta & S1_P_AIR) == 0
+    weights = int((terrain & ((meta & (1 << 14)) != 0)).sum()) + int(
+        (terrain & ((meta & (1 << 16)) != 0)).sum())
+    n = meta.numel()
+    return _bound(n * (24 + 51) + 8 * 4 + 256 * 8,
+                  n * (OPS_PER_SKY + OPS_S1_OTHER) + weights * OPS_PER_SKY)
+
+
 def phase_shade_kernel(rt, torch, pipe, vpipe):
     """S1 and S3 against their plain versions, every G-buffer bit for bit:
-    S1 on the main path's K1 outputs (``pipe``'s tables and uniforms, 1024²)
-    and on 4096 seeded random meta words (every leg, normal id, material
-    code and sky bit; exhausted pixels; distances past the depth clamp);
+    S1 on the main path's K1 outputs (``pipe``'s tables and uniforms, 1024²),
+    the same words made all sky, with no bounce weight and under a night
+    sun (negative sunlight), each timed alone, on 4096 seeded random meta
+    words (every leg, normal id, material code and sky bit; exhausted
+    pixels; distances past the depth clamp), the same made all sky, with no
+    bounce weight and at night, and on words whose bounce skies
+    are negative at night with every weight 0 (plain lighting -0);
     S3 on K3's outputs at b0, b1 and b2 on the volume path (``vpipe``'s
     volume, tables and uniforms, 1024²; hit pixels whose dif1 ray found no
     voxel, ``dif1_lin < 0``, counted) and on 4096 random words at each of
@@ -1105,7 +1237,7 @@ def phase_shade_kernel(rt, torch, pipe, vpipe):
     synced and its plain version once, at the main path's shapes."""
     import numpy as np
 
-    from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
+    from raytrace_tpu_torch.ops import lighting, path_vol, shading, trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
     from raytrace_tpu_torch.testing.measure import call_ms
 
@@ -1125,10 +1257,8 @@ def phase_shade_kernel(rt, torch, pipe, vpipe):
     s1 = lambda: lighting.shade(meta, pd, **frame["shade"])
     want, plain_ms = _timed_once(torch, lambda: lighting.shade_plain(meta, pd, **frame["shade"]))
     n = W * H
-    skies = 3 * OPS_PER_SKY + OPS_S1_OTHER
     res["s1_main"] = dict(**held(s1(), want), call_ms=call_ms(s1, 10), plain_ms=plain_ms,
-                          **_alone(s1, 10, KERNEL_NAMES["S1"]),
-                          **_bound(n * (24 + 51) + 8 * 4 + 256 * 8, n * skies),
+                          **_s1_alone(s1), **_s1_bound(meta),
                           exhausted_px=int(((meta & 7) == 0).sum()))
     # S1 on random words.
     k = 4096
@@ -1140,6 +1270,56 @@ def phase_shade_kernel(rt, torch, pipe, vpipe):
     res["s1_random"] = held(lighting.shade(rmeta, rdist, **shade_kw),
                             lighting.shade_plain(rmeta, rdist, **shade_kw))
     res["s1_random"]["legs_seen"] = sorted({int(v) for v in (rmeta & 7).unique()})
+    # S1 on the main path's words made all sky, with no bounce weight (a2 =
+    # a4 = 0), and under a night sun (negative sunlight: every sky of a
+    # terrain pixel evaluated), timed alone beside the main words.
+    night = shading.sun_vector(torch.tensor(NIGHT_SUN, dtype=torch.float32, device=dev))
+    s1_mixes = dict(s1_all_sky=(meta | S1_P_AIR, frame["shade"]),
+                    s1_zero_weight=(meta & ~S1_BOUNCE_WEIGHTS, frame["shade"]),
+                    s1_night=(meta, dict(frame["shade"], sun=night)),
+                    s1_night_zero_weight=(meta & ~S1_BOUNCE_WEIGHTS,
+                                          dict(frame["shade"], sun=night)))
+    for label, (words, kw) in s1_mixes.items():
+        call = lambda: lighting.shade(words, pd, **kw)
+        res[label] = dict(**held(call(), lighting.shade_plain(words, pd, **kw)),
+                          **_s1_alone(call), sky_px=int(((words & S1_P_AIR) != 0).sum()))
+    res["s1_night"]["sunlight"] = night[3:6].tolist()
+    # The same mixes on the random words (every leg, face id 0-7, noise
+    # byte and distance).
+    for label, (words, sun) in dict(
+            s1_random_all_sky=(rmeta | S1_P_AIR, shade_kw["sun"]),
+            s1_random_zero_weight=(rmeta & ~S1_BOUNCE_WEIGHTS, shade_kw["sun"]),
+            s1_random_night=(rmeta, night),
+            s1_random_night_zero_weight=(rmeta & ~S1_BOUNCE_WEIGHTS, night)).items():
+        kw = dict(shade_kw, sun=sun)
+        res[label] = held(lighting.shade(words, rdist, **kw),
+                          lighting.shade_plain(words, rdist, **kw))
+    # The trap of skipping a bounce sky: a night sky is negative, 0 times
+    # it is -0, and a terrain pixel with no weight set whose two bounce
+    # skies are negative has -0 lighting.  Words whose bounce directions
+    # (every noise byte pair, faces 0-5) give a negative night sky, every
+    # weight 0: the plain version's -0 values must be S1's.
+    pairs = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    cand_nw = pairs | (pairs << 16)
+    n1r, n1g, _, _ = lighting.noise_bytes(cand_nw)
+    trap_nw, trap_face = [], []
+    for face in range(6):
+        ids = torch.full_like(pairs, face)
+        d = shading.diffuse_direction(n1r, n1g, ids)
+        sky = torch.stack(shading.sample_sky(d, tuple(night[:3]), tuple(night[3:6]), True))
+        neg = (sky < 0).any(0)
+        trap_nw.append(cand_nw[neg][:k // 6])
+        trap_face.append(ids[neg][:k // 6])
+    trap_nw, trap_face = torch.cat(trap_nw), torch.cat(trap_face)
+    m = trap_nw.numel()
+    codes = torch.from_numpy(np.random.default_rng(14).integers(
+        0, 16, m, dtype=np.int64).astype(np.int32)).to(dev)
+    trap_meta = 5 | (trap_face << 6) | (trap_face << 9) | ((codes << 5) << 12)
+    trap_kw = dict(direction=rdir[:m], nw=trap_nw, sun=night, shape=(1, m))
+    want = lighting.shade_plain(trap_meta, rdist[:m], **trap_kw)
+    res["s1_night_trap"] = dict(
+        **held(lighting.shade(trap_meta, rdist[:m], **trap_kw), want), words=m,
+        negative_zero_values=int((want["lighting"].view(torch.int32) == -2 ** 31).sum()))
 
     # S3 on K3's outputs at b0, b1, b2.
     volume, tables = vpipe.world()
@@ -1182,6 +1362,8 @@ def phase_shade_kernel(rt, torch, pipe, vpipe):
     res["seconds"] = time.perf_counter() - t0
     ok = all(all(r["equal"].values()) for r in res.values() if isinstance(r, dict))
     ok = ok and res["s1_random"]["legs_seen"] == [0, 1, 2, 3, 4, 5]
+    ok = ok and res["s1_night_trap"]["negative_zero_values"] > 0
+    ok = ok and min(res["s1_night"]["sunlight"]) < 0
     ok = ok and res["s3_main_b2"]["dif1_missed_px"] > 0
     return ok, res
 
@@ -1218,10 +1400,12 @@ def phase_main(rt, torch):
         all_finite=bool(torch.stack(finite).all()),
         exhausted_px=int(torch.stack(exhausted).sum()),
         t1_launches=t1, r1_launches=counts["R1"], k1_launches=k1, s1_launches=counts["S1"],
-        k2_launches=k2, lr=list(pipe.uniforms.lr),
+        k2_launches=k2, f1_launches=counts["F1"], lr=list(pipe.uniforms.lr),
     )
-    # Each frame: T1, R1, K1, S1 once, K2 six times.
+    # Each frame: T1, R1, K1, S1 once, K2 six times (finalize fused into the
+    # last: no F1).
     ok = (res["all_finite"] and res["exhausted_px"] == 0 and k1 == FRAMES and t1 == FRAMES
+          and counts["F1"] == 0
           and counts["R1"] == FRAMES and counts["S1"] == FRAMES
           and k2 == len(denoise.DENOISE_SIZES) * FRAMES and tuple(frame.shape) == (H, W, 3))
     return ok, res, pipe
@@ -1764,7 +1948,8 @@ GRAPH_KERNELS = {"fused": {"T1": 1, "R1": 1, "K1": 1, "S1": 1, "K2": 6},
                  "volume_fast": {"R1": 1, "K3": 1, "S3": 1, "K2": 6}}
 # Each kernel's name in a profiler trace.
 KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
-                "K2": "denoise_pass_kernel", "R1": "frame_rays_kernel",
+                "K2": "denoise_pass_kernel", "F1": "finalize_kernel",
+                "R1": "frame_rays_kernel",
                 "S1": "shade_fused_kernel", "S3": "shade_vol_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
                 "K3s": "trace_rays_vol_kernel", "P1": "leg_batch_kernel",
@@ -1991,11 +2176,12 @@ def _scratch_dir(name: str) -> Path:
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
     from raytrace_tpu_torch.ops import (
-        denoise, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol,
-        vol_tables, worldgen)
+        denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_hf,
+        trace_vol, vol_tables, worldgen)
     from raytrace_tpu_torch.world import generate
 
     return dict(T1=hf_tables.build_hf_tables.launches, R1=rays.frame_rays.launches,
+                F1=finalize.finalize_frame.launches,
                 P1=integrate.leg_batch.launches, S2=integrate.shade_staged.launches,
                 K1=lighting.march_paths.launches, S1=lighting.shade.launches,
                 S3=path_vol.shade.launches,
@@ -2365,7 +2551,8 @@ def phase_flythrough(torch):
 def phase_debug_and_stage_times(torch):
     """``apps.debug_view --gbuffers`` (K4 at 512²: 3 launches, every PNG
     readable, no primary cut) and ``apps.stage_times`` for ``fused`` over 3
-    frames (every stage a positive time)."""
+    frames (every stage a positive time; the launches counted from 0, F1
+    once a finalize call)."""
     import numpy as np
 
     from raytrace_tpu_torch.apps import debug_view, stage_times
@@ -2382,11 +2569,15 @@ def phase_debug_and_stage_times(torch):
               exhausted_px=_exhausted(gb, torch, lighting),
               sky_px=int((gb["depth"].to(torch.int32) == 0xFFFF).sum()))
     t1 = time.perf_counter()
+    _zero_counts()
     st = stage_times.run("fused", frames=3)
-    res = dict(debug_view=dv, stage_times=st, debug_view_seconds=t1 - t0,
-               stage_times_seconds=time.perf_counter() - t1)
-    stages = (st["gbuffers_ms"], st["denoise_ms"], st["frame_ms"])
+    res = dict(debug_view=dv, stage_times=st, stage_times_launches=_counts(),
+               debug_view_seconds=t1 - t0, stage_times_seconds=time.perf_counter() - t1)
+    stages = (st["gbuffers_ms"], st["chain_ms"], st["finalize_ms"], st["denoise_ms"],
+              st["frame_ms"])
+    # stage_times' finalize: one F1 launch a call, a warm-up and 3 timed.
     ok = (len(names) == 7 and dv["launches"].get("K4") == 3 and dv["exhausted_px"] == 0
+          and res["stage_times_launches"].get("F1") == 4
           and shapes["gb_albedo.png"] == [512, 512, 3]
           and all(np.isfinite(v) and v > 0 for v in stages))
     return ok, res
@@ -2724,6 +2915,8 @@ def main() -> int:
     gbs = dict(main=pipe.gbuffers, random=random_gbuffers(H, W, 7, dev))
     ok, k2_res = phase_k2(torch, blue, gbs)
     report("k2_vs_plain", ok, k2_res)
+    ok, f1_res = phase_finalize_kernel(torch, blue, gbs["main"])
+    report("finalize_kernel", ok, f1_res)
     times = phase_times(rt, torch, dev, pipe, gbs, blue)
     regions = dict(canonical=(canon_tables, 0), main=(pipe.tables(), pipe.seed))
 
@@ -2834,8 +3027,8 @@ def main() -> int:
     report("capture", ok, res)
     ok, res = phase_flythrough(torch)
     report("flythrough", ok, res)
-    ok, res = phase_debug_and_stage_times(torch)
-    report("debug_view_stage_times", ok, res)
+    ok, stage_res = phase_debug_and_stage_times(torch)
+    report("debug_view_stage_times", ok, stage_res)
 
     # Row bands and the tile split: each tracer's bands against its whole
     # frame, K2's band denoise in one process, render_frame_tiled over NCCL,
@@ -2929,6 +3122,14 @@ def main() -> int:
                 launches=bench_launches("K4")),
     )
     r1_main, r1_vol, r1_hf = r1_res["fused_1024"], r1_res["volume_1024"], r1_res["hf_1024"]
+    r1_shapes = {label: {form: r1_res[f"{form}_{label}"]["kernel_ms"]
+                         for form in ("fused", "volume", "hf")}
+                 for label, _, _, _ in R1_CASES}
+    s1_mixes = {k: dict(ms=v["kernel_ms"], shade_ms=v["shade_kernel_ms"],
+                        table_ms=v["table_kernel_ms"], kept=v["kept"])
+                for k, v in shade_res.items()
+                if k in ("s1_all_sky", "s1_zero_weight", "s1_night", "s1_night_zero_weight")}
+    f1_main = f1_res["1024"]
     s1_main, s3_main = shade_res["s1_main"], shade_res["s3_main_b2"]
     err = lambda res, prefix="": max(v["max_abs_err"] for k, v in res.items()
                                      if k.startswith(prefix) and isinstance(v, dict)
@@ -2971,7 +3172,7 @@ def main() -> int:
                             "raytrace_tpu/ops/path_vol.py:373"],
              launches=main_res["r1_launches"], max_abs_err=err(r1_res),
              ms=r1_main["kernel_ms"], kept=r1_main["kept"], plain_ms=r1_main["plain_ms"],
-             call_ms=r1_main["call_ms"], **bound(r1_main),
+             call_ms=r1_main["call_ms"], **bound(r1_main), shapes_ms=r1_shapes,
              volume_form=dict(launches=vol_res["r1_launches"], ms=r1_vol["kernel_ms"],
                               kept=r1_vol["kept"], plain_ms=r1_vol["plain_ms"],
                               call_ms=r1_vol["call_ms"], bound_ms=r1_vol["bound_ms"],
@@ -2987,8 +3188,22 @@ def main() -> int:
              replaces="raytrace_tpu/ops/lighting_pallas.py:1007",
              launches=main_res["s1_launches"], max_abs_err=err(shade_res, "s1_"),
              ms=s1_main["kernel_ms"], kept=s1_main["kept"], plain_ms=s1_main["plain_ms"],
-             call_ms=s1_main["call_ms"], **bound(s1_main),
+             call_ms=s1_main["call_ms"], **bound(s1_main), word_mixes=s1_mixes,
+             shade_ms=s1_main["shade_kernel_ms"], table_ms=s1_main["table_kernel_ms"],
+             table_kept=s1_main["table_kept"],
              app_shapes=dict(launches=bench_launches("S1"))),
+        dict(name="F1 finalize (JAX's finalize_frame alone)", route="cuda",
+             source="raytrace_tpu_torch/csrc/denoise.cu",
+             replaces="raytrace_tpu/ops/finalize.py:21",
+             launches=stage_res["stage_times_launches"].get("F1", 0),
+             launches_from="apps.stage_times (the chain and finalize timed apart)",
+             main_path_launches=main_res["f1_launches"],
+             max_abs_err=max(v["max_abs_err"] for v in f1_res.values()
+                             if isinstance(v, dict) and "max_abs_err" in v),
+             ms=f1_main["kernel_ms"], kept=f1_main["kept"], plain_ms=f1_main["plain_ms"],
+             call_ms=f1_main["call_ms"], **bound(f1_main),
+             chain=dict(launches=f1_res["chain"]["launches"],
+                        call_ms=f1_res["chain"]["call_ms"])),
         dict(name="S3 shade_vol (the volume_fast frame's planar shade)", route="cuda",
              source="raytrace_tpu_torch/csrc/shade.cu",
              replaces="raytrace_tpu/ops/path_vol.py:605",

@@ -13,8 +13,8 @@ build takes seconds.
 plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
 with their plain versions step for step, T1's table words and G1's voxel
 words are the plain versions', K2's sums round as the plain pass's, and the
-frame's rays (R1), shades (S1, S3) and the staged frames' leg batches
-(P1) and shade (S2) are the plain glue's bits.
+frame's rays (R1), shades (S1, S3), the staged frames' leg batches (P1)
+and shade (S2) and finalize alone (F1) are the plain glue's bits.
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ _SIGNATURES = {
     # light, depth, normal, in, out, frame, h, w, size, r0, rows,
     # dither_row0, albedo, emission, fog, noise, nh, nw, nch, stream
     "rt_denoise_pass": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_I] * 3 + [_P],
+    # albedo, emission, fog, light, lstride, depth, noise, frame, h, w, row0,
+    # flip, nh, nw, nch, stream
+    "rt_finalize": [_P] * 4 + [_I] + [_P] * 3 + [_I] * 7 + [_P],
     # origin, direction, inv, iscal, fscal, any8, all8, any_hi, detail,
     # meta, prim_lin, dif1_lin, prim_dist, n, budget, legs, next, census,
     # stream
@@ -69,9 +72,9 @@ _SIGNATURES = {
     # any8b, origin, direction, nw, inv, iscal, fscal, sun, width, height,
     # row0, rows, nh, nw, nch, hf, grass, rock, snow, stream
     "rt_frame_rays": [_P] * 19 + [_I] * 11 + [_P],
-    # meta, pd, direction, nw, sun, trig, lighting, albedo, emission, fog,
-    # depth, normal, n, grass, rock, snow, stream
-    "rt_shade_fused": [_P] * 12 + [_I] * 4 + [_P],
+    # meta, pd, direction, nw, sun, trig, table, lighting, albedo, emission,
+    # fog, depth, normal, n, grass, rock, snow, stream
+    "rt_shade_fused": [_P] * 13 + [_I] * 4 + [_P],
     # meta, prim_lin, dif1_lin, prim_dist, direction, inv, sun, volume,
     # lighting, albedo, emission, fog, depth, normal, n, legs, stream
     "rt_shade_vol": [_P] * 14 + [_I] * 2 + [_P],

@@ -18,6 +18,24 @@ at the bench camera (origin (-30,-100,60), pitch -0.3, sun 0.6), bounces
   trace batch of the staged volume frame at the same view (where the
   checkout has K3s).
 
+``--part glue`` times the frame's glue kernels instead (the fused and
+volume_fast pipelines' tables and uniforms):
+
+- R1 (``frame_rays_kernel``) alone in each form (fused, volume, hf) at 8x8
+  (little more than the grid's block of frame scalars), 512², 1024²,
+  1920x1080 and a 270-row band of the 4K frame;
+- S1 (``shade_fused_kernel``, and ``sky_table_kernel`` where the
+  checkout has it) alone at ``--size`` on the fused frame's K1 outputs
+  (``main``) and on the same words made all sky, all terrain with every
+  weight set, all terrain with no weight set, and on the main words under
+  a night sun (negative sunlight), each against its plain version bit for
+  bit (``equal``), with each mix's share of sky pixels and of set bounce
+  weights;
+- where the checkout has them, ``finalize_frame`` (F1, ``finalize_kernel``)
+  alone on the main G-buffers' denoised light, and ``denoise_chain``'s
+  call;
+- the SASS counts (``measure.sass_counts``) of those kernels.
+
 It prints one JSON line with the card's name and power limit.  It uses only
 the wrappers' calls and ``denoise.chain_passes``, so it also runs in a
 checkout of an earlier commit that has them, to compare its kernels with
@@ -25,21 +43,23 @@ these (copy this file, ``testing/measure.py`` and ``testing/gbuffers.py``
 into it).
 
 Usage: python -m raytrace_tpu_torch.apps.kernel_times [--reps 10]
-[--part fused|volume|all]   (needs a CUDA GPU)
+[--part fused|volume|glue|all]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 import torch
 
-from ..ops import denoise, integrate, lighting, path_vol, trace_vol
+from .. import _build
+from ..ops import denoise, finalize, integrate, lighting, path_vol, rays, shading, trace_vol
 from ..render.camera import Camera
 from ..render.pipeline import Pipeline, unpack_uniforms
 from ..testing.gbuffers import random_gbuffers
-from ..testing.measure import call_ms, card, denoise_pass_ms, kernel_ms
+from ..testing.measure import call_ms, card, denoise_pass_ms, kernel_ms, same, sass_counts
 
 
 def _pipeline(size: int, tracer: str) -> tuple:
@@ -61,6 +81,8 @@ def run(reps: int = 10, size: int = 1024, part: str = "all") -> dict:
         res.update(_fused(reps, size))
     if part in ("volume", "all"):
         res.update(_volume(reps, size))
+    if part in ("glue", "all"):
+        res.update(_glue(reps, size))
     print(json.dumps(res), flush=True)
     return res
 
@@ -104,11 +126,72 @@ def _volume(reps: int, size: int) -> dict:
     return res
 
 
+# R1's shapes: label -> (width, height, row0, rows).
+R1_SHAPES = {"8x8": (8, 8, 0, 8), "512": (512, 512, 0, 512), "1024": (1024, 1024, 0, 1024),
+             "1920x1080": (1920, 1080, 0, 1080), "4k_band_1080+270": (3840, 2160, 1080, 270)}
+# S1's path bits (meta >> 12): p_air, then the weights a1 .. a4.
+P_AIR, WEIGHTS = 1 << 12, 0b11110 << 12
+NIGHT_SUN = -2.0  # a sun angle whose sunlight has negative components
+
+
+def _glue(reps: int, size: int) -> dict:
+    pipe, uniforms = _pipeline(size, "fused")
+    vpipe, _ = _pipeline(size, "volume_fast")
+    hf_tables, vol_tables = pipe.tables(), vpipe.world()[1]
+    r1 = {}
+    for label, (w, h, row0, rows) in R1_SHAPES.items():
+        for form, tables in (("fused", hf_tables), ("volume", vol_tables), ("hf", hf_tables)):
+            call = lambda: rays.frame_rays(uniforms, pipe.blue_noise, w, h, row0, rows,
+                                           tables=tables, form=form)
+            r1[f"{form}_{label}"] = kernel_ms(call, reps, "frame_rays_kernel")
+    frame = lighting.march_inputs(hf_tables, pipe.blue_noise, uniforms, size, size)
+    meta, pd = lighting.march_paths(*frame["march"], pipe.max_steps, pipe.seed,
+                                    1 + 2 * pipe.bounces)
+    night = dict(frame["shade"], sun=shading.sun_vector(
+        torch.tensor(NIGHT_SUN, dtype=torch.float32, device=pipe.device)))
+    mixes = dict(main=(meta, frame["shade"]), all_sky=(meta | P_AIR, frame["shade"]),
+                 all_weight=((meta & ~P_AIR) | WEIGHTS, frame["shade"]),
+                 zero_weight=(meta & ~(P_AIR | WEIGHTS), frame["shade"]),
+                 night=(meta, night))
+    # S1's kernels: the shade, and the frame's table of bounce skies where
+    # the checkout has it.
+    names = ("shade_fused_kernel",) + (
+        ("sky_table_kernel",) if hasattr(lighting, "SKY_TABLE_ENTRIES") else ())
+    s1 = {}
+    for label, (words, kw) in mixes.items():
+        terrain = (words & P_AIR) == 0
+        call = lambda: lighting.shade(words, pd, **kw)
+        got, want = call(), lighting.shade_plain(words, pd, **kw)
+        bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t.to(torch.int32)
+        times = dict(equal=all(same(bits(got[k]), bits(want[k])) for k in want),
+                     **{name: kernel_ms(call, reps, name) for name in names})
+        s1[label] = dict(**times, sky_share=float((~terrain).float().mean()),
+                         a2_share=float((terrain & (((words >> 14) & 1) == 1)).float().mean()),
+                         a4_share=float((terrain & (((words >> 16) & 1) == 1)).float().mean()),
+                         night_sunlight=[float(v) for v in kw["sun"][3:6]])
+    res = dict(r1_kernel_ms=r1, s1=s1)
+    if hasattr(finalize, "finalize_frame"):
+        gb = pipe.gbuffers
+        den = denoise.denoise_chain(gb["lighting"], gb["depth"], gb["normal"])
+        f1 = lambda: finalize.finalize_frame(gb["albedo"], gb["emission"], gb["fog"], den,
+                                             gb["depth"], pipe.blue_noise)
+        res["f1"] = dict(kernel_ms=kernel_ms(f1, reps, "finalize_kernel"),
+                         call_ms=call_ms(f1, reps),
+                         chain_call_ms=call_ms(lambda: denoise.denoise_chain(
+                             gb["lighting"], gb["depth"], gb["normal"]), reps))
+    _build.build()
+    names = ("frame_rays_kernel", "shade_fused_kernel", "sky_table_kernel",
+             "finalize_kernel")
+    res["sass"] = {name: v for k, v in sass_counts(Path(_build.build_info["path"])).items()
+                   for name in names if name in k}
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--part", choices=("fused", "volume", "all"), default="all")
+    ap.add_argument("--part", choices=("fused", "volume", "glue", "all"), default="all")
     args = ap.parse_args()
     run(args.reps, args.size, args.part)
 

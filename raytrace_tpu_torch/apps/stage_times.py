@@ -6,8 +6,11 @@ around ``frames`` calls of each stage instead of a jitted ``fori_loop``:
 - the G-buffer pass: ``fused`` is K1 and its shade
   (``render_gbuffers_fused``), ``hf`` is K4 leg by leg and the staged
   lighting pass (``render_gbuffers_hf``);
-- the denoise chain on fixed G-buffers: six launches of K2, the last with
-  finalize fused (the port has no separate finalize pass);
+- the denoise chain on fixed G-buffers (``denoise_chain``: six launches
+  of K2), then finalize on its output (``finalize_frame``: one launch of
+  F1), each apart as JAX times them (``:120-137``), and the chain with
+  finalize fused into its last pass as the frame runs it
+  (``denoise_finalize``);
 - the whole frame (``render_frame``), and the Mrays/s it implies.
 
 Each call varies the camera, sun and seed by its index, as in JAX.  The
@@ -26,7 +29,8 @@ import argparse
 import torch
 
 from ..constants import DEFAULT_HEIGHT, DEFAULT_WIDTH
-from ..ops.denoise import denoise_finalize
+from ..ops.denoise import denoise_chain, denoise_finalize
+from ..ops.finalize import finalize_frame
 from ..ops.lighting import render_gbuffers_fused
 from ..ops.trace_hf import render_gbuffers_hf
 from ..render.camera import Camera
@@ -79,8 +83,13 @@ def run(tracer: str = "fused", frames: int = 10, width: int = DEFAULT_WIDTH,
 
     t_gb = _time(gb_fn, frames, f"gbuffers ({tracer})")
     gb0 = gb_fn(0)
+    t_chain = _time(lambda i: denoise_chain(gb0["lighting"], gb0["depth"], gb0["normal"]),
+                    frames, "denoise chain (6 passes)")
+    den0 = denoise_chain(gb0["lighting"], gb0["depth"], gb0["normal"])
+    t_fin = _time(lambda i: finalize_frame(gb0["albedo"], gb0["emission"], gb0["fog"], den0,
+                                           gb0["depth"], bn), frames, "finalize")
     t_dn = _time(lambda i: denoise_finalize(gb0, bn), frames,
-                 "denoise chain + finalize (6 passes)")
+                 "denoise chain, finalize fused (6 passes)")
     t_full = _time(lambda i: render_frame(world, bn, packed + i * vary, *args, tracer),
                    frames, "full frame (render_frame)")
     print(f"{'sum of stages':44s} {t_gb + t_dn:8.3f} ms (full {t_full:.3f})")
@@ -88,7 +97,8 @@ def run(tracer: str = "fused", frames: int = 10, width: int = DEFAULT_WIDTH,
     mrays = rays / (t_full * 1e-3) / 1e6
     print(f"{'implied throughput':44s} {mrays:8.1f} Mrays/s")
     return dict(tracer=tracer, width=width, height=height, frames=frames,
-                gbuffers_ms=t_gb, denoise_ms=t_dn, frame_ms=t_full, mrays_per_s=mrays)
+                gbuffers_ms=t_gb, chain_ms=t_chain, finalize_ms=t_fin, denoise_ms=t_dn,
+                frame_ms=t_full, mrays_per_s=mrays)
 
 
 def main():

@@ -1,4 +1,5 @@
-// Kernel K2: one à-trous denoise pass, with finalize fused into the last.
+// Kernel K2: one à-trous denoise pass, with finalize fused into the last;
+// and kernel F1, finalize alone (`finalize_kernel`, below K2).
 //
 // Replaces the Pallas TPU kernel raytrace_tpu/ops/denoise_pallas.py
 // `_make_pass_kernel` (:132-246), launched from `_pallas_pass` (:249-269).
@@ -93,6 +94,20 @@ __device__ __forceinline__ float filmic(float x) {
   float seg2 = x * 0.6f - 0.09f;
   float seg3 = 1.0f - 0.219512195116f * (x - 2.5f) * (x - 2.5f);
   return x < 0.3f ? seg1 : (x < 1.13333f ? seg2 : (x < 2.5f ? seg3 : 1.0f));
+}
+
+// finalize.comp:33-56 for one channel of one pixel (ops/finalize.py
+// `finalize_planar`): composite albedo * light * 16 + emission * 4, fog
+// terrain (depth_f < 65535, the u16 depth as float) toward fog * 2 by
+// depth / 32768, the filmic curve, and the dither / 128.  K2's finalizing
+// pass and F1 both call it.
+__device__ __forceinline__ float finalize_channel(float albedo, float emission, float fog,
+                                                  float light, float depth_f,
+                                                  float dither) {
+  const float fog_amount = fminf(depth_f * (1.0f / 32768.0f), 1.0f);
+  float f = albedo * (light * 16.0f) + emission * 4.0f;
+  if (depth_f < 65535.0f) f = f + (fog * 2.0f - f) * fog_amount;
+  return filmic(f) + dither * 0.0078125f;
 }
 
 // The geometry key of the packed geometry g = depth * 32 + normal: unpacked
@@ -200,20 +215,51 @@ __global__ void __launch_bounds__(kTileW * kTileH)
   }
   // Fused finalize on the raw u16 depth (exact: dc * 64).
   const float depth_f = dc * 64.0f;
-  float fog_amount = fminf(depth_f * (1.0f / 32768.0f), 1.0f);
-  bool terrain = depth_f < 65535.0f;
   const float bc[3] = {b0, b1, b2};
   const int yw = y - r0;  // the row in the window
   const int fi = yw * w + x;
   const int t = (((dither_row0 + yw) % nh) * nw + (x % nw)) * nch;
   float* row = frame + ((size_t)(rows - 1 - yw) * w + x) * 3;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float f = albedo[3 * fi + ch] * (bc[ch] * 16.0f) + emission[3 * fi + ch] * 4.0f;
-    float fogc = fog[3 * fi + ch] * 2.0f;
-    if (terrain) f = f + (fogc - f) * fog_amount;
-    row[ch] = filmic(f) + noise[t + ch] * 0.0078125f;
-  }
+  for (int ch = 0; ch < 3; ++ch)
+    row[ch] = finalize_channel(albedo[3 * fi + ch], emission[3 * fi + ch], fog[3 * fi + ch],
+                               bc[ch], depth_f, noise[t + ch]);
+}
+
+// Kernel F1: finalize alone, one thread per channel of a pixel.
+//
+// Replaces JAX's jitted raytrace_tpu/ops/finalize.py `finalize_frame`
+// (:21-77, XLA-fused; not a Pallas kernel): the frame's G-buffers albedo,
+// emission, fog (H, W, 3) f32, the denoised lighting (H, W, 3) f32, the
+// u16 depth and the blue noise in; the (H, W, 3) frame out, dithered as
+// image rows row0 .., flipped vertically unless `flip` is 0.  Its plain
+// PyTorch version is `finalize_planar` + `dither_planes` in
+// ops/finalize.py; `finalize_channel` is K2's own finalize, so the frame is
+// the plain version's bit for bit.  The lighting may be the denoise
+// chain's working plane read in place: `lstride` floats a pixel (3, or 4
+// for the plane's r, g, b, key).
+//
+// What bounds it on the H100: the bytes, 62 a pixel (four 12-byte planes
+// and the 2-byte depth read, 12 bytes written) and the texture's three
+// channels once; ~15 float operations a channel.  One thread per element
+// of the (H, W, 3) arrays keeps every plane's loads and the frame's stores
+// coalesced.
+__global__ void __launch_bounds__(256)
+    finalize_kernel(const float* __restrict__ albedo, const float* __restrict__ emission,
+                    const float* __restrict__ fog, const float* __restrict__ light,
+                    int lstride, const uint16_t* __restrict__ depth,
+                    const float* __restrict__ noise, float* __restrict__ frame, int h, int w,
+                    int row0, bool flip, int nh, int nw, int nch) {
+  const int j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= h * w * 3) return;
+  const int p = j / 3, c = j - 3 * p;
+  const int y = p / w, x = p - y * w;
+  int ty = (row0 + y) % nh;
+  ty = ty < 0 ? ty + nh : ty;
+  const float dither = noise[(ty * nw + x % nw) * nch + c];
+  const float v = finalize_channel(albedo[j], emission[j], fog[j],
+                                   light[(size_t)p * lstride + c], (float)depth[p], dither);
+  frame[((size_t)(flip ? h - 1 - y : y) * w + x) * 3 + c] = v;
 }
 
 struct PassArgs {
@@ -272,4 +318,22 @@ extern "C" int rt_denoise_pass(const float* light, const uint16_t* depth,
     case 16: return launch_size<16>(p, s);
     default: return (int)cudaErrorInvalidValue;  // no such dilation
   }
+}
+
+// F1.  albedo, emission, fog (H, W, 3) f32; light (H, W) pixels of
+// `lstride` (3 or 4) f32; depth (H, W) u16; noise (nh, nw, nch >= 3) f32;
+// frame (H, W, 3) f32 out.
+extern "C" int rt_finalize(const float* albedo, const float* emission, const float* fog,
+                           const float* light, int lstride, const uint16_t* depth,
+                           const float* noise, float* frame, int h, int w, int row0,
+                           int flip, int nh, int nw, int nch, void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if ((lstride != 3 && lstride != 4) || nh <= 0 || nw <= 0 || nch < 3 ||
+      (long long)h * w * 3 > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (h * w * 3 + 255) / 256;
+  finalize_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      albedo, emission, fog, light, lstride, depth, noise, frame, h, w, row0, flip != 0, nh,
+      nw, nch);
+  return (int)cudaGetLastError();
 }

@@ -33,9 +33,10 @@
 //    int32 = r0 xy, lr xyz, and the packed grass, rock and snow words of
 //    the material bands (launch arguments), in place of maxh.
 // Pixels are image rows row0 .. row0 + rows of a width x height frame, one
-// thread each; a band's values are the whole frame's rows.  The last block
-// of the grid writes the frame scalars (the reduction over h3 or any8b),
-// so they overlap the pixels.  The uniforms, the texture and the tables
+// thread each in the grid's blocks 1 ..; a band's values are the whole
+// frame's rows.  Block 0 writes the frame scalars (the reduction over h3
+// or any8b) while the pixels' blocks run: in the grid's last block, a
+// chain of byte loads and serial bounds would trail the grid (PERF.md §6).  The uniforms, the texture and the tables
 // are read on the device: no host value enters the launch, and the kernel
 // sits inside the frame's CUDA graph.
 //
@@ -47,7 +48,8 @@
 //
 // What bounds it on the H100: the bytes it writes, 28 a pixel (fused) or
 // 72 (volume_fast), and the two texel reads; its arithmetic is ~30 float
-// operations a pixel (~120 with the invariants).
+// operations a pixel (~120 with the invariants).  The scalars' block is
+// a few microseconds of wide loads and warp reductions beside them.
 
 #include "shading.cuh"
 
@@ -96,79 +98,111 @@ __device__ __forceinline__ uint32_t byte_of(float v) {
   return (uint32_t)(int32_t)rintf(v * 255.0f);
 }
 
-// vol_tables.occupancy_world_bounds along one axis: the world extent
-// [min, max) of the occupied brick slots `occ` (bit bt: slot bt) in the
-// window [lr - 128, lr + 128); a slot that straddles the wrap gives both
-// of its pieces.
-__device__ void axis_bounds(uint32_t occ, int32_t lr, int32_t* mn_out, int32_t* mx_out) {
+// vol_tables.occupancy_world_bounds along one axis, by one warp, lane bt
+// for brick slot bt: the world extent [min, max) of the occupied slots
+// `occ` (bit bt: slot bt) in the window [lr - 128, lr + 128); a slot that
+// straddles the wrap gives both of its pieces.  Integer minima and maxima,
+// so the order of the lanes is free.
+__device__ __forceinline__ int2 axis_bounds(uint32_t occ, int32_t lr, int lane) {
+  const unsigned all = 0xffffffffu;
   const int32_t lo = lr - 128, hi = lo + 256;
-  int32_t mn = kBig, mx = -kBig, wmx = -kBig;
-  bool wrapped = false;
-  for (int bt = 0; bt < kNB; ++bt) {
-    if (!((occ >> bt) & 1u)) continue;
-    int32_t w0 = pymod(8 * bt - lr, 256) + lo;
-    int32_t rem = w0 + 8 - hi;
-    mn = min(mn, w0);
-    mx = max(mx, min(w0 + 8, hi));
-    if (rem > 0) {
-      wrapped = true;
-      wmx = max(wmx, lo + rem);
-    }
-  }
-  if (wrapped) mn = min(mn, lo);
-  *mn_out = mn;
-  *mx_out = max(mx, wmx);
+  const bool occupied = ((occ >> lane) & 1u) != 0u;
+  const int32_t w0 = pymod(8 * lane - lr, 256) + lo;
+  const int32_t rem = w0 + 8 - hi;
+  const bool wraps = occupied && rem > 0;
+  int32_t mn = __reduce_min_sync(all, occupied ? w0 : kBig);
+  const int32_t mx = __reduce_max_sync(all, occupied ? min(w0 + 8, hi) : -kBig);
+  const int32_t wmx = __reduce_max_sync(all, wraps ? lo + rem : -kBig);
+  if (__any_sync(all, wraps)) mn = min(mn, lo);
+  return make_int2(mn, max(mx, wmx));
 }
 
-// The frame scalars, by the grid's last block.
+// Bit b (0-3) set where byte b of `w` is not 0.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t high = (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+  return (((high >> 7) * 0x00204081u) >> 21) & 0xFu;
+}
+
+// The frame scalars, by the grid's first block, so that they overlap the
+// pixels' blocks instead of trailing them.  Its loads are 16 bytes wide and
+// independent, with no branch between them: the fused form's 1,024 h3
+// words are one load a thread, the volume form's 32 KB of any8b eight.  Warp
+// reductions and shared-memory ORs combine them, and one warp per axis
+// takes the occupancy bounds.
 __device__ void frame_scalars(const FrameRaysArgs& a) {
-  __shared__ int32_t red[kThreads];
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kOccLoads = kNB * kNB * kNB / 16 / kThreads;
+  static_assert(kWords == 4 * kThreads && kOccLoads * 16 * kThreads == kNB * kNB * kNB,
+                "one int4 of h3 a thread, kOccLoads uint4 of any8b");
   __shared__ uint32_t occ[3];
-  const int t = threadIdx.x;
+  __shared__ int32_t warp_max[kWarps];
+  const unsigned all = 0xffffffffu;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const bool fused = a.nw != nullptr && !a.hf;
+  const bool volume = a.nw == nullptr;
+  if (t < 3) occ[t] = 0u;
+  __syncthreads();
   if (fused) {
-    int32_t m = 0;
-    for (int k = t; k < kWords; k += kThreads) m = max(m, a.h3[k] & 511);
-    red[t] = m;
-  } else if (!a.hf) {
-    if (t < 3) occ[t] = 0u;
-    __syncthreads();
+    const int4 v = __ldg(reinterpret_cast<const int4*>(a.h3) + t);
+    const int32_t m = max(max(v.x & 511, v.y & 511), max(v.z & 511, v.w & 511));
+    const int32_t wm = __reduce_max_sync(all, m);
+    if (lane == 0) warp_max[warp] = wm;
+  } else if (volume) {
+    const uint4* words = reinterpret_cast<const uint4*>(a.any8b);
+    uint4 v[kOccLoads];
+#pragma unroll
+    for (int m = 0; m < kOccLoads; ++m) v[m] = __ldg(words + t + m * kThreads);
     uint32_t ox = 0u, oy = 0u, oz = 0u;
-    for (int k = t; k < kNB * kNB * kNB; k += kThreads) {
-      if (a.any8b[k]) {
-        ox |= 1u << (k % kNB);
-        oy |= 1u << ((k / kNB) % kNB);
-        oz |= 1u << (k / (kNB * kNB));
-      }
+#pragma unroll
+    for (int m = 0; m < kOccLoads; ++m) {
+      // Bytes 16q .. 16q + 15 are (bz, by, bx) = (q >> 6, (q >> 1) & 31,
+      // 16 (q & 1) ..).
+      const int q = t + m * kThreads;
+      const uint32_t bits = nonzero_bytes(v[m].x) | (nonzero_bytes(v[m].y) << 4) |
+                            (nonzero_bytes(v[m].z) << 8) | (nonzero_bytes(v[m].w) << 12);
+      ox |= bits << (16 * (q & 1));
+      const uint32_t any = bits != 0u ? 1u : 0u;
+      oy |= any << ((q >> 1) & 31);
+      oz |= any << (q >> 6);
     }
-    atomicOr(&occ[0], ox);
-    atomicOr(&occ[1], oy);
-    atomicOr(&occ[2], oz);
+    ox = __reduce_or_sync(all, ox);
+    oy = __reduce_or_sync(all, oy);
+    oz = __reduce_or_sync(all, oz);
+    if (lane == 0) {
+      atomicOr(&occ[0], ox);
+      atomicOr(&occ[1], oy);
+      atomicOr(&occ[2], oz);
+    }
   }
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (fused && t < s) red[t] = max(red[t], red[t + s]);
-    __syncthreads();
+  const int32_t lr[3] = {(int32_t)a.lr[0], (int32_t)a.lr[1], (int32_t)a.lr[2]};
+  if (volume && warp < 3) {
+    const int2 b =
+        axis_bounds(occ[warp], warp == 0 ? lr[0] : (warp == 1 ? lr[1] : lr[2]), lane);
+    if (lane == 0) {
+      a.iscal[3 + 2 * warp] = b.x;
+      a.iscal[4 + 2 * warp] = b.y;
+    }
   }
   if (t != 0) return;
   Vec3 sun = sun_direction(*a.sun_angle);
   Vec3 light = sun_color(sun);
   const float sv[8] = {sun.x, sun.y, sun.z, light.x, light.y, light.z, 0.0f, 0.0f};
   for (int k = 0; k < 8; ++k) a.sun[k] = sv[k];
-  const int32_t lr[3] = {(int32_t)a.lr[0], (int32_t)a.lr[1], (int32_t)a.lr[2]};
   if (a.hf) {
     const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], a.grass, a.rock, a.snow};
     for (int k = 0; k < 8; ++k) a.iscal[k] = iv[k];
     return;
   }
   if (fused) {
-    const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], red[0], 0, 0};
+    int32_t maxh = 0;
+    for (int k = 0; k < kWarps; ++k) maxh = max(maxh, warp_max[k]);
+    const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], maxh, 0, 0};
     for (int k = 0; k < 8; ++k) a.iscal[k] = iv[k];
     return;
   }
   for (int k = 0; k < 3; ++k) {
     a.iscal[k] = lr[k];
-    axis_bounds(occ[k], lr[k], a.iscal + 3 + 2 * k, a.iscal + 4 + 2 * k);
     a.fscal[k] = a.cam[k];
   }
   a.iscal[9] = 0;
@@ -176,7 +210,7 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
 }
 
 __global__ void __launch_bounds__(kThreads) frame_rays_kernel(const FrameRaysArgs a) {
-  if (blockIdx.x == gridDim.x - 1) {
+  if (blockIdx.x == 0) {
     frame_scalars(a);
     return;
   }
@@ -188,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) frame_rays_kernel(const FrameRaysArg
   const bool volume = a.inv != nullptr;
   if (volume && threadIdx.x == 0) sun = sun_direction(*a.sun_angle);
   const int n = a.width * a.rows;
-  const int base = blockIdx.x * kThreads;
+  const int base = (blockIdx.x - 1) * kThreads;
   const int i = base + threadIdx.x;
   const bool live = i < n;
   float nr[2] = {0.0f, 0.0f}, ng[2] = {0.0f, 0.0f};
@@ -263,7 +297,8 @@ __global__ void __launch_bounds__(kThreads) frame_rays_kernel(const FrameRaysArg
 // Exactly one of `nw` (the fused and hf forms: `h3` and `r0` given) and
 // `inv` (the volume_fast form: `any8b`, `trig` and `fscal` given) is
 // non-null; `hf` nonzero (with `nw`) asks for the hf form's iscal, the
-// band words `grass`, `rock` and `snow`.
+// band words `grass`, `rock` and `snow`.  `h3` and `any8b` are 16-byte
+// aligned.
 extern "C" int rt_frame_rays(const float* cam, const float* forward, const float* up,
                              const float* right, const float* sun_angle,
                              const int32_t* seed, const float* lr, const float* blue,
@@ -276,13 +311,14 @@ extern "C" int rt_frame_rays(const float* cam, const float* forward, const float
   const bool fused = nw != nullptr;
   if (fused == (inv != nullptr) || (fused && (h3 == nullptr || r0 == nullptr)) ||
       (!fused && (any8b == nullptr || trig == nullptr || fscal == nullptr)) ||
-      (hf && !fused) || width <= 0 || rows <= 0 || nch < 2)
+      (hf && !fused) || width <= 0 || rows <= 0 || nch < 2 ||
+      ((uintptr_t)h3 & 15u) != 0u || ((uintptr_t)any8b & 15u) != 0u)
     return (int)cudaErrorInvalidValue;
   FrameRaysArgs a{cam,    forward, up,    right,     sun_angle, seed,  lr,   blue, trig,
                   h3,     r0,      any8b, origin,    direction, nw,    inv,  iscal, fscal,
                   sun,    width,   height, row0,     rows,      nh,    nwid, nch,
                   hf != 0, grass,  rock,   snow};
-  const int blocks = (width * rows + kThreads - 1) / kThreads + 1;
+  const int blocks = 1 + (width * rows + kThreads - 1) / kThreads;
   frame_rays_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

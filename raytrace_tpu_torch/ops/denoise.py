@@ -22,6 +22,12 @@ reads and writes one working plane of ``(r, g, b, key)`` float4 per pixel;
 the last writes the finalized (H, W, 3) frame, already flipped.  On the CPU
 the chain runs the plain pass on channel planes.
 
+JAX's public one-pass and six-pass functions have their counterparts in
+JAX's (H, W, 3) layout: ``bilateral_denoise`` (one pass, over
+``denoise_pass``) and ``denoise_chain`` (the six passes with no finalize:
+six K2 launches on the card, the last writing a working plane whose light
+it returns; ``ops/finalize.finalize_frame`` reads that plane in place).
+
 The finalizing pass may finalize a window of the input's rows only
 (``window=(first, count)``, its albedo, emission and fog then cover just
 those rows) with the dither of image rows ``dither_row0 ..``, and flips the
@@ -189,6 +195,55 @@ def denoise_pass(light, geom, size: int, fin=None, window=None, dither_row0=0):
     launch_pass(h, w, size, plane_in=plane, frame=frame, fin=fin, window=window,
                 dither_row0=dither_row0)
     return frame.flip(0).permute(2, 0, 1)
+
+
+def bilateral_denoise(lighting, depth, normal, size: int) -> torch.Tensor:
+    """One pass at dilation ``size`` in JAX's layout
+    (``raytrace_tpu/ops/denoise.py`` ``bilateral_denoise``): lighting (H, W,
+    3) f32, depth (H, W) u16, normal (H, W) u8 (>= 16 sky: passed through)
+    -> (H, W, 3).  ``denoise_pass`` on the channel planes: the plain pass on
+    the CPU, one K2 launch on the card."""
+    light = lighting.permute(2, 0, 1).contiguous()
+    return denoise_pass(light, geometry_plane(depth, normal), size).permute(1, 2, 0)
+
+
+def denoise_chain(lighting, depth, normal) -> torch.Tensor:
+    """The six passes at ``DENOISE_SIZES`` with no finalize, in JAX's layout
+    (``raytrace_tpu/ops/denoise.py`` ``denoise_chain``, :111-121): lighting
+    (H, W, 3) f32, depth (H, W) u16, normal (H, W) u8 -> (H, W, 3) f32.
+
+    CPU tensors take the plain pass six times.  CUDA tensors launch K2 six
+    times (``launch_pass``: the first pass reads the G-buffers, each writes
+    a working plane) and nothing else; the result is the (H, W, 3) light of
+    the last plane, a view four floats a pixel apart (``finalize_frame``
+    takes it as it is).  Other devices raise."""
+    dev = lighting.device
+    if dev.type == "cpu":
+        return denoise_chain_plain(lighting, depth, normal)
+    if dev.type != "cuda":
+        raise RuntimeError(f"denoise_chain: no kernel for device {dev}")
+    from .._build import check_tensor
+
+    h, w = depth.shape
+    check_tensor("denoise_chain", lighting, torch.float32, (h, w, 3), dev)
+    check_tensor("denoise_chain", depth, torch.uint16, (h, w), dev)
+    check_tensor("denoise_chain", normal, torch.uint8, (h, w), dev)
+    planes = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
+    for si, size in enumerate(DENOISE_SIZES):
+        src = dict(light=lighting, depth=depth, normal=normal) if si == 0 \
+            else dict(plane_in=planes[(si - 1) % 2])
+        launch_pass(h, w, size, **src, plane_out=planes[si % 2])
+    return planes[(len(DENOISE_SIZES) - 1) % 2][..., :3]
+
+
+def denoise_chain_plain(lighting, depth, normal) -> torch.Tensor:
+    """The six plain passes on any device: the reference ``denoise_chain``'s
+    K2 launches are held against."""
+    light = lighting.permute(2, 0, 1)
+    geom = geometry_plane(depth, normal)
+    for size in DENOISE_SIZES:
+        light = denoise_pass_plain(light, geom, size)
+    return light.permute(1, 2, 0)
 
 
 def chain_passes(gb: dict, blue_noise: torch.Tensor, window=None, dither_row0=0):

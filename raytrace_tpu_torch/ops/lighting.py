@@ -499,8 +499,10 @@ def shade(meta, pdist, direction, nw, sun, shape) -> dict:
     ``render_gbuffers_fused``.
 
     CPU tensors take ``shade_plain``; CUDA tensors launch S1
-    (``csrc/shade.cu``) on the current stream, and ``shade.launches``
-    counts those launches.  Any other device raises.
+    (``csrc/shade.cu``) on the current stream: the frame's table of bounce
+    skies (``sky_table_kernel``, ``SKY_TABLE_ENTRIES`` float4 of scratch),
+    then the shade (``shade_fused_kernel``), which reads it;
+    ``shade.launches`` counts those calls.  Any other device raises.
     """
     if meta.device.type == "cpu":
         return shade_plain(meta, pdist, direction, nw, sun, shape)
@@ -517,8 +519,12 @@ def shade(meta, pdist, direction, nw, sun, shape) -> dict:
         check_tensor("shade", t, dtype, shp, dev)
     out = gbuffers_like(shape, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # The frame's bounce skies: scratch the first of S1's two launches
+    # writes and the second reads.
+    table = torch.empty((SKY_TABLE_ENTRIES, 4), dtype=torch.float32, device=dev)
     err = kernels().rt_shade_fused(
-        *(t.data_ptr() for t in ins), *(out[k].data_ptr() for k in GBUFFER_KEYS), n,
+        *(t.data_ptr() for t in ins), table.data_ptr(),
+        *(out[k].data_ptr() for k in GBUFFER_KEYS), n,
         *(int(materials.PACKED_MATERIALS[mid]) for mid in (2, 5, 6)), stream,
     )
     check_launch("rt_shade_fused", err)
@@ -530,6 +536,8 @@ shade.launches = 0
 
 # The G-buffers in the order the shade kernels take them.
 GBUFFER_KEYS = ("lighting", "albedo", "emission", "fog", "depth", "normal")
+# S1's table of a frame's bounce skies: (face 0-5, noise byte g, noise byte k).
+SKY_TABLE_ENTRIES = 6 * 256 * 256
 
 
 def gbuffers_like(shape, device) -> dict:

@@ -220,6 +220,9 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
         out.update(inv=empty((n, INV_WIDTH)), iscal=empty(10, i32), fscal=empty(4))
         trig, h3, r0 = shading.sphere_trig(dev).data_ptr(), None, None
         any8b = tables["any8b"].data_ptr()
+    if (h3 or 0) % 16 or (any8b or 0) % 16:
+        raise ValueError("frame_rays: R1 reads tables['h3'] and tables['any8b'] 16 bytes at "
+                         "a time: their storage must be 16-byte aligned")
     ptr = lambda k: out[k].data_ptr() if k in out else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_frame_rays(

@@ -56,8 +56,8 @@ import torch
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops import (
-    denoise, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol, vol_tables,
-    worldgen)
+    denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol,
+    vol_tables, worldgen)
 from ..world import generate
 from .pipeline import GRAPHED, render_frame
 
@@ -66,7 +66,8 @@ COUNTED = (hf_tables.build_hf_tables, rays.frame_rays, lighting.march_paths, lig
            denoise.launch_pass, trace_vol.march_paths_vol, path_vol.shade,
            trace_vol.march_rays_vol, trace_hf.march_rays_hf, integrate.leg_batch,
            integrate.shade_staged, worldgen.generate_into, generate.generate_box,
-           vol_tables.build_vol_tables, vol_tables.update_vol_tables)
+           vol_tables.build_vol_tables, vol_tables.update_vol_tables,
+           finalize.finalize_frame)
 
 
 def _tensors(tree) -> list:
