@@ -36,9 +36,10 @@
 // thread each in the grid's blocks 1 ..; a band's values are the whole
 // frame's rows.  Block 0 writes the frame scalars (the reduction over h3
 // or any8b) while the pixels' blocks run: in the grid's last block, a
-// chain of byte loads and serial bounds would trail the grid (PERF.md §6).  The uniforms, the texture and the tables
-// are read on the device: no host value enters the launch, and the kernel
-// sits inside the frame's CUDA graph.
+// chain of byte loads and serial bounds would trail the grid (PERF.md §6).
+// The uniforms, the texture and the tables are read on the device: no host
+// value enters the launch, and the kernel sits inside the frame's CUDA
+// graph.
 //
 // The sphere points' sin and cos come from the 256-entry table of
 // ops/shading.py `sphere_trig` at the texel's byte k = rint(v * 255): the

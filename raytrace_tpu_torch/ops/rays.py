@@ -181,8 +181,10 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
 
     CPU tensors take ``frame_rays_plain``; CUDA tensors launch R1
     (``csrc/frame_rays.cu``) on the current stream, one launch that reads
-    every value on the device, and ``frame_rays.launches`` counts those
-    launches.  Any other device raises.
+    every value on the device (``tables['h3']`` and ``tables['any8b']`` 16
+    bytes at a time: storage not 16-byte aligned raises), and
+    ``frame_rays.launches`` counts those launches.  Any other device
+    raises.
     """
     if form not in FORMS:
         raise ValueError(f"frame_rays: form {form!r} is not one of {FORMS}")

@@ -49,7 +49,11 @@ def synced_ms(fn) -> float:
 
 
 # Profiles of a train taken before kernel_ms gives up.
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
+# Small launches made at the start of each profile, before the train: in a
+# long process the profiler may drop a trace's first records (all ten of a
+# train of one short kernel, once), and these are the ones it drops then.
+PROFILE_PAD = 32
 
 
 def launch_times(events, kernel: str, reps: int) -> list:
@@ -78,14 +82,19 @@ def kernel_times(fn, reps: int, kernel: str) -> list:
     launched once by each of ``reps`` calls of ``fn`` after a warm-up, from
     ``torch.profiler``: the kernel alone, without the rest of the call, one
     entry per record ``launch_times`` keeps (1 to ``reps``; their count says
-    how many records the profiler kept).  A profile that ``launch_times``
-    refuses is taken again, at most ``PROFILE_TRIES`` times."""
+    how many records the profiler kept).  Each profile starts with
+    ``PROFILE_PAD`` small launches of another kernel; a profile that
+    ``launch_times`` refuses is taken again, at most ``PROFILE_TRIES``
+    times."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pad = torch.zeros(1, device="cuda")
     faults = []
     for _ in range(PROFILE_TRIES):
         with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(PROFILE_PAD):
+                pad.add_(1.0)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
