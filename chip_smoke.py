@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``raytrace_tpu_torch/csrc``, holds each kernel against its
 plain PyTorch version at the shapes the frame gives it (first T1, the
-region tables, word for word at eleven regions, ``hf_tables_kernel``; G1,
+region tables, word for word at eleven regions, and through a key that
+skips the build of the region the tables hold, ``hf_tables_kernel``; G1,
 the streamed slabs and regions written in place, word for word against
 its plain version and the old enclosure-and-roll path,
 ``worldgen_kernel``; G1's box mode, ``generate_box`` on the card, word
@@ -742,46 +743,94 @@ def phase_finalize_kernel(torch, blue, gb):
     return ok, res
 
 
+# The key sequence of hf_tables_kernel: (lr, seed) of each keyed build
+# through one key and one set of buffers, A, A, B, A, then A under another
+# seed, and again.  A step equal to the one before must skip its build.
+T1_KEY_STEPS = [((16, 0, 0), 0), ((16, 0, 0), 0), ((-48, 0, 0), 0), ((16, 0, 0), 0),
+                ((16, 0, 0), 7), ((16, 0, 0), 7)]
+T1_SENTINEL = -12345  # written into h3[0] and hcol[0] before a step that must skip
+
+
 def phase_hf_tables_kernel(rt, torch, dev):
     """T1 (``csrc/hf_tables.cu``) against its plain version on the card: at
     each of T1_REGIONS, from the packed uniforms (lr.y 0) and from an int32
-    (3,) lr on the device, every table word, ``r0`` and the column table
-    equal to ``build_hf_tables_plain`` (its pyramid from ``heightmap_grid``)
-    and to ``column_heights`` of those tables, each computed by PyTorch on
-    the card.  Then, at the region of a packed vector: T1 alone
-    (torch.profiler, 20 calls), its wrapper's call and the plain build with
-    its column table (CUDA events), and T1's bound."""
+    (3,) lr on the device, with and without the column table, every table
+    word, ``r0`` and the column table equal to ``build_hf_tables_plain``
+    (its pyramid from ``heightmap_grid``) and to ``column_heights`` of those
+    tables, each computed by PyTorch on the card.  Then the key
+    (T1_KEY_STEPS from the packed uniforms, as the fused frame program
+    launches T1): a step whose lr and seed the key holds leaves a sentinel
+    in ``h3[0]`` and ``hcol[0]`` (the skip), every other step equals a
+    fresh plain build, and the key holds (lr.x, lr.y, seed, 1) after each.
+    Then, at the region of a packed vector: T1 alone (torch.profiler, 20
+    calls) building (no key) and skipping (a key that holds the region),
+    the launch floor of its grid (an empty kernel in clusters of four) and
+    of the grid before the tile stage's redesign (64 blocks of 1024
+    threads), its wrapper's call and the plain build with its column table
+    (CUDA events), and T1's bound."""
     from raytrace_tpu_torch.ops import hf_tables
-    from raytrace_tpu_torch.testing.measure import call_ms
+    from raytrace_tpu_torch.testing.measure import call_ms, launch_floor_ms
 
     res, ok = dict(regions=[], max_abs_err=0), True
     packed_of = lambda lr: torch.from_numpy(
         rt.render.pipeline.FrameUniforms(lr=lr, seed=3).packed()).to(dev)
-    for lr, seed in T1_REGIONS:
+
+    def plain(lr, seed):
         want = hf_tables.build_hf_tables_plain(lr, seed, dev)
         want["hcol"] = hf_tables.column_heights(want, seed)
+        return want
+
+    def compare(got, want) -> bool:
+        res["max_abs_err"] = max(res["max_abs_err"], *(
+            int((got[k].long() - want[k].long()).abs().max()) for k in got))
+        return set(got) <= set(want) and all(torch.equal(got[k], want[k]) for k in got)
+
+    for lr, seed in T1_REGIONS:
+        want = plain(lr, seed)
         forms = dict(lr=torch.tensor(lr, dtype=torch.int32, device=dev))
         if lr[1] == 0:
             forms["packed"] = packed_of(lr)
         for form, src in forms.items():
-            got = hf_tables.build_hf_tables(src, seed, hcol=True)
-            diff = {k: int((got[k].long() - want[k].long()).abs().max()) for k in want}
-            equal = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
-            res["regions"].append(dict(lr=list(lr), seed=seed, form=form, equal=equal,
-                                       mismatched={k: int((got[k] != want[k]).sum())
-                                                   for k in want}))
-            res["max_abs_err"] = max(res["max_abs_err"], *diff.values())
-            ok = ok and equal
-    packed = packed_of((16, 0, 0))
+            for with_hcol in (True, False):
+                got = hf_tables.build_hf_tables(src, seed, hcol=with_hcol)
+                equal = compare(got, want) and ("hcol" in got) == with_hcol
+                res["regions"].append(dict(
+                    lr=list(lr), seed=seed, form=form, hcol=with_hcol, equal=equal,
+                    mismatched={k: int((got[k] != want[k]).sum()) for k in got}))
+                ok = ok and equal
     out = hf_tables.empty_tables(dev, hcol=True)
+    key = torch.zeros(4, dtype=torch.int32, device=dev)
+    res["key_steps"], last = [], None
+    for lr, seed in T1_KEY_STEPS:
+        skip = (lr, seed) == last
+        if skip:
+            out["h3"][0] = T1_SENTINEL
+            out["hcol"][0] = T1_SENTINEL
+        hf_tables.build_hf_tables(packed_of(lr), seed, out=out, hcol=True, key=key)
+        want = plain(lr, seed)
+        if skip:
+            kept = int(out["h3"][0]) == T1_SENTINEL and int(out["hcol"][0]) == T1_SENTINEL
+            rest = all(torch.equal(out[k][1:], want[k][1:]) for k in ("h3", "hcol")) and all(
+                torch.equal(out[k], want[k]) for k in want if k not in ("h3", "hcol"))
+            step_ok = kept and rest
+        else:
+            step_ok = compare(dict(out), want)
+        step_ok = step_ok and key.tolist() == [lr[0], lr[1], seed, 1]
+        res["key_steps"].append(dict(lr=list(lr), seed=seed, skip=skip, ok=step_ok,
+                                     key=key.tolist()))
+        ok = ok and step_ok
+        last = (lr, seed)
+    packed = packed_of((16, 0, 0))
+    hf_tables.build_hf_tables(packed, 0, out=out, hcol=True, key=key)
     t1 = lambda: hf_tables.build_hf_tables(packed, 0, out=out, hcol=True)
-
-    def plain():
-        tables = hf_tables.build_hf_tables_plain((16, 0, 0), 0, dev)
-        return hf_tables.column_heights(tables, 0)
-
-    res.update(**_alone(t1, 20, "hf_tables_kernel"), ms=call_ms(t1, 20),
-               plain_ms=call_ms(plain, 3))
+    t1_skip = lambda: hf_tables.build_hf_tables(packed, 0, out=out, hcol=True, key=key)
+    rebuilt, skipped = _alone(t1, 20, "hf_tables_kernel"), _alone(t1_skip, 20, "hf_tables_kernel")
+    res.update(**rebuilt, skipped_ms=skipped["kernel_ms"], skipped_kept=skipped["kept"],
+               floor_ms=launch_floor_ms(hf_tables.T1_BLOCKS, hf_tables.STRIP_THREADS, True, 20),
+               parent_grid_floor_ms=launch_floor_ms((64, 1), 1024, False, 20),
+               ms=call_ms(t1, 20),
+               plain_ms=call_ms(lambda: hf_tables.column_heights(
+                   hf_tables.build_hf_tables_plain((16, 0, 0), 0, dev), 0), 3))
     # Each table written once (six 1,024-word tables, r0, the int16 column
     # table) and the packed vector read; the 33 x 33 lattice points of the
     # region and one height per column.
@@ -802,10 +851,12 @@ def phase_worldgen_kernel(rt, torch, dev):
     teleport's region and the initial region, each written into a copy of
     the generated world volume.  Then G1 alone (torch.profiler, 20 calls),
     its wrapper's call synced, the plain version and the old path (CUDA
-    events), for a slab and for a region, with G1's bound."""
+    events), for a slab and for a region, with G1's bound, its grid and
+    the grid's launch floor (an empty kernel in the same clusters)."""
     from raytrace_tpu_torch.ops.worldgen import generate_into, generate_into_plain
     from raytrace_tpu_torch.testing import enclosure
-    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+    from raytrace_tpu_torch.testing.measure import (
+        call_ms, launch_floor_ms, synced_ms, worldgen_grid)
 
     base = _generated_volume(dev)
     res, ok = dict(cases=[], max_abs_err=0), True
@@ -833,7 +884,10 @@ def phase_worldgen_kernel(rt, torch, dev):
         # Each word written once; the lattice points and heights of the
         # box's 32-aligned column cover (the per-voxel work is integer).
         cover = [((w + s + 31) & -32) - (w & -32) for w, s in zip(w0[:2], shape[:2])]
+        grid = worldgen_grid(w0, shape)
         res[kind] = dict(label=label, kernel_ms=alone["kernel_ms"], kept=alone["kept"],
+                         grid=grid, floor_ms=launch_floor_ms(grid["blocks"], grid["threads"],
+                                                             True, 20),
                          call_synced_ms=[synced_ms(g1) for _ in range(3)],
                          plain_ms=call_ms(lambda: generate_into_plain(volume, w0, shape, seed), 3),
                          old_path_ms=call_ms(lambda: enclosure.stream_old(
@@ -867,9 +921,10 @@ def phase_generate_box_kernel(rt, torch, dev):
     word for word on materials, minefield and solid, at each of BOX_CASES.
     Then for a chunk, a 512x64x64 row and the 256³ box: the kernel alone
     (torch.profiler, 20 calls), its call synced, the plain version (CUDA
-    events) and the bound (6 B written a voxel; the lattice points and the
-    heights of its columns)."""
-    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+    events), the bound (6 B written a voxel; the lattice points and the
+    heights of its columns), the grid and its launch floor."""
+    from raytrace_tpu_torch.testing.measure import (
+        call_ms, launch_floor_ms, synced_ms, worldgen_grid)
     from raytrace_tpu_torch.world.generate import generate_box, generate_box_plain
 
     res, ok = dict(cases=[], max_abs_err=0), True
@@ -895,8 +950,10 @@ def phase_generate_box_kernel(rt, torch, dev):
         g1 = lambda: generate_box(origin, shape, seed=seed, device=dev)
         alone = _alone(g1, 20, "worldgen_box_kernel")
         voxels, columns = shape[0] * shape[1] * shape[2], shape[0] * shape[1]
+        grid = worldgen_grid(origin, shape)
         res[label] = dict(
-            kernel_ms=alone["kernel_ms"], kept=alone["kept"],
+            kernel_ms=alone["kernel_ms"], kept=alone["kept"], grid=grid,
+            floor_ms=launch_floor_ms(grid["blocks"], grid["threads"], True, 20),
             call_synced_ms=[synced_ms(g1) for _ in range(3)],
             plain_ms=call_ms(lambda: generate_box_plain(origin, shape, seed=seed,
                                                         device=dev), 3),

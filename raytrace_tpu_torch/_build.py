@@ -58,13 +58,17 @@ _SIGNATURES = {
     # origin, direction, active, iscal, any8, all8, any_hi, detail, pos,
     # normal, air, done, n, rounds, steps, next, census, stream
     "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P] * 3,
-    # packed, lr, seed, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
-    "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 9,
+    # packed, lr, seed, key, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
+    "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 10,
     # volume, x0, y0, z0, sx, sy, sz, seed, grass, rock, snow, stream
     "rt_worldgen": [_P] + [_I] * 10 + [_P],
     # materials, minefield, solid, x0, y0, z0, sx, sy, sz, seed, grass,
     # rock, snow, stream
     "rt_worldgen_box": [_P] * 3 + [_I] * 10 + [_P],
+    # x0, y0, sx, sy, sz, grid (3,) int32 out
+    "rt_worldgen_grid": [_I] * 5 + [_P],
+    # blocks_x, blocks_y, threads, cluster, stream
+    "rt_launch_floor": [_I] * 4 + [_P],
     # volume, detail, any8b, all8b, any8, all8, any_hi, bz0, nbz, by0, nby,
     # bx0, nbx, stream
     "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],

@@ -36,6 +36,14 @@ volume_fast pipelines' tables and uniforms):
   call;
 - the SASS counts (``measure.sass_counts``) of those kernels.
 
+``--part tiles`` times the tile stage's two kernels alone: T1
+(``hf_tables_kernel``) building the tables of a packed lr and, where the
+checkout's ``build_hf_tables`` takes a ``key``, skipping them; G1
+(``worldgen_kernel``) on a streamed slab and a teleport's region, and its
+box mode (``worldgen_box_kernel``) on a 64³ chunk, a 512x64x64 row and a
+256³ box; and, where the checkout has ``measure.launch_floor_ms``, the
+launch floor of each kernel's grid (an empty kernel on the same blocks).
+
 It prints one JSON line with the card's name and power limit.  It uses only
 the wrappers' calls and ``denoise.chain_passes``, so it also runs in a
 checkout of an earlier commit that has them, to compare its kernels with
@@ -43,7 +51,7 @@ these (copy this file, ``testing/measure.py`` and ``testing/gbuffers.py``
 into it).
 
 Usage: python -m raytrace_tpu_torch.apps.kernel_times [--reps 10]
-[--part fused|volume|glue|all]   (needs a CUDA GPU)
+[--part fused|volume|glue|tiles|all]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ def run(reps: int = 10, size: int = 1024, part: str = "all") -> dict:
         res.update(_volume(reps, size))
     if part in ("glue", "all"):
         res.update(_glue(reps, size))
+    if part in ("tiles", "all"):
+        res.update(_tiles(reps))
     print(json.dumps(res), flush=True)
     return res
 
@@ -187,11 +197,62 @@ def _glue(reps: int, size: int) -> dict:
     return res
 
 
+# G1's timed boxes: (label, origin, shape): the slab and the region
+# chip_smoke.py times, then its box mode's chunk, row and 256³ box.
+G1_BOXES = [("slab", "into", 2), ("region", "into", -2),
+            ("chunk", "box", ((0, 0, 0), (64, 64, 64))),
+            ("row_512", "box", ((-256, 64, 0), (512, 64, 64))),
+            ("box_256", "box", ((-128, -128, -128), (256, 256, 256)))]
+
+
+def _tiles(reps: int) -> dict:
+    import inspect
+
+    from ..ops import hf_tables, worldgen
+    from ..render.pipeline import FrameUniforms
+    from ..testing import enclosure, measure
+    from ..world.generate import generate_box
+
+    dev = torch.device("cuda")
+    floors = "rt_launch_floor" in _build._SIGNATURES
+    packed = torch.from_numpy(FrameUniforms(lr=(16, 0, 0), seed=3).packed()).to(dev)
+    out = hf_tables.empty_tables(dev, hcol=True)
+    t1 = dict(build_ms=kernel_ms(lambda: hf_tables.build_hf_tables(
+        packed, 0, out=out, hcol=True), reps, "hf_tables_kernel"))
+    if "key" in inspect.signature(hf_tables.build_hf_tables).parameters:
+        key = torch.zeros(4, dtype=torch.int32, device=dev)
+        t1["skip_ms"] = kernel_ms(lambda: hf_tables.build_hf_tables(
+            packed, 0, out=out, hcol=True, key=key), reps, "hf_tables_kernel")
+    if floors:
+        t1["floor_ms"] = measure.launch_floor_ms(
+            hf_tables.T1_BLOCKS, hf_tables.STRIP_THREADS, True, reps)
+        t1["parent_grid_floor_ms"] = measure.launch_floor_ms((64, 1), 1024, False, reps)
+    g1 = {}
+    volume = torch.zeros(256 ** 3, dtype=torch.int32, device=dev)
+    for label, mode, box in G1_BOXES:
+        if mode == "into":
+            _, origin, ns, axis, seed = enclosure.STREAM_CASES[box]
+            w0, shape = enclosure.stream_box(origin, ns, axis)
+            call, name = lambda: worldgen.generate_into(volume, w0, shape, seed), \
+                "worldgen_kernel"
+        else:
+            w0, shape = box
+            call, name = lambda: generate_box(w0, shape, seed=0, device=dev), \
+                "worldgen_box_kernel"
+        g1[label] = dict(w0=list(w0), shape=list(shape), kernel_ms=kernel_ms(call, reps, name))
+        if floors:
+            grid = measure.worldgen_grid(w0, shape)
+            g1[label].update(grid=grid, floor_ms=measure.launch_floor_ms(
+                grid["blocks"], grid["threads"], True, reps))
+    return dict(t1=t1, g1=g1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--part", choices=("fused", "volume", "glue", "all"), default="all")
+    ap.add_argument("--part", choices=("fused", "volume", "glue", "tiles", "all"),
+                    default="all")
     args = ap.parse_args()
     run(args.reps, args.size, args.part)
 

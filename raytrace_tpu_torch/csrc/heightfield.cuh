@@ -2,16 +2,17 @@
 // (trace_hf.cu), the region-table build T1 (hf_tables.cu) and the world
 // generator G1 (worldgen.cu): the world math that gives a lattice point's
 // quantized fields and a column's exact height (T1 and G1 through the tile
-// stage `tile_column_height`; K4 per step; K1 reads the region's column
-// table) and a voxel's material band, the region-table classification of a
-// position, and the distance to the next step-aligned boundary.  The plain PyTorch
-// counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
+// stage `strip_column`; K4 per step; K1 reads the region's column table)
+// and a voxel's material band, the region-table classification of a
+// position, and the distance to the next step-aligned boundary.  The plain
+// PyTorch counterparts are ops/hf_tables.py (height_from_corners), world/noise.py,
 // world/heightmap.py (lattice_fields_q), world/generate.py (material_band)
 // and the marches of ops/lighting.py and ops/trace_hf.py; all are built
 // with --fmad=false, so every multiply and add rounds separately, as
 // PyTorch computes them.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,32 +84,48 @@ constexpr float kLacunarity = 0x1.0c1524p+1f;
 constexpr float kSlopeD = 0x1.99999ap-3f;
 constexpr float kSlopeTwoD = 0x1.99999ap-2f;
 
-// world/noise.py basic_multi (frequency 2, persistence 0.5).
-__device__ float basic_multi(float x, float y, int32_t seed, int octaves) {
-  float px = x * 2.0f, py = y * 2.0f;
-  float result = perlin2(px, py, seed);
-  float amp = 1.0f;
-  for (int o = 1; o < octaves; ++o) {
-    px = px * kLacunarity;
-    py = py * kLacunarity;
-    amp *= 0.5f;
-    float signal = perlin2(px, py, seed + o) * amp;
-    result = result + signal * result;
-  }
-  return result;
-}
+// The five noise samples world/heightmap.py lattice_fields_q takes at a
+// lattice point (fx, fy) are world/noise.py basic_multi sums (frequency 2,
+// persistence 0.5): k = 0 the five-octave field r at (fx, fy), k = 1..4
+// the two-octave field at fx + d, fx - d, fy + d, fy - d mapped to [0, 1].
+// Their 13 octaves are independent perlin2 calls; octave j of a point is
+// octave j of sample 0 for j < 5, else octave (j - 5) % 2 of sample
+// 1 + (j - 5) / 2.
+constexpr int kFieldOctaves = 5;
+constexpr int kSlopeOctaves = 2;
+constexpr int kLatticeSamples = 5;
+constexpr int kPointOctaves =
+    kFieldOctaves + (kLatticeSamples - 1) * kSlopeOctaves;  // 13
 
-// The five noise samples world/heightmap.py lattice_fields_q takes at
-// (fx, fy): k = 0 the five-octave field r; k = 1..4 the two-octave field
-// mapped to [0, 1] at fx + d, fx - d, fy + d, fy - d.
-__device__ float lattice_sample(int k, float fx, float fy, int32_t seed) {
-  if (k == 0) return basic_multi(fx, fy, seed, 5);
+// Octave j of the lattice point (fx, fy), at the coordinates basic_multi
+// reaches it by (x * 2, then one multiply by the lacunarity per octave),
+// so that it is bit for bit the octave basic_multi evaluates.
+__device__ float lattice_octave(int j, float fx, float fy, int32_t seed) {
+  const int k = j < kFieldOctaves ? 0 : 1 + (j - kFieldOctaves) / kSlopeOctaves;
+  const int o = j < kFieldOctaves ? j : (j - kFieldOctaves) % kSlopeOctaves;
   float a = fx, b = fy;
   if (k == 1) a = fx + kSlopeD;
   if (k == 2) a = fx - kSlopeD;
   if (k == 3) b = fy + kSlopeD;
   if (k == 4) b = fy - kSlopeD;
-  return basic_multi(a, b, seed, 2) * 0.5f + 0.5f;
+  float px = a * 2.0f, py = b * 2.0f;
+  for (int i = 0; i < o; ++i) {
+    px = px * kLacunarity;
+    py = py * kLacunarity;
+  }
+  return perlin2(px, py, seed + o);
+}
+
+// basic_multi's sum of its n octaves v[0 .. n), in its order.
+__device__ __forceinline__ float fold_octaves(const float* v, int n) {
+  float result = v[0];
+  float amp = 1.0f;
+  for (int o = 1; o < n; ++o) {
+    amp *= 0.5f;
+    float signal = v[o] * amp;
+    result = result + signal * result;
+  }
+  return result;
 }
 
 // lattice_fields_q's word r16 | e16 << 16 from its five samples.
@@ -124,11 +141,32 @@ __device__ int32_t lattice_word(const float s[5]) {
   return (int32_t)((uint32_t)(int32_t)r16 | ((uint32_t)(int32_t)e16 << 16));
 }
 
+// A lattice point's word from its 13 octaves, in lattice_octave's order.
+__device__ int32_t lattice_point_word(const float* v) {
+  float s[kLatticeSamples];
+  s[0] = fold_octaves(v, kFieldOctaves);
+#pragma unroll
+  for (int k = 1; k < kLatticeSamples; ++k)
+    s[k] = fold_octaves(v + kFieldOctaves + (k - 1) * kSlopeOctaves,
+                        kSlopeOctaves) * 0.5f + 0.5f;
+  return lattice_word(s);
+}
+
+// The factor q = 1 + perlin * amp of world/heightmap.py height_from_lattice
+// at column (xi, yi): its top-frequency octave, which needs no lattice
+// word.
+__device__ __forceinline__ float column_q(int32_t xi, int32_t yi,
+                                          int32_t seed) {
+  float fx = (float)xi / 600.0f;
+  float fy = (float)yi / 600.0f;
+  return 1.0f + perlin2(fx * kTopFreq, fy * kTopFreq, seed + 5) * kTopAmp;
+}
+
 // ops/hf_tables.py height_from_corners (world/heightmap.py
-// dequant_lattice + height_from_lattice).
-__device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
-                                       int32_t cd, int32_t xi, int32_t yi,
-                                       int32_t seed) {
+// dequant_lattice + height_from_lattice), with the column's q given.
+__device__ int32_t height_from_corners_q(int32_t ca, int32_t cb, int32_t cc,
+                                         int32_t cd, int32_t xi, int32_t yi,
+                                         float q) {
   float tx = (float)(xi & 7) * 0.125f;
   float ty = (float)(yi & 7) * 0.125f;
   const int32_t w[4] = {ca, cb, cc, cd};
@@ -144,9 +182,6 @@ __device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
   float et = e[0] + tx * (e[1] - e[0]);
   float eb = e[2] + tx * (e[3] - e[2]);
   float ee = et + ty * (eb - et);
-  float fx = (float)xi / 600.0f;
-  float fy = (float)yi / 600.0f;
-  float q = 1.0f + perlin2(fx * kTopFreq, fy * kTopFreq, seed + 5) * kTopAmp;
   float base = rr * q * 0.5f + 0.5f;
   float eroded = base + ee;
   float n = eroded >= 0.0f ? powf(fabsf(eroded) / 1.5f, 2.6f) : 0.0f;
@@ -154,45 +189,123 @@ __device__ int32_t height_from_corners(int32_t ca, int32_t cb, int32_t cc,
   return (int32_t)floorf(h);
 }
 
-// The tile stage of T1 and G1: a block of kTileThreads threads, one per
-// column of the 32 x 32-column tile whose first column is (x0, y0), x0 and
-// y0 multiples of 8.  125 threads take the tile's 5 x 5 lattice points
-// (every 8 columns, the tile's edges included) times the five noise
-// samples of `lattice_fields_q`, so a point's samples run side by side; 25
-// threads quantize each point into its word r16 | e16 << 16 (`lat`).  Each
-// thread then blends its column's height, column (x0 + t % 32, y0 + t / 32)
-// for thread t, from its 8-block's four corner words
-// (`height_from_corners`), which is what world/heightmap.py heightmap_grid
-// computes for that column.  Every thread of the block must call it.
-constexpr int kTile = 32;                    // columns per tile side
-constexpr int kTileLat = kTile / 8 + 1;      // lattice points per tile side
-constexpr int kTileThreads = kTile * kTile;  // one per column
-constexpr int kLatticeSamples = 5;           // noise samples per lattice point
+__device__ __forceinline__ int32_t height_from_corners(
+    int32_t ca, int32_t cb, int32_t cc, int32_t cd, int32_t xi, int32_t yi,
+    int32_t seed) {
+  return height_from_corners_q(ca, cb, cc, cd, xi, yi, column_q(xi, yi, seed));
+}
 
-struct TileStage {
-  float samples[kTileLat * kTileLat][kLatticeSamples];
-  int32_t lat[kTileLat][kTileLat];
+// The tile stage of T1 and G1.  A tile is 32 x 32 columns whose first
+// column (x0, y0) is a multiple of 32 from the grid's origin, computed by
+// a cluster of kStrips blocks: block rank r takes the strip of rows
+// y0 + 8r .. y0 + 8r + 7, one thread per column, column
+// (x0 + t % 32, y0 + 8r + t / 32) for thread t, so that a warp is one row
+// of 32 consecutive columns.
+//   1. The strip's 5 x 2 lattice points (every 8 columns, its edges
+//      included) times their 13 octaves, one perlin2 a thread, beside each
+//      thread's column_q (which needs no lattice word); then a thread per
+//      point folds its octaves into the five samples and quantizes them
+//      into its word r16 | e16 << 16 (`lat`).
+//   2. Each thread blends its column's height from its 8-block's four
+//      corner words (`height_from_corners_q`), which is what
+//      world/heightmap.py heightmap_grid computes for that column, and
+//      takes H = max(h, 0).
+//   3. The maxima of H over the column's 2-, 4-, 8-, 16- and 32-column
+//      blocks, aligned to the tile: along x by warp shuffles, along y over
+//      the strip's rows in shared memory; a 16- or 32-row block spans
+//      strips, so each block writes its strip's 16- and 32-column maxima
+//      into the shared memory of every block of its cluster, and one
+//      cluster barrier later reads all four strips' from its own.  No
+//      block touches another's shared memory after that barrier, so a
+//      block may return as soon as it is done.
+// Every thread of every block of the cluster calls `strip_column`.
+constexpr int kTile = 32;                          // columns per tile side
+constexpr int kStripRows = 8;                      // rows per strip
+constexpr int kStrips = kTile / kStripRows;        // blocks per tile
+constexpr int kStripThreads = kTile * kStripRows;  // one per column
+constexpr int kStripLatX = kTile / 8 + 1;          // lattice points along x
+constexpr int kStripPoints = 2 * kStripLatX;       // two rows of them
+constexpr int kLevels = 5;                         // blocks of 2^1 .. 2^5
+static_assert(kStripPoints * kPointOctaves <= kStripThreads,
+              "one lattice octave per thread");
+
+struct StripStage {
+  float octaves[kStripPoints][kPointOctaves];
+  int32_t lat[2][kStripLatX];
+  // H's maxima along x over 2^(l+1) columns, per row of the strip.
+  int32_t xmax[kLevels][kStripRows][kTile];
+  // Each strip of the tile's maxima over its two 16-column halves, then
+  // over all 32, written by that strip's block.
+  int32_t parts[kStrips][3];
 };
 
-__device__ int32_t tile_column_height(TileStage& s, int32_t x0, int32_t y0,
-                                      int32_t seed) {
+// A thread's column: its world (x, y), H = max(h, 0), and the maxima of H
+// over its 2-, 4-, 8-, 16- and 32-column blocks.
+struct Column {
+  int32_t wx, wy, h, h1, h2, h3, h4, h5;
+};
+
+// The maximum of xmax[l] over n rows from row r0, in the thread's lane.
+__device__ __forceinline__ int32_t strip_rows_max(const StripStage& s, int l,
+                                                  int r0, int n, int cx) {
+  int32_t m = s.xmax[l][r0][cx];
+  for (int r = 1; r < n; ++r) m = max(m, s.xmax[l][r0 + r][cx]);
+  return m;
+}
+
+__device__ Column strip_column(StripStage& s, int32_t x0, int32_t y0,
+                               int32_t seed) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int t = threadIdx.x;
-  if (t < kTileLat * kTileLat * kLatticeSamples) {
-    int p = t / kLatticeSamples, k = t % kLatticeSamples;
-    int32_t wx = x0 + 8 * (p % kTileLat);
-    int32_t wy = y0 + 8 * (p / kTileLat);
-    s.samples[p][k] =
-        lattice_sample(k, (float)wx / 600.0f, (float)wy / 600.0f, seed);
+  const int cx = t % kTile, cy = t / kTile;
+  const int32_t sy0 = y0 + kStripRows * rank;
+  Column c;
+  c.wx = x0 + cx;
+  c.wy = sy0 + cy;
+  if (t < kStripPoints * kPointOctaves) {
+    const int p = t / kPointOctaves;
+    const int32_t wx = x0 + 8 * (p % kStripLatX);
+    const int32_t wy = sy0 + 8 * (p / kStripLatX);
+    s.octaves[p][t % kPointOctaves] = lattice_octave(
+        t % kPointOctaves, (float)wx / 600.0f, (float)wy / 600.0f, seed);
+  }
+  const float q = column_q(c.wx, c.wy, seed);
+  __syncthreads();
+  if (t < kStripPoints)
+    s.lat[t / kStripLatX][t % kStripLatX] = lattice_point_word(s.octaves[t]);
+  __syncthreads();
+  const int lx = cx >> 3;
+  c.h = max(height_from_corners_q(s.lat[0][lx], s.lat[0][lx + 1],
+                                  s.lat[1][lx], s.lat[1][lx + 1], c.wx, c.wy,
+                                  q),
+            0);
+  int32_t m = c.h;
+#pragma unroll
+  for (int l = 0; l < kLevels; ++l) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, 1 << l));
+    s.xmax[l][cy][cx] = m;
   }
   __syncthreads();
-  if (t < kTileLat * kTileLat)
-    s.lat[t / kTileLat][t % kTileLat] = lattice_word(s.samples[t]);
-  __syncthreads();
-  const int cx = t % kTile, cy = t / kTile;
-  const int lx = cx >> 3, ly = cy >> 3;
-  return height_from_corners(s.lat[ly][lx], s.lat[ly][lx + 1],
-                             s.lat[ly + 1][lx], s.lat[ly + 1][lx + 1],
-                             x0 + cx, y0 + cy, seed);
+  c.h1 = strip_rows_max(s, 0, cy & ~1, 2, cx);
+  c.h2 = strip_rows_max(s, 1, cy & ~3, 4, cx);
+  c.h3 = strip_rows_max(s, 2, 0, kStripRows, cx);
+  if (cy == 0) {  // warp 0: the strip's parts, into every block's `parts`
+    const int32_t m16 = strip_rows_max(s, 3, 0, kStripRows, cx);
+    const int32_t m32 = strip_rows_max(s, 4, 0, kStripRows, cx);
+    const int32_t half0 = __shfl_sync(0xffffffffu, m16, 0);
+    const int32_t half1 = __shfl_sync(0xffffffffu, m16, kTile / 2);
+    if (cx < kStrips * 3) {
+      const int v = cx % 3;
+      cluster.map_shared_rank(&s.parts[rank][0], cx / 3)[v] =
+          v == 0 ? half0 : (v == 1 ? half1 : m32);
+    }
+  }
+  cluster.sync();  // every strip's parts are in every block
+  c.h4 = max(s.parts[rank][cx >> 4], s.parts[rank ^ 1][cx >> 4]);
+  c.h5 = max(max(s.parts[0][2], s.parts[1][2]), max(s.parts[2][2], s.parts[3][2]));
+  return c;
 }
 
 // world/generate.py material_band of the voxel's hash: material id 2

@@ -41,90 +41,37 @@
 // follow the float32 chain of heightmap_grid exactly (the tile stage T1
 // shares, heightfield.cuh).
 //
-// One block per 32 x 32-column tile of the box's 32-aligned column cover
-// and per kZChunk planes of z, one thread per column: the tile stage gives
-// every column's height, shared-memory maxima give the 2-, 4-, 8-, 16- and
-// 32-column maxima (`tile_column`), then each thread whose column lies in
-// the box walks its z planes (`voxel_word`).  The two modes differ only in
-// the store.  A warp's 32 columns are consecutive in x, so each plane's
-// int32 stores are 128 consecutive bytes (and the box mode's uint8 and bool
-// stores 32).
+// A cluster of four blocks per 32 x 32-column tile of the box's 32-aligned
+// column cover, one block per strip of 8 rows (256 threads, one per
+// column), times a chunk of z planes: the tile stage (heightfield.cuh
+// `strip_column`: the strip's lattice words one perlin octave a thread,
+// each column's height, its 2- to 32-column maxima by warp shuffles, the
+// strip's rows and the cluster's neighbours) gives each thread its column,
+// then each thread whose column lies in the box walks its z planes
+// (`voxel_word`).  The two modes differ only in the store.  A warp's 32
+// columns are consecutive in x, so each plane's int32 stores are 128
+// consecutive bytes (and the box mode's uint8 and bool stores 32), four
+// planes to an unrolled step.  A block takes kZChunk = 64 planes, or fewer
+// where the strips that meet the box would give fewer blocks than the card
+// has SMs (`z_chunk`: a 64^3 chunk is 256 blocks of 4 planes, a slab 16
+// rows deep 32-plane blocks, a 256^3 region 64-plane ones); each block
+// computes its own tile stage.
 //
 // What bounds it on the H100: the bytes it writes, 4 B a voxel in slab
 // mode (4 MB for a 256 x 256 x 16 slab, 67 MB for a 256^3 region: 1.3 us
 // and 20 us at 3.35 TB/s) and 6 B a voxel in box mode (a 64^3 chunk 1.57
 // MB, 0.47 us; a 512 x 64 x 64 row 3.8 us; a 256^3 box 30 us).  A small
-// box's launch is short of that: its tile stages (a chain of five perlin
-// octaves and the barriers) and the launch set its time.
+// box's launch is short of that: the launch, the tile stage's latency (one
+// perlin octave, the lattice fold, one column height, the cluster's
+// barrier) and a few planes a thread set its time.
 
 #include "heightfield.cuh"
 
 namespace {
 
-constexpr int kZChunk = 32;  // z planes per block
+constexpr int kZChunk = 64;  // z planes per block, at most
 constexpr int kChunk = 64;   // the box mode's alignment
 constexpr int32_t kMaterialMask = (1 << 24) - 1;
-
-// A tile's stage and its column-maximum pyramid, in shared memory.
-struct WorldTile {
-  TileStage stage;
-  int32_t m0[kTile][kTile];
-  int32_t m1[kTile / 2][kTile / 2];
-  int32_t m2[kTile / 4][kTile / 4];
-  int32_t m3[kTile / 8][kTile / 8];
-  int32_t m4[kTile / 16][kTile / 16];
-};
-
-// A thread's column: its world (x, y), H = max(h, 0), and the maxima of H
-// over its 2-, 4-, 8-, 16- and 32-column blocks.
-struct Column {
-  int32_t wx, wy, h, h1, h2, h3, h4, h5;
-};
-
-// The column of thread t in the tile whose first column is (tx0, ty0).
-// Every thread of the block must call it.
-__device__ Column tile_column(WorldTile& s, int32_t tx0, int32_t ty0,
-                              int32_t seed) {
-  const int t = threadIdx.x;
-  const int cx = t % kTile, cy = t / kTile;
-  const int32_t h = max(tile_column_height(s.stage, tx0, ty0, seed), 0);
-  s.m0[cy][cx] = h;
-  __syncthreads();
-  if (t < (kTile / 2) * (kTile / 2)) {
-    int y = t / (kTile / 2), x = t % (kTile / 2);
-    s.m1[y][x] = max(max(s.m0[2 * y][2 * x], s.m0[2 * y][2 * x + 1]),
-                     max(s.m0[2 * y + 1][2 * x], s.m0[2 * y + 1][2 * x + 1]));
-  }
-  __syncthreads();
-  if (t < (kTile / 4) * (kTile / 4)) {
-    int y = t / (kTile / 4), x = t % (kTile / 4);
-    s.m2[y][x] = max(max(s.m1[2 * y][2 * x], s.m1[2 * y][2 * x + 1]),
-                     max(s.m1[2 * y + 1][2 * x], s.m1[2 * y + 1][2 * x + 1]));
-  }
-  __syncthreads();
-  if (t < (kTile / 8) * (kTile / 8)) {
-    int y = t / (kTile / 8), x = t % (kTile / 8);
-    s.m3[y][x] = max(max(s.m2[2 * y][2 * x], s.m2[2 * y][2 * x + 1]),
-                     max(s.m2[2 * y + 1][2 * x], s.m2[2 * y + 1][2 * x + 1]));
-  }
-  __syncthreads();
-  if (t < (kTile / 16) * (kTile / 16)) {
-    int y = t / (kTile / 16), x = t % (kTile / 16);
-    s.m4[y][x] = max(max(s.m3[2 * y][2 * x], s.m3[2 * y][2 * x + 1]),
-                     max(s.m3[2 * y + 1][2 * x], s.m3[2 * y + 1][2 * x + 1]));
-  }
-  __syncthreads();
-  Column c;
-  c.wx = tx0 + cx;
-  c.wy = ty0 + cy;
-  c.h = h;
-  c.h1 = s.m1[cy >> 1][cx >> 1];
-  c.h2 = s.m2[cy >> 2][cx >> 2];
-  c.h3 = s.m3[cy >> 3][cx >> 3];
-  c.h4 = s.m4[cy >> 4][cx >> 4];
-  c.h5 = max(max(s.m4[0][0], s.m4[0][1]), max(s.m4[1][0], s.m4[1][1]));
-  return c;
-}
 
 // The fused word of the voxel at height z of column c.
 __device__ __forceinline__ int32_t voxel_word(const Column& c, int32_t z,
@@ -143,50 +90,102 @@ __device__ __forceinline__ int32_t voxel_word(const Column& c, int32_t z,
   return step << 24;
 }
 
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __cluster_dims__(kStrips, 1, 1) __launch_bounds__(kStripThreads)
     worldgen_kernel(int32_t* __restrict__ volume, int32_t x0, int32_t y0,
                     int32_t z0, int32_t sx, int32_t sy, int32_t sz,
-                    int32_t ax0, int32_t ay0, int32_t tiles_x, int32_t seed,
-                    int32_t grass, int32_t rock, int32_t snow) {
-  __shared__ WorldTile tile;
-  const Column c =
-      tile_column(tile, ax0 + kTile * (int32_t)(blockIdx.x % tiles_x),
-                  ay0 + kTile * (int32_t)(blockIdx.x / tiles_x), seed);
-  if (c.wx < x0 || c.wx >= x0 + sx || c.wy < y0 || c.wy >= y0 + sy) return;
-  int32_t* col =
-      volume + ((c.wy + kRegion / 2) & (kRegion - 1)) * kRegion +
-      ((c.wx + kRegion / 2) & (kRegion - 1));
-  const int32_t zs = z0 + kZChunk * (int32_t)blockIdx.y;
-  const int32_t ze = min(zs + kZChunk, z0 + sz);
-  for (int32_t z = zs; z < ze; ++z)
-    col[(size_t)((z + kRegion / 2) & (kRegion - 1)) * kRegion * kRegion] =
-        voxel_word(c, z, seed, grass, rock, snow);
+                    int32_t ax0, int32_t ay0, int32_t tiles_x, int32_t zc,
+                    int32_t seed, int32_t grass, int32_t rock, int32_t snow) {
+  __shared__ StripStage stage;
+  const int32_t tile = (int32_t)(blockIdx.x / kStrips);
+  const Column c = strip_column(stage, ax0 + kTile * (tile % tiles_x),
+                                ay0 + kTile * (tile / tiles_x), seed);
+  if (c.wx >= x0 && c.wx < x0 + sx && c.wy >= y0 && c.wy < y0 + sy) {
+    int32_t* col = volume +
+                   ((c.wy + kRegion / 2) & (kRegion - 1)) * kRegion +
+                   ((c.wx + kRegion / 2) & (kRegion - 1));
+    const int32_t zs = z0 + zc * (int32_t)blockIdx.y;
+    const int32_t ze = min(zs + zc, z0 + sz);
+#pragma unroll 4
+    for (int32_t z = zs; z < ze; ++z)
+      col[(size_t)((z + kRegion / 2) & (kRegion - 1)) * kRegion * kRegion] =
+          voxel_word(c, z, seed, grass, rock, snow);
+  }
 }
 
 // The box is 64-aligned with 64-multiple extents, so its column cover is
-// the box itself and every block's kZChunk planes lie in it.
-__global__ void __launch_bounds__(kTileThreads)
+// the box itself and every block's zc planes lie in it.
+__global__ void __cluster_dims__(kStrips, 1, 1) __launch_bounds__(kStripThreads)
     worldgen_box_kernel(int32_t* __restrict__ materials,
                         uint8_t* __restrict__ minefield,
                         bool* __restrict__ solid, int32_t x0, int32_t y0,
                         int32_t z0, int32_t sx, int32_t sy, int32_t tiles_x,
-                        int32_t seed, int32_t grass, int32_t rock,
+                        int32_t zc, int32_t seed, int32_t grass, int32_t rock,
                         int32_t snow) {
-  __shared__ WorldTile tile;
-  const Column c =
-      tile_column(tile, x0 + kTile * (int32_t)(blockIdx.x % tiles_x),
-                  y0 + kTile * (int32_t)(blockIdx.x / tiles_x), seed);
+  __shared__ StripStage stage;
+  const long long tile = blockIdx.x / kStrips;
+  const Column c = strip_column(
+      stage, x0 + kTile * (int32_t)(tile % tiles_x),
+      y0 + kTile * (int32_t)(tile / tiles_x), seed);
   const size_t plane = (size_t)sx * sy;
-  size_t i = (size_t)kZChunk * blockIdx.y * plane +
-             (size_t)(c.wy - y0) * sx + (c.wx - x0);
-  const int32_t zs = z0 + kZChunk * (int32_t)blockIdx.y;
-  for (int32_t z = zs; z < zs + kZChunk; ++z, i += plane) {
+  size_t i = (size_t)zc * blockIdx.y * plane + (size_t)(c.wy - y0) * sx +
+             (c.wx - x0);
+  const int32_t zs = z0 + zc * (int32_t)blockIdx.y;
+#pragma unroll 4
+  for (int32_t z = zs; z < zs + zc; ++z, i += plane) {
     const int32_t word = voxel_word(c, z, seed, grass, rock, snow);
     const uint32_t step = (uint32_t)word >> 24;
     materials[i] = word & kMaterialMask;
     minefield[i] = (uint8_t)step;
     solid[i] = step == 0;
   }
+}
+
+// The z planes a block takes, for `active` strips of columns in the box
+// and `sz` planes: kZChunk, halved while the blocks of those strips are
+// fewer than the card's SMs (down to one plane).  A block's tile stage
+// costs about what a few dozen of its planes do, so large boxes take long
+// chunks; a small box takes short ones to spread over the card.
+cudaError_t z_chunk(long long active, int sz, int* zc) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *zc = kZChunk;
+  while (*zc > 1 && active * ((sz + *zc - 1) / *zc) < sms) *zc >>= 1;
+  return err;
+}
+
+// floor(v / 8) for any sign.
+__host__ __forceinline__ long long floor8(long long v) {
+  return v >= 0 ? v / 8 : -((7 - v) / 8);
+}
+
+// The grid of a box: (blocks in x, z chunks), its tile origin and tiles
+// along x, and the planes a block takes.  A box whose grid exceeds the
+// launch limits (2^31 - 1 blocks in x, 65535 z chunks) is refused.
+struct Grid {
+  dim3 blocks;
+  int32_t ax0, ay0, tiles_x, zc;
+};
+
+cudaError_t grid_of(int x0, int y0, int sx, int sy, int sz, Grid* g) {
+  // The 32-aligned column cover (floor division of negative origins).
+  g->ax0 = x0 & ~(kTile - 1);
+  g->ay0 = y0 & ~(kTile - 1);
+  g->tiles_x = (int32_t)(((x0 + (long long)sx + kTile - 1) & ~(kTile - 1)) - g->ax0) / kTile;
+  const long long tiles_y =
+      (((y0 + (long long)sy + kTile - 1) & ~(kTile - 1)) - g->ay0) / kTile;
+  const long long strips = (long long)g->tiles_x * tiles_y * kStrips;
+  // The strips whose 8 rows meet the box: a slab 16 rows deep meets two of
+  // its tiles' four.
+  const long long active =
+      (long long)g->tiles_x * (floor8(y0 + (long long)sy + 7) - floor8(y0));
+  cudaError_t err = z_chunk(active, sz, &g->zc);
+  const long long chunks = (sz + g->zc - 1) / g->zc;
+  if (err == cudaSuccess && (strips > 0x7fffffffLL || chunks > 65535))
+    err = cudaErrorInvalidValue;
+  g->blocks = dim3((unsigned)strips, (unsigned)chunks);
+  return err;
 }
 
 }  // namespace
@@ -201,14 +200,12 @@ extern "C" int rt_worldgen(int32_t* volume, int x0, int y0, int z0, int sx,
   if (sx < 1 || sy < 1 || sz < 1 || sx > kRegion || sy > kRegion ||
       sz > kRegion)
     return (int)cudaErrorInvalidValue;
-  // The 32-aligned column cover (floor division of negative origins).
-  const int32_t ax0 = x0 & ~(kTile - 1), ay0 = y0 & ~(kTile - 1);
-  const int32_t tiles_x = (((x0 + sx + kTile - 1) & ~(kTile - 1)) - ax0) / kTile;
-  const int32_t tiles_y = (((y0 + sy + kTile - 1) & ~(kTile - 1)) - ay0) / kTile;
-  dim3 grid(tiles_x * tiles_y, (sz + kZChunk - 1) / kZChunk);
-  worldgen_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-      volume, x0, y0, z0, sx, sy, sz, ax0, ay0, tiles_x, seed, grass, rock,
-      snow);
+  Grid g;
+  cudaError_t err = grid_of(x0, y0, sx, sy, sz, &g);
+  if (err != cudaSuccess) return (int)err;
+  worldgen_kernel<<<g.blocks, kStripThreads, 0, (cudaStream_t)stream>>>(
+      volume, x0, y0, z0, sx, sy, sz, g.ax0, g.ay0, g.tiles_x, g.zc, seed,
+      grass, rock, snow);
   return (int)cudaGetLastError();
 }
 
@@ -216,8 +213,7 @@ extern "C" int rt_worldgen(int32_t* volume, int x0, int y0, int z0, int sx,
 // extents (sx, sy, sz) into dense (sz, sy, sx) materials (int32),
 // minefield (uint8) and solid (bool); seed and the packed grass, rock and
 // snow words.  One launch, every value a launch argument.  A box that is
-// not 64-aligned, or whose grid exceeds the launch limits (2^31 - 1 tiles,
-// 65535 z chunks), is refused.
+// not 64-aligned, or whose grid exceeds the launch limits, is refused.
 extern "C" int rt_worldgen_box(int32_t* materials, uint8_t* minefield,
                                bool* solid, int x0, int y0, int z0, int sx,
                                int sy, int sz, int seed, int grass, int rock,
@@ -225,13 +221,25 @@ extern "C" int rt_worldgen_box(int32_t* materials, uint8_t* minefield,
   if (sx < 1 || sy < 1 || sz < 1 ||
       ((x0 | y0 | z0 | sx | sy | sz) & (kChunk - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int32_t tiles_x = sx / kTile;
-  const long long tiles = (long long)tiles_x * (sy / kTile);
-  if (tiles > 0x7fffffffLL || sz / kZChunk > 65535)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, sz / kZChunk);
-  worldgen_box_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-      materials, minefield, solid, x0, y0, z0, sx, sy, tiles_x, seed, grass,
-      rock, snow);
+  Grid g;
+  cudaError_t err = grid_of(x0, y0, sx, sy, sz, &g);
+  if (err != cudaSuccess) return (int)err;
+  worldgen_box_kernel<<<g.blocks, kStripThreads, 0, (cudaStream_t)stream>>>(
+      materials, minefield, solid, x0, y0, z0, sx, sy, g.tiles_x, g.zc, seed,
+      grass, rock, snow);
   return (int)cudaGetLastError();
+}
+
+// The grid either mode launches for a box (the box mode's is 64-aligned):
+// blocks in x and z chunks into grid[0..1], and the planes a block takes
+// into grid[2].  For the measurement scripts: an empty kernel on the same
+// grid is the launch's floor.
+extern "C" int rt_worldgen_grid(int x0, int y0, int sx, int sy, int sz,
+                                int32_t* grid) {
+  Grid g;
+  cudaError_t err = grid_of(x0, y0, sx, sy, sz, &g);
+  grid[0] = (int32_t)g.blocks.x;
+  grid[1] = (int32_t)g.blocks.y;
+  grid[2] = g.zc;
+  return (int)err;
 }

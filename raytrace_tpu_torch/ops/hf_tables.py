@@ -7,7 +7,10 @@ region's tables with kernel T1 (``csrc/hf_tables.cu``) on the card, from
 an ``lr`` that lies in device memory (the packed frame uniforms inside the
 fused frame program's CUDA graph, as JAX's ``_rffp_impl`` rebuilds them
 inside its one dispatch), and with its plain version
-(``build_hf_tables_plain``, then ``column_heights``) on the CPU.  Tables
+(``build_hf_tables_plain``, then ``column_heights``) on the CPU.  With a
+``key`` saying what its buffers hold, a build of the region they already
+hold does nothing (T1 returns at entry), so the fused program's T1 works
+only when ``lr`` moves.  Tables
 are flat (1024,) int32 tensors, one word per 8x8-column block at ``by * 32
 + bx``; the JAX package holds the same words as (8, 128).  ``classify``,
 ``bdist`` and ``step_reciprocal`` are the steps both heightfield marches
@@ -35,6 +38,11 @@ _HALF = ROOT_BLOCK_SIZE // 2
 _EPS = 1e-4
 TABLE_KEYS = ("hsub", "h3", "cA", "cB", "cC", "cD")
 
+
+# The launch of T1 (csrc/hf_tables.cu): blocks (x, y) of STRIP_THREADS
+# threads, one a strip of 32 x 8 columns, in clusters of four (a 32 x 32
+# tile); G1's blocks are the same strips.  For the launch floor.
+T1_BLOCKS, STRIP_THREADS = (256, 1), 256
 
 # Each table's dtype and shape; "hcol" only where the column table is asked for.
 LAYOUT = {
@@ -67,7 +75,7 @@ def host_lr(lr) -> tuple:
 
 
 def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
-                    hcol: bool = False) -> dict:
+                    hcol: bool = False, key: torch.Tensor | None = None) -> dict:
     """Tables for the region centred at integer ``lr`` (x, y, z).
 
     ``lr`` is a host sequence, an int32 (3,) tensor, or the packed (16,)
@@ -81,11 +89,30 @@ def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
     place and returned.  ``hcol``: with the column table K1 reads
     (``column_heights`` of the same tables).  ``r0`` must be a multiple of
     8 (the streamer moves ``lr`` on the 16-voxel slice grid), as in JAX.
+
+    ``key``: an int32 (4,) tensor on the tables' device, ``(lr.x, lr.y,
+    seed, valid)``, saying what ``out`` holds (``out`` is required).  When
+    it holds this call's ``lr`` and ``seed`` with valid 1, nothing is built;
+    else the tables are built and the key set to ``(lr.x, lr.y, seed, 1)``.
+    On the card T1 compares at entry, so a launch inside a CUDA graph skips
+    its work while ``lr`` stays (still one launch, counted); on the CPU the
+    host compares and skips the plain build.  A writer of ``out`` other than
+    this function must set the key's valid word to 0.
     """
     if isinstance(lr, torch.Tensor):
         device = lr.device
     device = torch.device("cpu" if device is None else device)
+    if key is not None and out is None:
+        raise ValueError("build_hf_tables: a key says what out= holds; pass out=")
     if device.type == "cpu":
+        from .._build import check_tensor
+
+        want = None
+        if key is not None:
+            check_tensor("build_hf_tables key", key, torch.int32, (4,), device)
+            want = [*host_lr(lr)[:2], int(seed), 1]
+            if key.tolist() == want:
+                return out
         tables = build_hf_tables_plain(host_lr(lr), seed, device)
         if hcol:
             tables = with_column_heights(tables, seed)
@@ -93,6 +120,8 @@ def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
             return tables
         for k, v in tables.items():
             out[k].copy_(v)
+        if key is not None:
+            key.copy_(torch.tensor(want, dtype=torch.int32))
         return out
     if device.type != "cuda":
         raise RuntimeError(f"build_hf_tables: no kernel for device {device}")
@@ -105,12 +134,15 @@ def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
     packed = _is_packed(lr)
     check_tensor("build_hf_tables", lr, torch.float32 if packed else torch.int32,
                  (16,) if packed else (3,), dev)
+    if key is not None:
+        check_tensor("build_hf_tables key", key, torch.int32, (4,), dev)
     tables = empty_tables(dev, hcol) if out is None else out
     for k, (dtype, shape) in LAYOUT.items():
         if hcol or k != "hcol":
             check_tensor(f"build_hf_tables out[{k!r}]", tables[k], dtype, shape, dev)
     err = kernels().rt_hf_tables(
         lr.data_ptr() if packed else None, None if packed else lr.data_ptr(), seed,
+        None if key is None else key.data_ptr(),
         *(tables[k].data_ptr() for k in ("h3", "hsub", "cA", "cB", "cC", "cD", "r0")),
         tables["hcol"].data_ptr() if hcol else None,
         torch.cuda.current_stream(dev).cuda_stream,

@@ -19,11 +19,13 @@ max_steps, seed, bounces) and its static buffers on the pipeline's device:
   ``build_vol_tables`` dict, which the streamer (G1) and the pipeline (O1)
   then write in place);
 - the region tables of "fused" (``h3``, ``hsub``, ``cA``..``cD``, ``r0``
-  and the column table ``hcol``), which the program owns and rebuilds at
-  the start of every frame from the ``lr`` in the packed uniforms
-  (``build_hf_tables(packed, out=...)``: kernel T1 inside the graph), as
-  JAX's ``_rffp_impl`` rebuilds them inside its one dispatch, so a slice
-  crossing or a teleport changes nothing but the uniforms;
+  and the column table ``hcol``), which the program owns and builds at the
+  start of every frame from the ``lr`` in the packed uniforms
+  (``build_hf_tables(packed, out=..., key=...)``: kernel T1 inside the
+  graph), as JAX's ``_rffp_impl`` rebuilds them inside its one dispatch,
+  so a slice crossing or a teleport changes nothing but the uniforms; the
+  program's ``key`` (int32 (4,): lr.x, lr.y, seed, valid) says which
+  region they hold, and T1 builds only when ``lr`` moved;
 - outputs: the frame and the G-buffers.
 
 The program takes the tensors of the world it is built with as its input
@@ -35,9 +37,8 @@ asks for: it renders that frame eagerly on a side stream (building the
 kernel library at first use, outside the capture), then captures the
 graph; every later ``run`` replays it (``CapturedCall``, which the
 benchmark's step programs share).  On a CPU program ``run`` renders
-the same function eagerly over the same buffers (the fused tables' plain
-rebuild is skipped while ``lr`` stays: the same words, without the graph
-that would rebuild them on the card).
+the same function eagerly over the same buffers (the key skips the fused
+tables' plain build while ``lr`` stays, as it skips T1's on the card).
 
 ``run`` returns a fresh frame (one copy after the replay) and the static
 G-buffers, which the next ``run`` overwrites.  A replay adds the capture's
@@ -176,11 +177,12 @@ class FrameProgram:
                              "their world")
         self.config = (width, height, max_steps, seed, bounces, tracer)
         self.device = blue_noise.device
+        self.key = None  # what the fused tables hold: nothing yet (valid 0)
         if tracer == "fused":
             world = hf_tables.empty_tables(self.device, hcol=True)
+            self.key = torch.zeros(4, dtype=torch.int32, device=self.device)
         self.world = dict(world) if tracer != "volume_fast" else (world[0], dict(world[1]))
         self._layout = _layout(self.world)
-        self._tables_lr = None  # a CPU program's: the lr its tables hold
         self.blue_noise = blue_noise
         self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)
         self.call = CapturedCall(self._render, self.device)
@@ -206,14 +208,13 @@ class FrameProgram:
 
     def _build_tables(self) -> None:
         """The fused tables of the packed uniforms' ``lr``, in place: on the
-        card T1 reads ``lr`` on the device (inside the graph); a CPU program
-        skips the plain rebuild while ``lr`` stays."""
-        if self.device.type == "cpu":
-            lr = hf_tables.host_lr(self.packed)
-            if lr == self._tables_lr:
-                return
-            self._tables_lr = lr
-        hf_tables.build_hf_tables(self.packed, self.config[3], out=self.world, hcol=True)
+        card T1 reads ``lr`` and the key on the device (inside the graph)
+        and builds only when they differ; on the CPU the host compares.
+        Only this call writes the fused buffers: any other writer must set
+        ``self.key[3] = 0`` (not valid), or the next frame may keep what it
+        wrote."""
+        hf_tables.build_hf_tables(self.packed, self.config[3], out=self.world, hcol=True,
+                                  key=self.key)
 
     def run(self, packed: torch.Tensor):
         """One frame of the packed (16,) f32 uniforms ``packed`` (on the

@@ -111,6 +111,40 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
     return sum(times) / len(times)
 
 
+def launch_floor_ms(blocks, threads: int, cluster: bool, reps: int) -> float:
+    """The launch floor of a grid: the mean ms of an empty kernel
+    (``csrc/launch_floor.cu``) launched on ``blocks`` ((x, y)) blocks of
+    ``threads`` threads, in clusters of four along x when ``cluster``,
+    alone in the profiler as ``kernel_ms`` times a kernel (the same
+    padding).  A kernel whose time is near it is bound by its launch."""
+    from .. import _build
+
+    lib = _build.kernels()
+
+    def launch():
+        _build.check_launch("rt_launch_floor", lib.rt_launch_floor(
+            blocks[0], blocks[1], threads, int(cluster),
+            torch.cuda.current_stream().cuda_stream))
+
+    return kernel_ms(launch, reps, "floor_cluster_kernel" if cluster else "floor_kernel")
+
+
+def worldgen_grid(w0, shape_xyz) -> dict:
+    """The grid G1 launches for the box at ``w0`` with extents
+    ``shape_xyz`` (either mode): ``blocks`` (x, y), the ``threads`` of a
+    block and the z planes a block takes (``z_chunk``); its blocks run in
+    clusters of four."""
+    import ctypes
+
+    from .. import _build
+    from ..ops.hf_tables import STRIP_THREADS
+
+    grid = (ctypes.c_int32 * 3)()
+    _build.check_launch("rt_worldgen_grid", _build.kernels().rt_worldgen_grid(
+        *w0[:2], *shape_xyz, ctypes.addressof(grid)))
+    return dict(blocks=(grid[0], grid[1]), threads=STRIP_THREADS, z_chunk=grid[2])
+
+
 def pass_keys(sizes) -> list:
     """Keys of a denoise chain's passes: the size ("8#2" for the second
     pass at 8), "fin" for the last."""

@@ -176,7 +176,8 @@ def test_fused_program_rebuilds_its_tables_across_a_crossing(monkeypatch):
     one-dispatch fast path (``_render_frame_fused_packed``, which rebuilds
     the tables inside it) on the same vector, and the program's table
     buffers equal to ``with_column_heights(build_hf_tables(lr))`` word for
-    word.  On the CPU the plain rebuild runs once per lr."""
+    word.  On the CPU the plain rebuild runs once per lr: the program's key
+    says which region its buffers hold."""
     regions = [(0, 0, 0), (16, 0, 0)]
     want_tables = [with_column_heights(build_hf_tables(lr)) for lr in regions]
     built = []
@@ -200,3 +201,45 @@ def test_fused_program_rebuilds_its_tables_across_a_crossing(monkeypatch):
     again[12] = 0.9  # another sun, the same region
     assert not torch.equal(program.run(again)[0], frame)
     assert built == regions
+    assert program.key.tolist() == [16, 0, 0, 1]
+
+
+def test_fused_program_builds_its_tables_on_each_change(monkeypatch):
+    """A CPU fused program run on lr A, A, B, A, then on A under another
+    seed (the program's seed set anew over the same buffers and key): the
+    plain build runs exactly on each change of lr or seed, the program's
+    tables then equal a fresh build's word for word, each frame is within
+    ``compare_images`` of JAX's one-dispatch fast path at that lr and seed,
+    a frame of an unchanged lr equals the one before it, and the key holds
+    ``(lr.x, lr.y, seed, 1)``."""
+    a, b = (0, 0, 0), (16, 0, 0)
+    steps = [(a, 0), (a, 0), (b, 0), (a, 0), (a, 7)]
+    fresh = {step: with_column_heights(build_hf_tables(*step), step[1]) for step in steps}
+    built = []
+    plain = hf_tables.build_hf_tables_plain
+    monkeypatch.setattr(hf_tables, "build_hf_tables_plain",
+                        lambda lr, seed=0, *a: built.append((tuple(lr), seed))
+                        or plain(lr, seed, *a))
+    bn = torch.from_numpy(get_blue_noise_f32())
+    program = frame_graph.FrameProgram(None, bn, "fused", SIZE, SIZE)
+    assert program.key.tolist() == [0, 0, 0, 0]
+    jax_bn = jnp.asarray(get_blue_noise_f32())
+    want_built, last = [], None
+    for lr, seed in steps:
+        changed = last is None or (lr, seed) != last[0]
+        program.config = (*program.config[:3], seed, *program.config[4:])
+        packed = _packed(lr)
+        frame = program.run(packed)[0]
+        want_built += [(lr, seed)] if changed else []
+        assert built == want_built, (lr, seed)
+        if not changed:
+            assert torch.equal(frame, last[1])
+        want = fresh[lr, seed]
+        assert all(torch.equal(program.world[k], want[k]) for k in want), (lr, seed)
+        assert program.key.tolist() == [lr[0], lr[1], seed, 1]
+        theirs = np.asarray(jax_pipeline._render_frame_fused_packed(
+            jax_bn, jnp.asarray(packed.numpy()), SIZE, SIZE, MAX_TRACE_STEPS, seed, 2))
+        stats = compare_images(frame.numpy(), theirs)
+        print(lr, seed, stats)
+        assert stats["ok"], (lr, seed, stats)
+        last = ((lr, seed), frame)
