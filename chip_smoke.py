@@ -11,8 +11,9 @@ its plain version and the old enclosure-and-roll path,
 ``worldgen_kernel``; G1's box mode, ``generate_box`` on the card, word
 for word against ``generate_box_plain`` on chunks, 512- and 4096-wide
 rows and a 256³ box, ``generate_box_kernel``; O1, the occupancy tables
-built and updated in place, against the plain build and update,
-``vol_tables_kernel``),
+built and updated in place in one launch, against the plain build and
+update at texels 0, 8, 120 and 240, along a chain of updates and across
+all-solid bricks made air and solid again, ``vol_tables_kernel``),
 holds JAX's public ``denoise_chain`` (six K2 launches) and
 ``finalize_frame`` (F1, one launch) to their plain versions on the main
 path's G-buffers, whole, in a band and unflipped (``finalize_kernel``),
@@ -966,14 +967,19 @@ def phase_generate_box_kernel(rt, torch, dev):
 def phase_vol_tables_kernel(rt, torch, dev):
     """O1 (``csrc/vol_tables.cu``) against its plain versions on the weird
     scene and the generated world: the full build on each key, and at every
-    array axis and texel start 0 and 240 a slab of the other scene written
+    array axis and texel start 0, 8, 120 and 240 (8 and 120: the slab's two
+    brick planes in two 16-level planes) a slab of the other scene written
     in, updated functionally and in place (``out=``), against the plain
-    update and the plain rebuild.  Then O1 alone (its two launches, the
-    bricks and the pyramid, each in torch.profiler, 20 calls), its call
-    synced and the plain version, for a slab update and a full build, with
-    the bounds."""
+    update and the plain rebuild.  Then a chain of four in-place updates on
+    one set of buffers (one call repeated; each launch takes and resets the
+    ticket of the last block), and a slab that turns all-solid bricks into
+    air and back, each against the plain rebuild.  Then O1 alone (its one
+    launch in torch.profiler, 20 calls) beside the launch floor of its
+    grid, its call synced and the plain version, for a slab update and a
+    full build, with the bounds."""
     from raytrace_tpu_torch.ops import vol_tables as vt
-    from raytrace_tpu_torch.testing.measure import call_ms, synced_ms
+    from raytrace_tpu_torch.ops.volume import STEP_SHIFT
+    from raytrace_tpu_torch.testing.measure import call_ms, launch_floor_ms, synced_ms
 
     scenes = {k: v[0] for k, v in _volumes(torch, dev).items()}
     res, ok = dict(builds={}, updates=[], max_abs_err=0), True
@@ -986,6 +992,13 @@ def phase_vol_tables_kernel(rt, torch, dev):
         ok = ok and all(eq.values())
         return all(eq.values()), [k for k, e in eq.items() if not e]
 
+    def written(base, source, arr_axis, t):
+        """``base`` with the slab at texel ``t`` of ``source`` written in."""
+        new = base.clone()
+        new.view(256, 256, 256).narrow(arr_axis, t, 16).copy_(
+            source.view(256, 256, 256).narrow(arr_axis, t, 16))
+        return new
+
     for name, volume in scenes.items():
         res["builds"][name] = compare(vt.build_vol_tables(volume),
                                       vt.build_vol_tables_plain(volume))
@@ -994,10 +1007,8 @@ def phase_vol_tables_kernel(rt, torch, dev):
         base, other = scenes[name], scenes[names[1 - k]]
         before = vt.build_vol_tables(base)
         for arr_axis in (0, 1, 2):
-            for t in (0, 240):
-                new = base.clone()
-                new.view(256, 256, 256).narrow(arr_axis, t, 16).copy_(
-                    other.view(256, 256, 256).narrow(arr_axis, t, 16))
+            for t in (0, 8, 120, 240):
+                new = written(base, other, arr_axis, t)
                 want = vt.update_vol_tables_plain(before, new, t, arr_axis)
                 functional = vt.update_vol_tables(before, new, t, arr_axis)
                 in_place = {key: v.clone() for key, v in before.items()}
@@ -1008,34 +1019,59 @@ def phase_vol_tables_kernel(rt, torch, dev):
                     rebuild=compare(in_place, vt.build_vol_tables_plain(new))))
         unchanged = compare(before, vt.build_vol_tables_plain(base))
         res["builds"][f"{name}_unchanged_by_update"] = unchanged
+    # Four in-place updates of one set of buffers, the second call repeated.
+    volume, tables = scenes["world"].clone(), vt.build_vol_tables(scenes["world"])
+    res["chain"] = []
+    for arr_axis, t in CHAIN_SLABS:
+        volume = written(volume, scenes["weird"], arr_axis, t)
+        vt.update_vol_tables(tables, volume, t, arr_axis, out=tables)
+        res["chain"].append(dict(arr_axis=arr_axis, t=t, rebuild=compare(
+            tables, vt.build_vol_tables_plain(volume))))
+    # The weird scene's all-solid bricks under z 96 made air, then solid again:
+    # their any8 and all8 bits flip both ways.
+    weird = scenes["weird"]
+    air = torch.full_like(weird, 1 << STEP_SHIFT)  # step 1: not solid
+    volume, tables = weird.clone(), vt.build_vol_tables(weird)
+    res["all_solid_flip"] = []
+    for label, source in (("to_air", air), ("back", weird)):
+        volume = written(volume, source, 0, 16)
+        vt.update_vol_tables(tables, volume, 16, 0, out=tables)
+        res["all_solid_flip"].append(dict(
+            step=label, all8_words_set=int((tables["all8"] != 0).sum()),
+            rebuild=compare(tables, vt.build_vol_tables_plain(volume))))
+    flips = [step["all8_words_set"] for step in res["all_solid_flip"]]
+    ok = ok and flips[0] < flips[1]  # the bricks' all8 bits cleared, then set again
     torch.cuda.synchronize()
     volume = scenes["world"]
     tables = vt.build_vol_tables(volume)
     update = lambda: vt.update_vol_tables(tables, volume, 240, 2, out=tables)
     build = lambda: vt.build_vol_tables(volume, out=tables)
+    slab_box = [(0, vt.NB), (0, vt.NB), (240 >> 3, 2)]
     detail_bytes = 4 * vt.DETAIL_WORDS
     packed_bytes = 4 * (8 * 128 * 2 + 2 * 128)  # any8, all8, any_hi
-    for kind, fn, bricks in (("update", update, 2 * vt.NB * vt.NB),
-                             ("build", build, vt.NUM_BRICKS)):
-        bricks_alone = _alone(fn, 20, "vol_bricks_kernel")
-        pyramid_alone = _alone(fn, 20, "vol_pyramid_kernel")
+    for kind, fn, box in (("update", update, slab_box), ("build", build, [(0, vt.NB)] * 3)):
+        bricks = box[0][1] * box[1][1] * box[2][1]
+        alone = _alone(fn, 20, KERNEL_NAMES["O1"])
+        grid = vt.launch_grid(box)
         # The slab's or the volume's words read once; the bricks' detail
         # rows and flags and the packed pyramid written once (the other
         # bricks' flags read once by the pyramid).
-        res[kind] = dict(kernel_ms=bricks_alone["kernel_ms"] + pyramid_alone["kernel_ms"],
-                         bricks_ms=bricks_alone["kernel_ms"], bricks_kept=bricks_alone["kept"],
-                         pyramid_ms=pyramid_alone["kernel_ms"],
-                         pyramid_kept=pyramid_alone["kept"],
+        res[kind] = dict(kernel_ms=alone["kernel_ms"], kept=alone["kept"], grid=grid,
+                         floor_ms=launch_floor_ms(grid["blocks"], grid["threads"], False, 20),
                          call_synced_ms=[synced_ms(fn) for _ in range(3)],
                          plain_ms=call_ms(lambda: vt.build_vol_tables_plain(volume) if kind ==
                                           "build" else vt.update_vol_tables_plain(
                                               tables, volume, 240, 2), 3),
                          **_bound(4 * 512 * bricks + bricks * (detail_bytes + 2)
                                   + 2 * (vt.NUM_BRICKS - bricks) + packed_bytes, 0))
-    res.update(kernel_ms=res["update"]["kernel_ms"], kept=res["update"]["bricks_kept"],
+    res.update(kernel_ms=res["update"]["kernel_ms"], kept=res["update"]["kept"],
                plain_ms=res["update"]["plain_ms"], bound_ms=res["update"]["bound_ms"],
                bound_by=res["update"]["bound_by"])
     return ok, res
+
+
+# vol_tables_kernel's chain of in-place slab updates: (array axis, texel).
+CHAIN_SLABS = [(2, 240), (0, 8), (0, 8), (1, 120)]
 
 
 def phase_golden(rt, torch, dev):
@@ -2011,7 +2047,7 @@ KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
                 "K3s": "trace_rays_vol_kernel", "P1": "leg_batch_kernel",
                 "S2": "shade_staged_kernel",
-                "G1": "worldgen_kernel", "O1": "vol_bricks_kernel"}
+                "G1": "worldgen_kernel", "O1": "vol_tables_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
 PROFILED_REPLAYS = 3  # steady replays in graph_frames' profiler trace
 
@@ -2191,8 +2227,8 @@ def phase_graph_frames(rt, torch, tracer):
         # G1 and O1 alone on the same path (each call streams one slab).
         ms["parts"]["g1_alone"] = _alone(slab, 10, KERNEL_NAMES["G1"])
         pipe.vol_tables()
-        ms["parts"]["o1_bricks_alone"] = _alone(lambda: (slab(), pipe.vol_tables()), 10,
-                                                KERNEL_NAMES["O1"])
+        ms["parts"]["o1_alone"] = _alone(lambda: (slab(), pipe.vol_tables()), 10,
+                                         KERNEL_NAMES["O1"])
     else:
         # T1 through its wrapper as Pipeline.tables() calls it (a host lr
         # uploaded from pinned memory, one launch; with the column table
@@ -2914,19 +2950,20 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
     # The kernels keep their state in registers: no spills (K2, K4, G1, O1,
-    # R1, S1, S3, P1, S2), and K1, K3 and K3s no stack.
+    # R1, S1, S3, P1, S2), and K1, K3, K3s and O1 no stack.
     # A kernel missing from the parse reads as a frame of -1: not lean.
     frame = lambda k: [int(v) for v in re.findall(
         r"\d+", ptxas[k]["frame"] or "-")] if k in ptxas else [-1]
     k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
+    o1 = [k for k in ptxas if k.startswith("vol_tables_kernel")]  # one a block's units
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
                                and frame("trace_hf_kernel")[1:] == [0, 0]
                                and frame("trace_rays_vol_kernel") == [0, 0, 0]
                                and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2)
+                               and len(o1) > 0 and all(frame(k) == [0, 0, 0] for k in o1)
                                and all(frame(k)[1:] == [0, 0] for k in (
-                                   "worldgen_kernel", "vol_bricks_kernel",
-                                   "vol_pyramid_kernel", "frame_rays_kernel",
+                                   "worldgen_kernel", "frame_rays_kernel",
                                    "shade_fused_kernel", "shade_vol_kernel",
                                    "leg_batch_kernel", "shade_staged_kernel")))
     sass = {_kernel_name(k): v for k, v in measure.sass_counts(Path(build["path"])).items()}
@@ -3298,8 +3335,8 @@ def main() -> int:
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:163",
              launches=vol_res["o1_launches"], max_abs_err=o1_res["max_abs_err"],
              ms=o1_res["kernel_ms"], kept=o1_res["kept"], plain_ms=o1_res["plain_ms"],
-             **bound(o1_res), call_synced_ms=o1_res["update"]["call_synced_ms"],
-             build=o1_res["build"]),
+             **bound(o1_res), floor_ms=o1_res["update"]["floor_ms"],
+             call_synced_ms=o1_res["update"]["call_synced_ms"], build=o1_res["build"]),
         dict(name="K1 march_paths (whole-path lighting march)", route="cuda",
              source="raytrace_tpu_torch/csrc/lighting.cu",
              replaces="raytrace_tpu/ops/lighting_pallas.py:143",

@@ -41,8 +41,13 @@ volume_fast pipelines' tables and uniforms):
 checkout's ``build_hf_tables`` takes a ``key``, skipping them; G1
 (``worldgen_kernel``) on a streamed slab and a teleport's region, and its
 box mode (``worldgen_box_kernel``) on a 64³ chunk, a 512x64x64 row and a
-256³ box; and, where the checkout has ``measure.launch_floor_ms``, the
-launch floor of each kernel's grid (an empty kernel on the same blocks).
+256³ box; O1 on the generated world around the origin, in place as
+``Pipeline.vol_tables`` calls it: a slab update at texel 240 on array axes 0
+and 2 and at texel 8 on axis 2, and a full build (``vol_tables_kernel``, one
+launch a call; in a checkout of the two-launch O1 its ``vol_bricks_kernel``
+and ``vol_pyramid_kernel`` apart and summed); and, where the checkout has
+``measure.launch_floor_ms``, the launch floor of each kernel's grid (an
+empty kernel on the same blocks).
 
 It prints one JSON line with the card's name and power limit.  It uses only
 the wrappers' calls and ``denoise.chain_passes``, so it also runs in a
@@ -244,7 +249,56 @@ def _tiles(reps: int) -> dict:
             grid = measure.worldgen_grid(w0, shape)
             g1[label].update(grid=grid, floor_ms=measure.launch_floor_ms(
                 grid["blocks"], grid["threads"], True, reps))
-    return dict(t1=t1, g1=g1)
+    return dict(t1=t1, g1=g1, o1=_o1(reps, floors))
+
+
+# O1's timed calls: (label, array axis, texel start); no axis is a full build.
+O1_CALLS = [("update_axis0_t240", 0, 240), ("update_axis2_t240", 2, 240),
+            ("update_axis2_t8", 2, 8), ("build", None, None)]
+# The two-launch O1's kernels and their block sizes.
+O1_PARENT_KERNELS = (("bricks", "vol_bricks_kernel", 256), ("pyramid", "vol_pyramid_kernel", 1024))
+
+
+def _o1(reps: int, floors: bool) -> dict:
+    from ..ops import vol_tables as vt
+    from ..ops.volume import fuse_volume
+    from ..testing import measure
+    from ..world.generate import generate_box
+
+    dev = torch.device("cuda")
+    box = generate_box((-128,) * 3, (256,) * 3, seed=0, device=dev)
+    volume = fuse_volume(box["materials"], box["minefield"])
+    tables = vt.build_vol_tables(volume)
+    one_launch = hasattr(vt, "launch_grid")
+    res = {}
+    for label, axis, t in O1_CALLS:
+        if axis is None:
+            call, bricks = lambda: vt.build_vol_tables(volume, out=tables), [(0, vt.NB)] * 3
+        else:
+            call = lambda: vt.update_vol_tables(tables, volume, t, axis, out=tables)
+            bricks = [(0, vt.NB)] * 3
+            bricks[axis] = (t >> 3, 2)
+        if one_launch:
+            rec = dict(kernel_ms=kernel_ms(call, reps, "vol_tables_kernel"))
+            if floors:
+                grid = vt.launch_grid(bricks)
+                rec.update(grid=grid, floor_ms=measure.launch_floor_ms(
+                    grid["blocks"], grid["threads"], False, reps))
+        else:
+            rec = {f"{part}_ms": kernel_ms(call, reps, name)
+                   for part, name, _ in O1_PARENT_KERNELS}
+            rec["kernel_ms"] = rec["bricks_ms"] + rec["pyramid_ms"]
+            if floors:
+                # A warp per 4 bricks side by side in x, then one block.
+                (_, nbz), (_, nby), (bx0, nbx) = bricks
+                warps = nbz * nby * (((bx0 + nbx + 3) >> 2) - (bx0 >> 2))
+                blocks = dict(bricks=(warps * 32 + 255) // 256, pyramid=1)
+                for part, _, threads in O1_PARENT_KERNELS:
+                    rec[f"{part}_grid"] = dict(blocks=(blocks[part], 1), threads=threads)
+                    rec[f"{part}_floor_ms"] = measure.launch_floor_ms(
+                        (blocks[part], 1), threads, False, reps)
+        res[label] = rec
+    return res
 
 
 def main():

@@ -39,6 +39,7 @@ LAYOUT = {
     "any_hi": (torch.int32, (2, 128)), "detail": (torch.int32, (NUM_BRICKS, DETAIL_WORDS)),
     "any8b": (torch.bool, (NB, NB, NB)), "all8b": (torch.bool, (NB, NB, NB)),
 }
+BLOCK_THREADS = 256  # O1's block: 8 warps, one per lz plane of its units
 
 
 def pack_bits32(bits_flat: torch.Tensor) -> torch.Tensor:
@@ -104,9 +105,9 @@ def build_vol_tables(fused_flat: torch.Tensor, out: dict | None = None) -> dict:
     module docstring for the keys), in the buffers ``out`` when given
     (``empty_vol_tables``), else in new ones.
 
-    A CUDA volume gets kernel O1 over every brick (one call, two launches
-    on the current stream; ``build_vol_tables.launches`` counts the
-    calls), a CPU volume the plain version.  Any other device raises.
+    A CUDA volume gets kernel O1 over every brick (one launch on the
+    current stream, counted on ``build_vol_tables.launches``), a CPU volume
+    the plain version.  Any other device raises.
     """
     if fused_flat.device.type == "cpu":
         return _into(out, build_vol_tables_plain(fused_flat))
@@ -127,8 +128,9 @@ def update_vol_tables(tables: dict, fused_flat: torch.Tensor, t: int, arr_axis: 
     ``tables`` is left unchanged and the result is new; with it the result
     lands in ``out``, which may be ``tables`` itself (in place).
 
-    A CUDA volume gets kernel O1 over the slab's bricks (counted on
-    ``update_vol_tables.launches``), a CPU volume the plain version.
+    A CUDA volume gets kernel O1 over the slab's bricks (one launch,
+    counted on ``update_vol_tables.launches``), a CPU volume the plain
+    version.
     """
     t, arr_axis = int(t), int(arr_axis)
     if arr_axis not in (0, 1, 2) or t % 8 or not 0 <= t <= _N - SLICE_SIZE:
@@ -170,6 +172,9 @@ def _launch(wrapper, fused_flat: torch.Tensor, tables: dict, box) -> None:
     check_tensor("vol_tables volume", fused_flat, torch.int32, (_N ** 3,), dev)
     for k, (dtype, shape) in LAYOUT.items():
         check_tensor(f"vol_tables out[{k!r}]", tables[k], dtype, shape, dev)
+    if tables["detail"].data_ptr() % 16:
+        raise ValueError("vol_tables: O1 writes out['detail'] 16 bytes at a time: its "
+                         "storage must be 16-byte aligned")
     err = kernels().rt_vol_tables(
         fused_flat.data_ptr(), *(tables[k].data_ptr() for k in (
             "detail", "any8b", "all8b", "any8", "all8", "any_hi")),
@@ -178,6 +183,21 @@ def _launch(wrapper, fused_flat: torch.Tensor, tables: dict, box) -> None:
     )
     check_launch("rt_vol_tables", err)
     wrapper.launches += 1
+
+
+def launch_grid(box) -> dict:
+    """O1's grid for the brick box ``box`` ((first, count) per array axis z,
+    y, x), as ``rt_vol_tables`` sizes it: ``blocks`` (x, y) of ``threads``.
+    The box is cut into units of 4 bricks (4 side by side in x, or 2 x 2 in
+    (y, x) when the box is 2 bricks wide in x and even in y); a block takes
+    two units, or four when there are more than 4,096 (a full build)."""
+    (_, nbz), (_, nby), (bx0, nbx) = box
+    if nbx == 2 and nby % 2 == 0:
+        units = nbz * nby // 2
+    else:
+        units = nbz * nby * (((bx0 + nbx + 3) >> 2) - (bx0 >> 2))
+    per_block = 4 if units > 4096 else 2
+    return dict(blocks=(-(-units // per_block), 1), threads=BLOCK_THREADS)
 
 
 def build_vol_tables_plain(fused_flat: torch.Tensor) -> dict:

@@ -43,6 +43,16 @@ def _weird_solid():
     return solid
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs several workers
+    on one machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def weird():
     """The weird scene as JAX fused volume + tables and the port's volume."""
@@ -133,6 +143,45 @@ def test_update_vol_tables_equals_rebuild(weird, full_world, arr_axis):
     for key in vol_tables.TABLE_KEYS:
         assert torch.equal(got[key], want[key]), key
     assert torch.equal(before["detail"], vol_tables.build_vol_tables(base)["detail"])
+
+
+# Slabs written one after another: (array axis, texel start).  Texels 8 and
+# 120 put a slab's two brick planes in two 16-level planes.
+UPDATE_SLABS = [[(axis, t)] for axis in (0, 1, 2) for t in (8, 120)] + [[(2, 240), (0, 8)]]
+
+
+@pytest.mark.parametrize("slabs", UPDATE_SLABS, ids=lambda slabs: "+".join(
+    f"axis{axis}_t{t}" for axis, t in slabs))
+def test_update_vol_tables_matches_jax(weird, full_world, slabs):
+    """Slabs of the generated world written into the weird scene one after
+    another: the port's update, table for table after each slab, is JAX's
+    jitted ``update_vol_tables`` of the same tables and volume."""
+    _, want, base = weird
+    _, _, world = full_world
+    got, volume = vol_tables.build_vol_tables(base), base.clone()
+    for axis, t in slabs:
+        volume.view(256, 256, 256).narrow(axis, t, 16).copy_(
+            world.view(256, 256, 256).narrow(axis, t, 16))
+        want = jax_vol.update_vol_tables(
+            want, jnp.asarray(volume.numpy().view(np.uint32)), t, axis)
+        got = vol_tables.update_vol_tables(got, volume, t, axis)
+        for key in vol_tables.TABLE_KEYS:
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                          err_msg=f"{key} after {(axis, t)}")
+
+
+# O1's grid per brick box ((first, count) along z, y, x): each slab gives
+# the H100's 132 SMs a block; a build keeps 2,048 blocks.
+O1_GRIDS = [([(30, 2), (0, 32), (0, 32)], 256), ([(0, 32), (1, 2), (0, 32)], 256),
+            ([(0, 32), (0, 32), (30, 2)], 256), ([(0, 32), (0, 32), (3, 2)], 256),
+            ([(0, 32)] * 3, 2048)]
+
+
+@pytest.mark.parametrize("box, blocks", O1_GRIDS)
+def test_vol_tables_launch_grid(box, blocks):
+    grid = vol_tables.launch_grid(box)
+    assert grid == dict(blocks=(blocks, 1), threads=vol_tables.BLOCK_THREADS)
+    assert blocks >= 132
 
 
 @pytest.mark.parametrize("lr", [(0, 0, 0), (5, -3, 17), (-32, 0, 64), (130, 0, -7)])
