@@ -23,16 +23,19 @@ of the heightfield path (``tracer="fused"``: T1, K1, K2 in each frame's
 graph), of the volume path (``tracer="volume_fast"``:
 the streamed volume, its occupancy tables, K3, K2) and of the staged
 heightfield path (``tracer="hf"``: R1, K4 once per leg batch with the leg
-batch P1 between, the shade S2, K2), an edit of the volume, and 2 frames of
-the exact DDA (``tracer="volume"``, plain PyTorch).  On the volume path's
+batch P1 between, the shade S2, K2), an edit of the volume, and 20 frames
+of the exact DDA (``tracer="volume"``: R1, D1 once per leg batch, P1, S2,
+K2, one graph replay a frame, each against an eager twin), with D1 held to
+its plain version on that path's three 1024² batches at max_steps 2048 and
+64 and on config 1's (``dda_kernel``).  On the volume path's
 own volume, tables and uniforms it also drives the staged volume tracer:
 K3s against its plain version on the three 1024² leg batches and, at tight
 round budgets (rounds 1-3, caps 2 and 8), on the 256² batches and one 1024²
 pair batch, 20 frames of ``render_gbuffers_vol`` + denoise (R1, K3s three
 times a frame, P1 twice, S2), and the staged G-buffers against K3's
-whole-path ones.  P1 and S2 are held to their plain versions on the hf and
-staged volume frames' records, config 2's, two bands' and random ones
-(``staged_glue_kernel``).  It
+whole-path ones.  P1 and S2 are held to their plain versions on the
+records of the hf, staged volume and exact DDA frames, config 2's, bands'
+and random ones (``staged_glue_kernel``).  It
 holds the column table K1 reads equal to the plain march's heights on
 every column of each region it renders, and renders a fused frame from
 bare region tables.  Then the apps: the host codec (``native_codec``),
@@ -41,8 +44,8 @@ for bit to a device-streamed one (``cache_stream``; the chunk misses
 through G1's box mode), each kernel against its plain version at the
 apps' shapes (``app_shapes_*``: 1920x1080 b1, 512² b0 and b2), the
 benchmark's configs 1-4 (``benchmark_configs``: each with
-``exhausted_px`` 0; configs 1 and 2 one CUDA graph replay a frame, each
-against an eager twin, bit for bit), ``capture`` (its four-deep pinned
+``exhausted_px`` 0; configs 1 (volume_fast and the exact DDA) and 2 one CUDA
+graph replay a frame, each against an eager twin, bit for bit), ``capture`` (its four-deep pinned
 readback against a synchronous one, PNGs against the ``.dat`` bytes),
 ``flythrough`` (scripted, and the ``b`` edit), ``debug_view --gbuffers``
 and ``stage_times``.  Then the row bands and the tile split: each tracer's
@@ -55,8 +58,9 @@ K3 and K2 against plain at the 4K width, then the config for fused and
 volume_fast with its ``parity``).  The frame as one CUDA graph replay
 (``graph_frames_*``): each graphed tracer's ``draw_frame`` against an
 eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
-and a teleport, with its launch counts (on volume_fast G1 once a slab and
-a teleport, O1 once a table rebuild or slab update), its kernels by name
+and a teleport, with its launch counts (on the volume tracers G1 once a
+slab and a teleport, on volume_fast O1 once a table rebuild or slab
+update), its kernels by name
 in a profiler trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
 (with the profiler records kept of those asked for, ``kept``) and against
 their plain versions (K2 per pass of its chain), and prints
@@ -87,17 +91,13 @@ K1_ATOL = 1e-5  # shaded lighting, kernel against plain
 VOL_DX = 1.2  # camera x step per frame on the volume path: crosses a slice
 WEIRD = dict(origin=(0.0, -80.0, 40.0), pitch=-0.4, sun=0.6)  # weird scene view
 HF_MATCH = 0.9999  # share of pixels whose hf (K4) and fused (K1) G-buffers agree
-EXACT_FRAMES = 2  # frames of the exact DDA
 MAX_STEPS = 2048  # the step budget of the apps (MAX_TRACE_STEPS)
 # K3s's tight round budgets: (rounds, cap), where many rays exhaust.
 TIGHT = [(rounds, cap) for rounds in (1, 2, 3) for cap in (2, 8)]
 
-# The card's peaks (H100 SXM data sheet): float32 outside the tensor cores
-# and HBM3 bandwidth.  A kernel's bound is the larger of its bytes (each
-# input read once, each output written once) over PEAK_BYTES and its float32
-# operations over PEAK_F32.
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
+# A kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the card's memory rate and its float32
+# operations over its float32 rate (testing/measure.py `bound`).
 # float32 operations (add, sub, mul, div, sqrt, floor, abs, pow each 1; no
 # compares, no integer work) counted from the CUDA sources, at least:
 OPS_PER_HF_MOVE = 31  # K1, K4: a fine move (two wall distances, the top, the step, the window)
@@ -174,9 +174,9 @@ def _exhausted(gb, torch, lighting) -> int:
 
 def _bound(bytes_moved: float, ops: float) -> dict:
     """The least time the card could take: ``bound_ms`` and ``bound_by``."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    from raytrace_tpu_torch.testing.measure import bound
+
+    return bound(bytes_moved, ops)
 
 
 def _census(torch, moves, census) -> dict:
@@ -1085,7 +1085,7 @@ def phase_golden(rt, torch, dev):
     u = _canonical_uniforms(rt)
     packed = torch.from_numpy(u.packed()).to(dev)
     frame, _ = render_frame(with_column_heights(build_hf_tables((0, 0, 0), device=dev)),
-                            _blue_noise(torch, dev), packed, 64, 64)
+                            _blue_noise(torch, dev), packed, 64, 64, tracer="fused")
     want = np.load(ROOT / "tests" / "goldens" / "terrain_frame_64.npz")["frame"]
     stats = compare_images(frame.cpu().numpy(), want)
     return bool(stats["ok"]), stats
@@ -1102,8 +1102,8 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
 
     bare = {k: v for k, v in tables.items() if k != "hcol"}
     launches = lighting.march_paths.launches
-    got, gb_got = render_frame(bare, blue, packed, size, size)
-    want, gb_want = render_frame(tables, blue, packed, size, size)
+    got, gb_got = render_frame(bare, blue, packed, size, size, tracer="fused")
+    want, gb_want = render_frame(tables, blue, packed, size, size, tracer="fused")
     res = dict(size=size, k1_launches=lighting.march_paths.launches - launches,
                frame_equal=same(got, want), gbuffers_equal=_gbuffers_equal(gb_got, gb_want))
     ok = res["frame_equal"] and all(res["gbuffers_equal"].values()) and res["k1_launches"] == 2
@@ -1182,10 +1182,10 @@ def _max_abs(a, b) -> float:
 
 
 def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
-    """R1 against its plain version in its three forms (fused and hf: the
+    """R1 against its plain version in its four forms (fused and hf: the
     region tables ``tables``; volume: the world ``vol_world``'s occupancy
     tables, and any8b tables that are empty, full, straddle the wrap or are
-    random at R1_OCC_LR), every
+    random at R1_OCC_LR; dda: no tables), every
     output bit for bit, at each shape of R1_CASES; R1 alone
     (torch.profiler, ``kept``), its call synced, the plain version (once)
     and the bound of each."""
@@ -1200,7 +1200,8 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
             _canonical_uniforms(rt, view, seed=7).packed()).to(dev))
         row0, rows = band or (0, h)
         n = w * rows
-        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables)):
+        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables),
+                           ("dda", None)):
             args = (uni, blue, w, h, row0, rows)
             kw = dict(tables=tabs, form=form)
             got = rays.frame_rays(*args, **kw)
@@ -1212,8 +1213,9 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
             texels = min(rows + 2, blue.shape[0]) * min(w + 2, blue.shape[1]) + 1
             in_bytes = R1_UNIFORM_BYTES + texels * 2 * 4
             if form != "volume":  # hf reads no pyramid words: its iscal has no maxh
-                out_bytes = n * 28 + 8 * 4 + 8 * 4
-                in_bytes += (1024 * 4 if form == "fused" else 0) + 2 * 4
+                tabled = form != "dda"  # dda: no tables, no scalars but the sun
+                out_bytes = n * 28 + 8 * 4 + (8 * 4 if tabled else 0)
+                in_bytes += (1024 * 4 if form == "fused" else 0) + (2 * 4 if tabled else 0)
                 ops = OPS_R1_FUSED * n
             else:
                 out_bytes = n * (12 + 12 + 48) + 10 * 4 + 4 * 4 + 8 * 4
@@ -1234,7 +1236,8 @@ def phase_frame_rays_kernel(rt, torch, dev, blue, tables, vol_world):
     sun_equal = []
     for a in angles:
         uni["sun_angle"] = torch.tensor(a, dtype=torch.float32, device=dev)
-        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables)):
+        for form, tabs in (("fused", tables), ("volume", vol_world[1]), ("hf", tables),
+                           ("dda", None)):
             kw = dict(tables=tabs, form=form)
             got = rays.frame_rays(uni, blue, 8, 8, **kw)
             want = rays.frame_rays_plain(uni, blue, 8, 8, **kw)
@@ -1517,7 +1520,7 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
     tables = pipe.tables()
     budget = (pipe.max_steps, pipe.seed, 1 + 2 * pipe.bounces)
     frame_ms = call_ms(lambda: render_frame(
-        tables, pipe.blue_noise, packed, W, H, *budget[:2], pipe.bounces), 10)
+        tables, pipe.blue_noise, packed, W, H, *budget[:2], pipe.bounces, "fused"), 10)
     inputs = lighting.march_inputs(
         tables, pipe.blue_noise, unpack_uniforms(packed), W, H)
 
@@ -1748,41 +1751,149 @@ def phase_hf_vs_fused(torch, pipe, tables):
 
 
 def phase_volume_exact(rt, torch):
-    """The exact DDA (tracer="volume", plain PyTorch): EXACT_FRAMES frames
-    at 1024² through create_instance/draw_frame, and the share of pixels
-    whose primary normal agrees with volume_fast on the same volume."""
-    from raytrace_tpu_torch.ops import lighting, path_vol
+    """The exact DDA's path (tracer="volume"): 20 frames at 1024² through
+    create_instance/draw_frame, the camera moving as on the main path, each
+    one CUDA graph replay of R1 (its dda form), D1 once per leg batch (1 +
+    bounces), P1 once per bounce, S2 once and K2 six times, the counts set
+    to 0 before the frames and read after them.  Each frame and its
+    G-buffers must equal those of an eager twin pipeline
+    (``apps.profile.eager_frame``, the same frames after the counts are
+    read) bit for bit; host ms/frame of a train, graphed and eager in turns;
+    and the share of pixels whose primary normal agrees with volume_fast on
+    the same volume.  -> (ok, res, the pipeline)."""
+    from raytrace_tpu_torch.apps.profile import eager_frame
+    from raytrace_tpu_torch.ops import denoise, lighting, path_vol
     from raytrace_tpu_torch.ops.vol_tables import build_vol_tables
     from raytrace_tpu_torch.render.camera import Camera
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.measure import same
 
+    t_start = time.perf_counter()
     pipe = rt.create_instance(width=W, height=H, tracer="volume")
+    twin = rt.create_instance(width=W, height=H, tracer="volume")
     cam = Camera(origin=list(CANON["origin"]))
     cam.pitch = CANON["pitch"]
-    pipe.teleport(cam)
-    pipe.draw_frame(cam, CANON["sun"])  # warm-up
+    for p in (pipe, twin):
+        p.teleport(cam)
+        p.converge_streaming((cam.origin[0], 0, cam.origin[2]), max_moves=32)
+    base = list(cam.origin)
+    views = [([base[0] + 0.03 * t, base[1] + 0.03 * t, base[2]], CANON["sun"] + 0.01 * t)
+             for t in range(FRAMES)]
     torch.cuda.synchronize()
-    finite, exhausted = [], []
-    t0 = time.perf_counter()
-    for t in range(EXACT_FRAMES):
-        frame = pipe.draw_frame(cam, CANON["sun"] + 0.01 * t)
-        finite.append(torch.isfinite(frame).all())
-        exhausted.append((pipe.gbuffers["depth"].to(torch.int32)
-                          == lighting.EXHAUSTED_DEPTH).sum())
+    _zero_counts()
+    frames, gbs = [], []
+    for origin, sun in views:
+        cam.origin = list(origin)
+        frames.append(pipe.draw_frame(cam, sun))
+        gbs.append({k: v.clone() for k, v in pipe.gbuffers.items()})
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / EXACT_FRAMES
+    counts = _counts()
+    want = {"R1": FRAMES, "D1": (1 + pipe.bounces) * FRAMES, "P1": pipe.bounces * FRAMES,
+            "S2": FRAMES, "K2": len(denoise.DENOISE_SIZES) * FRAMES}
+    frame_equal, gbuffers_equal = [], []
+    for (origin, sun), frame, gb in zip(views, frames, gbs):
+        cam.origin = list(origin)
+        frame_equal.append(same(frame, eager_frame(twin, cam, sun)))
+        gbuffers_equal.append(all(_gbuffers_equal(gb, twin.gbuffers).values()))
+    exhausted = sum(_exhausted(gb, torch, lighting) for gb in gbs)
+    del frames, gbs
+    ms = dict(graphed=[], eager=[])
+    draws = dict(graphed=pipe.draw_frame, eager=lambda c, a: eager_frame(pipe, c, a))
+    for name in ("graphed", "eager", "eager", "graphed"):
+        ms[name].append(_train_ms(torch, draws[name], cam))
     uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
     fast = path_vol.render_gbuffers_path(
         pipe.streamer.volume, build_vol_tables(pipe.streamer.volume), pipe.blue_noise,
         uniforms, W, H, pipe.max_steps, pipe.bounces)
     res = dict(
-        frames=EXACT_FRAMES, ms_per_frame=ms, lr=list(pipe.uniforms.lr),
-        all_finite=bool(torch.stack(finite).all()),
-        exhausted_px=int(torch.stack(exhausted).sum()),
+        frames=FRAMES, ms_per_frame=min(ms["graphed"]), ms=ms, lr=list(pipe.uniforms.lr),
+        launches=counts, launches_want=want, frame_equal=frame_equal,
+        gbuffers_equal=gbuffers_equal, exhausted_px=exhausted,
+        all_finite=bool(torch.isfinite(pipe.draw_frame(cam, CANON["sun"])).all()),
         normal_agree_with_volume_fast=float(
             (pipe.gbuffers["normal"] == fast["normal"]).float().mean()),
+        seconds=time.perf_counter() - t_start,
     )
-    return res["all_finite"] and res["exhausted_px"] == 0, res
+    ok = (res["all_finite"] and exhausted == 0 and counts == want and all(frame_equal)
+          and all(gbuffers_equal))
+    return ok, res, pipe
+
+
+# D1's max_steps on the exact path's batches: the apps' budget, and one that
+# exhausts many rays.
+DDA_STEPS = (MAX_STEPS, 64)
+
+
+def _dda_batch(torch, volume, lr, batch, max_steps, timed):
+    """D1 against its plain version on one batch: position, normal, air,
+    the packed word (or the exhausted mark) and ``steps`` bit for bit; its
+    moves, lane use and the volume words it reads (a launch with its census
+    and touched bitmap); ``timed``: D1 alone (torch.profiler), its call,
+    its grid's launch floor, the plain version (once) and the bound."""
+    from raytrace_tpu_torch.apps.kernel_times import dda_census, dda_work
+    from raytrace_tpu_torch.ops import trace_dda
+    from raytrace_tpu_torch.ops.integrate import EXHAUSTED, Record
+    from raytrace_tpu_torch.testing import measure
+
+    o, d, active = batch
+    got, steps = trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps)
+    (want, want_steps), plain_ms = _timed_once(torch, lambda: trace_dda.march_rays_dda_plain(
+        volume, o, d, active, lr, max_steps))
+    work = dda_census(volume, o, d, active, lr, max_steps)
+    n = o.shape[0]
+    res = dict(rays=n, max_steps=max_steps, traced=n if active is None else int(active.sum()),
+               equal={k: _held(a, b) for k, a, b in zip(Record._fields, got, want)},
+               steps=[int(steps), int(want_steps)],
+               exhausted=int(((got.mat & EXHAUSTED) != 0).sum()),
+               max_abs_err=_max_abs(torch.nan_to_num(got.pos), torch.nan_to_num(want.pos)),
+               **work, **_bound(*dda_work(n, active is not None, work["moves"], work["words"])))
+    res["equal"]["steps"] = res["steps"][0] == res["steps"][1]
+    if timed:
+        d1 = lambda: trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps)
+        res.update(call_ms=measure.call_ms(d1, 10), plain_ms=plain_ms,
+                   floor_ms=measure.launch_floor_ms(((n + 255) // 256, 1), 256, False, 10),
+                   **_alone(d1, 10, KERNEL_NAMES["D1"]))
+    return res
+
+
+def phase_dda_kernel(torch, dev, pipe):
+    """D1 against its plain version (``_dda_batch``) on the exact path's
+    three 1024² batches at its last frame's view (``pipe``: the
+    volume_exact pipeline; the primaries and each bounce's pair with its
+    active flags, ``kernel_times.dda_batches``) at max_steps 2048 and 64,
+    and on config 1's single chunk (512² primaries, max_steps 1024); D1
+    timed alone at 2048 beside its grid's launch floor.  No primary may be
+    exhausted at the apps' budgets."""
+    from raytrace_tpu_torch.apps import benchmark
+    from raytrace_tpu_torch.apps.kernel_times import dda_batches
+    from raytrace_tpu_torch.ops import rays
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+
+    t0 = time.perf_counter()
+    uni = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(dev))
+    volume = pipe.world()
+    batches = dda_batches(volume, pipe.blue_noise, uni, W, H, pipe.max_steps, pipe.bounces)
+    res = {f"main_{m}": [_dda_batch(torch, volume, uni["lr"], b, m, m == MAX_STEPS)
+                         for b in batches] for m in DDA_STEPS}
+    chunk = benchmark.single_chunk_volume(dev)
+    cuni = benchmark._moved(benchmark.CONFIG1_CAMERA, dev)(0.0)
+    f = rays.frame_rays(cuni, pipe.blue_noise, 512, 512, tables=None, form="dda")
+    res["config1_512_b0"] = _dda_batch(torch, chunk, cuni["lr"],
+                                       (f["origin"], f["direction"], None), 1024, True)
+    main = res[f"main_{MAX_STEPS}"]
+    res.update(max_abs_err=max(b["max_abs_err"] for k, v in res.items()
+                               for b in (v if isinstance(v, list) else [v])),
+               kernel_ms=sum(b["kernel_ms"] for b in main) / len(main),
+               plain_ms=sum(b["plain_ms"] for b in main) / len(main),
+               bound_ms=sum(b["bound_ms"] for b in main) / len(main),
+               bound_by=max(main, key=lambda b: b["bound_ms"])["bound_by"],
+               seconds=time.perf_counter() - t0)
+    every = [b for k, v in res.items() if isinstance(v, (list, dict)) and k != "max_abs_err"
+             for b in (v if isinstance(v, list) else [v])]
+    ok = (all(all(b["equal"].values()) for b in every)
+          and main[0]["exhausted"] == 0 and res["config1_512_b0"]["exhausted"] == 0
+          and any(b["exhausted"] for b in res["main_64"]))
+    return ok, res
 
 
 def phase_hf_frame_ms(torch, pipe):
@@ -1821,14 +1932,20 @@ def _held(a, b) -> bool:
 
 def _staged_front(torch, mode, world, blue, uniforms, size, band=None):
     """The staged frame's front and raw tracer for ``mode`` ("hf": world =
-    the region tables; "volume": (volume, tables)) at ``size`` (square or
-    (width, height)) and ``band`` (row0, rows) or the whole frame:
-    (front, noise, trace, volume, (rows, width))."""
-    from raytrace_tpu_torch.ops import rays, trace_hf, trace_vol
-    from raytrace_tpu_torch.ops.integrate import HF, Record
+    the region tables; "volume": (volume, tables); "dda": the volume) at
+    ``size`` (square or (width, height)) and ``band`` (row0, rows) or the
+    whole frame: (front, noise, trace, volume S2 reads, (rows, width))."""
+    from raytrace_tpu_torch.ops import rays, trace_dda, trace_hf, trace_vol
+    from raytrace_tpu_torch.ops.integrate import DDA, HF, Record
 
     w, h = _wh(size)
     row0, rows = band or (0, h)
+    if mode == DDA:
+        front = rays.frame_rays(uniforms, blue, w, h, row0, rows, tables=None, form=mode)
+
+        def trace(o, d, active):
+            return trace_dda.march_rays_dda(world, o, d, active, uniforms["lr"], MAX_STEPS)[0]
+        return front, front["nw"], trace, None, (rows, w)
     if mode == HF:
         tables, volume = world, None
     else:
@@ -1851,10 +1968,11 @@ def _p1_bound(mode, n, chained) -> dict:
     """P1's bound for n pixels: each input read once (the hit, its flags,
     the earlier flags of a chained batch, the noise), each output written
     once (two rays a pixel)."""
-    hf = mode == "hf"
-    reads = n * (12 + 4 + (4 if hf else 2) + (1 if chained else 0) + (4 if hf else 24))
-    reads += 8 * 4 + (256 * 8 if hf else 0)
-    return _bound(reads + n * 2 * (12 + 12 + 1), n * (OPS_P1_HF if hf else OPS_P1_VOLUME))
+    words = mode != "volume"  # the noise words and the sphere table (hf, dda)
+    flags = {"hf": 4, "volume": 2, "dda": 1}[mode]
+    reads = n * (12 + 4 + flags + (1 if chained else 0) + (4 if words else 24))
+    reads += 8 * 4 + (256 * 8 if words else 0)
+    return _bound(reads + n * 2 * (12 + 12 + 1), n * (OPS_P1_HF if words else OPS_P1_VOLUME))
 
 
 def _s2_bound(torch, mode, records, volume_hits, n) -> dict:
@@ -1864,11 +1982,12 @@ def _s2_bound(torch, mode, records, volume_hits, n) -> dict:
     one volume word a hit that gathers one, the six G-buffers written; a
     sky for each pixel and for each diffuse ray that reached the sky."""
     hf = mode == "hf"
-    flag = 4 if hf else 1
+    flag = 4 if hf else 1  # an air flag
+    mat = 1 if mode == "volume" else 4  # a done flag or a packed word
     bounces = len(records) - 1
-    reads = n * (12 + 4 + 2 * flag + 12) + 8 * 4 + 3 * 4 + volume_hits * 4
-    reads += n * bounces * (2 * flag + 12) + (n * (flag + (0 if hf else 12)) if bounces == 2
-                                              else 0)
+    reads = n * (12 + 4 + flag + mat + 12) + 8 * 4 + 3 * 4 + volume_hits * 4
+    reads += n * bounces * (2 * flag + 12) + (
+        n * (mat + (12 if mode == "volume" else 0)) if bounces == 2 else 0)
     air = lambda r: (r.air[n:] != 0) if hf else r.air[n:]
     skies = n + sum(int(air(r).sum()) for r in records[1:])
     return _bound(reads + n * 51, skies * OPS_PER_SKY + n * OPS_S2_OTHER)
@@ -1918,7 +2037,7 @@ def _staged_glue_case(torch, mode, world, blue, uniforms, size, bounces, band=No
         res["s2_max_abs_err"] = max(res["s2_max_abs_err"], _max_abs(
             torch.nan_to_num(_wide(got[k]).float()), torch.nan_to_num(_wide(want[k]).float())))
     hits = 0
-    if mode != "hf":  # volume words gathered: the primary's hits and the first diffuse hits'
+    if mode == "volume":  # volume words gathered: the primary's hits and the first diffuse hits'
         hit = lambda r, lo, hi: (r.mat[lo:hi] & ~r.air[lo:hi])
         hits = int(hit(records[0], 0, n).sum()) + (
             int(hit(records[1], n, 2 * n).sum()) if bounces == 2 else 0)
@@ -1939,7 +2058,7 @@ def _random_record(torch, dev, mode, m, seed):
     packed words (a quarter 0) or done flags (some air rays not done)."""
     import numpy as np
 
-    from raytrace_tpu_torch.ops.integrate import Record
+    from raytrace_tpu_torch.ops.integrate import EXHAUSTED, Record
 
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-140.0, 140.0, (m, 3)).astype(np.float32)
@@ -1952,6 +2071,10 @@ def _random_record(torch, dev, mode, m, seed):
         mat = rng.integers(-2 ** 31, 2 ** 31, m, dtype=np.int64).astype(np.int32)
         mat[rng.random(m) < 0.25] = 0
         air = air.astype(np.int32)
+    elif mode == "dda":  # packed words (a fifth 0, none for air) and exhausted rays
+        mat = rng.integers(0, EXHAUSTED, m).astype(np.int32)
+        mat[(rng.random(m) < 0.2) | air] = 0
+        mat[~air & (rng.random(m) < 0.1)] = EXHAUSTED
     else:
         mat = air | (rng.random(m) < 0.8)
         mat[rng.random(m) < 0.03] = False
@@ -1970,7 +2093,7 @@ def _staged_glue_random(torch, dev, mode, volume, n, seed) -> dict:
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(dev)
     noise = (t(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32))
-             if mode == "hf" else t(rng.uniform(-1, 1, (n, 12)).astype(np.float32)))
+             if mode != "volume" else t(rng.uniform(-1, 1, (n, 12)).astype(np.float32)))
     sun = shading.sun_vector(torch.tensor(0.6, dtype=torch.float32, device=dev))
     cam = t(rng.uniform(-100, 100, 3).astype(np.float32))
     records = [_random_record(torch, dev, mode, n if b == 0 else 2 * n, seed + b)
@@ -1997,13 +2120,14 @@ def _staged_glue_random(torch, dev, mode, volume, n, seed) -> dict:
 def phase_staged_glue_kernel(torch, dev, blue, hf_world, vol_world):
     """P1 and S2 against their plain versions, every output bit for bit
     (a NaN matching a NaN), on the records of the staged frames: hf on the
-    hf path's tables and uniforms (``hf_world``: (tables, packed)) and the
-    staged volume frame on the volume_fast path's world (``vol_world``:
-    ((volume, tables), packed)), both at 1024² b2 (P1 both bounces, both
-    halves of each batch; timed: each kernel alone, its call, its plain
-    version, its bound); config 2's hf frame at 1920x1080 b1; a 270-row
-    band of each (hf 1920x1080 rows 270-539, volume 1024² rows 300-569, b2);
-    then 4096 random raw records of each mode at b0, b1 and b2."""
+    hf path's tables and uniforms (``hf_world``: (tables, packed)), and the
+    staged volume frame and the exact DDA's frame on the volume_fast path's
+    world (``vol_world``: ((volume, tables), packed)), each at 1024² b2 (P1
+    both bounces, both halves of each batch; timed: each kernel alone, its
+    call, its plain version, its bound); config 2's hf frame at 1920x1080
+    b1; a 270-row band of each (hf 1920x1080 rows 270-539, volume and dda
+    1024² rows 300-569, b2); then 4096 random raw records of each mode at
+    b0, b1 and b2."""
     from raytrace_tpu_torch.apps import benchmark
     from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
@@ -2022,12 +2146,14 @@ def phase_staged_glue_kernel(torch, dev, blue, hf_world, vol_world):
         "hf_band_1920x1080_270+270_b2": ("hf", hf_world[0], hf_uni, (1920, 1080), 2,
                                          (270, 270), False),
         "volume_band_300+270_b2": ("volume", vol_world[0], vol_uni, W, 2, (300, 270), False),
+        "dda_main_b2": ("dda", vol_world[0][0], vol_uni, W, 2, None, True),
+        "dda_band_300+270_b2": ("dda", vol_world[0][0], vol_uni, W, 2, (300, 270), False),
     }
     for label, (mode, world, uni, size, bounces, band, timed) in cases.items():
         one_ok, res[label] = _staged_glue_case(torch, mode, world, blue, uni, size, bounces,
                                                band, timed)
         ok = ok and one_ok
-    for mode, volume in (("hf", None), ("volume", vol_world[0][0])):
+    for mode, volume in (("hf", None), ("volume", vol_world[0][0]), ("dda", None)):
         res[f"{mode}_random"] = _staged_glue_random(torch, dev, mode, volume, 4096, 60)
         ok = ok and all(res[f"{mode}_random"]["equal"].values())
     res["seconds"] = time.perf_counter() - t0
@@ -2038,14 +2164,16 @@ GRAPH_FRAMES = 16  # frames flown at +VOL_DX in x: one slice crossing at least
 # The kernel launches of one b2 frame of each graphed tracer.
 GRAPH_KERNELS = {"fused": {"T1": 1, "R1": 1, "K1": 1, "S1": 1, "K2": 6},
                  "hf": {"R1": 1, "K4": 3, "P1": 2, "S2": 1, "K2": 6},
-                 "volume_fast": {"R1": 1, "K3": 1, "S3": 1, "K2": 6}}
+                 "volume_fast": {"R1": 1, "K3": 1, "S3": 1, "K2": 6},
+                 "volume": {"R1": 1, "D1": 3, "P1": 2, "S2": 1, "K2": 6}}
 # Each kernel's name in a profiler trace.
 KERNEL_NAMES = {"T1": "hf_tables_kernel", "K1": "march_paths_kernel",
                 "K2": "denoise_pass_kernel", "F1": "finalize_kernel",
                 "R1": "frame_rays_kernel",
                 "S1": "shade_fused_kernel", "S3": "shade_vol_kernel",
                 "K3": "march_paths_vol_kernel", "K4": "trace_hf_kernel",
-                "K3s": "trace_rays_vol_kernel", "P1": "leg_batch_kernel",
+                "K3s": "trace_rays_vol_kernel", "D1": "trace_dda_kernel",
+                "P1": "leg_batch_kernel",
                 "S2": "shade_staged_kernel",
                 "G1": "worldgen_kernel", "O1": "vol_tables_kernel"}
 TELEPORT_DX = (600.0, -300.0)  # x, z of the graph_frames teleport
@@ -2069,20 +2197,21 @@ def phase_graph_frames(rt, torch, tracer):
     renders the same frames eagerly (``apps.profile.eager_frame``: the same
     streaming, uniforms and ``render_frame`` on its own world), bit for bit
     on every frame and G-buffer.  The train flies GRAPH_FRAMES frames at
-    +VOL_DX in x (slice crossings; on volume_fast a streamed slab each),
-    then, on volume_fast, edits the volume; then both teleport.  A frame
+    +VOL_DX in x (slice crossings; on the volume tracers a streamed slab
+    each), then, on the volume tracers, edits the volume; then both
+    teleport.  A frame
     held across the next two draws must not change; the launch counters
     around the graphed draws must equal GRAPH_KERNELS times the frames (on
     hf, T1 once per region: the first frame's, each crossing's and the
     teleport's, built between frames), and a profiler trace of
     PROFILED_REPLAYS graphed frames must name each kernel (fused: T1 at
     least once and at most once a replay, its tables rebuilt inside the
-    graph; hf: no T1).  Then the timings, graphed and eager in turns on the
-    same pipeline: the host ms/frame of a FRAMES-frame train,
-    a steady frame, a slice-crossing frame and the frame after a teleport,
-    each alone; then a crossing's parts alone (T1's build of the region
-    tables through ``build_hf_tables``, or the slab and the occupancy
-    tables' update)."""
+    graph; hf and the volume tracers: no T1).  Then the timings, graphed
+    and eager in turns on the same pipeline: the host ms/frame of a
+    FRAMES-frame train, a steady frame, a slice-crossing frame and the
+    frame after a teleport, each alone; then a crossing's parts alone (T1's
+    build of the region tables through ``build_hf_tables``, or the slab
+    and, on volume_fast, the occupancy tables' update)."""
     from raytrace_tpu_torch.apps.profile import eager_frame
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.camera import Camera
@@ -2101,7 +2230,8 @@ def phase_graph_frames(rt, torch, tracer):
     base = list(cam.origin)
     steps = [("fly", [base[0] + VOL_DX * t, base[1], base[2]]) for t in range(GRAPH_FRAMES)]
     last = steps[-1][1]
-    if tracer == "volume_fast":
+    volume_tracer = tracer in ("volume_fast", "volume")
+    if volume_tracer:
         steps += [("edit", last), ("frame", last)]
     far = [last[0] + TELEPORT_DX[0], last[1], last[2] + TELEPORT_DX[1]]
     steps += [("teleport", far), ("frame", far), ("frame", far)]
@@ -2166,11 +2296,13 @@ def phase_graph_frames(rt, torch, tracer):
     res["launches_want"] = {k: n * res["frames"] for k, n in GRAPH_KERNELS[tracer].items()}
     if tracer == "hf":
         res["launches_want"]["T1"] = regions
-    if tracer == "volume_fast":
-        # G1 once a slab and once a teleport's region; O1 once a drain that
-        # rebuilds (an edit, a teleport) and once a slab it updates.
+    if volume_tracer:
+        # G1 once a slab and once a teleport's region; on volume_fast O1
+        # once a drain that rebuilds (an edit, a teleport) and once a slab
+        # it updates.
         res["slabs"] = sum(streamed)
         res["launches_want"]["G1"] = res["slabs"] + res["teleports"]
+    if tracer == "volume_fast":
         res["launches_want"]["O1"] = sum(1 if log is None else len(log) for log in drains)
     # The profiler can drop the first few records of a trace in a long
     # process (T1, the replay's first kernel, went missing so), so the
@@ -2188,7 +2320,7 @@ def phase_graph_frames(rt, torch, tracer):
     res["profiled_replays"] = PROFILED_REPLAYS
     res["profiled_kernels"] = {k: sum(KERNEL_NAMES[k] in n for n in names)
                                for k in GRAPH_KERNELS[tracer]}
-    if tracer != "volume_fast":  # "fused" rebuilds its tables in every replay; "hf" not
+    if not volume_tracer:  # "fused" rebuilds its tables in every replay; "hf" not
         res["profiled_kernels"]["T1"] = sum(KERNEL_NAMES["T1"] in n for n in names)
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     res["memory_reserved"] = torch.cuda.memory_reserved()
@@ -2216,19 +2348,22 @@ def phase_graph_frames(rt, torch, tracer):
     # A crossing's parts alone, synced: the region tables (and K1's column
     # table), or the slab's generation and the occupancy tables' update.
     reps = range(3)
-    if tracer == "volume_fast":
+    if volume_tracer:
         def slab():  # one slice move along +x: G1
             pipe.streamer.request_increase(0)
             pipe.streamer.setup_next_request()
-        ms["parts"] = dict(slab=[], vol_tables_update=[])
+        tables = tracer == "volume_fast"  # and the occupancy tables' update (O1)
+        ms["parts"] = dict(slab=[], **(dict(vol_tables_update=[]) if tables else {}))
         for _ in reps:
             ms["parts"]["slab"].append(synced_ms(slab))
-            ms["parts"]["vol_tables_update"].append(synced_ms(pipe.vol_tables))  # O1
+            if tables:
+                ms["parts"]["vol_tables_update"].append(synced_ms(pipe.vol_tables))
         # G1 and O1 alone on the same path (each call streams one slab).
         ms["parts"]["g1_alone"] = _alone(slab, 10, KERNEL_NAMES["G1"])
-        pipe.vol_tables()
-        ms["parts"]["o1_alone"] = _alone(lambda: (slab(), pipe.vol_tables()), 10,
-                                         KERNEL_NAMES["O1"])
+        if tables:
+            pipe.vol_tables()
+            ms["parts"]["o1_alone"] = _alone(lambda: (slab(), pipe.vol_tables()), 10,
+                                             KERNEL_NAMES["O1"])
     else:
         # T1 through its wrapper as Pipeline.tables() calls it (a host lr
         # uploaded from pinned memory, one launch; with the column table
@@ -2250,7 +2385,7 @@ def phase_graph_frames(rt, torch, tracer):
           and all(n >= GRAPH_KERNELS[tracer].get(k, 0) for k, n in res["profiled_kernels"].items())
           and (1 <= res["profiled_kernels"]["T1"] <= PROFILED_REPLAYS if tracer == "fused"
                else res["profiled_kernels"].get("T1", 0) == 0))
-    if tracer == "volume_fast":
+    if volume_tracer:
         ok = ok and res["slabs"] >= 1 and res["edit_changed_px"] > 0
     return ok, res
 
@@ -2269,11 +2404,11 @@ def _scratch_dir(name: str) -> Path:
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel."""
     from raytrace_tpu_torch.ops import (
-        denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_hf,
-        trace_vol, vol_tables, worldgen)
+        denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_dda,
+        trace_hf, trace_vol, vol_tables, worldgen)
     from raytrace_tpu_torch.world import generate
 
-    return dict(T1=hf_tables.build_hf_tables.launches, R1=rays.frame_rays.launches,
+    return dict(D1=trace_dda.march_rays_dda.launches,T1=hf_tables.build_hf_tables.launches, R1=rays.frame_rays.launches,
                 F1=finalize.finalize_frame.launches,
                 P1=integrate.leg_batch.launches, S2=integrate.shade_staged.launches,
                 K1=lighting.march_paths.launches, S1=lighting.shade.launches,
@@ -2490,13 +2625,14 @@ def phase_app_shapes(rt, torch, dev, blue):
 # twice 64 frames, config 4 one a
 # view), by config and tracer.
 CONFIG_KERNELS = {("1", "volume_fast"): {"G1box": 1, "O1": 1, "R1": 21, "K3": 21, "S3": 21},
-                  ("1", "volume"): {"G1box": 1},
+                  ("1", "volume"): {"G1box": 1, "R1": 21, "D1": 21, "S2": 21},
                   ("2", "fused"): {"T1": 1, "R1": 21, "K1": 21, "S1": 21, "K2": 126},
                   ("2", "hf"): {"T1": 1, "R1": 21, "K4": 42, "P1": 21, "S2": 21, "K2": 126},
                   ("3", "fused"): {"T1": 128, "R1": 128, "K1": 128, "S1": 128, "K2": 768},
                   ("4", "fused"): {"T1": 30, "R1": 30, "K1": 30, "S1": 30, "K2": 180}}
 # The outputs an eager twin must equal, by graphed config.
-TWIN_OUTPUTS = {("1", "volume_fast"): ("depth", "albedo"), ("2", "fused"): ("frame",),
+TWIN_OUTPUTS = {("1", "volume_fast"): ("depth", "albedo"), ("1", "volume"): ("depth", "albedo"),
+                ("2", "fused"): ("frame",),
                 ("2", "hf"): ("frame",)}
 
 
@@ -2535,8 +2671,8 @@ def phase_benchmark_configs(torch, dev):
     """``apps.benchmark`` configs 1-4 as the app runs them (each prints its
     JSON line; config 1 also ``--tracer volume``, config 2 also ``--tracer
     hf``), with each config's kernel launches: every config must have
-    ``exhausted_px == 0``, configs 1 and 2 ``graphed`` but for the exact
-    DDA, and launch exactly the kernels of its path (CONFIG_KERNELS).  Then
+    ``exhausted_px == 0``, configs 1 and 2 ``graphed``, and launch exactly
+    the kernels of its path (CONFIG_KERNELS).  Then
     each graphed config of 1 and 2 against its eager twin (``_twin``)."""
     from raytrace_tpu_torch.apps import benchmark
 
@@ -2554,7 +2690,7 @@ def phase_benchmark_configs(torch, dev):
                seconds=time.perf_counter() - t0)
     graphed = {r["tracer"]: r["graphed"] for r in records[:4]}
     ok = (len(records) == 7 and all(r["exhausted_px"] == 0 for r in records)
-          and graphed == {"volume_fast": True, "volume": False, "fused": True, "hf": True}
+          and graphed == {"volume_fast": True, "volume": True, "fused": True, "hf": True}
           and launches == {f"{c}_{t}": v for (c, t), v in CONFIG_KERNELS.items()}
           and all(ok for ok, _ in twins.values()))
     return ok, res
@@ -2718,8 +2854,9 @@ ROW_BANDS = [(0, 256), (256, 256), (512, 256), (768, 256), (300, 200)]
 def phase_row_bands(rt, torch, dev, blue, tables, vol_world):
     """Each band's G-buffers (``row0``/``rows``) equal the same rows of the
     whole frame's bit for bit, at 1024² b2 and the canonical view, for
-    fused (K1), volume_fast (K3), hf (K4) and the staged volume tracer
-    (K3s), with each tracer's launches over the whole frame and the bands."""
+    fused (K1), volume_fast (K3), hf (K4), the staged volume tracer (K3s)
+    and the exact DDA (D1), with each tracer's launches over the whole
+    frame and the bands."""
     from raytrace_tpu_torch.ops.trace_vol import render_gbuffers_vol
     from raytrace_tpu_torch.render.pipeline import frame_gbuffers, unpack_uniforms
 
@@ -2731,6 +2868,8 @@ def phase_row_bands(rt, torch, dev, blue, tables, vol_world):
                                                   tracer="volume_fast", **b),
         "hf": lambda **b: frame_gbuffers(tables, blue, uni, W, H, tracer="hf", **b),
         "staged_volume": lambda **b: render_gbuffers_vol(*vol_world, blue, uni, W, H, **b),
+        "volume": lambda **b: frame_gbuffers(vol_world[0], blue, uni, W, H, tracer="volume",
+                                             **b),
     }
     res = {}
     for name, render in renders.items():
@@ -2745,7 +2884,8 @@ def phase_row_bands(rt, torch, dev, blue, tables, vol_world):
         res[name] = dict(equal=equal, launches=_counts(),
                          sky_px=int((whole["depth"].to(torch.int32) == 0xFFFF).sum()))
     res["seconds"] = time.perf_counter() - t0
-    want = {"fused": "K1", "volume_fast": "K3", "hf": "K4", "staged_volume": "K3s"}
+    want = {"fused": "K1", "volume_fast": "K3", "hf": "K4", "staged_volume": "K3s",
+            "volume": "D1"}
     ok = all(all(res[n]["equal"].values()) and res[n]["launches"].get(k, 0) > 0
              and 0 < res[n]["sky_px"] < W * H for n, k in want.items())
     return ok, res
@@ -2804,7 +2944,7 @@ def phase_tiled_nccl(rt, torch, dev, blue, tables, vol_world):
     """``render_frame_tiled`` at 1024² through an NCCL process group of one
     rank (file store) and with no process group: both equal the whole-frame
     path (the tracer's G-buffers, then ``denoise_finalize``) bit for bit,
-    for fused and volume_fast; and the group's gather of a frame and of the
+    for fused, volume_fast and the exact DDA; and the group's gather of a frame and of the
     uint16 depth (sent as bytes) gives them back unchanged."""
     import torch.distributed as dist
 
@@ -2814,7 +2954,7 @@ def phase_tiled_nccl(rt, torch, dev, blue, tables, vol_world):
 
     t0 = time.perf_counter()
     uni = unpack_uniforms(torch.from_numpy(_canonical_uniforms(rt, seed=7).packed()).to(dev))
-    worlds = {"fused": tables, "volume_fast": vol_world}
+    worlds = {"fused": tables, "volume_fast": vol_world, "volume": vol_world[0]}
     wants = {}
     for tracer, world in worlds.items():
         gb = frame_gbuffers(world, blue, uni, W, H, tracer=tracer)
@@ -2950,16 +3090,18 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = _ptxas(build.get("log", ""))
     # The kernels keep their state in registers: no spills (K2, K4, G1, O1,
-    # R1, S1, S3, P1, S2), and K1, K3, K3s and O1 no stack.
+    # R1, S1, S3, P1, S2), and K1, K3, K3s, D1 and O1 no stack.
     # A kernel missing from the parse reads as a frame of -1: not lean.
     frame = lambda k: [int(v) for v in re.findall(
         r"\d+", ptxas[k]["frame"] or "-")] if k in ptxas else [-1]
     k2 = [k for k in ptxas if k.startswith("denoise_pass_kernel")]
     o1 = [k for k in ptxas if k.startswith("vol_tables_kernel")]  # one a block's units
+    d1 = [k for k in ptxas if k.startswith("trace_dda_kernel")]  # counting or not
     lean = build["cached"] or (frame("march_paths_vol_kernel") == [0, 0, 0]
                                and frame("march_paths_kernel") == [0, 0, 0]
                                and frame("trace_hf_kernel")[1:] == [0, 0]
                                and frame("trace_rays_vol_kernel") == [0, 0, 0]
+                               and len(d1) > 0 and all(frame(k) == [0, 0, 0] for k in d1)
                                and len(k2) > 0 and all(frame(k)[1:] == [0, 0] for k in k2)
                                and len(o1) > 0 and all(frame(k) == [0, 0, 0] for k in o1)
                                and all(frame(k)[1:] == [0, 0] for k in (
@@ -3102,8 +3244,13 @@ def main() -> int:
         graph_ms[tracer] = res.pop("ms")
         report(f"graph_frames_{tracer}", ok, res)
     print(f"[graph_frames_ms] {json.dumps(dict(card=card, **graph_ms))}", flush=True)
-    ok, exact_res = phase_volume_exact(rt, torch)
+    ok, exact_res, epipe = phase_volume_exact(rt, torch)
     report("volume_exact", ok, exact_res)
+    # D1 against its plain version on the exact path's own batches, and on
+    # config 1's.
+    ok, d1_res = phase_dda_kernel(torch, dev, epipe)
+    report("dda_kernel", ok, d1_res)
+    del epipe
 
     # The apps: the chunk cache, then each kernel at the apps' shapes before
     # any app is timed, then the apps themselves.
@@ -3217,7 +3364,7 @@ def main() -> int:
     )
     r1_main, r1_vol, r1_hf = r1_res["fused_1024"], r1_res["volume_1024"], r1_res["hf_1024"]
     r1_shapes = {label: {form: r1_res[f"{form}_{label}"]["kernel_ms"]
-                         for form in ("fused", "volume", "hf")}
+                         for form in ("fused", "volume", "hf", "dda")}
                  for label, _, _, _ in R1_CASES}
     s1_mixes = {k: dict(ms=v["kernel_ms"], shade_ms=v["shade_kernel_ms"],
                         table_ms=v["table_kernel_ms"], kept=v["kept"])
@@ -3242,6 +3389,9 @@ def main() -> int:
                     bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"])
 
     hf_glue, vol_glue = glue_res["hf_main_b2"], glue_res["volume_main_b2"]
+    dda_glue = glue_res["dda_main_b2"]
+    r1_dda = r1_res["dda_1024"]
+    d1_main = d1_res[f"main_{MAX_STEPS}"]
     kernels = [
         dict(name="P1 leg_batch (a bounce's sun + diffuse ray batch, staged frames)",
              route="cuda", source="raytrace_tpu_torch/csrc/staged.cu",
@@ -3250,6 +3400,8 @@ def main() -> int:
              max_abs_err=glue_err("p1"), **glue(hf_glue, "p1"), library_ms=None,
              volume_mode=dict(launches=staged_res["launches"].get("P1", 0),
                               **glue(vol_glue, "p1")),
+             dda_mode=dict(launches=exact_res["launches"].get("P1", 0),
+                           **glue(dda_glue, "p1")),
              app_shapes=dict(launches=bench_launches("P1"))),
         dict(name="S2 shade_staged (the staged frames' G-buffers)", route="cuda",
              source="raytrace_tpu_torch/csrc/staged.cu",
@@ -3258,6 +3410,8 @@ def main() -> int:
              max_abs_err=glue_err("s2"), **glue(hf_glue, "s2"), library_ms=None,
              volume_mode=dict(launches=staged_res["launches"].get("S2", 0),
                               **glue(vol_glue, "s2")),
+             dda_mode=dict(launches=exact_res["launches"].get("S2", 0),
+                           **glue(dda_glue, "s2")),
              app_shapes=dict(launches=bench_launches("S2"))),
         dict(name="R1 frame_rays (rays, noise and march scalars of a frame)", route="cuda",
              source="raytrace_tpu_torch/csrc/frame_rays.cu",
@@ -3276,6 +3430,10 @@ def main() -> int:
                           kept=r1_hf["kept"], plain_ms=r1_hf["plain_ms"],
                           call_ms=r1_hf["call_ms"], bound_ms=r1_hf["bound_ms"],
                           bound_by=r1_hf["bound_by"]),
+             dda_form=dict(launches=exact_res["launches"].get("R1", 0), ms=r1_dda["kernel_ms"],
+                           kept=r1_dda["kept"], plain_ms=r1_dda["plain_ms"],
+                           call_ms=r1_dda["call_ms"], bound_ms=r1_dda["bound_ms"],
+                           bound_by=r1_dda["bound_by"]),
              app_shapes=dict(launches=bench_launches("R1"))),
         dict(name="S1 shade_fused (the fused frame's planar shade)", route="cuda",
              source="raytrace_tpu_torch/csrc/shade.cu",
@@ -3364,6 +3522,20 @@ def main() -> int:
              **bound(k3_res),
              census=lanes(k3_res["census"]), app_shapes=app["K3"],
              config5_4k=config5_entries["K3"]),
+        dict(name="D1 trace_dda (the exact DDA, tracer=\"volume\")", route="cuda",
+             source="raytrace_tpu_torch/csrc/trace_dda.cu",
+             replaces="raytrace_tpu/ops/trace_jax.py:59",
+             launches=exact_res["launches"].get("D1", 0),
+             launches_per_frame=exact_res["launches"].get("D1", 0) / FRAMES,
+             max_abs_err=d1_res["max_abs_err"], ms=d1_res["kernel_ms"],
+             kept=[b["kept"] for b in d1_main], plain_ms=d1_res["plain_ms"],
+             bound_ms=d1_res["bound_ms"], bound_by=d1_res["bound_by"], library_ms=None,
+             batches=[{k: b[k] for k in ("rays", "kernel_ms", "call_ms", "floor_ms", "plain_ms",
+                                         "bound_ms", "moves", "words", "lane_use", "steps")}
+                      for b in d1_main],
+             config1=dict(launches=bench_launches("D1"), **{
+                 k: d1_res["config1_512_b0"][k] for k in ("kernel_ms", "floor_ms", "plain_ms",
+                                                          "bound_ms", "lane_use")})),
         dict(name="K3s trace_rays_vol (staged volume tracer)", route="cuda",
              source="raytrace_tpu_torch/csrc/trace_rays_vol.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:939",

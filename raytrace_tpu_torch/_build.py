@@ -10,11 +10,12 @@ file, which ``.gitignore`` lists.  Nothing includes PyTorch's headers, so a
 build takes seconds.
 
 ``--fmad=false`` keeps every multiply and add a separate rounding, as the
-plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 agree
-with their plain versions step for step, T1's table words and G1's voxel
-words are the plain versions', K2's sums round as the plain pass's, and the
-frame's rays (R1), shades (S1, S3), the staged frames' leg batches (P1)
-and shade (S2) and finalize alone (F1) are the plain glue's bits.
+plain PyTorch versions compute them, so the marches K1, K3, K3s and K4 and
+the exact DDA D1 agree with their plain versions step for step, T1's table
+words and G1's voxel words are the plain versions', K2's sums round as the
+plain pass's, and the frame's rays (R1), shades (S1, S3), the staged
+frames' leg batches (P1) and shade (S2) and finalize alone (F1) are the
+plain glue's bits.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ _SIGNATURES = {
     # origin, direction, active, iscal, any8, all8, any_hi, detail, pos,
     # normal, air, done, n, rounds, steps, next, census, stream
     "rt_trace_rays_vol": [_P] * 12 + [_I] * 3 + [_P] * 3,
+    # origin, direction, active, volume, lr, pos, normal, air, mat, n,
+    # max_steps, steps, census, touched, stream
+    "rt_trace_dda": [_P] * 9 + [_I] * 2 + [_P] * 4,
     # packed, lr, seed, key, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
     "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 10,
     # volume, x0, y0, z0, sx, sy, sz, seed, grass, rock, snow, stream
@@ -74,7 +78,7 @@ _SIGNATURES = {
     "rt_vol_tables": [_P] * 7 + [_I] * 6 + [_P],
     # cam, forward, up, right, sun_angle, seed, lr, blue, trig, h3, r0,
     # any8b, origin, direction, nw, inv, iscal, fscal, sun, width, height,
-    # row0, rows, nh, nw, nch, hf, grass, rock, snow, stream
+    # row0, rows, nh, nw, nch, form, grass, rock, snow, stream
     "rt_frame_rays": [_P] * 19 + [_I] * 11 + [_P],
     # meta, pd, direction, nw, sun, trig, table, lighting, albedo, emission,
     # fog, depth, normal, n, grass, rock, snow, stream

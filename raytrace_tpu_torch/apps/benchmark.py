@@ -12,8 +12,8 @@ JSON line (``_emit``):
 Configs 1 and 2 run their frame of step ``t`` (``config1_frame``,
 ``config2_frame``) through a ``StepProgram``, the counterpart of JAX's
 jitted ``_time_chained``: one CUDA graph replay a frame with ``t`` in a
-static device buffer (``graphed: true``); config 1 ``--tracer volume``,
-the exact DDA, asks the host and runs eagerly (``graphed: false``).
+static device buffer (``graphed: true``), config 1 ``--tracer volume``
+(the exact DDA, D1) too.
 
 Every line carries ``exhausted_px``, the count of timed pixels whose
 primary ray was cut by its step budget (depth == ``EXHAUSTED_DEPTH``):
@@ -110,8 +110,8 @@ class StepProgram:
     renders eagerly (the warm-up) and captures the frame and the counter's
     add as one CUDA graph (``frame_graph.CapturedCall``); every later
     ``run`` writes ``t`` into the buffer (a ``fill_``: no host sync) and
-    replays.  Otherwise (the CPU, or the exact DDA, which asks the host
-    after every few moves) every ``run`` renders eagerly over the same
+    replays.  Otherwise (the CPU, or ``graphed`` False: the eager twin a
+    graphed program is held to) every ``run`` renders eagerly over the same
     buffers.
     """
 
@@ -227,12 +227,12 @@ def config2_frame(dev, width: int = 1920, height: int = 1080, tracer="fused"):
 
 def config1_single_chunk(tracer="volume_fast"):
     """512x512 primary-only over one generated chunk at texels 128:192 of
-    an empty 256^3 volume: the volume_fast path (K3) as one CUDA graph a
-    frame, or with ``tracer="volume"`` the exact DDA, eagerly."""
+    an empty 256^3 volume: the volume_fast path (K3), or with
+    ``tracer="volume"`` the exact DDA (R1, D1, S2), as one CUDA graph a
+    frame."""
     dev = _device()
     tracer = "volume" if tracer == "volume" else "volume_fast"
-    program = StepProgram(config1_frame(dev, 512, 512, tracer), dev,
-                          graphed=tracer == "volume_fast")
+    program = StepProgram(config1_frame(dev, 512, 512, tracer), dev)
     res = time_steps(program)
     return _emit("1_single_chunk_primary", 512 * 512 / res["ms_per_frame"] / 1e3,
                  "Mrays/s", {**res, "tracer": tracer})

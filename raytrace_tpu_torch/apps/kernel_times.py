@@ -36,6 +36,14 @@ volume_fast pipelines' tables and uniforms):
   call;
 - the SASS counts (``measure.sass_counts``) of those kernels.
 
+``--part dda`` times the exact DDA at the ``volume`` pipeline's view: the
+whole frame eager (``render_frame``, as a parent checkout without D1 runs
+it) and, where the checkout has D1 (``trace_dda.march_rays_dda``), the
+graphed ``draw_frame`` and D1 alone (``trace_dda_kernel``) on each
+of the frame's three batches (``dda_batches``: the primaries and the two
+bounce pairs) beside the launch floor of its grid, its moves, lane use and the volume
+words it reads (``dda_census``) and its bound (``dda_work``).
+
 ``--part tiles`` times the tile stage's two kernels alone: T1
 (``hf_tables_kernel``) building the tables of a packed lr and, where the
 checkout's ``build_hf_tables`` takes a ``key``, skipping them; G1
@@ -56,7 +64,7 @@ these (copy this file, ``testing/measure.py`` and ``testing/gbuffers.py``
 into it).
 
 Usage: python -m raytrace_tpu_torch.apps.kernel_times [--reps 10]
-[--part fused|volume|glue|tiles|all]   (needs a CUDA GPU)
+[--part fused|volume|glue|tiles|dda|all]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -68,9 +76,10 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from ..ops import denoise, finalize, integrate, lighting, path_vol, rays, shading, trace_vol
+from ..ops import (
+    denoise, finalize, integrate, lighting, path_vol, rays, shading, trace_dda, trace_vol)
 from ..render.camera import Camera
-from ..render.pipeline import Pipeline, unpack_uniforms
+from ..render.pipeline import Pipeline, render_frame, unpack_uniforms
 from ..testing.gbuffers import random_gbuffers
 from ..testing.measure import call_ms, card, denoise_pass_ms, kernel_ms, same, sass_counts
 
@@ -98,6 +107,8 @@ def run(reps: int = 10, size: int = 1024, part: str = "all") -> dict:
         res.update(_glue(reps, size))
     if part in ("tiles", "all"):
         res.update(_tiles(reps))
+    if part in ("dda", "all"):
+        res.update(_dda(reps, size))
     print(json.dumps(res), flush=True)
     return res
 
@@ -301,11 +312,90 @@ def _o1(reps: int, floors: bool) -> dict:
     return res
 
 
+# float32 operations of one D1 move (add, sub, mul, div, floor, abs each 1;
+# counted from csrc/trace_dda.cu, at least): the three boundary distances
+# (8 each), the move (6), the texel (6) and the window test (6).
+OPS_PER_DDA_MOVE = 42
+
+
+def dda_batches(volume, blue_noise, uniforms: dict, width: int, height: int,
+                max_steps: int, bounces: int) -> list:
+    """The exact frame's batches as ``trace_dda.render_gbuffers`` hands
+    them to D1: (origin, direction, active) of the primaries and of each
+    bounce's pair."""
+    f = rays.frame_rays(uniforms, blue_noise, width, height, tables=None, form="dda")
+    batches = []
+
+    def trace(o, d, active):
+        batches.append((o, d, active))
+        return trace_dda.march_rays_dda(volume, o, d, active, uniforms["lr"], max_steps)[0]
+
+    integrate.stage_gbuffers(trace, integrate.DDA, f, f["nw"], uniforms["origin"], bounces,
+                             (height, width))
+    return batches
+
+
+def dda_work(rays_n: int, masked: bool, moves: int, words: int) -> tuple:
+    """(bytes, float32 operations) that D1 needs for ``rays_n`` rays making
+    ``moves`` moves in all and reading ``words`` distinct volume words: each
+    ray's origin and direction (and flag, in a masked batch) read once, its
+    hit written once (21 bytes), ``lr``, and each word read once."""
+    return (rays_n * (24 + int(masked) + 21) + 12 + 4 * words,
+            OPS_PER_DDA_MOVE * moves)
+
+
+# Set bits of each byte value.
+_POPCOUNT = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.int64)
+
+
+def dda_census(volume, o, d, active, lr, max_steps) -> dict:
+    """One D1 launch with its census and touched bitmap: the batch's
+    ``moves``, its warps' ``lane_use`` (moves / 32 x each warp's longest
+    ray's) and ``words``, the distinct volume words its rays read."""
+    dev = o.device
+    census = torch.zeros(2, dtype=torch.int64, device=dev)
+    touched = torch.zeros(256 ** 3 // 32, dtype=torch.int32, device=dev)
+    trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps, census, touched)
+    moves, warp_moves = census.tolist()
+    words = int(_POPCOUNT.to(dev)[touched.view(torch.uint8).long()].sum())
+    return dict(moves=moves, warp_moves=warp_moves,
+                lane_use=moves / max(1, 32 * warp_moves), words=words)
+
+
+def _dda(reps: int, size: int) -> dict:
+    from ..testing import measure
+
+    pipe, uniforms = _pipeline(size, "volume")
+    volume = pipe.world()
+    packed = torch.from_numpy(pipe.uniforms.packed()).to(pipe.device)
+    eager = lambda: render_frame(volume, pipe.blue_noise, packed, size, size, pipe.max_steps,
+                                 pipe.seed, pipe.bounces, "volume")
+    res = dict(frame_eager_ms=call_ms(eager, reps))
+    if not hasattr(trace_dda, "march_rays_dda"):  # a checkout without D1: eager only
+        return dict(dda=res)
+    cam = Camera(origin=[-30.0, -100.0, 60.0])
+    cam.pitch = -0.3
+    res["frame_graphed_ms"] = call_ms(lambda: pipe.draw_frame(cam, 0.6), reps)
+    res["batches"] = []
+    for o, d, a in dda_batches(volume, pipe.blue_noise, uniforms, size, size, pipe.max_steps,
+                               pipe.bounces):
+        d1 = lambda: trace_dda.march_rays_dda(volume, o, d, a, uniforms["lr"], pipe.max_steps)
+        work = dda_census(volume, o, d, a, uniforms["lr"], pipe.max_steps)
+        n = o.shape[0]
+        blocks = (n + 255) // 256
+        res["batches"].append(dict(
+            rays=n, kernel_ms=kernel_ms(d1, reps, "trace_dda_kernel"), call_ms=call_ms(d1, reps),
+            floor_ms=measure.launch_floor_ms((blocks, 1), 256, False, reps), **work,
+            **measure.bound(*dda_work(n, a is not None, work["moves"], work["words"]))))
+    res["frame_kernel_ms"] = sum(b["kernel_ms"] for b in res["batches"])
+    return dict(dda=res)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--part", choices=("fused", "volume", "glue", "tiles", "all"),
+    ap.add_argument("--part", choices=("fused", "volume", "glue", "tiles", "dda", "all"),
                     default="all")
     args = ap.parse_args()
     run(args.reps, args.size, args.part)

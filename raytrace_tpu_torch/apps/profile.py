@@ -11,22 +11,23 @@ prints for the steady frame:
 - device ms/frame (the sum of the profiled device activities), device
   activities per frame, and the idle share ``1 - device / train``;
 - the same split in two: the port's own kernels (``csrc/``: K1-K4, K3s,
-  T1, G1, O1, R1, S1, S3, P1, S2; ``kernels_ms``,
+  D1, T1, G1, O1, R1, S1, S3, P1, S2; ``kernels_ms``,
   ``kernel_activities_per_frame``) and
   everything else PyTorch launches, its glue and copies (``glue_ms``,
   ``glue_activities_per_frame``);
 - the device activities that take the most time.
 
-For the tracers that ``draw_frame`` renders through a CUDA graph ("fused",
-"hf", "volume_fast") it measures two paths on the same pipeline, in turns
-(graphed, eager, eager, graphed): ``graphed``, ``draw_frame`` itself, and
-``eager``, the same frame through ``render_frame`` op by op
-(``eager_frame``).  Each printed key then carries its path's prefix.  It
-then times, in the same turns, CROSSINGS frames that each cross a slice
-(on "volume_fast" each streams a slab: G1 and O1), each alone and synced
-(``crossing_ms``), and TELEPORTS teleports, each ``Pipeline.teleport``
-alone and synced (``teleport_ms``; on "volume_fast" G1 regenerates the
-region in place) and the frame after it (``after_teleport_ms``).  On the
+``draw_frame`` renders every tracer ("fused", "hf", "volume",
+"volume_fast") through a CUDA graph, so it measures two paths on the same
+pipeline, in turns (graphed, eager, eager, graphed): ``graphed``,
+``draw_frame`` itself, and ``eager``, the same frame through
+``render_frame`` op by op (``eager_frame``).  Each printed key then
+carries its path's prefix.  It then times, in the same turns, CROSSINGS
+frames that each cross a slice (on the volume tracers each streams a slab:
+G1, and on "volume_fast" O1), each alone and synced (``crossing_ms``), and
+TELEPORTS teleports, each ``Pipeline.teleport`` alone and synced
+(``teleport_ms``; on the volume tracers G1 regenerates the region in
+place) and the frame after it (``after_teleport_ms``).  On the
 heightfield tracers ("fused", "hf") it times the crossing's region tables
 through ``build_hf_tables`` as ``Pipeline.tables()`` builds them
 (``tables.call_ms``, synced; on the card one T1 launch) and T1 alone
@@ -57,7 +58,7 @@ from ..ops.denoise import denoise_finalize
 from ..ops.hf_tables import build_hf_tables
 from ..ops.trace_vol import render_gbuffers_vol
 from ..render.camera import Camera
-from ..render.pipeline import GRAPHED, TRACERS, Pipeline, render_frame, unpack_uniforms
+from ..render.pipeline import TRACERS, Pipeline, render_frame, unpack_uniforms
 from ..testing.measure import kernel_ms, synced_ms
 
 PROFILED_FRAMES = 10
@@ -117,17 +118,16 @@ def eager_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tenso
 def run(frames: int = 30, width: int = 1024, height: int = 1024,
         tracer: str = "fused") -> dict:
     """Profile the tracer's frame -> ``{path: results}`` (paths
-    ``graphed`` and ``eager`` for the graphed tracers, else ``eager``)."""
+    ``graphed`` and ``eager`` for the tracers, ``eager`` for the staged
+    volume frame)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA GPU")
     staged = tracer == STAGED
     pipe = Pipeline(width=width, height=height, tracer="volume_fast" if staged else tracer)
     if staged:
         paths = dict(eager=lambda c, a: staged_frame(pipe, c, a))
-    elif tracer in GRAPHED:
-        paths = dict(graphed=pipe.draw_frame, eager=lambda c, a: eager_frame(pipe, c, a))
     else:
-        paths = dict(eager=pipe.draw_frame)
+        paths = dict(graphed=pipe.draw_frame, eager=lambda c, a: eager_frame(pipe, c, a))
     cam = Camera(origin=[-30.0, -100.0, 60.0])
     cam.pitch = -0.3
     pipe.teleport(cam)
@@ -144,7 +144,7 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
         acc["synced"] += got.pop("synced")
         acc["train"] += got.pop("train")
         acc.update(got)
-    if tracer in GRAPHED:
+    if not staged:
         for name in order:
             res[name].setdefault("crossing_ms", []).extend(
                 _crossings(paths[name], pipe, cam, CROSSINGS))

@@ -15,7 +15,7 @@
 // in the same order (built with --fmad=false), so every output is the
 // plain version's bit for bit.
 //
-// Three forms, one per frame program:
+// Four forms, one per frame program (ops/rays.py FORMS, in that order):
 //  - fused (K1 reads it): origin and direction (N, 3) f32 and the packed
 //    noise word `nw` (N,) int32 (the four noise bytes K1 and S1 rebuild as
 //    k / 255); `sun` (8,) f32 = sun xyz, sunlight rgb, 0, 0 (K1's fscal);
@@ -32,10 +32,14 @@
 //    form's origin, direction, `nw` and `sun`, with K4's `iscal` (8,)
 //    int32 = r0 xy, lr xyz, and the packed grass, rock and snow words of
 //    the material bands (launch arguments), in place of maxh.
+//  - dda (D1, P1 and S2 read it, the exact DDA's frame): origin,
+//    direction, `nw` and `sun` alone.  The exact DDA reads no tables, so
+//    this form reads none and writes no march scalars: D1 reads lr from
+//    the uniforms.
 // Pixels are image rows row0 .. row0 + rows of a width x height frame, one
 // thread each in the grid's blocks 1 ..; a band's values are the whole
-// frame's rows.  Block 0 writes the frame scalars (the reduction over h3
-// or any8b) while the pixels' blocks run: in the grid's last block, a
+// frame's rows.  Block 0 writes the frame scalars (the sun, and the
+// reduction over h3 or any8b) while the pixels' blocks run: in the grid's last block, a
 // chain of byte loads and serial bounds would trail the grid (PERF.md §6).
 // The uniforms, the texture and the tables are read on the device: no host
 // value enters the launch, and the kernel sits inside the frame's CUDA
@@ -61,6 +65,8 @@ constexpr int kNB = 32;  // bricks per side of the occupancy tables
 constexpr int32_t kBig = 1 << 30;
 constexpr int kInv = 12;        // invariants a pixel
 constexpr int kInvStride = 13;  // their stride in shared memory: no bank conflicts
+// The forms, as ops/rays.py FORMS orders them.
+constexpr int kFused = 0, kVolume = 1, kHf = 2, kDda = 3;
 
 struct FrameRaysArgs {
   // the uniforms: camera origin, forward, up, right (3,) f32 each, the sun
@@ -70,16 +76,16 @@ struct FrameRaysArgs {
   const float* lr;
   const float* blue;  // (nh, nw, nch) f32 texture
   const float* trig;  // (256, 2) f32 sphere-point sin and cos
-  const int32_t *h3, *r0;  // fused: the region's pyramid words and r0
+  const int32_t *h3, *r0;  // fused, hf: the region's pyramid words and r0
   const uint8_t* any8b;    // volume_fast: the occupied 8-bricks
   float *origin, *direction;
-  int32_t* nw;  // fused
+  int32_t* nw;  // fused, hf, dda
   float* inv;   // volume_fast
-  int32_t* iscal;
+  int32_t* iscal;  // all but dda
   float* fscal;  // volume_fast
   float* sun;
   int width, height, row0, rows, nh, nwid, nch;
-  bool hf;                     // the hf form: iscal holds the band words
+  int form;                   // kFused, kVolume, kHf or kDda
   int32_t grass, rock, snow;  // the hf form's packed band words
 };
 
@@ -139,8 +145,8 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
   __shared__ int32_t warp_max[kWarps];
   const unsigned all = 0xffffffffu;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const bool fused = a.nw != nullptr && !a.hf;
-  const bool volume = a.nw == nullptr;
+  const bool fused = a.form == kFused;
+  const bool volume = a.form == kVolume;
   if (t < 3) occ[t] = 0u;
   __syncthreads();
   if (fused) {
@@ -190,7 +196,8 @@ __device__ void frame_scalars(const FrameRaysArgs& a) {
   Vec3 light = sun_color(sun);
   const float sv[8] = {sun.x, sun.y, sun.z, light.x, light.y, light.z, 0.0f, 0.0f};
   for (int k = 0; k < 8; ++k) a.sun[k] = sv[k];
-  if (a.hf) {
+  if (a.form == kDda) return;
+  if (a.form == kHf) {
     const int32_t iv[8] = {a.r0[0], a.r0[1], lr[0], lr[1], lr[2], a.grass, a.rock, a.snow};
     for (int k = 0; k < 8; ++k) a.iscal[k] = iv[k];
     return;
@@ -295,11 +302,12 @@ __global__ void __launch_bounds__(kThreads) frame_rays_kernel(const FrameRaysArg
 
 }  // namespace
 
-// Exactly one of `nw` (the fused and hf forms: `h3` and `r0` given) and
-// `inv` (the volume_fast form: `any8b`, `trig` and `fscal` given) is
-// non-null; `hf` nonzero (with `nw`) asks for the hf form's iscal, the
-// band words `grass`, `rock` and `snow`.  `h3` and `any8b` are 16-byte
-// aligned.
+// `form`: 0 fused, 1 volume_fast, 2 hf, 3 dda.  Exactly one of `nw` (the
+// fused, hf and dda forms) and `inv` (the volume_fast form: `any8b`,
+// `trig` and `fscal` given) is non-null; the fused and hf forms read `h3`
+// and `r0`, and hf's iscal holds the band words `grass`, `rock` and
+// `snow`; every form but dda writes `iscal`.  `h3` and `any8b` are
+// 16-byte aligned.
 extern "C" int rt_frame_rays(const float* cam, const float* forward, const float* up,
                              const float* right, const float* sun_angle,
                              const int32_t* seed, const float* lr, const float* blue,
@@ -307,18 +315,20 @@ extern "C" int rt_frame_rays(const float* cam, const float* forward, const float
                              const uint8_t* any8b, float* origin, float* direction,
                              int32_t* nw, float* inv, int32_t* iscal, float* fscal,
                              float* sun, int width, int height, int row0, int rows,
-                             int nh, int nwid, int nch, int hf, int grass, int rock,
+                             int nh, int nwid, int nch, int form, int grass, int rock,
                              int snow, void* stream) {
-  const bool fused = nw != nullptr;
-  if (fused == (inv != nullptr) || (fused && (h3 == nullptr || r0 == nullptr)) ||
-      (!fused && (any8b == nullptr || trig == nullptr || fscal == nullptr)) ||
-      (hf && !fused) || width <= 0 || rows <= 0 || nch < 2 ||
+  const bool volume = form == kVolume;
+  const bool tables = form == kFused || form == kHf;
+  if (form < kFused || form > kDda || (nw != nullptr) == volume ||
+      (inv != nullptr) != volume || (tables && (h3 == nullptr || r0 == nullptr)) ||
+      (volume && (any8b == nullptr || trig == nullptr || fscal == nullptr)) ||
+      (form != kDda && iscal == nullptr) || width <= 0 || rows <= 0 || nch < 2 ||
       ((uintptr_t)h3 & 15u) != 0u || ((uintptr_t)any8b & 15u) != 0u)
     return (int)cudaErrorInvalidValue;
   FrameRaysArgs a{cam,    forward, up,    right,     sun_angle, seed,  lr,   blue, trig,
                   h3,     r0,      any8b, origin,    direction, nw,    inv,  iscal, fscal,
                   sun,    width,   height, row0,     rows,      nh,    nwid, nch,
-                  hf != 0, grass,  rock,   snow};
+                  form,   grass,   rock,   snow};
   const int blocks = 1 + (width * rows + kThreads - 1) / kThreads;
   frame_rays_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

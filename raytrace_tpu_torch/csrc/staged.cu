@@ -1,13 +1,14 @@
 // Kernels P1 and S2: the glue of the staged frame programs (tracer "hf"
-// with K4, the staged volume frame with K3s), one thread per pixel, one
-// launch each.
+// with K4, the staged volume frame with K3s, tracer "volume" with the
+// exact DDA D1), one thread per pixel, one launch each.
 //
 // Replace the XLA-fused glue of raytrace_tpu/ops/trace_jax.py
 // `integrate_gbuffers` (:268-389), which JAX jits together with its tracer
 // calls (`render_gbuffers_hf`, raytrace_tpu/ops/trace_pallas.py:709-753,
 // around K4; `render_gbuffers_vol`, raytrace_tpu/ops/trace_vol_pallas.py:
-// 1203-1246, around K3s) and which the port ran as hundreds of PyTorch
-// operations.  Neither is a Pallas kernel.  Their plain PyTorch versions
+// 1203-1246, around K3s; `render_gbuffers`, raytrace_tpu/ops/trace_jax.py:
+// 191-215, around the exact DDA) and which the port ran as hundreds of
+// PyTorch operations.  Neither is a Pallas kernel.  Their plain PyTorch versions
 // are `leg_batch_plain` and `shade_staged_plain` in ops/integrate.py; both
 // run the same float32 operations in the same order (built with
 // --fmad=false), so every output is the plain version's bit for bit.
@@ -20,7 +21,14 @@
 //  - mode 1, volume (K3s): air and mat (done) bool; a hit is done and not
 //    air, and only hits are nudged; its packed material is the resident
 //    volume's word at floor(p + 128) mod 256 of the position before the
-//    nudge (gbuffer.cuh `texel_of`); a ray is exhausted where not done.
+//    nudge (gbuffer.cuh `texel_of`); a ray is exhausted where not done;
+//  - mode 2, dda (D1): air bool and mat int32, the hit's packed word, or
+//    1 << 24 (kExhausted) where the ray is not done; every ray is nudged,
+//    air and exhausted ones too (trace_jax.py:144-165), so an exhausted
+//    primary, which is not air, sends its bounce rays from the nudged
+//    position; the albedo is the packed word's (0 where nothing was hit).
+//    The hf rule would take a solid voxel whose material bits are 0 for an
+//    exhausted ray.
 //
 // P1 (`leg_batch_kernel`) builds one bounce's sun + diffuse pair batch of
 // 2N rays from the previous leg's hits (the primary batch, or the diffuse
@@ -28,10 +36,10 @@
 // reads: origin (2N, 3), the nudged hit in both halves; direction (2N, 3),
 // the jittered sun direction in the first half and the diffuse direction
 // about the hit's normal in the second; active (2N,), the pixel's earlier
-// active flag (none for the primary batch) and not air.  The noise: hf
-// reads R1's packed noise word (bytes k as k / 255, the sphere point's sin
-// and cos from ops/shading.py `sphere_trig`) and jitters the sun itself;
-// the volume frame reads R1's invariants sd, sp of the bounce.
+// active flag (none for the primary batch) and not air.  The noise: hf and
+// dda read R1's packed noise word (bytes k as k / 255, the sphere point's
+// sin and cos from ops/shading.py `sphere_trig`) and jitter the sun
+// themselves; the volume frame reads R1's invariants sd, sp of the bounce.
 //
 // S2 (`shade_staged_kernel`) writes the six G-buffers from the raw hits of
 // the 1 + `bounces` batches: the primary's, the sky and sun its bounce rays
@@ -49,16 +57,21 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The modes, as ops/integrate.py MODES orders them.
+constexpr int kHf = 0, kVolume = 1, kDda = 2;
+constexpr int32_t kExhausted = 1 << 24;  // ops/integrate.py EXHAUSTED
 
 struct Batch {
   const float* pos;       // (M, 3) f32
   const int32_t* normal;  // (M,) int32
-  const void* air;        // (M,) int32 (hf) or bool (volume)
-  const void* mat;        // (M,) int32 packed (hf) or bool done (volume)
+  const void* air;        // (M,) int32 (hf) or bool (volume, dda)
+  const void* mat;        // (M,) int32 packed (hf, dda) or bool done (volume)
 };
 
-__device__ __forceinline__ bool flag(const void* p, int j, bool hf) {
-  return hf ? static_cast<const int32_t*>(p)[j] != 0 : static_cast<const uint8_t*>(p)[j] != 0;
+// The air flag of ray j: int32 in the hf mode, bool in the others.
+__device__ __forceinline__ bool air_of(const void* p, int j, int mode) {
+  return mode == kHf ? static_cast<const int32_t*>(p)[j] != 0
+                     : static_cast<const uint8_t*>(p)[j] != 0;
 }
 
 // Position p moved 0.001 along face normal `id` where `nudge` (0 * the
@@ -70,21 +83,25 @@ __device__ __forceinline__ Vec3 nudged(Vec3 p, int32_t id, bool nudge) {
 }
 
 // The hit of ray j: its position nudged 0.001 off its face (in mode 1 only
-// where it hit; read only where the batch has normals), and, where
-// `packed` is asked for, its packed material.
+// where it hit; read only where the batch has normals), and its packed
+// material (in mode 1 only where `packed` is asked for).
 struct Hit {
   Vec3 pos;
   bool air, exhausted;
   int32_t packed;
 };
 
-__device__ __forceinline__ Hit hit_of(const Batch& b, int j, bool hf,
+__device__ __forceinline__ Hit hit_of(const Batch& b, int j, int mode,
                                       const int32_t* __restrict__ volume, bool packed) {
-  Hit h{{0.0f, 0.0f, 0.0f}, flag(b.air, j, hf), false, 0};
+  Hit h{{0.0f, 0.0f, 0.0f}, air_of(b.air, j, mode), false, 0};
   bool nudge = true;
-  if (hf) {
+  if (mode == kHf) {
     h.packed = static_cast<const int32_t*>(b.mat)[j];
     h.exhausted = !h.air && h.packed == 0;
+  } else if (mode == kDda) {
+    const int32_t mat = static_cast<const int32_t*>(b.mat)[j];
+    h.packed = mat & kMaterialMask;
+    h.exhausted = (mat & kExhausted) != 0;
   } else {
     const bool done = static_cast<const uint8_t*>(b.mat)[j] != 0;
     nudge = done && !h.air;
@@ -100,17 +117,18 @@ __global__ void __launch_bounds__(kThreads)
                      const int32_t* __restrict__ nw, const float* __restrict__ inv,
                      const float* __restrict__ sun, const float* __restrict__ trig,
                      float* __restrict__ origin, float* __restrict__ direction,
-                     uint8_t* __restrict__ active, int n, int off, int bounce, bool hf) {
+                     uint8_t* __restrict__ active, int n, int off, int bounce, int mode) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int j = off + i;
-  const bool air = flag(from.air, j, hf);
-  const bool nudge = hf || (static_cast<const uint8_t*>(from.mat)[j] != 0 && !air);
+  const bool air = air_of(from.air, j, mode);
+  const bool nudge =
+      mode != kVolume || (static_cast<const uint8_t*>(from.mat)[j] != 0 && !air);
   const int32_t id = from.normal[j];
   const Vec3 o = nudged(get3(from.pos, j), id, nudge);
   const bool act = (prev_active == nullptr || prev_active[j] != 0) && !air;
   Vec3 sd, sp;
-  if (hf) {
+  if (mode != kVolume) {
     const uint32_t word = (uint32_t)nw[i] >> (16 * bounce);
     const int32_t kr = word & 255;
     const float nr = (float)kr / 255.0f;
@@ -151,22 +169,22 @@ __device__ __forceinline__ Vec3 pair_light(const Sky& k, bool sun_air, bool dif_
 }
 
 __global__ void __launch_bounds__(kThreads)
-    shade_staged_kernel(const Staged s, Out o, int n, int bounces, bool hf) {
+    shade_staged_kernel(const Staged s, Out o, int n, int bounces, int mode) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const Sky k = sky_terms(Vec3{s.sun[0], s.sun[1], s.sun[2]},
                           Vec3{s.sun[3], s.sun[4], s.sun[5]});
-  const Hit p = hit_of(s.prim, i, hf, s.volume, true);
+  const Hit p = hit_of(s.prim, i, mode, s.volume, true);
   const int32_t pn = s.prim.normal[i];
   const Vec3 zero = {0.0f, 0.0f, 0.0f};
   Vec3 light_hit = zero;
   if (bounces >= 1) {
-    const bool dif1_air = flag(s.pair1.air, n + i, hf);
-    light_hit = pair_light(k, flag(s.pair1.air, i, hf), dif1_air, get3(s.dir1, n + i));
+    const bool dif1_air = air_of(s.pair1.air, n + i, mode);
+    light_hit = pair_light(k, air_of(s.pair1.air, i, mode), dif1_air, get3(s.dir1, n + i));
     if (bounces >= 2) {
-      const Vec3 alb = albedo_of(hit_of(s.pair1, n + i, hf, s.volume, true).packed);
-      const Vec3 l = pair_light(k, flag(s.pair2.air, i, hf), flag(s.pair2.air, n + i, hf),
-                                get3(s.dir2, n + i));
+      const Vec3 alb = albedo_of(hit_of(s.pair1, n + i, mode, s.volume, true).packed);
+      const Vec3 l = pair_light(k, air_of(s.pair2.air, i, mode),
+                                air_of(s.pair2.air, n + i, mode), get3(s.dir2, n + i));
       const Vec3 light2 = {l.x * alb.x, l.y * alb.y, l.z * alb.z};
       light_hit = add(light_hit, dif1_air ? zero : light2);
     }
@@ -185,25 +203,26 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// P1.  `mode` 0 hf, 1 volume (see above).  The previous batch (M rays):
-// pos (M, 3) f32, normal (M,) int32, air and mat (M,) (done; null for hf),
-// its active flags (M,) bool or null (the primary batch); the pixels are
-// rays off .. off + n of it.  hf: nw (n,) int32 and trig (256, 2) f32;
-// volume: inv (n, 12) f32; sun (8,) f32.  Writes origin and direction
+// P1.  `mode` 0 hf, 1 volume, 2 dda (see above).  The previous batch (M
+// rays): pos (M, 3) f32, normal (M,) int32, air and mat (M,) (mat read in
+// the volume mode alone), its active flags (M,) bool or null (the primary
+// batch); the pixels are rays off .. off + n of it.  hf and dda: nw (n,)
+// int32 and trig (256, 2) f32; volume: inv (n, 12) f32; sun (8,) f32.  Writes origin and direction
 // (2n, 3) f32 and active (2n,) bool.  `bounce` 0 or 1: which noise texel.
 extern "C" int rt_leg_batch(const float* pos, const int32_t* normal, const void* air,
                             const void* mat, const uint8_t* prev_active, const int32_t* nw,
                             const float* inv, const float* sun, const float* trig,
                             float* origin, float* direction, uint8_t* active, int n, int off,
                             int bounce, int mode, void* stream) {
-  const bool hf = mode == 0;
-  if ((mode != 0 && mode != 1) || (bounce != 0 && bounce != 1) || off < 0 ||
-      (hf && (nw == nullptr || trig == nullptr)) || (!hf && (inv == nullptr || mat == nullptr)))
+  const bool volume = mode == kVolume;
+  if (mode < kHf || mode > kDda || (bounce != 0 && bounce != 1) || off < 0 ||
+      (!volume && (nw == nullptr || trig == nullptr)) ||
+      (volume && (inv == nullptr || mat == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   const Batch from{pos, normal, air, mat};
   leg_batch_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      from, prev_active, nw, inv, sun, trig, origin, direction, active, n, off, bounce, hf);
+      from, prev_active, nw, inv, sun, trig, origin, direction, active, n, off, bounce, mode);
   return (int)cudaGetLastError();
 }
 
@@ -211,7 +230,7 @@ extern "C" int rt_leg_batch(const float* pos, const int32_t* normal, const void*
 // dir0) and, for `bounces` >= 1, the first pair batch (2n rays: pos1, air1,
 // mat1, dir1) and, for 2, the second (air2, dir2); sun (8,) f32, the
 // camera origin cam (3,) f32 and, in the volume mode, the fused (256^3,)
-// int32 volume.  Writes the six G-buffers of n pixels.
+// int32 volume (and pos1).  Writes the six G-buffers of n pixels.
 extern "C" int rt_shade_staged(const float* pos0, const int32_t* normal0, const void* air0,
                                const void* mat0, const float* dir0, const float* pos1,
                                const void* air1, const void* mat1, const float* dir1,
@@ -219,10 +238,10 @@ extern "C" int rt_shade_staged(const float* pos0, const int32_t* normal0, const 
                                const float* cam, const int32_t* volume, float* lighting,
                                float* albedo, float* emission, float* fog, uint16_t* depth,
                                uint8_t* normal, int n, int bounces, int mode, void* stream) {
-  const bool hf = mode == 0;
-  if ((mode != 0 && mode != 1) || bounces < 0 || bounces > 2 || (!hf && volume == nullptr) ||
+  const bool vol = mode == kVolume;
+  if (mode < kHf || mode > kDda || bounces < 0 || bounces > 2 || (vol && volume == nullptr) ||
       (bounces >= 1 && (air1 == nullptr || dir1 == nullptr)) ||
-      (bounces >= 2 && (mat1 == nullptr || (!hf && pos1 == nullptr) || air2 == nullptr ||
+      (bounces >= 2 && (mat1 == nullptr || (vol && pos1 == nullptr) || air2 == nullptr ||
                         dir2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
@@ -238,6 +257,6 @@ extern "C" int rt_shade_staged(const float* pos0, const int32_t* normal0, const 
   s.volume = volume;
   Out o{lighting, albedo, emission, fog, depth, normal};
   shade_staged_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      s, o, n, bounces, hf);
+      s, o, n, bounces, mode);
   return (int)cudaGetLastError();
 }

@@ -4,24 +4,25 @@ then the G-buffers.
 Port of ``raytrace_tpu/ops/trace_jax.py:268-389`` (``integrate_gbuffers``),
 the whole frame of the staged tracers: ``tracer="hf"`` (``ops/trace_hf.py``,
 kernel K4), the staged volume frame (``ops/trace_vol.py``, K3s) and
-``tracer="volume"`` (the exact DDA, ``ops/trace_dda.py``).  The sun and
+``tracer="volume"`` (the exact DDA, ``ops/trace_dda.py``, D1).  The sun and
 diffuse rays of a bounce go to the tracer as one doubled batch, so a frame
 makes ``1 + bounces`` trace calls.  Two compositions share the arithmetic:
 
-- ``stage_gbuffers``: the frame programs of hf and of the staged volume
-  (JAX's ``render_gbuffers_hf``, ``trace_pallas.py:709-753``, and
-  ``render_gbuffers_vol``, ``trace_vol_pallas.py:1203-1246``, where XLA
-  fuses this glue around the Pallas calls).  The front is R1
+- ``stage_gbuffers``: the frame programs of the three staged tracers
+  (JAX's ``render_gbuffers_hf``, ``trace_pallas.py:709-753``,
+  ``render_gbuffers_vol``, ``trace_vol_pallas.py:1203-1246``, and
+  ``render_gbuffers``, ``trace_jax.py:191-215``, where XLA fuses this glue
+  around the tracer's calls).  The front is R1
   (``rays.frame_rays``), each tracer call returns its batch's raw hits (a
   ``Record``), ``leg_batch`` (P1) builds each bounce's ray batch from the
   last leg's hits and ``shade_staged`` (S2) writes the G-buffers.  On the
   card P1 and S2 are the kernels of ``csrc/staged.cu``, one launch each;
   ``leg_batch_plain`` and ``shade_staged_plain`` are their plain versions.
 - ``integrate_gbuffers``: plain PyTorch around any ``trace`` callable that
-  returns hit dicts (``hit_result``): the exact DDA, and the tools that
-  time a tracer's batches alone.
+  returns hit dicts (``hit_result``): the tools that time a tracer's
+  batches alone, and the reference the staged frames are held to.
 
-A ``Record`` holds a batch's hits as its tracer wrote them, in one of two
+A ``Record`` holds a batch's hits as its tracer wrote them, in one of three
 modes:
 
 - ``HF`` (K4): ``air`` and ``mat`` int32, ``mat`` the packed material word;
@@ -30,7 +31,14 @@ modes:
 - ``VOLUME`` (K3s): ``air`` and ``mat`` (done) bool; only hits (done and
   not air) are nudged, and a hit's packed material is the volume's word at
   ``floor(p + 128) mod 256`` of the position before the nudge; a ray is
-  exhausted where not done (``trace_vol_pallas.py:1140-1200``).
+  exhausted where not done (``trace_vol_pallas.py:1140-1200``);
+- ``DDA`` (D1): ``air`` bool and ``mat`` int32, the hit's packed word
+  (``fused & MATERIAL_MASK``, 0 where nothing was hit) or ``EXHAUSTED``
+  where the ray is not done; every ray is nudged, the air and exhausted ones
+  too, so an exhausted primary (not air) sends its bounce rays from the
+  nudged position; the albedo is the packed word's
+  (``trace_jax.py:144-165``).  The HF rule would call a solid voxel whose
+  material bits are 0 exhausted; a preloaded or edited volume can hold one.
 """
 
 from __future__ import annotations
@@ -46,8 +54,10 @@ from .lighting import EXHAUSTED_DEPTH, GBUFFER_KEYS, gbuffers_like
 from .rays import INV_WIDTH, camera_rays, frame_noise, normalize
 from .volume import MATERIAL_MASK, lookup
 
-HF, VOLUME = "hf", "volume"
-MODES = (HF, VOLUME)
+HF, VOLUME, DDA = "hf", "volume", "dda"
+MODES = (HF, VOLUME, DDA)
+# The DDA mode's ``mat`` of a ray that is not done: above every packed word.
+EXHAUSTED = MATERIAL_MASK + 1
 _N = ROOT_BLOCK_SIZE
 
 
@@ -56,8 +66,9 @@ class Record(NamedTuple):
 
     pos: torch.Tensor  # (M, 3) f32: where each ray stopped, before any nudge
     normal: torch.Tensor  # (M,) int32: its entry-face id
-    air: torch.Tensor  # (M,) int32 (HF) or bool (VOLUME): it reached the sky
-    mat: torch.Tensor  # (M,) int32 packed material (HF) or bool done (VOLUME)
+    air: torch.Tensor  # (M,) int32 (HF) or bool (VOLUME, DDA): it reached the sky
+    # (M,) int32 packed material (HF; DDA, or EXHAUSTED) or bool done (VOLUME)
+    mat: torch.Tensor
 
 
 def length(v: torch.Tensor) -> torch.Tensor:
@@ -126,8 +137,11 @@ def _air(mode: str, record: Record):
 
 
 def _packed(mode: str, record: Record, air, volume):
-    return record.mat if mode == HF else volume_packed(volume, record.pos,
-                                                       record.mat & ~air)
+    if mode == HF:
+        return record.mat
+    if mode == DDA:
+        return record.mat & MATERIAL_MASK
+    return volume_packed(volume, record.pos, record.mat & ~air)
 
 
 def _hits(mode: str, record: Record, volume=None) -> dict:
@@ -136,6 +150,8 @@ def _hits(mode: str, record: Record, volume=None) -> dict:
     air = _air(mode, record)
     if mode == HF:
         where, exhausted = None, ~air & (record.mat == 0)
+    elif mode == DDA:
+        where, exhausted = None, (record.mat & EXHAUSTED) != 0
     else:
         where, exhausted = record.mat & ~air, ~record.mat
     return dict(position=nudged(record.pos, record.normal, where), normal=record.normal,
@@ -237,12 +253,20 @@ def gbuffers_from_hits(primary: dict, pairs: list, ray_dir, sun, cam) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _flags(mode: str, m: int) -> list:
+    """(dtype, shape) of a ``Record``'s ``air`` and ``mat`` in ``mode``, M
+    rays."""
+    air = torch.int32 if mode == HF else torch.bool
+    mat = torch.bool if mode == VOLUME else torch.int32
+    return [(air, (m,)), (mat, (m,))]
+
+
 def _noise_terms(mode: str, noise, sun, bounce: int):
     """Each pixel's jittered sun direction and sphere point (tuples of (N,)
-    tensors) from its noise texel of ``bounce`` (0 or 1): in the HF mode
-    R1's noise word (bytes k as k / 255, the texture's own values: it holds
-    exact k / 255), in the VOLUME mode R1's invariants sd, sp."""
-    if mode == HF:
+    tensors) from its noise texel of ``bounce`` (0 or 1): in the HF and DDA
+    modes R1's noise word (bytes k as k / 255, the texture's own values: it
+    holds exact k / 255), in the VOLUME mode R1's invariants sd, sp."""
+    if mode != VOLUME:
         nr, ng = (fdiv(((noise >> (16 * bounce + 8 * c)) & 255).to(torch.float32), 255.0)
                   for c in (0, 1))
         return jittered_sun(nr, ng, sun), shading.sphere_point(nr, ng)
@@ -260,7 +284,7 @@ def leg_batch_plain(mode: str, record: Record, noise, sun, bounce: int,
     air = _air(mode, rec)
     act = ~air if active is None else active[off:] & ~air
     sd, sp = _noise_terms(mode, noise, sun, bounce)
-    from_pos = nudged(rec.pos, rec.normal, None if mode == HF else rec.mat & ~air)
+    from_pos = nudged(rec.pos, rec.normal, rec.mat & ~air if mode == VOLUME else None)
     return pair_batch(from_pos, rec.normal, sd, sp, act)
 
 
@@ -270,8 +294,8 @@ def leg_batch(mode: str, record: Record, noise, sun, bounce: int, active=None):
     or the last pair's diffuse half (``record`` of 2N rays, its rays N ..
     2N; ``active`` that batch's (2N,) flags).
 
-    ``noise``: the HF mode's (N,) int32 noise words or the VOLUME mode's
-    (N, 12) f32 invariants (``rays.frame_rays``); ``sun`` (8,) f32 the
+    ``noise``: the HF and DDA modes' (N,) int32 noise words or the VOLUME
+    mode's (N, 12) f32 invariants (``rays.frame_rays``); ``sun`` (8,) f32 the
     frame's sun and sunlight; ``bounce`` 0 or 1, which noise texel.
     Returns ``(origin, direction, active)``: origin (2N, 3) f32, the
     nudged hit in both halves; direction (2N, 3) f32, the jittered sun in
@@ -296,12 +320,11 @@ def leg_batch(mode: str, record: Record, noise, sun, bounce: int, active=None):
     n, m = noise.shape[0], record.pos.shape[0]
     if m not in (n, 2 * n) or bounce not in (0, 1):
         raise ValueError(f"leg_batch: {m} rays for {n} pixels, bounce {bounce}")
-    hf = mode == HF
-    flag = torch.int32 if hf else torch.bool
+    words = mode != VOLUME  # the noise words (HF, DDA) or the invariants
     ins = list(record) + ([] if active is None else [active]) + [noise, sun]
-    want = [(torch.float32, (m, 3)), (torch.int32, (m,)), (flag, (m,)), (flag, (m,))] \
+    want = [(torch.float32, (m, 3)), (torch.int32, (m,)), *_flags(mode, m)] \
         + ([] if active is None else [(torch.bool, (m,))]) \
-        + [(torch.int32, (n,)) if hf else (torch.float32, (n, INV_WIDTH)),
+        + [(torch.int32, (n,)) if words else (torch.float32, (n, INV_WIDTH)),
            (torch.float32, (8,))]
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("leg_batch", t, dtype, shape, dev)
@@ -311,9 +334,9 @@ def leg_batch(mode: str, record: Record, noise, sun, bounce: int, active=None):
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels().rt_leg_batch(
-        *(t.data_ptr() for t in record), ptr(active), ptr(noise if hf else None),
-        ptr(None if hf else noise), sun.data_ptr(),
-        shading.sphere_trig(dev).data_ptr() if hf else None,
+        *(t.data_ptr() for t in record), ptr(active), ptr(noise if words else None),
+        ptr(None if words else noise), sun.data_ptr(),
+        shading.sphere_trig(dev).data_ptr() if words else None,
         origin.data_ptr(), direction.data_ptr(), act.data_ptr(), n, m - n, bounce,
         MODES.index(mode), stream,
     )
@@ -358,7 +381,8 @@ def shade_staged(mode: str, records: list, directions: list, sun, cam, shape,
     ``leg_batch``'s: a pair's diffuse half is the bounce direction);
     ``sun`` (8,) f32 the frame's sun and sunlight; ``cam`` (3,) f32 the
     camera origin (the depth is its float64 distance to the nudged primary
-    hit); ``volume`` the fused (256^3,) int32 volume in the VOLUME mode.
+    hit); ``volume`` the fused (256^3,) int32 volume in the VOLUME mode
+    (None in the others: they read no voxel).
     Returns lighting, albedo, emission and fog (rows, W, 3) f32, depth
     (rows, W) uint16 and normal (rows, W) uint8 for the (rows, W)
     ``shape``.
@@ -382,16 +406,15 @@ def shade_staged(mode: str, records: list, directions: list, sun, cam, shape,
         raise ValueError(f"shade_staged: {len(records)} records, {len(directions)} "
                          "direction batches")
     n = shape[0] * shape[1]
-    hf = mode == HF
-    flag = torch.int32 if hf else torch.bool
     for b, (rec, d) in enumerate(zip(records, directions)):
         m = n if b == 0 else 2 * n
-        want = [(torch.float32, (m, 3)), (torch.int32, (m,)), (flag, (m,)), (flag, (m,))]
+        want = [(torch.float32, (m, 3)), (torch.int32, (m,)), *_flags(mode, m)]
         for t, (dtype, shp) in zip((*rec, d), want + [(torch.float32, (m, 3))]):
             check_tensor(f"shade_staged: batch {b}", t, dtype, shp, dev)
     check_tensor("shade_staged: sun", sun, torch.float32, (8,), dev)
     check_tensor("shade_staged: cam", cam, torch.float32, (3,), dev)
-    if not hf:
+    vol = mode == VOLUME
+    if vol:
         check_tensor("shade_staged: volume", volume, torch.int32, (_N ** 3,), dev)
     at = lambda seq, b: seq[b] if b < len(seq) else None
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -402,7 +425,7 @@ def shade_staged(mode: str, records: list, directions: list, sun, cam, shape,
         *(t.data_ptr() for t in records[0]), directions[0].data_ptr(),
         ptr(pair1 and pair1.pos), ptr(pair1 and pair1.air), ptr(pair1 and pair1.mat),
         ptr(at(directions, 1)), ptr(pair2 and pair2.air), ptr(at(directions, 2)),
-        sun.data_ptr(), cam.data_ptr(), None if hf else volume.data_ptr(),
+        sun.data_ptr(), cam.data_ptr(), volume.data_ptr() if vol else None,
         *(out[k].data_ptr() for k in GBUFFER_KEYS), n, bounces, MODES.index(mode), stream,
     )
     check_launch("rt_shade_staged", err)
@@ -427,7 +450,7 @@ def stage_gbuffers(trace, mode: str, front: dict, noise, cam, bounces: int, shap
     ``trace(origin (M, 3), direction (M, 3), active (M,) bool or None)``
     returns the batch's ``Record`` in ``mode``; ``front`` is
     ``rays.frame_rays``'s dict (origin, direction, sun), ``noise`` its
-    ``nw`` (HF) or ``inv`` (VOLUME); ``cam`` (3,) the camera origin;
+    ``nw`` (HF, DDA) or ``inv`` (VOLUME); ``cam`` (3,) the camera origin;
     ``shape`` (rows, W).  On the card: R1 (the caller's), the tracer
     1 + ``bounces`` times, P1 ``bounces`` times and S2 once.
     """

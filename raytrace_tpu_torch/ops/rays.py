@@ -1,5 +1,5 @@
 """Primary camera rays, per-frame blue-noise planes, and the front of the
-fused and volume_fast frame programs.
+frame programs.
 
 Port of ``raytrace_tpu/ops/trace_jax.py:55-56`` (``_normalize``, here
 ``normalize``),
@@ -11,7 +11,8 @@ of image rows (``row0``, ``rows``; the tile split, ``parallel/tiles.py``):
 a band's values equal the same rows of the whole frame bit for bit.
 
 ``frame_rays`` is the front of the frame programs in one call: the rays,
-the noise the march reads, the sun and the march's scalars
+the noise the march reads, the sun and (but for the exact DDA) the march's
+scalars
 (``raytrace_tpu/ops/lighting_pallas.py:846-899``,
 ``raytrace_tpu/ops/path_vol.py:366-392, 437-440`` and, for the staged
 frames, ``raytrace_tpu/ops/trace_jax.py:289-298`` with the tracers'
@@ -97,7 +98,7 @@ def frame_noise(blue_noise: torch.Tensor, seed: torch.Tensor, width: int,
     return plane(0), plane(2)
 
 
-FORMS = ("fused", "volume", "hf")
+FORMS = ("fused", "volume", "hf", "dda")
 INV_WIDTH = 12  # volume_fast's per-pixel invariants: sd1, sp1, sd2, sp2
 # K4's packed material words of the grass, rock and snow bands.
 BAND_WORDS = (PACKED_GRASS, PACKED_ROCK, PACKED_SNOW)
@@ -108,7 +109,7 @@ def _byte(img):
 
 
 def frame_rays_plain(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int,
-                     row0: int = 0, rows: int | None = None, *, tables: dict,
+                     row0: int = 0, rows: int | None = None, *, tables: dict | None,
                      form: str) -> dict:
     """R1's plain PyTorch version (see ``frame_rays``)."""
     rows = height if rows is None else rows
@@ -119,9 +120,11 @@ def frame_rays_plain(uniforms: dict, blue_noise: torch.Tensor, width: int, heigh
     sun = shading.sun_vector(uniforms["sun_angle"])
     lri = uniforms["lr"].to(torch.int32)
     out = dict(origin=origin.reshape(n, 3), direction=direction.reshape(n, 3), sun=sun)
-    if form in ("fused", "hf"):
+    if form != "volume":
         out["nw"] = (_byte(noise1[..., 0]) | (_byte(noise1[..., 1]) << 8)
                      | (_byte(noise2[..., 0]) << 16) | (_byte(noise2[..., 1]) << 24)).reshape(n)
+        if form == "dda":
+            return out
         if form == "hf":
             words = torch.tensor(BAND_WORDS, dtype=torch.int32, device=dev)
             out["iscal"] = torch.cat([tables["r0"], lri, words])
@@ -153,7 +156,7 @@ _UNIFORMS = (("origin", torch.float32, (3,)), ("forward", torch.float32, (3,)),
 
 
 def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int,
-               row0: int = 0, rows: int | None = None, *, tables: dict,
+               row0: int = 0, rows: int | None = None, *, tables: dict | None,
                form: str) -> dict:
     """The front of a frame program for image rows ``row0 .. row0 + rows``
     (default: the whole frame) of a ``width`` x ``height`` frame, N =
@@ -177,7 +180,9 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
       the camera origin, 0;
     - "hf" (``tables`` from ``build_hf_tables``): ``nw`` as for "fused";
       ``iscal`` (8,) int32 = K4's ``march_iscal``: r0 xy, lr xyz and the
-      packed grass, rock and snow words (``BAND_WORDS``).
+      packed grass, rock and snow words (``BAND_WORDS``);
+    - "dda" (``tables`` None: the exact DDA reads none): ``nw`` as for
+      "fused", and no march scalars.
 
     CPU tensors take ``frame_rays_plain``; CUDA tensors launch R1
     (``csrc/frame_rays.cu``) on the current stream, one launch that reads
@@ -209,18 +214,21 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
     f32, i32 = torch.float32, torch.int32
     empty = lambda shape, dtype=f32: torch.empty(shape, dtype=dtype, device=dev)
     out = dict(origin=empty((n, 3)), direction=empty((n, 3)), sun=empty(8))
-    if fused:
+    trig = h3 = r0 = any8b = None
+    if form == "dda":
+        out["nw"] = empty(n, i32)
+    elif fused:
         check_tensor("frame_rays: tables['h3']", tables["h3"], i32, (1024,), dev)
         check_tensor("frame_rays: tables['r0']", tables["r0"], i32, (2,), dev)
         out.update(nw=empty(n, i32), iscal=empty(8, i32))
         if form == "fused":
             out["fscal"] = out["sun"]
-        trig, h3, r0, any8b = None, tables["h3"].data_ptr(), tables["r0"].data_ptr(), None
+        h3, r0 = tables["h3"].data_ptr(), tables["r0"].data_ptr()
     else:
         check_tensor("frame_rays: tables['any8b']", tables["any8b"], torch.bool,
                      (32, 32, 32), dev)
         out.update(inv=empty((n, INV_WIDTH)), iscal=empty(10, i32), fscal=empty(4))
-        trig, h3, r0 = shading.sphere_trig(dev).data_ptr(), None, None
+        trig = shading.sphere_trig(dev).data_ptr()
         any8b = tables["any8b"].data_ptr()
     if (h3 or 0) % 16 or (any8b or 0) % 16:
         raise ValueError("frame_rays: R1 reads tables['h3'] and tables['any8b'] 16 bytes at "
@@ -230,8 +238,8 @@ def frame_rays(uniforms: dict, blue_noise: torch.Tensor, width: int, height: int
     err = kernels().rt_frame_rays(
         *(t.data_ptr() for t in u), blue_noise.data_ptr(), trig, h3, r0, any8b,
         ptr("origin"), ptr("direction"), ptr("nw"), ptr("inv"), ptr("iscal"),
-        None if fused else ptr("fscal"), ptr("sun"),
-        width, height, row0, rows, nh, nwid, nch, int(form == "hf"), *BAND_WORDS, stream,
+        ptr("fscal") if form == "volume" else None, ptr("sun"),
+        width, height, row0, rows, nh, nwid, nch, FORMS.index(form), *BAND_WORDS, stream,
     )
     check_launch("rt_frame_rays", err)
     frame_rays.launches += 1

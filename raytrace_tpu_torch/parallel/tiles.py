@@ -171,7 +171,7 @@ def _ranks(group) -> tuple:
 
 def render_frame_tiled(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
                        height: int, group=None, max_steps: int = MAX_TRACE_STEPS,
-                       tracer: str = "fused", seed: int = 0,
+                       tracer: str = "volume", seed: int = 0,
                        bounces: int = 2) -> torch.Tensor:
     """The (H, W, 3) frame in window orientation, rendered as row bands
     over the ranks of ``group`` (the default group; one rank when no
@@ -180,7 +180,7 @@ def render_frame_tiled(world, blue_noise: torch.Tensor, uniforms: dict, width: i
     ``world`` as for ``render/pipeline.render_frame``: the
     ``build_hf_tables`` dict for ``tracer="fused"``/``"hf"``, the (fused
     volume, ``build_vol_tables`` dict) pair for ``"volume_fast"``, the fused
-    volume for ``"volume"``; ``uniforms`` the dict of
+    volume for ``"volume"`` (the default, as JAX's); ``uniforms`` the dict of
     ``render_gbuffers_*``.  The device follows ``blue_noise``: the kernels
     for CUDA tensors, the plain versions for CPU ones.  Equals
     ``denoise_finalize`` of the whole frame's G-buffers bit for bit (on
@@ -203,7 +203,7 @@ def _band(height: int, group) -> tuple:
 
 def band_gbuffers(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
                   height: int, group=None, max_steps: int = MAX_TRACE_STEPS,
-                  tracer: str = "fused", seed: int = 0, bounces: int = 2) -> dict:
+                  tracer: str = "volume", seed: int = 0, bounces: int = 2) -> dict:
     """This rank's band's G-buffers (the first half of
     ``render_frame_tiled``, arguments as there)."""
     _, _, band, row0 = _band(height, group)

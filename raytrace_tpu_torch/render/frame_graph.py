@@ -7,17 +7,19 @@ compiled program per static configuration (``_jit_cache``/``_lazy_jit``,
 ``:159-168``).  Where XLA compiles the frame into one program, PyTorch runs
 it op by op, each op costing the host more than the card spends on most of
 them; a ``torch.cuda.CUDAGraph`` captured once replays the whole frame (the
-frame's rays R1, the G-buffer kernels, the shade S1 or S3, or on "hf" the
-leg batches P1 and the shade S2, and the six K2 passes) with one call.
+frame's rays R1, the G-buffer kernels, the shade S1 or S3, or on "hf" and
+"volume" the leg batches P1 and the shade S2, and the six K2 passes) with
+one call.
 
 A ``FrameProgram`` holds one configuration (tracer, width, height,
 max_steps, seed, bounces) and its static buffers on the pipeline's device:
 
 - inputs: the packed (16,) f32 uniforms, the blue-noise texture and, for
-  "hf" and "volume_fast", the world ``render_frame`` reads (the
+  "hf", "volume_fast" and "volume", the world ``render_frame`` reads (the
   ``build_hf_tables`` dict; the fused (256^3,) volume and the
   ``build_vol_tables`` dict, which the streamer (G1) and the pipeline (O1)
-  then write in place);
+  then write in place; the fused volume alone, which the streamer writes
+  in place);
 - the region tables of "fused" (``h3``, ``hsub``, ``cA``..``cD``, ``r0``
   and the column table ``hcol``), which the program owns and builds at the
   start of every frame from the ``lr`` in the packed uniforms
@@ -43,10 +45,8 @@ tables' plain build while ``lr`` stays, as it skips T1's on the card).
 ``run`` returns a fresh frame (one copy after the replay) and the static
 G-buffers, which the next ``run`` overwrites.  A replay adds the capture's
 launches to each kernel wrapper's counter.  Nothing here falls back: a
-capture or replay that fails raises.
-
-The exact DDA (``tracer="volume"``) cannot be captured: it asks the host
-after every step whether a ray is still live (``ops/trace_dda.py``).
+capture or replay that fails raises, and so does the capture of a frame
+that reads a value on the host.
 """
 
 from __future__ import annotations
@@ -57,16 +57,17 @@ import torch
 
 from ..constants import MAX_TRACE_STEPS
 from ..ops import (
-    denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_hf, trace_vol,
-    vol_tables, worldgen)
+    denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_dda, trace_hf,
+    trace_vol, vol_tables, worldgen)
 from ..world import generate
-from .pipeline import GRAPHED, render_frame
+from .pipeline import TRACERS, render_frame
 
 # Every kernel wrapper's launch counter.
 COUNTED = (hf_tables.build_hf_tables, rays.frame_rays, lighting.march_paths, lighting.shade,
            denoise.launch_pass, trace_vol.march_paths_vol, path_vol.shade,
-           trace_vol.march_rays_vol, trace_hf.march_rays_hf, integrate.leg_batch,
-           integrate.shade_staged, worldgen.generate_into, generate.generate_box,
+           trace_vol.march_rays_vol, trace_hf.march_rays_hf, trace_dda.march_rays_dda,
+           integrate.leg_batch, integrate.shade_staged, worldgen.generate_into,
+           generate.generate_box,
            vol_tables.build_vol_tables, vol_tables.update_vol_tables,
            finalize.finalize_frame)
 
@@ -146,8 +147,10 @@ class CapturedCall:
 
 
 def _leaves(world) -> list:
-    """The world's tensors in a fixed order: a table dict by key, or the
-    volume and then its tables."""
+    """The world's tensors in a fixed order: a table dict by key, the
+    volume alone, or the volume and then its tables."""
+    if isinstance(world, torch.Tensor):
+        return [world]
     if isinstance(world, dict):
         return [world[k] for k in sorted(world)]
     volume, tables = world
@@ -156,7 +159,10 @@ def _leaves(world) -> list:
 
 def _layout(world) -> list:
     """The world's keys, shapes, dtypes and devices, in ``_leaves``' order."""
-    keys = sorted(world) if isinstance(world, dict) else ["volume", *sorted(world[1])]
+    if isinstance(world, torch.Tensor):
+        keys = ["volume"]
+    else:
+        keys = sorted(world) if isinstance(world, dict) else ["volume", *sorted(world[1])]
     return [(k, tuple(t.shape), t.dtype, t.device) for k, t in zip(keys, _leaves(world))]
 
 
@@ -168,9 +174,8 @@ class FrameProgram:
     def __init__(self, world, blue_noise: torch.Tensor, tracer: str, width: int,
                  height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
                  bounces: int = 2):
-        if tracer not in GRAPHED:
-            raise ValueError(f"tracer {tracer!r} has no frame program; it runs eagerly "
-                             f"(graphed: {GRAPHED})")
+        if tracer not in TRACERS:
+            raise ValueError(f"unknown tracer {tracer!r}; expected one of {TRACERS}")
         if (world is None) != (tracer == "fused"):
             raise ValueError("FrameProgram: the fused program builds its own region "
                              "tables from the packed lr (world=None); the others take "
@@ -181,7 +186,10 @@ class FrameProgram:
         if tracer == "fused":
             world = hf_tables.empty_tables(self.device, hcol=True)
             self.key = torch.zeros(4, dtype=torch.int32, device=self.device)
-        self.world = dict(world) if tracer != "volume_fast" else (world[0], dict(world[1]))
+        if tracer == "volume_fast":
+            self.world = (world[0], dict(world[1]))
+        else:
+            self.world = world if tracer == "volume" else dict(world)
         self._layout = _layout(self.world)
         self.blue_noise = blue_noise
         self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)

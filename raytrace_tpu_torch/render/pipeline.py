@@ -17,16 +17,15 @@ debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
   place per streamed slab, rebuilt in place after initialize, teleport or
   an edit, by kernel O1), the path march K3 and its shade.
 - ``volume``: the streamed resident volume itself, traced leg by leg by the
-  exact DDA (``ops/trace_dda.py``, plain PyTorch, slow: the reference).
+  exact DDA (``ops/trace_dda.py``, kernel D1: the reference).
 
 Then the denoise chain K2 with finalize fused into its last pass.  One
 packed uniform vector is uploaded per frame.  ``Pipeline.draw_frame``
-renders "fused", "hf" and "volume_fast" through a frame program
-(``frame_graph.FrameProgram``: on the card one CUDA graph replay a frame,
-the counterpart of JAX's jitted ``_rffp_impl``), the exact DDA and
-``validate`` frames eagerly.  Everything runs on the pipeline's ``device``:
-CUDA tensors go through the kernels, CPU tensors through their plain
-versions.
+renders every tracer through a frame program (``frame_graph.FrameProgram``:
+on the card one CUDA graph replay a frame, the counterpart of JAX's jitted
+``_rffp_impl``), and ``validate`` frames eagerly.  Everything runs on the
+pipeline's ``device``: CUDA tensors go through the kernels, CPU tensors
+through their plain versions.
 """
 
 from __future__ import annotations
@@ -58,11 +57,6 @@ TRACERS = ("fused", "hf", "volume", "volume_fast")
 # The tracers that render the streamed resident volume (the others derive
 # the world from its heightfield and cannot show a preloaded or edited one).
 VOLUME_TRACERS = ("volume", "volume_fast")
-# The tracers draw_frame renders through a frame program (frame_graph.py):
-# no step of theirs waits for the host.  The exact DDA asks the host after
-# every step whether a ray is still live (ops/trace_dda.py), so it stays
-# eager.
-GRAPHED = ("fused", "hf", "volume_fast")
 
 
 @dataclasses.dataclass
@@ -103,7 +97,7 @@ def unpack_uniforms(packed: torch.Tensor) -> dict:
 
 def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
                  width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                 seed: int = 0, bounces: int = 2, tracer: str = "fused"):
+                 seed: int = 0, bounces: int = 2, tracer: str = "volume"):
     """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
 
     ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` and
@@ -112,7 +106,7 @@ def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
     ``"volume_fast"`` and the fused volume for ``"volume"``.  The
     counterpart of the JAX package's frame program (``_render_frame_impl``,
     ``_rffp_impl``): the G-buffer pass, then the denoise chain with
-    finalize.
+    finalize.  ``tracer`` defaults to the exact DDA, as JAX's does.
     """
     gb = frame_gbuffers(world, blue_noise, unpack_uniforms(packed), width, height,
                         max_steps, seed, bounces, tracer)
@@ -163,8 +157,8 @@ class Pipeline:
         generated world), "hf" (the same world traced leg by leg by the
         staged heightfield tracer), "volume_fast" (the brick-pyramid march
         of whatever the streamed volume holds: generated, preloaded or
-        edited content) or "volume" (the exact DDA through that volume,
-        slow: the reference); None picks "volume_fast" when
+        edited content) or "volume" (the exact DDA through that volume:
+        the reference); None picks "volume_fast" when
         ``preloaded_volume`` is given, else "fused", as the JAX package
         does.  ``preloaded_volume``: a fused (256^3,) volume (uint32 bits
         in any integer dtype) to start from instead of generating one; only
@@ -304,11 +298,11 @@ class Pipeline:
         Returns the (H, W, 3) f32 frame on the device without waiting
         for it: a tensor of its own, which later frames leave as it is.
 
-        With ``validate`` off, "fused", "hf" and "volume_fast" go through
-        the frame program of this configuration (``frame_program``: on the
-        card one CUDA graph replay); ``self.gbuffers`` are then the
-        program's, overwritten by the next frame.  The exact DDA
-        ("volume") and ``validate`` frames run ``render_frame`` eagerly."""
+        With ``validate`` off, every tracer goes through the frame program
+        of this configuration (``frame_program``: on the card one CUDA
+        graph replay); ``self.gbuffers`` are then the program's,
+        overwritten by the next frame.  ``validate`` frames run
+        ``render_frame`` eagerly."""
         self.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
         self.streamer.setup_next_request()
         self.fill_uniforms(camera, sun_angle)
@@ -317,7 +311,7 @@ class Pipeline:
             # Pinned and asynchronous: the host does not wait for the
             # previous frame before queuing this one.
             packed = packed.pin_memory()
-        if self.tracer in GRAPHED and not self.validate:
+        if not self.validate:
             frame, self.gbuffers = self.frame_program().run(packed)
             return frame
         frame, self.gbuffers = render_frame(
@@ -332,9 +326,9 @@ class Pipeline:
         """The frame program of this configuration: built on the current
         world at first use, else refreshed with it.  The pipeline then
         keeps its world in those buffers (its region tables, and the
-        streamed volume with its occupancy tables), so that a frame with
-        no region move, slab or edit copies nothing and a streamed slab
-        lands in place in the volume the graph reads.  The fused program
+        streamed volume with, on volume_fast, its occupancy tables), so
+        that a frame with no region move, slab or edit copies nothing and a
+        streamed slab lands in place in the volume the graph reads.  The fused program
         takes no world: it rebuilds its tables from each frame's packed
         ``lr``, and the pipeline's tables are its buffers."""
         from .frame_graph import FrameProgram
@@ -349,6 +343,8 @@ class Pipeline:
             program.refresh(world)
         if self.tracer == "volume_fast":
             self.streamer.volume, self._vol_tables = program.world
+        elif self.tracer == "volume":
+            self.streamer.volume = program.world
         else:
             # Fused: what the program's next run builds in stream order.
             self._tables, self._tables_lr = program.world, self.uniforms.lr

@@ -23,6 +23,22 @@ def card() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+# The card's peaks (H100 SXM data sheet): float32 outside the tensor cores
+# and HBM3 bandwidth.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time the card could take for work that moves
+    ``bytes_moved`` (each input read once, each output written once) and
+    does ``ops`` float32 operations: ``bound_ms``, the larger of the two
+    times at the card's peaks, and ``bound_by``, which of them it is."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def call_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` calls after a
     warm-up, from CUDA events around the whole train: everything the call

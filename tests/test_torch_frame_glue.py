@@ -307,5 +307,7 @@ def test_wrappers_raise_off_cpu_without_kernel():
                        meta(n, 3), meta(n, 12), meta(8), (4, 4), 5)
     with pytest.raises(RuntimeError, match="no kernel"):
         rays.frame_rays(u, meta(8, 8, 4), 4, 4, tables={}, form="hf")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        rays.frame_rays(u, meta(8, 8, 4), 4, 4, tables=None, form="dda")
     with pytest.raises(ValueError, match="form"):
-        rays.frame_rays(u, meta(8, 8, 4), 4, 4, tables={}, form="dda")
+        rays.frame_rays(u, meta(8, 8, 4), 4, 4, tables={}, form="raster")

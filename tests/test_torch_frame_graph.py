@@ -1,7 +1,7 @@
 """The frame program (``render/frame_graph.py``) on the CPU.
 
 On the card ``Pipeline.draw_frame`` replays one CUDA graph a frame for
-"fused", "hf" and "volume_fast"; on a CPU pipeline the same frame program
+every tracer ("fused", "hf", "volume" and "volume_fast"); on a CPU pipeline the same frame program
 runs its function eagerly over the same static buffers, so the buffer
 handling (what each world event copies in, what the pipeline keeps) is held
 here against a twin pipeline that renders every frame through
@@ -24,7 +24,7 @@ from raytrace_tpu_torch.ops import hf_tables
 from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
 from raytrace_tpu_torch.render import frame_graph
 from raytrace_tpu_torch.render.camera import Camera
-from raytrace_tpu_torch.render.pipeline import GRAPHED, Pipeline, render_frame
+from raytrace_tpu_torch.render.pipeline import TRACERS, VOLUME_TRACERS, Pipeline, render_frame
 from raytrace_tpu_torch.testing.golden import compare_images
 from raytrace_tpu_torch.utils.blue_noise import get_blue_noise_f32
 
@@ -50,18 +50,18 @@ def _gbuffers_equal(a: dict, b: dict) -> bool:
     return set(a) == set(b) and all(torch.equal(wide(a[k]), wide(b[k])) for k in b)
 
 
-@pytest.mark.parametrize("tracer", GRAPHED)
+@pytest.mark.parametrize("tracer", TRACERS)
 def test_frames_equal_eager_across_world_events(tracer):
-    """A region move (on volume_fast a streamed slab), an edit
-    (volume_fast) and a teleport: every frame of the program equals the
-    twin's eager frame, the pipeline keeps its world in the program's
+    """A region move (on the volume tracers a streamed slab), an edit
+    (the volume tracers) and a teleport: every frame of the program equals
+    the twin's eager frame, the pipeline keeps its world in the program's
     buffers, and a frame held across later draws is unchanged."""
     pipe = Pipeline(width=SIZE, height=SIZE, device="cpu", tracer=tracer)
     twin = Pipeline(width=SIZE, height=SIZE, device="cpu", tracer=tracer)
     cam = _camera()
     for p in (pipe, twin):
         p.teleport(cam)
-    events = ["frame", "move", *(["edit"] if tracer == "volume_fast" else []), "teleport"]
+    events = ["frame", "move", *(["edit"] if tracer in VOLUME_TRACERS else []), "teleport"]
     held = None
     for event in events:
         if event == "move":
@@ -125,8 +125,13 @@ def test_refresh_raises_on_a_changed_layout():
         program.refresh(dict(tables, h3=tables["h3"].to(torch.int64)))
     with pytest.raises(ValueError, match="layout changed"):
         program.refresh({k: v for k, v in tables.items() if k != "cA"})
-    with pytest.raises(ValueError, match="runs eagerly"):
-        frame_graph.FrameProgram(torch.zeros(8), bn, "volume", SIZE, SIZE)
+    with pytest.raises(ValueError, match="unknown tracer"):
+        frame_graph.FrameProgram(torch.zeros(8), bn, "raster", SIZE, SIZE)
+    # The exact DDA's world is the volume alone.
+    volume = frame_graph.FrameProgram(torch.zeros(256 ** 3, dtype=torch.int32), bn, "volume",
+                                      SIZE, SIZE)
+    with pytest.raises(ValueError, match="layout changed"):
+        volume.refresh(torch.zeros(256 ** 3, dtype=torch.int64))
     # The fused program takes no world and no refresh: it builds its tables.
     with pytest.raises(ValueError, match="builds its own"):
         frame_graph.FrameProgram(with_column_heights(tables), bn, "fused", SIZE, SIZE)
@@ -136,18 +141,20 @@ def test_refresh_raises_on_a_changed_layout():
 
 
 def test_validate_and_the_exact_dda_stay_eager(capsys):
-    """``validate`` frames and the exact DDA run ``render_frame`` op by op:
-    no frame program is built for them."""
+    """``validate`` frames, the exact DDA's among them, run ``render_frame``
+    op by op: no frame program is built for them.  Without ``validate``
+    every tracer, the exact DDA too, has its frame program."""
     cam = _camera()
     checked = Pipeline(width=16, height=16, device="cpu", tracer="hf", validate=True)
-    exact = Pipeline(width=16, height=16, device="cpu", tracer="volume")
+    exact = Pipeline(width=16, height=16, device="cpu", tracer="volume", validate=True)
     for p in (checked, exact):
         frame = p.draw_frame(cam, 0.6)
         assert frame.shape == (16, 16, 3) and bool(torch.isfinite(frame).all())
         assert p._programs == {}
-    graphed = Pipeline(width=16, height=16, device="cpu", tracer="hf")
-    graphed.draw_frame(cam, 0.6)
-    assert len(graphed._programs) == 1
+    for tracer in ("hf", "volume"):
+        graphed = Pipeline(width=16, height=16, device="cpu", tracer=tracer)
+        graphed.draw_frame(cam, 0.6)
+        assert len(graphed._programs) == 1
     capsys.readouterr()
 
 

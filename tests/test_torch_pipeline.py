@@ -51,7 +51,7 @@ def port_frame():
     frame, gb = pipeline.render_frame(
         build_hf_tables((0, 0, 0), seed=0),
         torch.from_numpy(get_blue_noise_f32()), torch.from_numpy(u.packed()),
-        64, 64,
+        64, 64, tracer="fused",
     )
     return frame.numpy(), gb
 
@@ -294,7 +294,7 @@ def test_port_sources_import_nothing_of_jax():
         assert not top & {"jax", "jaxlib", "raytrace_tpu"}, (path, top)
     names = {p.relative_to(ROOT / "raytrace_tpu_torch").as_posix() for p in paths}
     assert {"parallel/tiles.py", "testing/ranks.py", "testing/reference_tracer.py",
-            "testing/shading_np.py"} <= names
+            "testing/shading_np.py", "ops/trace_dda.py"} <= names
 
 
 def test_validate_reports_each_frame(capsys):
