@@ -27,7 +27,8 @@ batch P1 between, the shade S2, K2), an edit of the volume, and 20 frames
 of the exact DDA (``tracer="volume"``: R1, D1 once per leg batch, P1, S2,
 K2, one graph replay a frame, each against an eager twin), with D1 held to
 its plain version on that path's three 1024² batches at max_steps 2048 and
-64 and on config 1's (``dda_kernel``).  On the volume path's
+64, on config 1's, on edge batches and in a CUDA graph replayed twice
+(``dda_kernel``).  On the volume path's
 own volume, tables and uniforms it also drives the staged volume tracer:
 K3s against its plain version on the three 1024² leg batches and, at tight
 round budgets (rounds 1-3, caps 2 and 8), on the 256² batches and one 1024²
@@ -131,7 +132,8 @@ def _canonical_uniforms(rt, view=CANON, seed=0):
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` name inside a mangled entry name (its length prefix
     may follow the digits of an anonymous namespace's hash), with the
-    integer arguments of a template instance ("denoise_pass_kernel<2,2>").
+    integer and bool arguments of a template instance
+    ("denoise_pass_kernel<2,2>", "trace_dda_kernel<0,1>").
     Of the candidates, the last: the hash's own digits may spell a length
     that runs to the same end ("...3e76711918shade_fused_kernel")."""
     found = None
@@ -141,9 +143,9 @@ def _kernel_name(mangled: str) -> str:
             length = int(run[k:])
             name = mangled[m.end():m.end() + length]
             if len(name) == length and name.endswith("_kernel"):
-                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + length:])
+                args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[m.end() + length:])
                 if args:
-                    name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+                    name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E", args.group(1))) + ">"
                 found = name
     return found or mangled
 
@@ -1850,9 +1852,91 @@ def _dda_batch(torch, volume, lr, batch, max_steps, timed):
     res["equal"]["steps"] = res["steps"][0] == res["steps"][1]
     if timed:
         d1 = lambda: trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps)
-        res.update(call_ms=measure.call_ms(d1, 10), plain_ms=plain_ms,
-                   floor_ms=measure.launch_floor_ms(((n + 255) // 256, 1), 256, False, 10),
+        blocks = measure.dda_grid(n, active is not None)
+        res.update(call_ms=measure.call_ms(d1, 10), plain_ms=plain_ms, blocks=blocks,
+                   floor_ms=measure.launch_floor_ms((blocks, 1), 256, False, 10),
                    **_alone(d1, 10, KERNEL_NAMES["D1"]))
+    return res
+
+
+def _dda_same(torch, volume, lr, o, d, active, max_steps, got=None) -> dict:
+    """D1's record and ``steps`` (``got``: those of a launch already made,
+    else one launch now) against the plain version's on the same rays,
+    bit for bit."""
+    from raytrace_tpu_torch.ops import trace_dda
+    from raytrace_tpu_torch.ops.integrate import Record
+
+    if got is None:
+        got = trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps)
+    (record, steps), (want, want_steps) = got, trace_dda.march_rays_dda_plain(
+        volume, o, d, active, lr, max_steps)
+    equal = {k: _held(a, b) for k, a, b in zip(Record._fields, record, want)}
+    equal["steps"] = int(steps) == int(want_steps)
+    return dict(rays=o.shape[0], traced=o.shape[0] if active is None else int(active.sum()),
+                steps=[int(steps), int(want_steps)], equal=equal)
+
+
+def _dda_edges(torch, volume, lr, batches, max_steps) -> dict:
+    """D1 against its plain version on edge batches cut from the exact
+    frame's (``batches``: primaries, pair 1, pair 2): n = 1, 31, 33 and 1000
+    rays with and without pair 1's mask; pair 1 all inactive, the primaries
+    all active under a mask, pair 1 under a seeded 80%-inactive mask and
+    pair 1 reversed."""
+    (po, pd, _), (o1, d1, a1), _ = batches
+    gen = torch.Generator(device=o1.device).manual_seed(20)
+    sparse = torch.rand(o1.shape[0], generator=gen, device=o1.device) >= 0.8
+    cases = {}
+    for n in (1, 31, 33, 1000):
+        at = o1.shape[0] // 2 - n // 2  # across pair 1's sun and diffuse halves
+        cut = lambda t: t[at:at + n].contiguous()
+        cases[f"n{n}_masked"] = (cut(o1), cut(d1), cut(a1))
+        cases[f"n{n}_primaries"] = (po[:n].contiguous(), pd[:n].contiguous(), None)
+    cases.update(
+        all_inactive=(o1, d1, torch.zeros_like(a1)),
+        all_active_masked=(po, pd, torch.ones(po.shape[0], dtype=torch.bool, device=po.device)),
+        inactive_80=(o1, d1, sparse),
+        reversed=(o1.flip(0).contiguous(), d1.flip(0).contiguous(), a1.flip(0).contiguous()))
+    res = {k: _dda_same(torch, volume, lr, o, d, a, max_steps) for k, (o, d, a) in cases.items()}
+    res["all_inactive"]["zero_steps"] = res["all_inactive"]["steps"] == [0, 0]
+    return res
+
+
+def _dda_graph(torch, volume, lr, batches, max_steps) -> dict:
+    """D1 captured three times in one CUDA graph (the exact frame's three
+    batches, copied into static inputs) and replayed twice: the first
+    replay on the batches as they are, the second after the primaries are
+    reversed, pair 1 made all inactive and pair 2 given a seeded
+    80%-inactive mask; each replay's records and ``steps`` against the
+    plain version's on that replay's inputs (a counter left from the first
+    replay would leave the second's records stale or its ``steps`` high)."""
+    from raytrace_tpu_torch.ops import trace_dda
+
+    static = [(o.clone(), d.clone(), None if a is None else a.clone()) for o, d, a in batches]
+    run = lambda: [trace_dda.march_rays_dda(volume, o, d, a, lr, max_steps)
+                   for o, d, a in static]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    res = {}
+    for replay in (1, 2):
+        if replay == 2:
+            (po, pd, _), (_, _, a1), (o2, _, a2) = static
+            po.copy_(po.flip(0).clone())
+            pd.copy_(pd.flip(0).clone())
+            a1.zero_()
+            gen = torch.Generator(device=o2.device).manual_seed(20)
+            a2.copy_(torch.rand(o2.shape[0], generator=gen, device=o2.device) >= 0.8)
+        graph.replay()
+        torch.cuda.synchronize()
+        res[f"replay_{replay}"] = [
+            _dda_same(torch, volume, lr, o, d, a, max_steps, got=(rec, steps.clone()))
+            for (o, d, a), (rec, steps) in zip(static, outs)]
+    res["replay_2"][1]["zero_steps"] = res["replay_2"][1]["steps"] == [0, 0]
     return res
 
 
@@ -1862,8 +1946,9 @@ def phase_dda_kernel(torch, dev, pipe):
     volume_exact pipeline; the primaries and each bounce's pair with its
     active flags, ``kernel_times.dda_batches``) at max_steps 2048 and 64,
     and on config 1's single chunk (512² primaries, max_steps 1024); D1
-    timed alone at 2048 beside its grid's launch floor.  No primary may be
-    exhausted at the apps' budgets."""
+    timed alone at 2048 beside its persistent grid's launch floor; then on
+    edge batches (``_dda_edges``) and in a CUDA graph replayed twice
+    (``_dda_graph``).  No primary may be exhausted at the apps' budgets."""
     from raytrace_tpu_torch.apps import benchmark
     from raytrace_tpu_torch.apps.kernel_times import dda_batches
     from raytrace_tpu_torch.ops import rays
@@ -1880,6 +1965,8 @@ def phase_dda_kernel(torch, dev, pipe):
     f = rays.frame_rays(cuni, pipe.blue_noise, 512, 512, tables=None, form="dda")
     res["config1_512_b0"] = _dda_batch(torch, chunk, cuni["lr"],
                                        (f["origin"], f["direction"], None), 1024, True)
+    edges = _dda_edges(torch, volume, uni["lr"], batches, MAX_STEPS)
+    graphed = _dda_graph(torch, volume, uni["lr"], batches, MAX_STEPS)
     main = res[f"main_{MAX_STEPS}"]
     res.update(max_abs_err=max(b["max_abs_err"] for k, v in res.items()
                                for b in (v if isinstance(v, list) else [v])),
@@ -1890,9 +1977,12 @@ def phase_dda_kernel(torch, dev, pipe):
                seconds=time.perf_counter() - t0)
     every = [b for k, v in res.items() if isinstance(v, (list, dict)) and k != "max_abs_err"
              for b in (v if isinstance(v, list) else [v])]
+    every += list(edges.values()) + [b for v in graphed.values() for b in v]
+    res.update(edges=edges, graph=graphed)
     ok = (all(all(b["equal"].values()) for b in every)
           and main[0]["exhausted"] == 0 and res["config1_512_b0"]["exhausted"] == 0
-          and any(b["exhausted"] for b in res["main_64"]))
+          and any(b["exhausted"] for b in res["main_64"])
+          and edges["all_inactive"]["zero_steps"] and graphed["replay_2"][1]["zero_steps"])
     return ok, res
 
 

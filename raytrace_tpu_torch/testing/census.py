@@ -1,4 +1,4 @@
-"""The lane-use census of the march kernels K3 and K4.
+"""The lane-use census of the march kernels K3, K3s, K4 and D1.
 
 A warp runs a loop iteration while any of its 32 lanes has work; its lane
 use is the share of its lane-iterations that made a move::
@@ -6,10 +6,12 @@ use is the share of its lane-iterations that made a move::
     lane_use = moves / (32 * warp_iterations)
 
 ``moves`` come from the kernel's plain version, which counts each path's or
-ray's moves.  ``warp_iterations`` come from the kernel's census counter
-(each warp adds its loop iterations once, at exit) or, for one thread per
-index with 32 consecutive indices to a warp, from the moves themselves:
-such a warp runs as long as its longest index (``static_warp_iterations``).
+ray's moves, or (D1) from the kernel's own census.  ``warp_iterations``
+come from the kernel's census counter (each warp adds its loop iterations
+once, at exit; a window of whole rays, as K3s and D1 walk a batch without
+a mask, counts as its longest ray's) or, for one thread per index with 32
+consecutive indices to a warp, from the moves themselves: such a warp runs
+as long as its longest index (``static_warp_iterations``).
 """
 
 from __future__ import annotations

@@ -22,6 +22,17 @@ Both sides trace the same fused volume (carried over with
   quantum, lighting within 1e-5 on 99.5% of pixels, fog within 1e-6.
 - Whole frames of ``Pipeline(tracer="volume")`` against the JAX
   ``Pipeline`` on the same preloaded volume: within ``compare_images``.
+- The property D1's persistent lanes rely on, on the plain march: a ray's
+  record is its own whatever rays share its batch and in whatever order,
+  and ``steps`` is the largest of the traced rays' moves.  A permuted
+  masked batch gives the permuted record bit for bit and the same
+  ``steps`` (unmasked, also JAX's op by op); a batch cut in two gives the
+  whole batch's record and the larger half's ``steps``; an all-inactive
+  batch gives born-done records and ``steps`` 0; inactive rays add nothing
+  to ``steps``.
+
+Torch runs on two threads, as in the other port tests under the suite's
+workers.
 """
 
 import numpy as np
@@ -36,7 +47,8 @@ from raytrace_tpu.render import pipeline as jax_pipeline
 from raytrace_tpu.render.pipeline import FrameUniforms
 from raytrace_tpu.utils.blue_noise import get_blue_noise_f32
 from raytrace_tpu_torch import convert
-from raytrace_tpu_torch.ops import trace_dda
+from raytrace_tpu_torch.ops import integrate, trace_dda
+from raytrace_tpu_torch.ops.integrate import DDA, Record
 from raytrace_tpu_torch.ops.lighting import EXHAUSTED_DEPTH
 from raytrace_tpu_torch.ops.rays import camera_rays
 from raytrace_tpu_torch.render import pipeline
@@ -45,6 +57,14 @@ from raytrace_tpu_torch.testing.golden import compare_images
 
 MIN_MATCH = 0.995
 SIZE = 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _uniforms():
@@ -129,6 +149,56 @@ def test_trace_rays_matches_jitted_jax(world, rays):
     np.testing.assert_allclose(got["position"][same], want["position"][same],
                                rtol=1e-4, atol=1e-4)
     assert not got["exhausted"].any() and not want["exhausted"].any()
+
+
+@pytest.mark.parametrize("case", ["permuted", "halves", "all_inactive", "inactive_add_nothing"])
+def test_records_ignore_ray_order_and_batch(world, rays, monkeypatch, case):
+    """What lets D1's lanes take rays in any order: each ray's record is
+    its own, and ``steps`` the largest of the traced rays' moves."""
+    fused, vol = world
+    o, d = (torch.from_numpy(a) for a in rays)
+    n = o.shape[0]
+    rng = np.random.default_rng(29)
+    active = torch.from_numpy(rng.random(n) < 0.7)
+    march = lambda o, d, a: trace_dda.march_rays_dda_plain(vol, o, d, a, torch.zeros(3), 2048)
+    whole, steps = march(o, d, active)
+    assert 0 < int(steps) < 2048
+    if case == "permuted":
+        perm = torch.from_numpy(rng.permutation(n))
+        got, got_steps = march(o[perm], d[perm], active[perm])
+        for name, a, b in zip(Record._fields, got, whole):
+            assert torch.equal(a, b[perm]), name
+        assert int(got_steps) == int(steps)
+        # Unmasked, as JAX traces: the permuted batch against JAX op by op.
+        monkeypatch.setattr(trace_jax, "_normalize", _sqrt_normalize)
+        with jax.disable_jit():
+            want = _jax_trace(fused, o[perm].numpy(), d[perm].numpy())
+        record, every_steps = march(o[perm], d[perm], None)
+        got = {k: v.numpy() for k, v in integrate.record_hits(DDA, o[perm], record).items()}
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key], key)
+        assert int(every_steps) == int(want["steps"])
+    elif case == "halves":
+        cut = n // 2 + 17
+        first, first_steps = march(o[:cut], d[:cut], active[:cut])
+        second, second_steps = march(o[cut:], d[cut:], active[cut:])
+        for name, a, b, w in zip(Record._fields, first, second, whole):
+            assert torch.equal(torch.cat([a, b]), w), name
+        assert int(steps) == max(int(first_steps), int(second_steps))
+    elif case == "all_inactive":
+        got, none = march(o, d, torch.zeros(n, dtype=torch.bool))
+        assert int(none) == 0
+        assert torch.equal(got.pos, o)
+        assert not got.normal.any() and not got.air.any() and not got.mat.any()
+    else:
+        _, alone = march(o[active], d[active], None)
+        assert int(steps) == int(alone)
+        # Each ray's own moves: steps of the batch with only ray i traced.
+        longest = max(range(0, n, 97), key=lambda i: int(march(o[i:i + 1], d[i:i + 1], None)[1]))
+        solo = torch.zeros(n, dtype=torch.bool)
+        solo[longest] = True
+        _, one = march(o, d, solo)
+        assert int(one) == int(march(o[longest:longest + 1], d[longest:longest + 1], None)[1])
 
 
 def _gbuffers(fused, vol, bounces, jit, monkeypatch):
