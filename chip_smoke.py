@@ -132,8 +132,7 @@ def _canonical_uniforms(rt, view=CANON, seed=0):
 def _kernel_name(mangled: str) -> str:
     """The ``*_kernel`` name inside a mangled entry name (its length prefix
     may follow the digits of an anonymous namespace's hash), with the
-    integer and bool arguments of a template instance
-    ("denoise_pass_kernel<2,2>", "trace_dda_kernel<0,1>").
+    integer arguments of a template instance ("denoise_pass_kernel<2,2>").
     Of the candidates, the last: the hash's own digits may spell a length
     that runs to the same end ("...3e76711918shade_fused_kernel")."""
     found = None
@@ -143,9 +142,9 @@ def _kernel_name(mangled: str) -> str:
             length = int(run[k:])
             name = mangled[m.end():m.end() + length]
             if len(name) == length and name.endswith("_kernel"):
-                args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[m.end() + length:])
+                args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + length:])
                 if args:
-                    name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E", args.group(1))) + ">"
+                    name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
                 found = name
     return found or mangled
 
@@ -1852,14 +1851,13 @@ def _dda_batch(torch, volume, lr, batch, max_steps, timed):
     res["equal"]["steps"] = res["steps"][0] == res["steps"][1]
     if timed:
         d1 = lambda: trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps)
-        blocks = measure.dda_grid(n, active is not None)
-        res.update(call_ms=measure.call_ms(d1, 10), plain_ms=plain_ms, blocks=blocks,
-                   floor_ms=measure.launch_floor_ms((blocks, 1), 256, False, 10),
+        res.update(call_ms=measure.call_ms(d1, 10), plain_ms=plain_ms,
+                   floor_ms=measure.launch_floor_ms(((n + 255) // 256, 1), 256, False, 10),
                    **_alone(d1, 10, KERNEL_NAMES["D1"]))
     return res
 
 
-def _dda_same(torch, volume, lr, o, d, active, max_steps, got=None) -> dict:
+def _dda_same(volume, lr, o, d, active, max_steps, got=None) -> dict:
     """D1's record and ``steps`` (``got``: those of a launch already made,
     else one launch now) against the plain version's on the same rays,
     bit for bit."""
@@ -1896,7 +1894,7 @@ def _dda_edges(torch, volume, lr, batches, max_steps) -> dict:
         all_active_masked=(po, pd, torch.ones(po.shape[0], dtype=torch.bool, device=po.device)),
         inactive_80=(o1, d1, sparse),
         reversed=(o1.flip(0).contiguous(), d1.flip(0).contiguous(), a1.flip(0).contiguous()))
-    res = {k: _dda_same(torch, volume, lr, o, d, a, max_steps) for k, (o, d, a) in cases.items()}
+    res = {k: _dda_same(volume, lr, o, d, a, max_steps) for k, (o, d, a) in cases.items()}
     res["all_inactive"]["zero_steps"] = res["all_inactive"]["steps"] == [0, 0]
     return res
 
@@ -1907,8 +1905,9 @@ def _dda_graph(torch, volume, lr, batches, max_steps) -> dict:
     replay on the batches as they are, the second after the primaries are
     reversed, pair 1 made all inactive and pair 2 given a seeded
     80%-inactive mask; each replay's records and ``steps`` against the
-    plain version's on that replay's inputs (a counter left from the first
-    replay would leave the second's records stale or its ``steps`` high)."""
+    plain version's on that replay's inputs (a replay that skipped its
+    memset or its launch would leave the second's ``steps`` high or its
+    records stale)."""
     from raytrace_tpu_torch.ops import trace_dda
 
     static = [(o.clone(), d.clone(), None if a is None else a.clone()) for o, d, a in batches]
@@ -1934,7 +1933,7 @@ def _dda_graph(torch, volume, lr, batches, max_steps) -> dict:
         graph.replay()
         torch.cuda.synchronize()
         res[f"replay_{replay}"] = [
-            _dda_same(torch, volume, lr, o, d, a, max_steps, got=(rec, steps.clone()))
+            _dda_same(volume, lr, o, d, a, max_steps, got=(rec, steps.clone()))
             for (o, d, a), (rec, steps) in zip(static, outs)]
     res["replay_2"][1]["zero_steps"] = res["replay_2"][1]["steps"] == [0, 0]
     return res
@@ -1946,7 +1945,7 @@ def phase_dda_kernel(torch, dev, pipe):
     volume_exact pipeline; the primaries and each bounce's pair with its
     active flags, ``kernel_times.dda_batches``) at max_steps 2048 and 64,
     and on config 1's single chunk (512² primaries, max_steps 1024); D1
-    timed alone at 2048 beside its persistent grid's launch floor; then on
+    timed alone at 2048 beside its grid's launch floor; then on
     edge batches (``_dda_edges``) and in a CUDA graph replayed twice
     (``_dda_graph``).  No primary may be exhausted at the apps' budgets."""
     from raytrace_tpu_torch.apps import benchmark

@@ -62,8 +62,6 @@ _SIGNATURES = {
     # origin, direction, active, volume, lr, pos, normal, air, mat, n,
     # max_steps, steps, census, touched, stream
     "rt_trace_dda": [_P] * 9 + [_I] * 2 + [_P] * 4,
-    # n, masked, blocks
-    "rt_trace_dda_grid": [_I] * 2 + [_P],
     # packed, lr, seed, key, h3, hsub, cA, cB, cC, cD, r0, hcol, stream
     "rt_hf_tables": [_P] * 2 + [_I] + [_P] * 10,
     # volume, x0, y0, z0, sx, sy, sz, seed, grass, rock, snow, stream

@@ -350,18 +350,16 @@ _POPCOUNT = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.in
 
 def dda_census(volume, o, d, active, lr, max_steps) -> dict:
     """One D1 launch with its census and touched bitmap: the batch's
-    ``moves``, its warps' loop iterations (``warp_iterations``: one move of
-    every busy lane an iteration, or a window of whole rays counted as its
-    longest ray's moves), ``lane_use`` (moves / 32 x warp_iterations) and
-    ``words``, the distinct volume words its rays read."""
+    ``moves``, its warps' ``lane_use`` (moves / 32 x each warp's longest
+    ray's) and ``words``, the distinct volume words its rays read."""
     dev = o.device
     census = torch.zeros(2, dtype=torch.int64, device=dev)
     touched = torch.zeros(256 ** 3 // 32, dtype=torch.int32, device=dev)
     trace_dda.march_rays_dda(volume, o, d, active, lr, max_steps, census, touched)
-    moves, iterations = census.tolist()
+    moves, warp_moves = census.tolist()
     words = int(_POPCOUNT.to(dev)[touched.view(torch.uint8).long()].sum())
-    return dict(moves=moves, warp_iterations=iterations,
-                lane_use=moves / max(1, 32 * iterations), words=words)
+    return dict(moves=moves, warp_moves=warp_moves,
+                lane_use=moves / max(1, 32 * warp_moves), words=words)
 
 
 def _dda(reps: int, size: int) -> dict:
@@ -384,8 +382,7 @@ def _dda(reps: int, size: int) -> dict:
         d1 = lambda: trace_dda.march_rays_dda(volume, o, d, a, uniforms["lr"], pipe.max_steps)
         work = dda_census(volume, o, d, a, uniforms["lr"], pipe.max_steps)
         n = o.shape[0]
-        blocks = (measure.dda_grid(n, a is not None) if hasattr(measure, "dda_grid")
-                  else (n + 255) // 256)  # a parent checkout: one thread a ray
+        blocks = (n + 255) // 256
         res["batches"].append(dict(
             rays=n, kernel_ms=kernel_ms(d1, reps, "trace_dda_kernel"), call_ms=call_ms(d1, reps),
             floor_ms=measure.launch_floor_ms((blocks, 1), 256, False, reps), **work,

@@ -41,25 +41,11 @@ diffuse pair), at the bench camera (origin (-30,-100,60), pitch -0.3, sun
   equals the shipped library's; then each on the same rays longest first
   (by the plain version's moves) and on the 32 longest alone (their most
   moves, and the microseconds per move of that lone warp).  A parent
-  checkout's K3s is timed alone with ``apps/kernel_times.py``;
-- ``d1``: D1 (``csrc/trace_dda.cu``) on the exact frame's three batches
-  (``kernel_times.dda_batches`` at the ``volume`` pipeline's view): the
-  shipped kernel, the kernel with each other refill rule of the bounce
-  pairs (``D1_RULES``: the idle lanes take new rays once 1, 8 or 16 are
-  idle) and with the primaries stepped one move an iteration as the pairs
-  are (``_d1_variants``, each a library built from a copy of ``csrc/``),
-  timed alone per batch in turns, with each one's census (moves, loop
-  iterations, lane use), the check that every output and ``steps`` equal
-  the shipped library's (and the shipped library's the plain version's),
-  ptxas's registers and spills and the loops of each instance's SASS
-  (``measure.sass_loops``: the instructions of each backward branch's
-  span, innermost first); ``--sass FILE`` writes the shipped instances'
-  SASS there.  A parent checkout's D1 is timed alone with
-  ``apps/kernel_times.py --part dda``.
+  checkout's K3s is timed alone with ``apps/kernel_times.py``.
 
 Usage: python -m raytrace_tpu_torch.apps.march_lanes [--rounds 2]
-[--reps 10] [--size 1024] [--part all|rule|order|split|k3s|d1]
-[--sass FILE] (needs a CUDA GPU)
+[--reps 10] [--size 1024] [--part all|rule|order|split|k3s]
+(needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -68,24 +54,21 @@ import argparse
 import json
 import re
 import shutil
-from pathlib import Path
 
 import torch
 
 from .. import _build
-from ..ops import integrate, lighting, path_vol, trace_dda, trace_hf, trace_vol
+from ..ops import integrate, lighting, path_vol, trace_hf, trace_vol
 from ..render.camera import Camera
 from ..render.pipeline import Pipeline, unpack_uniforms
-from ..testing import measure
 from ..testing.census import lane_use, static_warp_iterations
 from ..testing.measure import call_ms, card, kernel_ms, same
 
 RULES = {"i": "idle == 0xffffffffu", "ii": "idle != 0u", "iii": "__popc(idle) >= 16"}
 _BODY = re.compile(r"(bool refill_now\(unsigned idle\) \{\s*return )[^;]*;")
 _KERNEL = {"k1": "march_paths_kernel", "k3": "march_paths_vol_kernel",
-           "k3s": "trace_rays_vol_kernel", "k4": "trace_hf_kernel", "d1": "trace_dda_kernel"}
+           "k3s": "trace_rays_vol_kernel", "k4": "trace_hf_kernel"}
 _K3S = "trace_rays_vol.cu"
-_D1 = "trace_dda.cu"
 
 
 def _rule(rule: str):
@@ -95,50 +78,6 @@ def _rule(rule: str):
 # K3s's variants: variant -> the edit of its source (the shipped kernel
 # refills on rule iii).
 VARIANTS = {"shipped": None, "rule_i": _rule("i"), "rule_ii": _rule("ii")}
-
-
-# D1's refill rules of the bounce pairs: the idle lanes take new rays once
-# at least this many of a warp's 32 are idle.
-D1_RULES = (1, 8, 16)
-
-
-def _refill_at(idle: int):
-    return lambda text: _BODY.subn(lambda m: m.group(1) + f"__popc(idle) >= {idle};", text)
-
-
-def _shipped_rule() -> int:
-    m = re.search(r"bool refill_now\(unsigned idle\) \{\s*return __popc\(idle\) >= (\d+);",
-                  (_build._CSRC / _D1).read_text())
-    return int(m.group(1))
-
-
-def _swap(old: str, new: str):
-    return lambda text: (text.replace(old, new), text.count(old))
-
-
-def _d1_variants() -> dict:
-    """D1's variants: variant -> the edit of its source (None: shipped):
-    the other refill rules, the primaries stepped, the primaries on a grid
-    of a thread a ray (each warp takes one window and leaves: the block
-    scheduler balances them, as one thread per ray in index order), the
-    register cap of
-    eight blocks an SM lifted, and the window test with a branch after each
-    axis."""
-    rules = {f"refill_{k}": _refill_at(k) for k in D1_RULES if k != _shipped_rule()}
-    return {
-        "shipped": None, **rules,
-        "stepped_primaries": _swap("const bool whole = active == nullptr;",
-                                   "const bool whole = false;"),
-        "ray_grid_primaries": _swap(
-            "  if (err != 0) return err;\n  trace_dda_kernel<kCount, kWhole><<<",
-            "  if (err != 0) return err;\n  if (kWhole) blocks = (n + kThreads - 1) / kThreads;\n"
-            "  trace_dda_kernel<kCount, kWhole><<<"),
-        "open_bounds": _swap("__launch_bounds__(kThreads, kCount ? 1 : 8)",
-                             "__launch_bounds__(kThreads)"),
-        "branchy_window": _swap(
-            "if ((fabsf(l.r.px - lrx) >= kHalf) | (fabsf(l.r.py - lry) >= kHalf) |",
-            "if ((fabsf(l.r.px - lrx) >= kHalf) || (fabsf(l.r.py - lry) >= kHalf) ||"),
-    }
 
 
 def _library(tag: str, edits: dict):
@@ -406,59 +345,10 @@ def _k3s_part(label, size, rounds, reps) -> dict:
     return res
 
 
-def _d1_part(label, size, rounds, reps, sass_out) -> dict:
-    """D1's variants on the exact frame's batches, in turns; the census,
-    the outputs against the shipped library's, ptxas and the SASS loops."""
-    from .kernel_times import _pipeline, dda_batches, dda_census
-
-    pipe, uniforms = _pipeline(size, "volume")
-    volume, lr, steps = pipe.world(), uniforms["lr"], pipe.max_steps
-    batches = dda_batches(volume, pipe.blue_noise, uniforms, size, size, steps, pipe.bounces)
-    calls = [lambda o=o, d=d, a=a: trace_dda.march_rays_dda(volume, o, d, a, lr, steps)
-             for o, d, a in batches]
-    flat = lambda out: list(out[0]) + [out[1]]
-    want = [flat(call()) for call in calls]
-    plain = [flat(trace_dda.march_rays_dda_plain(volume, o, d, a, lr, steps))
-             for o, d, a in batches]
-    if not all(same(x, y) for w, p in zip(want, plain) for x, y in zip(w, p)):
-        raise RuntimeError("d1: the shipped kernel differs from the plain version")
-    shipped = _build.kernels()
-    variants = _d1_variants()
-    libs = {name: shipped if edit is None else _library(f"d1_{name}", {_D1: edit})
-            for name, edit in variants.items()}
-    res = {name: [dict(kernel_ms=[]) for _ in batches] for name in variants}
-    for name in _in_turns(variants, rounds):
-        _build._lib = libs[name]
-        for call, (o, d, a), r, w in zip(calls, batches, res[name], want):
-            if "moves" not in r:
-                if not all(same(x, y) for x, y in zip(flat(call()), w)):
-                    raise RuntimeError(f"d1 {name} differs from the shipped kernel")
-                r.update(rays=o.shape[0], masked=a is not None,
-                         **dda_census(volume, o, d, a, lr, steps))
-            r["kernel_ms"].append(kernel_ms(call, reps, _KERNEL["d1"]))
-    _build._lib = shipped
-    mean = lambda xs: sum(xs) / len(xs)
-    for name in variants:
-        path = Path(libs[name]._name)
-        text = measure.sass_text(path)
-        if name == "shipped" and sass_out:
-            keep = [blk for blk in text.split("Function : ")[1:] if _KERNEL["d1"] in blk]
-            Path(sass_out).parent.mkdir(parents=True, exist_ok=True)
-            Path(sass_out).write_text("".join("Function : " + blk for blk in keep))
-        log = path.with_suffix(".log")
-        print(json.dumps(dict(
-            part="d1", variant=name, card=label, size=size, batches=res[name],
-            frame_ms=sum(mean(r["kernel_ms"]) for r in res[name]),
-            ptxas=measure.ptxas_lines(log.read_text() if log.exists() else "", _KERNEL["d1"]),
-            sass_loops=measure.sass_loops(text, _KERNEL["d1"]))), flush=True)
-    return res
+PARTS = ("rule", "order", "split", "k3s")
 
 
-PARTS = ("rule", "order", "split", "k3s", "d1")
-
-
-def run(rounds: int = 2, reps: int = 10, size: int = 1024, part: str = "all",
-        sass: str | None = None) -> dict:
+def run(rounds: int = 2, reps: int = 10, size: int = 1024, part: str = "all") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the march lanes need a CUDA GPU")
     label = card()
@@ -477,8 +367,6 @@ def run(rounds: int = 2, reps: int = 10, size: int = 1024, part: str = "all",
         out["split"] = _split_part(label, size, k1_call, k1_work, reps)
     if "k3s" in parts:
         out["k3s"] = _k3s_part(label, size, rounds, reps)
-    if "d1" in parts:
-        out["d1"] = _d1_part(label, size, rounds, reps, sass)
     return out
 
 
@@ -488,9 +376,8 @@ def main():
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--part", choices=("all",) + PARTS, default="all")
-    ap.add_argument("--sass", default=None, help="write the shipped D1's SASS to this file")
     args = ap.parse_args()
-    run(args.rounds, args.reps, args.size, args.part, args.sass)
+    run(args.rounds, args.reps, args.size, args.part)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,12 @@
 // Persistent lanes that refill, shared by kernels K3 (trace_vol.cu), K3s
-// (trace_rays_vol.cu), K4 (trace_hf.cu) and D1 (trace_dda.cu); K1
-// (lighting.cu), one thread per pixel, takes only the census.
+// (trace_rays_vol.cu) and K4 (trace_hf.cu); K1 (lighting.cu), one thread per
+// pixel, takes only the census.
 //
 // A march kernel launches one grid that fills the card and lets each lane
 // walk item after item (a path, a ray).  Each warp holds a window of 32
 // consecutive indices, drawn from a counter in device memory with one
-// atomicAdd by lane 0 and a shuffle of the base (`refill`), or from any
-// other source of windows (`refill_from`); a ballot marks the window's
-// live indices.  When the warp refills, its idle lanes take the
+// atomicAdd by lane 0 and a shuffle of the base; a ballot marks the
+// window's live indices.  When the warp refills, its idle lanes take the
 // window's live indices in order, and a new window is drawn when it is used
 // up.  Every lane of a warp stays in the kernel's loop until the warp exits
 // together, so the full-mask ballots and shuffles always see all 32 lanes.
@@ -48,23 +47,24 @@ __device__ __forceinline__ int nth_bit(unsigned m, int r) {
 }
 
 // Give every idle lane (item < 0) the next live index of the warp's window,
-// drawing new windows of the `n` items with `draw(w)` as needed, until no
-// lane is idle or the items run out.  `draw` sets w.base, the same in every
-// lane, and w.drained, whether every later window lies past the end.
-// `live(k)` says whether item k is work; the lane at position p of a new
-// window calls `skip(base + p)` for an item that is not (each writes its
-// own).  -> this lane's item, or -1.  Every lane of the warp calls it
-// together.
-template <typename Draw, typename Live, typename Skip>
-__device__ __forceinline__ int refill_from(int item, Window& w, Draw draw, int n,
-                                          Live live, Skip skip) {
+// drawing new windows of `n` items from `next` as needed, until no lane is
+// idle or the items run out.  `live(k)` says whether item k is work; the
+// lane at position p of a new window calls `skip(base + p)` for an item that
+// is not (each writes its own).  -> this lane's item, or -1.  Every lane of
+// the warp calls it together.
+template <typename Live, typename Skip>
+__device__ __forceinline__ int refill(int item, Window& w, int32_t* next, int n,
+                                     Live live, Skip skip) {
   const int lane = threadIdx.x & 31;
   for (;;) {
     const unsigned idle = __ballot_sync(kFullMask, item < 0);
     if (idle == 0u) return item;
     if (w.left == 0u) {
       if (w.drained) return item;
-      draw(w);
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next, 32);
+      w.base = __shfl_sync(kFullMask, base, 0);
+      w.drained = w.base + 32 >= n;
       const int k = w.base + lane;
       const bool is_live = k < n && live(k);
       if (k < n && !is_live) skip(k);
@@ -77,20 +77,6 @@ __device__ __forceinline__ int refill_from(int item, Window& w, Draw draw, int n
     if (item < 0 && rank < take) item = w.base + nth_bit(w.left, rank);
     w.left = take == have ? 0u : w.left & ~((1u << nth_bit(w.left, take)) - 1u);
   }
-}
-
-// refill_from with the windows in index order from the counter `next` in
-// device memory, which the launch zeroes.
-template <typename Live, typename Skip>
-__device__ __forceinline__ int refill(int item, Window& w, int32_t* next, int n,
-                                     Live live, Skip skip) {
-  const auto draw = [=](Window& v) {
-    int base = 0;
-    if ((threadIdx.x & 31) == 0) base = atomicAdd(next, 32);
-    v.base = __shfl_sync(kFullMask, base, 0);
-    v.drained = v.base + 32 >= n;
-  };
-  return refill_from(item, w, draw, n, live, skip);
 }
 
 // Add the warp's loop iterations to the census counter (if any), once per

@@ -1,4 +1,4 @@
-// Kernel D1: the exact DDA over the fused volume, on persistent lanes.
+// Kernel D1: the exact DDA over the fused volume, one thread per ray.
 //
 // Replaces the jitted JAX program raytrace_tpu/ops/trace_jax.py
 // `trace_rays` (:59-165), a `lax.while_loop` that XLA runs inside the
@@ -17,9 +17,8 @@
 // (use_x = lx < ly & lx < lz, use_y = !(lx < ly) & ly < lz); the fused word
 // at floor(p + 128) mod 256.  The ray is air where |p - lr| >= 128 on an
 // axis, a hit where the word's step is <= 0, else it takes the word's step
-// size.  A ray that is done stops moving, so a lane that walks its ray
-// until it is done gives JAX's lock-step loop's results ray by ray, in
-// whatever order the lanes take the rays.
+// size.  A ray that is done stops moving, so a thread that loops until its
+// ray is done gives JAX's lock-step loop's results ray by ray.
 //
 // Per ray it writes the position before any nudge, the entry-face normal
 // id, air (bool) and `mat` int32: the hit's packed word (fused &
@@ -27,43 +26,37 @@
 // word) where the ray is not done after `max_steps` moves.  An inactive ray
 // (`active` given and 0) is born done at its origin: normal 0, not air,
 // mat 0, no move.  `steps` is JAX's loop counter: one past the last move
-// that finished a ray, or `max_steps` while a ray is still live.  Each lane
-// keeps the most moves of the rays it finished; at its exit each warp takes
-// its lanes' maximum and one lane adds it with atomicMax to the device
-// int32 that the C entry zeroes on the launching stream, so nothing is read
-// on the host and the launch sits inside the frame's CUDA graph.  An optional `census`
-// (2,) int64 gathers the work: the rays' moves go to census[0] and each
-// warp's loop iterations to census[1] (lanes.cuh `add_census`; a window of
-// whole rays counts as its longest), so census[0] / (32 * census[1]) is the
-// share of lane-iterations that make a move; an optional `touched` bitmap
-// (256^3 bits) gets the bit of every volume word a ray reads, so its count
-// is the words the batch needs.  Counting is a template instance of its
-// own (kCount 1), so the frame's launches carry no test for it.
+// that finished a ray, or `max_steps` while a ray is still live; each warp
+// takes its lanes' maximum and one lane adds it with atomicMax to the
+// device int32 that the C entry zeroes on the launching stream, so nothing
+// is read on the host and the launch sits inside the frame's CUDA graph.
+// An optional `census` (2,) int64 gathers the work: each warp adds its
+// rays' moves to census[0] and its longest ray's to census[1] (the moves
+// the warp's lanes are held for), so census[0] / (32 * census[1]) is the
+// share of lane moves that do work; an optional `touched` bitmap (256^3
+// bits) gets the bit of every volume word a ray reads, so its count is the
+// words the batch needs.  Counting is a template instance of its own
+// (kCount 1), so the frame's launches carry no test for it.
 //
 // What bounds it on the H100: neither bytes (a ray reads 24-25 and writes
 // 21, and a move one 4-byte word) nor float32 operations (42 a move), but
-// the latency of each move's dependent 4-byte gather from the 64 MiB
-// volume, and the lanes that wait on it.  The first form, one thread per
-// ray in index order, kept an inactive ray's lane for its warp's whole life
-// and held every lane until its warp's longest ray was done: a bounce pair
-// batch's lane use was 0.52 and 0.12.  So, as K3s (trace_rays_vol.cu):
-//  - persistent lanes (lanes.cuh `refill_from`): a grid that fills the
-//    card, each warp drawing windows of 32 ray indices; an inactive ray is
-//    written born done as its window is drawn and never takes a lane;
-//  - for a batch with an active mask (the bounce pairs), one move per
-//    iteration (`step_ray`): a lane whose ray is done writes its record and
-//    goes idle, and the idle lanes refill once 16 are idle (`refill_now`);
-//  - for a batch without one (the primaries, config 1's chunk: coherent,
-//    every ray live), each lane walks its ray whole and the warp draws its
-//    next window when all 32 are done: a refill mid-flight stalls the warp
-//    on its new rays' loads.
-// The refill rule is the one edit point: apps/march_lanes.py --part d1
-// times rules 1 and 8 against it, and the primaries stepped.
+// the instructions of each move (a loop of 94 in SASS around one dependent
+// 4-byte gather) and its latency.  The primaries and the first pair batch
+// run near the instruction rate of the 64 warps an SM that this form's 32
+// registers allow; the second pair batch's time is set by its longest ray
+// (161 moves at the apps' view).  So it stays one thread per ray in index
+// order.  Persistent lanes that refill (lanes.cuh, as K3s) raise the pair
+// batches' lane use from 0.52 and 0.12 to 0.66-0.78 and 0.33-0.39, but a
+// lane's window, ray index and share of `steps` do not fit beside the ray
+// in 32 registers: capped there the loop spills (lr read from local memory
+// every move), uncapped it holds 6 blocks an SM, and either way a warp
+// iteration costs 1.3x (whole rays) to 1.9x (one move an iteration) this
+// form's.  Every form of them lost on every batch, in turns with this one
+// (PERF.md section 6 gives their times and where their code is).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lanes.cuh"
 #include "vol_march.cuh"
 
 namespace {
@@ -72,12 +65,6 @@ constexpr int kThreads = 256;
 constexpr int32_t kStepShift = 24;
 constexpr int32_t kMaterialMask = (1 << kStepShift) - 1;
 constexpr int32_t kExhausted = 1 << kStepShift;
-
-// The refill rule of a batch with an active mask: the idle lanes of a warp
-// take new rays once at least 16 of its 32 lanes are idle.
-__device__ __forceinline__ bool refill_now(unsigned idle) {
-  return __popc(idle) >= 16;
-}
 
 // ops/trace_dda.py `_step_size`: (1 << s) // 2 as float32 with PyTorch's
 // shift, 0 for a shift below 0 or of 32 and more; 1 << 31 is INT32_MIN,
@@ -124,184 +111,69 @@ __device__ __forceinline__ void move(Ray& r, float ss) {
   r.pz = r.pz + r.vz * lmin;
 }
 
-// A lane's ray, the step size of the word it stands on, and its moves so
-// far.
-struct Lane {
-  Ray r;
-  float ss;
-  int32_t moves;
-};
-
-// Ray i from its origin: the direction terms and the start step.
 template <int kCount>
-__device__ __forceinline__ void start_ray(Lane& l, int i, const float* __restrict__ origin,
-                                          const float* __restrict__ direction,
-                                          const int32_t* __restrict__ volume,
-                                          uint32_t* __restrict__ touched) {
-  l.r.px = origin[3 * (size_t)i];
-  l.r.py = origin[3 * (size_t)i + 1];
-  l.r.pz = origin[3 * (size_t)i + 2];
-  l.r.normal = 0;
-  set_direction(l.r, direction[3 * (size_t)i], direction[3 * (size_t)i + 1],
-                direction[3 * (size_t)i + 2]);
-  l.ss = step_size(word_at<kCount>(volume, l.r, touched) >> kStepShift);
-  l.moves = 0;
-}
-
-// One move of the lane's ray and the tests of trace_rays's loop body, in
-// its order: out of the window is air, a word whose step is <= 0 a hit, and
-// the `max_steps`-th move without either leaves the ray exhausted; else the
-// word's step size is the next move's.  -> whether the ray is done; then
-// `air` and `mat` hold its record.
-template <int kCount>
-__device__ __forceinline__ bool step_ray(Lane& l, bool& air, int32_t& mat,
-                                         const int32_t* __restrict__ volume, float lrx,
-                                         float lry, float lrz, int max_steps,
-                                         uint32_t* __restrict__ touched) {
-  move(l.r, l.ss);
-  const int32_t word = word_at<kCount>(volume, l.r, touched);
-  ++l.moves;
-  // Every axis is tested, with no branch between the tests.
-  if ((fabsf(l.r.px - lrx) >= kHalf) | (fabsf(l.r.py - lry) >= kHalf) |
-      (fabsf(l.r.pz - lrz) >= kHalf)) {
-    air = true;
-    mat = 0;
-    return true;
-  }
-  const int32_t s = word >> kStepShift;
-  if (s <= 0) {
-    mat = word & kMaterialMask;
-    return true;
-  }
-  if (l.moves == max_steps) {
-    mat = kExhausted;
-    return true;
-  }
-  l.ss = step_size(s);
-  return false;
-}
-
-// kWhole: each lane walks its ray whole and the warp refills only when all
-// 32 lanes are idle (batches without a mask); else one move per iteration
-// with refill_now's rule (batches with one).  The frame's instances keep
-// eight blocks an SM; the counting ones, whose census needs more
-// registers, are bounded by the threads alone and launched on the same
-// grid.
-template <int kCount, bool kWhole>
-__global__ void __launch_bounds__(kThreads, kCount ? 1 : 8)
+__global__ void __launch_bounds__(kThreads)
     trace_dda_kernel(const float* __restrict__ origin, const float* __restrict__ direction,
                      const uint8_t* __restrict__ active, const int32_t* __restrict__ volume,
                      const float* __restrict__ lr, float* __restrict__ pos_out,
                      int32_t* __restrict__ normal_out, uint8_t* __restrict__ air_out,
                      int32_t* __restrict__ mat_out, int n, int max_steps,
-                     int32_t* __restrict__ steps, long long* __restrict__ census,
+                     int32_t* __restrict__ steps, unsigned long long* __restrict__ census,
                      uint32_t* __restrict__ touched) {
-  // The block's windows: its k-th draw is window blockIdx.x + k * gridDim.x,
-  // k from a ticket in shared memory that its warps draw in turn.
-  __shared__ int32_t ticket;
-  // Each warp's window and the most moves of a ray its lanes finished live
-  // in shared memory, out of the registers: the lanes' rays keep the 32
-  // registers that eight blocks an SM leave them, without spilling.
-  constexpr int kWarps = kThreads / 32;
-  __shared__ alignas(Window) unsigned char window_bytes[kWarps * sizeof(Window)];
-  __shared__ int32_t most_moves[kWarps];
-  Window* const windows = reinterpret_cast<Window*>(window_bytes);
-  if (threadIdx.x == 0) ticket = 0;
-  if (threadIdx.x < kWarps) {
-    windows[threadIdx.x] = Window();
-    most_moves[threadIdx.x] = 0;
-  }
-  __syncthreads();
-  int32_t* const next = &ticket;
-  const auto draw = [=](Window& v) {
-    int k = 0;
-    if ((threadIdx.x & 31) == 0) k = atomicAdd(next, 1);
-    v.base = (blockIdx.x + __shfl_sync(kFullMask, k, 0) * gridDim.x) * 32;
-    v.drained = v.base + 32 * gridDim.x >= n;
-  };
-  const float lrx = lr[0], lry = lr[1], lrz = lr[2];
-  // A ray that takes no lane: an inactive ray is born done at its origin
-  // (mat 0); with no moves to make, an active ray is exhausted there.
-  const auto live = [=](int k) {
-    return max_steps > 0 && (active == nullptr || active[k] != 0);
-  };
-  const auto skip = [=](int k) {
-    pos_out[3 * (size_t)k] = origin[3 * (size_t)k];
-    pos_out[3 * (size_t)k + 1] = origin[3 * (size_t)k + 1];
-    pos_out[3 * (size_t)k + 2] = origin[3 * (size_t)k + 2];
-    normal_out[k] = 0;
-    air_out[k] = 0;
-    mat_out[k] = active != nullptr && active[k] == 0 ? 0 : kExhausted;
-  };
-
-  Lane l;
-  Window* const window = windows + (threadIdx.x >> 5);  // the same in every lane
-  int32_t* const last = most_moves + (threadIdx.x >> 5);
-  int i = -1;  // this lane's ray, -1 while idle
-  long long iterations = 0, moves = 0;  // the census (kCount)
-  for (;;) {
-    // Without a refill, fewer lanes are idle than refill_now asks for, so
-    // some lane is busy.
-    if (kWhole || refill_now(__ballot_sync(kFullMask, i < 0))) {
-      const int held = i;
-      Window w = *window;
-      i = refill_from(i, w, draw, n, live, skip);
-      *window = w;  // every lane stores the same window
-      __syncwarp();
-      if (held < 0 && i >= 0) start_ray<kCount>(l, i, origin, direction, volume, touched);
-      if (!__any_sync(kFullMask, i >= 0)) break;
-    }
-    bool done = false, air = false;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  int32_t last = 0;  // this ray's moves: its share of `steps`
+  if (i < n) {
+    Ray r;
+    r.px = origin[3 * (size_t)i];
+    r.py = origin[3 * (size_t)i + 1];
+    r.pz = origin[3 * (size_t)i + 2];
+    r.normal = 0;
+    bool air = false;
     int32_t mat = 0;
-    if (i >= 0) {
-      if (kWhole) {
-        do {
-          done = step_ray<kCount>(l, air, mat, volume, lrx, lry, lrz, max_steps, touched);
-        } while (!done);
-      } else {
-        done = step_ray<kCount>(l, air, mat, volume, lrx, lry, lrz, max_steps, touched);
+    if (active == nullptr || active[i] != 0) {
+      set_direction(r, direction[3 * (size_t)i], direction[3 * (size_t)i + 1],
+                    direction[3 * (size_t)i + 2]);
+      const float lrx = lr[0], lry = lr[1], lrz = lr[2];
+      float ss = step_size(word_at<kCount>(volume, r, touched) >> kStepShift);
+      mat = kExhausted;
+      last = max_steps;
+      for (int k = 0; k < max_steps; ++k) {
+        move(r, ss);
+        const int32_t word = word_at<kCount>(volume, r, touched);
+        if (fabsf(r.px - lrx) >= kHalf || fabsf(r.py - lry) >= kHalf ||
+            fabsf(r.pz - lrz) >= kHalf) {
+          air = true;
+          mat = 0;
+          last = k + 1;
+          break;
+        }
+        const int32_t s = word >> kStepShift;
+        if (s <= 0) {
+          mat = word & kMaterialMask;
+          last = k + 1;
+          break;
+        }
+        ss = step_size(s);
       }
     }
-    if (kCount) iterations += kWhole ? __reduce_max_sync(kFullMask, i >= 0 ? l.moves : 0) : 1;
-    if (done) {
-      pos_out[3 * (size_t)i] = l.r.px;
-      pos_out[3 * (size_t)i + 1] = l.r.py;
-      pos_out[3 * (size_t)i + 2] = l.r.pz;
-      normal_out[i] = l.r.normal;
-      air_out[i] = air;
-      mat_out[i] = mat;
-      atomicMax(last, l.moves);
-      if (kCount) moves += l.moves;
-      i = -1;
+    pos_out[3 * (size_t)i] = r.px;
+    pos_out[3 * (size_t)i + 1] = r.py;
+    pos_out[3 * (size_t)i + 2] = r.pz;
+    normal_out[i] = r.normal;
+    air_out[i] = air;
+    mat_out[i] = mat;
+  }
+  // Every lane of the warp gets here (the grid is whole warps).
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int32_t most = __reduce_max_sync(0xffffffffu, last);
+  if (lead && most > 0) atomicMax(steps, most);
+  if (kCount && census != nullptr) {
+    const int32_t moves = __reduce_add_sync(0xffffffffu, last);
+    if (lead) {
+      atomicAdd(census, (unsigned long long)moves);
+      atomicAdd(census + 1, (unsigned long long)most);
     }
   }
-  // Every lane of the warp leaves the loop together.
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0 && *last > 0) atomicMax(steps, *last);
-  if (kCount && census != nullptr) {
-    if (moves > 0)
-      atomicAdd(reinterpret_cast<unsigned long long*>(census), (unsigned long long)moves);
-    add_census(census + 1, iterations);
-  }
-}
-
-// The persistent grids of the frame's instances (kWhole), from the first
-// launch.
-int grid_cache[2] = {};
-
-template <int kCount, bool kWhole>
-int launch(const float* origin, const float* direction, const uint8_t* active,
-           const int32_t* volume, const float* lr, float* pos, int32_t* normal, uint8_t* air,
-           int32_t* mat, int n, int max_steps, int32_t* steps, long long* census,
-           uint32_t* touched, cudaStream_t stream) {
-  int blocks = 0;
-  const int err = persistent_grid(trace_dda_kernel<0, kWhole>, kThreads, n,
-                                  grid_cache[kWhole], blocks);
-  if (err != 0) return err;
-  trace_dda_kernel<kCount, kWhole><<<blocks, kThreads, 0, stream>>>(
-      origin, direction, active, volume, lr, pos, normal, air, mat, n, max_steps, steps,
-      census, touched);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -317,34 +189,22 @@ extern "C" int rt_trace_dda(const float* origin, const float* direction, const u
                             int32_t* normal, uint8_t* air, int32_t* mat, int n,
                             int max_steps, int32_t* steps, long long* census,
                             int32_t* touched, void* stream) {
-  if (n < 0 || max_steps < 0 || steps == nullptr ||
-      (n > 0 && (volume == nullptr || lr == nullptr)))
+  if (n < 0 || max_steps < 0 || steps == nullptr || (n > 0 && (volume == nullptr ||
+                                                                lr == nullptr)))
     return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(steps, 0, sizeof(int32_t), s);
+  int err = (int)cudaMemsetAsync(steps, 0, sizeof(int32_t), (cudaStream_t)stream);
   if (err != 0 || n == 0) return err;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  auto* counts = reinterpret_cast<unsigned long long*>(census);
   auto* bits = reinterpret_cast<uint32_t*>(touched);
-  const bool whole = active == nullptr;
   if (census != nullptr || touched != nullptr) {
-    if (whole)
-      return launch<1, true>(origin, direction, active, volume, lr, pos, normal, air, mat, n,
-                             max_steps, steps, census, bits, s);
-    return launch<1, false>(origin, direction, active, volume, lr, pos, normal, air, mat, n,
-                            max_steps, steps, census, bits, s);
+    trace_dda_kernel<1><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        origin, direction, active, volume, lr, pos, normal, air, mat, n, max_steps, steps,
+        counts, bits);
+  } else {
+    trace_dda_kernel<0><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        origin, direction, active, volume, lr, pos, normal, air, mat, n, max_steps, steps,
+        counts, bits);
   }
-  if (whole)
-    return launch<0, true>(origin, direction, active, volume, lr, pos, normal, air, mat, n,
-                           max_steps, steps, census, bits, s);
-  return launch<0, false>(origin, direction, active, volume, lr, pos, normal, air, mat, n,
-                          max_steps, steps, census, bits, s);
-}
-
-// The grid of D1's frame instance for n rays, with (`masked` 1) or without
-// an active mask: blocks[0] blocks of kThreads threads.
-extern "C" int rt_trace_dda_grid(int n, int masked, int* blocks) {
-  if (n < 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
-  return masked ? persistent_grid(trace_dda_kernel<0, false>, kThreads, n, grid_cache[0],
-                                  blocks[0])
-                : persistent_grid(trace_dda_kernel<0, true>, kThreads, n, grid_cache[1],
-                                  blocks[0]);
+  return (int)cudaGetLastError();
 }

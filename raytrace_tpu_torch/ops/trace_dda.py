@@ -4,7 +4,7 @@
 Port of ``raytrace_tpu/ops/trace_jax.py:59-165`` (``trace_rays``) and
 ``:191-215`` (``render_gbuffers``).  The JAX package runs this march as a
 jitted ``lax.while_loop``, not a Pallas kernel; on the card the port runs
-it as kernel D1 (``csrc/trace_dda.cu``, on persistent lanes), and on the CPU
+it as kernel D1 (``csrc/trace_dda.cu``, one thread per ray), and on the CPU
 as its plain version ``march_rays_dda_plain``.  It is the reference the
 volume tracers are held to, and the whole frame of ``tracer="volume"``.
 
@@ -128,15 +128,13 @@ def march_rays_dda(volume: torch.Tensor, origin: torch.Tensor, direction: torch.
     the region centre.  CPU tensors take ``march_rays_dda_plain``; CUDA
     tensors launch D1 (``csrc/trace_dda.cu``) on the current stream, which
     reads ``lr`` on the device and writes ``steps`` there (no host read),
-    and ``march_rays_dda.launches`` counts those launches.
-    Any other device raises.  ``census``, a (2,) int64 tensor on the card,
-    or None: D1 adds the moves of the batch's rays to ``census[0]`` and
-    each warp's loop iterations to ``census[1]`` (a window of whole rays,
-    in a batch without a mask, counts as its longest ray's moves), so
-    ``census[0] / (32 * census[1])`` is the lane use; ``touched``, a (2^19,)
-    int32 bitmap on the card, or None: D1 sets the bit of every volume word
-    a ray reads (bit ``i & 31`` of word ``i >> 5`` for the linear texel
-    ``i``).  Both are for measurement.
+    and ``march_rays_dda.launches`` counts those launches.  Any other
+    device raises.  ``census``, a (2,) int64 tensor on the card, or None:
+    D1 adds the moves of the batch's rays to ``census[0]`` and, per warp of
+    32 rays in index order, its longest ray's moves to ``census[1]``;
+    ``touched``, a (2^19,) int32 bitmap on the card, or None: D1 sets the
+    bit of every volume word a ray reads (bit ``i & 31`` of word ``i >> 5``
+    for the linear texel ``i``).  Both are for measurement.
     """
     dev = origin.device
     if dev.type == "cpu":

@@ -8,10 +8,11 @@ use is the share of its lane-iterations that made a move::
 ``moves`` come from the kernel's plain version, which counts each path's or
 ray's moves, or (D1) from the kernel's own census.  ``warp_iterations``
 come from the kernel's census counter (each warp adds its loop iterations
-once, at exit; a window of whole rays, as K3s and D1 walk a batch without
-a mask, counts as its longest ray's) or, for one thread per index with 32
-consecutive indices to a warp, from the moves themselves: such a warp runs
-as long as its longest index (``static_warp_iterations``).
+once, at exit; a window of whole rays, as K3s walks a batch without a
+mask, counts as its longest ray's, and so does D1's warp of 32 rays in
+index order) or, for one thread per index with 32 consecutive indices to
+a warp, from the moves themselves: such a warp runs as long as its
+longest index (``static_warp_iterations``).
 """
 
 from __future__ import annotations

@@ -161,19 +161,6 @@ def worldgen_grid(w0, shape_xyz) -> dict:
     return dict(blocks=(grid[0], grid[1]), threads=STRIP_THREADS, z_chunk=grid[2])
 
 
-def dda_grid(n: int, masked: bool) -> int:
-    """The blocks of the persistent grid D1 launches for ``n`` rays, with
-    or without an active mask (blocks of 256 threads)."""
-    import ctypes
-
-    from .. import _build
-
-    blocks = (ctypes.c_int32 * 1)()
-    _build.check_launch("rt_trace_dda_grid", _build.kernels().rt_trace_dda_grid(
-        n, int(masked), ctypes.addressof(blocks)))
-    return blocks[0]
-
-
 def pass_keys(sizes) -> list:
     """Keys of a denoise chain's passes: the size ("8#2" for the second
     pass at 8), "fin" for the last."""
@@ -209,7 +196,11 @@ SASS_OPS = ("LDG", "LDS", "STG", "MUFU.RCP", "FCHK", "FADD", "FMUL", "FFMA", "BR
 def sass_counts(library: Path) -> dict:
     """Per kernel of a built library (``cuobjdump -sass``): its SASS
     instruction count and the counts of the opcodes of ``SASS_OPS``."""
-    text = sass_text(library)
+    from .._build import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
     out, name, ops = {}, None, Counter()
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -225,65 +216,6 @@ def sass_counts(library: Path) -> dict:
                 if op == want or op.startswith(want + "."):
                     ops[want] += 1
     return {k: dict(v) for k, v in out.items()}
-
-
-def sass_text(library: Path) -> str:
-    """``cuobjdump -sass`` of a built library."""
-    from .._build import _nvcc
-
-    tool = Path(_nvcc()).parent / "cuobjdump"
-    return subprocess.run([str(tool), "-sass", str(library)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-
-
-_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")
-
-
-def sass_loops(text: str, prefix: str) -> dict:
-    """The loops of each kernel of ``cuobjdump -sass`` output ``text``
-    whose (mangled) name contains ``prefix``: for each backward branch, the
-    instructions from its target to the branch, both included, innermost
-    (shortest) first."""
-    out, name, addrs = {}, None, []
-    for line in text.splitlines() + ["Function : <end>"]:
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            if name is not None and prefix in name:
-                spans = [(a - t) // 16 + 1 for a, op in addrs
-                         for t in _branch_target(op) if t < a]
-                out[name] = sorted(spans)
-            name, addrs = m.group(1), []
-            continue
-        m = _SASS_LINE.match(line)
-        if m and name is not None:
-            addrs.append((int(m.group(1), 16), m.group(2)))
-    return out
-
-
-def _branch_target(op: str) -> list:
-    m = re.match(r"(?:@!?U?P\w+\s+)?BRA(?:\.\S+)?\s+(?:.*,\s*)?`?\(?(0x[0-9a-f]+)", op)
-    return [int(m.group(1), 16)] if m else []
-
-
-def ptxas_lines(log: str, prefix: str) -> dict:
-    """Per kernel of a build log (``nvcc -Xptxas -v``) whose mangled name
-    contains ``prefix``: ptxas's resource line (registers, shared memory)
-    and its stack frame and spill line."""
-    out, frames, entry = {}, {}, None
-    lines = log.splitlines()
-    for k, line in enumerate(lines):
-        m = re.search(r"Function properties for (\w+)", line)
-        if m and k + 1 < len(lines):
-            frames[m.group(1)] = lines[k + 1].strip()
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            entry = m.group(1)
-        if entry and "registers" in line:
-            if prefix in entry:
-                out[entry] = dict(resources=line.split(":", 1)[1].strip(),
-                                  frame=frames.get(entry))
-            entry = None
-    return out
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -22,9 +22,10 @@ Both sides trace the same fused volume (carried over with
   quantum, lighting within 1e-5 on 99.5% of pixels, fog within 1e-6.
 - Whole frames of ``Pipeline(tracer="volume")`` against the JAX
   ``Pipeline`` on the same preloaded volume: within ``compare_images``.
-- The property D1's persistent lanes rely on, on the plain march: a ray's
-  record is its own whatever rays share its batch and in whatever order,
-  and ``steps`` is the largest of the traced rays' moves.  A permuted
+- The property any reordering of D1's rays relies on (lanes that refill,
+  longest first), on the plain march: a ray's record is its own whatever
+  rays share its batch and in whatever order, and ``steps`` is the largest
+  of the traced rays' moves.  A permuted
   masked batch gives the permuted record bit for bit and the same
   ``steps`` (unmasked, also JAX's op by op); a batch cut in two gives the
   whole batch's record and the larger half's ``steps``; an all-inactive
@@ -153,8 +154,8 @@ def test_trace_rays_matches_jitted_jax(world, rays):
 
 @pytest.mark.parametrize("case", ["permuted", "halves", "all_inactive", "inactive_add_nothing"])
 def test_records_ignore_ray_order_and_batch(world, rays, monkeypatch, case):
-    """What lets D1's lanes take rays in any order: each ray's record is
-    its own, and ``steps`` the largest of the traced rays' moves."""
+    """What lets D1 take rays in any order: each ray's record is its own,
+    and ``steps`` the largest of the traced rays' moves."""
     fused, vol = world
     o, d = (torch.from_numpy(a) for a in rays)
     n = o.shape[0]
@@ -193,12 +194,8 @@ def test_records_ignore_ray_order_and_batch(world, rays, monkeypatch, case):
     else:
         _, alone = march(o[active], d[active], None)
         assert int(steps) == int(alone)
-        # Each ray's own moves: steps of the batch with only ray i traced.
-        longest = max(range(0, n, 97), key=lambda i: int(march(o[i:i + 1], d[i:i + 1], None)[1]))
-        solo = torch.zeros(n, dtype=torch.bool)
-        solo[longest] = True
-        _, one = march(o, d, solo)
-        assert int(one) == int(march(o[longest:longest + 1], d[longest:longest + 1], None)[1])
+        _, every = march(o, d, None)
+        assert int(every) >= int(steps)
 
 
 def _gbuffers(fused, vol, bounces, jit, monkeypatch):
