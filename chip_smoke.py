@@ -56,7 +56,14 @@ denoise run band after band in the process (``k2_bands``: halo and gather
 plans), ``render_frame_tiled`` over a one-rank NCCL group and with no
 group (``tiled_nccl``), and config 5 at 3840x2160 (``config5_4k_*``: K1,
 K3 and K2 against plain at the 4K width, then the config for fused and
-volume_fast with its ``parity``).  The frame as one CUDA graph replay
+volume_fast with its ``parity``).  Then JAX's calls (``jax_api``):
+``render_frame`` of a uniforms dict with ``with_gbuffers`` on each tracer at
+1024² against ``render_frame_packed`` and ``draw_frame``, ``Pipeline`` by
+position in JAX's order, ``create_instance(None, ...)``, a fused pipeline
+with a preloaded volume against one without, ``generate_box`` without the
+minefield (G1's form for any box) word for word against its plain version
+on unaligned boxes and at 256³, timed alone beside its bound, the profile
+app's trace and each entry point's default device, the card.  The frame as one CUDA graph replay
 (``graph_frames_*``): each graphed tracer's ``draw_frame`` against an
 eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
 and a teleport, with its launch counts (on the volume tracers G1 once a
@@ -466,7 +473,7 @@ def _k3s_batches(volume, tables, blue, uniforms, size, max_steps, bounces):
         batches.append((o, d, active, hit))
         return hit
 
-    gb = integrate.integrate_gbuffers(trace, blue, uniforms, size, size, bounces)
+    gb = integrate.integrate_gbuffers(trace, blue, uniforms, size, size, bounces=bounces)
     return gb, batches
 
 
@@ -611,7 +618,7 @@ def phase_staged_vs_path(torch, pipe, max_steps=4096):
     staged, batches = _k3s_batches(volume, tables, pipe.blue_noise, uniforms, W, max_steps,
                                    pipe.bounces)
     path = path_vol.render_gbuffers_path(volume, tables, pipe.blue_noise, uniforms, W, H,
-                                         max_steps, pipe.bounces)
+                                         max_steps, bounces=pipe.bounces)
     cut = torch.zeros(H * W, dtype=torch.bool, device=pipe.device)
     for _, _, active, hit in batches:
         ex = hit["exhausted"] if active is None else hit["exhausted"] & active
@@ -964,6 +971,253 @@ def phase_generate_box_kernel(rt, torch, dev):
     torch.cuda.synchronize()
     return ok, res
 
+# generate_box without the minefield (G1's form for any box): the boxes of
+# tests/test_torch_api.py (unaligned, negative origins, one voxel, one
+# column), a chunk and the 256³ box; the three timed alone.
+BARE_BOXES = [("chunk_0_0_0", (0, 0, 0), (64, 64, 64)),
+              ("unaligned_100x77x45", (-37, 21, -5), (100, 77, 45)),
+              ("negative_origin", (-131, -67, -30), (33, 70, 80)),
+              ("across_the_surface", (5, -9, 2), (31, 17, 20)),
+              ("one_voxel", (-1, -1, -1), (1, 1, 1)),
+              ("one_voxel_above", (13, 7, 90), (1, 1, 1)),
+              ("one_column", (-300, 517, -3), (1, 1, 64)),
+              ("box_256", (-128, -128, -128), (256, 256, 256))]
+BARE_TIMED = ("chunk_0_0_0", "unaligned_100x77x45", "box_256")
+BARE_SEED = 3
+JAX_API_TRACERS = ("fused", "hf", "volume_fast", "volume")
+
+
+def _box_bound(origin, shape, bytes_per_voxel) -> dict:
+    """G1's bound for a box: the bytes it writes, and the lattice points
+    and column heights of its columns."""
+    (x0, y0, _), (sx, sy, sz) = origin, shape
+    lattice = ((x0 + sx - 1) // 8 - x0 // 8 + 2) * ((y0 + sy - 1) // 8 - y0 // 8 + 2)
+    return _bound(bytes_per_voxel * sx * sy * sz,
+                  OPS_PER_LATTICE * lattice + OPS_PER_HEIGHT * sx * sy)
+
+
+def _jax_frames(rt, torch, dev, cam) -> tuple:
+    """``render_frame`` of a uniforms dict (``FrameUniforms.as_device_dict``,
+    on the card by default) with ``with_gbuffers=True`` on each tracer's
+    pipeline (``create_instance(None, ...)``) at 1024², against
+    ``render_frame_packed`` of the same uniforms and against the frame and
+    G-buffers ``draw_frame`` just drew from them (the graph's replay),
+    bit for bit.  -> (ok, results, the fused pipeline's last frame)."""
+    from raytrace_tpu_torch.render.pipeline import render_frame, render_frame_packed
+
+    res, ok, fused_frame = {}, True, None
+    for tracer in JAX_API_TRACERS:
+        pipe = rt.create_instance(None, width=W, height=H, tracer=tracer)
+        pipe.teleport(cam)
+        for i in range(3):
+            drawn = pipe.draw_frame(cam, CANON["sun"] + 0.01 * i)
+        u, world = pipe.uniforms, pipe.world()
+        uniforms = u.as_device_dict()
+        args = (W, H, pipe.max_steps)
+        frame, gb = render_frame(world, pipe.blue_noise, uniforms, *args, with_gbuffers=True,
+                                 tracer=tracer, seed=pipe.seed, bounces=pipe.bounces)
+        alone = render_frame(world, pipe.blue_noise, uniforms, *args, tracer=tracer,
+                             seed=pipe.seed, bounces=pipe.bounces)
+        want, gb_want = render_frame_packed(
+            world, pipe.blue_noise, torch.from_numpy(u.packed()).to(dev), *args, pipe.seed,
+            pipe.bounces, tracer)
+        one = dict(
+            frame_equals_packed=_bits_equal(frame, want),
+            gbuffers_equal_packed=_gbuffers_equal(gb, gb_want),
+            frame_equals_draw_frame=_bits_equal(frame, drawn),
+            gbuffers_equal_draw_frame=_gbuffers_equal(gb, pipe.gbuffers),
+            frame_alone=isinstance(alone, torch.Tensor) and _bits_equal(alone, frame),
+            finite=bool(torch.isfinite(frame).all()), lr=list(u.lr),
+            uniforms_on=str(uniforms["origin"].device), pipeline_on=str(pipe.device),
+            old_origin_kept=u.old_origin == u.origin)
+        res[tracer] = one
+        ok = ok and all(v for k, v in one.items() if isinstance(v, bool)) and all(
+            one["gbuffers_equal_packed"].values()) and all(
+            one["gbuffers_equal_draw_frame"].values()) and one["uniforms_on"] == "cuda:0"
+        if tracer == "fused":
+            fused_frame = drawn
+        del pipe, world, frame, gb, alone, want, gb_want
+    return ok, res, fused_frame
+
+
+def _jax_pipelines(torch, cam, fused_frame) -> tuple:
+    """``Pipeline`` built by position in JAX's order draws the frame
+    ``create_instance``'s fused pipeline drew; a fused pipeline given a
+    preloaded volume holds it, streams slabs into it (G1) and draws the
+    frames of one without it, bit for bit, across slice moves."""
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.render.pipeline import Pipeline
+
+    res = {}
+    p = Pipeline(W, H, 0, MAX_STEPS, "device", None, "fused", None, False, 2)
+    p.teleport(cam)
+    for i in range(3):
+        frame = p.draw_frame(cam, CANON["sun"] + 0.01 * i)
+    res["by_position"] = dict(
+        config=[p.width, p.height, p.seed, p.max_steps, p.streamer.source, p.tracer,
+                p.validate, p.bounces, str(p.device)],
+        frame_equals_create_instance=_bits_equal(frame, fused_frame))
+    ok = res["by_position"]["frame_equals_create_instance"] and res["by_position"][
+        "config"] == [W, H, 0, MAX_STEPS, "device", "fused", False, 2, "cuda"]
+    del p
+    volume = _generated_volume(torch.device("cuda:0"))
+    held = Pipeline(width=W, height=H, tracer="fused", preloaded_volume=volume)
+    bare = Pipeline(width=W, height=H, tracer="fused")
+    held_at_start = bool(torch.equal(held.streamer.volume, volume))
+    walk = Camera(origin=list(CANON["origin"]))
+    walk.pitch = CANON["pitch"]
+    equal, before = [], _launch_counts()
+    for i in range(6):
+        equal.append(_bits_equal(held.draw_frame(walk, CANON["sun"]),
+                                 bare.draw_frame(walk, CANON["sun"])))
+    torch.cuda.synchronize()
+    launches = _launches_since(before)
+    res["preloaded_fused"] = dict(
+        held_at_start=held_at_start, frames_equal=equal, lr=list(held.uniforms.lr),
+        bare_volume=bare.streamer.volume is None, launches=launches,
+        streamed=not bool(torch.equal(held.streamer.volume, volume)))
+    ok = ok and held_at_start and all(equal) and bare.streamer.volume is None \
+        and launches.get("G1", 0) > 0 and res["preloaded_fused"]["streamed"]
+    return ok, res
+
+
+def _bare_boxes(torch, dev) -> tuple:
+    """``generate_box(origin, shape, seed, with_minefield=False)`` on the
+    card by default: one launch of G1's form for any box each, counted
+    (the counts set to 0 just before), word for word against
+    ``generate_box_plain(..., with_minefield=False)`` on the card, and on
+    the aligned boxes equal to the minefield form's materials and solid.
+    Then at BARE_TIMED: the kernel alone (torch.profiler, 20 calls), its
+    call synced, the plain version, the bound (5 B written a voxel; the
+    lattice points and column heights), the grid and its launch floor, and
+    on the aligned boxes the minefield form alone, in turns (minefield,
+    bare, bare, minefield)."""
+    from raytrace_tpu_torch.testing.measure import (
+        call_ms, launch_floor_ms, synced_ms, worldgen_grid)
+    from raytrace_tpu_torch.world.generate import generate_box, generate_box_plain
+
+    _zero_counts()
+    got = {label: generate_box(origin, shape, BARE_SEED, False)
+           for label, origin, shape in BARE_BOXES}
+    torch.cuda.synchronize()
+    launches = _counts()
+    res, ok = dict(launches=launches, cases=[], max_abs_err=0), \
+        launches == {"G1box": len(BARE_BOXES)}
+    for label, origin, shape in BARE_BOXES:
+        mine = got.pop(label)
+        want = generate_box_plain(origin, shape, BARE_SEED, False, device=dev)
+        equal = {k: mine[k].dtype == want[k].dtype and bool(torch.equal(mine[k], want[k]))
+                 for k in want}
+        one = dict(label=label, origin=list(origin), shape=list(shape), keys=sorted(mine),
+                   on=str(mine["solid"].device), equal=equal,
+                   solid_share=float(want["solid"].float().mean()))
+        if all(v % 64 == 0 for v in origin + shape):
+            boxed = generate_box(origin, shape, BARE_SEED, device=dev)
+            one["equals_minefield_form"] = all(
+                bool(torch.equal(mine[k], boxed[k])) for k in ("materials", "solid"))
+            del boxed
+        res["cases"].append(one)
+        res["max_abs_err"] = max(res["max_abs_err"], *(_max_word_diff(torch, mine[k], want[k])
+                                                       for k in want))
+        ok = ok and all(equal.values()) and one["keys"] == ["materials", "solid"] \
+            and one["on"] == "cuda:0" and one.get("equals_minefield_form", True)
+        del mine, want
+    for label, origin, shape in BARE_BOXES:
+        if label not in BARE_TIMED:
+            continue
+        bare = lambda: generate_box(origin, shape, BARE_SEED, False, device=dev)
+        boxed = lambda: generate_box(origin, shape, BARE_SEED, device=dev)
+        aligned = all(v % 64 == 0 for v in origin + shape)
+        turns = dict(bare_ms=[], minefield_ms=[])
+        for form in ("minefield", "bare", "bare", "minefield"):
+            if form == "bare":
+                turns["bare_ms"].append(_alone(bare, 20, "worldgen_box_kernel"))
+            elif aligned:
+                turns["minefield_ms"].append(_alone(boxed, 20, "worldgen_box_kernel"))
+        grid = worldgen_grid(origin, shape)
+        res[label] = dict(
+            kernel_ms=sum(t["kernel_ms"] for t in turns["bare_ms"]) / 2,
+            kept=[t["kept"] for t in turns["bare_ms"]],
+            turns={k: [t["kernel_ms"] for t in v] for k, v in turns.items()}, grid=grid,
+            floor_ms=launch_floor_ms(grid["blocks"], grid["threads"], True, 20),
+            call_synced_ms=[synced_ms(bare) for _ in range(3)],
+            plain_ms=call_ms(lambda: generate_box_plain(origin, shape, BARE_SEED, False,
+                                                        device=dev), 3),
+            **_box_bound(origin, shape, 5))
+    torch.cuda.synchronize()
+    return ok, res
+
+
+def _profile_trace(torch) -> tuple:
+    """``apps.profile.run(out_dir=...)`` writes the torch.profiler trace of
+    each path's profiled frames there, and the port's kernels are in it."""
+    from raytrace_tpu_torch.apps import profile
+
+    out = _scratch_dir("profile_trace")
+    got = profile.run(out_dir=str(out), frames=5, width=256, height=256, tracer="fused")
+    names = profile.port_kernels()
+    res = {}
+    for path in ("graphed", "eager"):
+        trace = Path(got[path]["trace"])
+        events = json.loads(trace.read_text()).get("traceEvents", []) if trace.is_file() else []
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                          and profile.is_port_kernel(e["name"], names)})
+        res[path] = dict(trace=str(trace.relative_to(ROOT)), in_out_dir=trace.parent == out,
+                         bytes=trace.stat().st_size if trace.is_file() else 0,
+                         port_kernels=sorted({re.findall(r"\w+_kernel", k)[0]
+                                              for k in kernels}))
+    ok = all(r["in_out_dir"] and r["port_kernels"] for r in res.values())
+    return ok, res
+
+
+def _default_devices(rt) -> tuple:
+    """Each entry point given no device lands on the card."""
+    from raytrace_tpu_torch.ops.hf_tables import build_hf_tables
+    from raytrace_tpu_torch.render.pipeline import FrameUniforms
+    from raytrace_tpu_torch.world import generate, heightmap, noise
+
+    res = dict(
+        generate_box=generate.generate_box((0, 0, 0), (64, 64, 64))["minefield"].device,
+        generate_box_bare=generate.generate_box((1, 2, 3), (4, 5, 6),
+                                                with_minefield=False)["solid"].device,
+        generate_chunk=generate.generate_chunk((0, 0, 0))[0].device,
+        build_hf_tables=build_hf_tables((0, 0, 0))["h3"].device,
+        heightmap_grid=heightmap.heightmap_grid(0, 0).device,
+        generate_heightmap=heightmap.generate_heightmap((0, 0)).device,
+        mountain_noise2_grid=noise.mountain_noise2_grid(0, 0, (4, 4)).device,
+        as_device_dict=FrameUniforms().as_device_dict()["origin"].device,
+        create_instance=rt.create_instance(width=16, height=16).device)
+    res = {k: str(v) for k, v in res.items()}
+    return all(v.startswith("cuda") for v in res.values()), res
+
+
+def phase_jax_api(rt, torch, dev):
+    """JAX's calls on the card: ``render_frame`` of a uniforms dict on each
+    tracer (``_jax_frames``), ``Pipeline`` by position in JAX's order and a
+    fused pipeline with a preloaded volume (``_jax_pipelines``),
+    ``generate_box`` without the minefield on any box (``_bare_boxes``:
+    G1's form for it, the main path of that form), ``apps.profile.run``'s
+    trace (``_profile_trace``) and the entry points' default device
+    (``_default_devices``)."""
+    from raytrace_tpu_torch.render.camera import Camera
+
+    t0 = time.perf_counter()
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    ok, frames, fused_frame = _jax_frames(rt, torch, dev, cam)
+    res = dict(render_frame=frames)
+    ok_pipes, pipes = _jax_pipelines(torch, cam, fused_frame)
+    del fused_frame
+    ok_boxes, boxes = _bare_boxes(torch, dev)
+    ok_trace, trace = _profile_trace(torch)
+    ok_devices, devices = _default_devices(rt)
+    res.update(pipelines=pipes, g1_bare=boxes, profile=trace, default_device=devices,
+               passed=dict(render_frame=ok, pipelines=ok_pipes, g1_bare=ok_boxes,
+                           profile=ok_trace, default_device=ok_devices),
+               seconds=time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ok and ok_pipes and ok_boxes and ok_trace and ok_devices, res
+
 
 def phase_vol_tables_kernel(rt, torch, dev):
     """O1 (``csrc/vol_tables.cu``) against its plain versions on the weird
@@ -1080,13 +1334,13 @@ def phase_golden(rt, torch, dev):
     import numpy as np
 
     from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
-    from raytrace_tpu_torch.render.pipeline import render_frame
+    from raytrace_tpu_torch.render.pipeline import render_frame_packed
     from raytrace_tpu_torch.testing.golden import compare_images
 
     u = _canonical_uniforms(rt)
     packed = torch.from_numpy(u.packed()).to(dev)
-    frame, _ = render_frame(with_column_heights(build_hf_tables((0, 0, 0), device=dev)),
-                            _blue_noise(torch, dev), packed, 64, 64, tracer="fused")
+    frame, _ = render_frame_packed(with_column_heights(build_hf_tables((0, 0, 0), device=dev)),
+                                   _blue_noise(torch, dev), packed, 64, 64, tracer="fused")
     want = np.load(ROOT / "tests" / "goldens" / "terrain_frame_64.npz")["frame"]
     stats = compare_images(frame.cpu().numpy(), want)
     return bool(stats["ok"]), stats
@@ -1098,13 +1352,13 @@ def phase_fused_bare_tables(torch, tables, blue, packed, size=256):
     the same tables with the column table: frame and G-buffers bit-equal,
     and K1 launched for each."""
     from raytrace_tpu_torch.ops import lighting
-    from raytrace_tpu_torch.render.pipeline import render_frame
+    from raytrace_tpu_torch.render.pipeline import render_frame_packed
     from raytrace_tpu_torch.testing.measure import same
 
     bare = {k: v for k, v in tables.items() if k != "hcol"}
     launches = lighting.march_paths.launches
-    got, gb_got = render_frame(bare, blue, packed, size, size, tracer="fused")
-    want, gb_want = render_frame(tables, blue, packed, size, size, tracer="fused")
+    got, gb_got = render_frame_packed(bare, blue, packed, size, size, tracer="fused")
+    want, gb_want = render_frame_packed(tables, blue, packed, size, size, tracer="fused")
     res = dict(size=size, k1_launches=lighting.march_paths.launches - launches,
                frame_equal=same(got, want), gbuffers_equal=_gbuffers_equal(gb_got, gb_want))
     ok = res["frame_equal"] and all(res["gbuffers_equal"].values()) and res["k1_launches"] == 2
@@ -1514,13 +1768,13 @@ def phase_times(rt, torch, dev, pipe, gbs, blue):
     K2 (the chain's call, and each pass's kernel alone), on the main path's
     own tables, uniforms and G-buffers (K2 also on random G-buffers)."""
     from raytrace_tpu_torch.ops import denoise, lighting, rays
-    from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
+    from raytrace_tpu_torch.render.pipeline import render_frame_packed, unpack_uniforms
     from raytrace_tpu_torch.testing.measure import call_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
     tables = pipe.tables()
     budget = (pipe.max_steps, pipe.seed, 1 + 2 * pipe.bounces)
-    frame_ms = call_ms(lambda: render_frame(
+    frame_ms = call_ms(lambda: render_frame_packed(
         tables, pipe.blue_noise, packed, W, H, *budget[:2], pipe.bounces, "fused"), 10)
     inputs = lighting.march_inputs(
         tables, pipe.blue_noise, unpack_uniforms(packed), W, H)
@@ -1557,7 +1811,7 @@ def phase_volume_times(torch, dev, pipe):
     volume_fast frame.  ``k3_ms`` times the wrapper's call (CUDA events),
     ``k3_kernel_ms`` the kernel alone (torch.profiler)."""
     from raytrace_tpu_torch.ops import path_vol, trace_vol
-    from raytrace_tpu_torch.render.pipeline import render_frame, unpack_uniforms
+    from raytrace_tpu_torch.render.pipeline import render_frame_packed, unpack_uniforms
     from raytrace_tpu_torch.testing.measure import call_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(dev)
@@ -1568,7 +1822,7 @@ def phase_volume_times(torch, dev, pipe):
     k3_alone = _alone(lambda: trace_vol.march_paths_vol(
         *inputs["march"], pipe.max_steps, legs), 10, "march_paths_vol_kernel")
     return dict(
-        vol_frame_ms=call_ms(lambda: render_frame(
+        vol_frame_ms=call_ms(lambda: render_frame_packed(
             world, pipe.blue_noise, packed, W, H, pipe.max_steps, pipe.seed,
             pipe.bounces, "volume_fast"), 10),
         k3_ms=call_ms(lambda: trace_vol.march_paths_vol(
@@ -1605,11 +1859,11 @@ def _k4_batches(tables, blue, uniforms, size, max_steps, seed, bounces):
     def trace(o, d, active=None):
         caps = () if active is None else trace_hf.COMPACT_CAPS
         hit = trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], max_steps, seed,
-                                     caps, active)
+                                     caps=caps, active=active)
         batches.append((o, d, active, caps, hit))
         return hit
 
-    gb = integrate.integrate_gbuffers(trace, blue, uniforms, *_wh(size), bounces)
+    gb = integrate.integrate_gbuffers(trace, blue, uniforms, *_wh(size), bounces=bounces)
     return gb, batches
 
 
@@ -1633,12 +1887,13 @@ def phase_k4(torch, tables, blue, packed, size, max_steps, seed, bounces):
     ok = True
     ms, k_ms, kept, plain_ms, bounds = [], [], [], [], []
     for b, (o, d, active, caps, _) in enumerate(batches):
-        args = (tables, o, d, uniforms["lr"], max_steps, seed, caps, active)
+        args = (tables, o, d, uniforms["lr"], max_steps, seed)
+        kw = dict(caps=caps, active=active)
         census = torch.zeros(1, dtype=torch.int64, device=o.device)
-        got = trace_hf.trace_rays_hf(*args, census=census)
-        want, t_p = _timed_once(torch, lambda: trace_hf.trace_rays_hf_plain(*args))
-        ms.append(call_ms(lambda: trace_hf.trace_rays_hf(*args), 10))
-        alone = _alone(lambda: trace_hf.trace_rays_hf(*args), 10, "trace_hf_kernel")
+        got = trace_hf.trace_rays_hf(*args, **kw, census=census)
+        want, t_p = _timed_once(torch, lambda: trace_hf.trace_rays_hf_plain(*args, **kw))
+        ms.append(call_ms(lambda: trace_hf.trace_rays_hf(*args, **kw), 10))
+        alone = _alone(lambda: trace_hf.trace_rays_hf(*args, **kw), 10, "trace_hf_kernel")
         k_ms.append(alone["kernel_ms"])
         kept.append(alone["kept"])
         plain_ms.append(t_p)
@@ -1723,10 +1978,9 @@ def phase_hf_vs_fused(torch, pipe, tables):
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
 
     uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
-    args = (tables, pipe.blue_noise, uniforms, W, H, pipe.max_steps, pipe.seed,
-            pipe.bounces)
-    staged = trace_hf.render_gbuffers_hf(*args)
-    fused = lighting.render_gbuffers_fused(*args)
+    args = (tables, pipe.blue_noise, uniforms, W, H, pipe.max_steps, pipe.seed)
+    staged = trace_hf.render_gbuffers_hf(*args, bounces=pipe.bounces)
+    fused = lighting.render_gbuffers_fused(*args, bounces=pipe.bounces)
     normal_ok = staged["normal"] == fused["normal"]
     albedo_ok = (staged["albedo"] == fused["albedo"]).all(-1)
     depth_ok = (staged["depth"].to(torch.int32) - fused["depth"].to(torch.int32)).abs() <= 1
@@ -1805,7 +2059,7 @@ def phase_volume_exact(rt, torch):
     uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
     fast = path_vol.render_gbuffers_path(
         pipe.streamer.volume, build_vol_tables(pipe.streamer.volume), pipe.blue_noise,
-        uniforms, W, H, pipe.max_steps, pipe.bounces)
+        uniforms, W, H, pipe.max_steps, bounces=pipe.bounces)
     res = dict(
         frames=FRAMES, ms_per_frame=min(ms["graphed"]), ms=ms, lr=list(pipe.uniforms.lr),
         launches=counts, launches_want=want, frame_equal=frame_equal,
@@ -1987,12 +2241,12 @@ def phase_dda_kernel(torch, dev, pipe):
 
 def phase_hf_frame_ms(torch, pipe):
     """Device ms of the whole hf frame at the hf path's tables and uniforms."""
-    from raytrace_tpu_torch.render.pipeline import render_frame
+    from raytrace_tpu_torch.render.pipeline import render_frame_packed
     from raytrace_tpu_torch.testing.measure import call_ms
 
     packed = torch.from_numpy(pipe.uniforms.packed()).to(pipe.device)
     tables = pipe.tables()
-    return call_ms(lambda: render_frame(
+    return call_ms(lambda: render_frame_packed(
         tables, pipe.blue_noise, packed, W, H, pipe.max_steps, pipe.seed,
         pipe.bounces, "hf"), 10)
 
@@ -3376,6 +3630,11 @@ def main() -> int:
         report(f"config5_4k_{label}", ok_one, res)
     report("config5_4k", ok, dict(seconds=config5_s, records=[
         config5[f"run_{t}"][1] for t in ("fused", "volume_fast")]))
+    # JAX's calls: render_frame of a dict, Pipeline by position, a preloaded
+    # volume with the fused tracer, generate_box without the minefield (G1's
+    # form for any box), the profile's trace and the default device.
+    ok, api_res = phase_jax_api(rt, torch, dev)
+    report("jax_api", ok, api_res)
     times.update(k4_ms=k4_res["k4_ms"], k4_kernel_ms=k4_res["k4_kernel_ms"],
                  k4_plain_ms=k4_res["k4_plain_ms"],
                  hf_frame_ms=hf_frame_ms, volume_frame_ms=exact_res["ms_per_frame"])
@@ -3577,6 +3836,17 @@ def main() -> int:
                                         "G1box", 0),
                                     cache_stream=cache_res["flight_launches"].get(
                                         "G1box", 0)))),
+        dict(name="G1 worldgen_box<false> (generate_box without the minefield, any box)",
+             route="cuda", source="raytrace_tpu_torch/csrc/worldgen.cu",
+             replaces="raytrace_tpu/world/generate.py:66",
+             launches=api_res["g1_bare"]["launches"].get("G1box", 0),
+             launches_from="jax_api (generate_box(..., with_minefield=False), one a box)",
+             max_abs_err=api_res["g1_bare"]["max_abs_err"],
+             ms=api_res["g1_bare"]["box_256"]["kernel_ms"],
+             kept=api_res["g1_bare"]["box_256"]["kept"],
+             plain_ms=api_res["g1_bare"]["box_256"]["plain_ms"],
+             **bound(api_res["g1_bare"]["box_256"]),
+             shapes={label: api_res["g1_bare"][label] for label in BARE_TIMED}),
         dict(name="O1 vol_tables (occupancy tables, built or updated in place)",
              route="cuda", source="raytrace_tpu_torch/csrc/vol_tables.cu",
              replaces="raytrace_tpu/ops/trace_vol_pallas.py:163",

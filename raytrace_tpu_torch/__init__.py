@@ -17,12 +17,17 @@ codec's C++ source.
 
 from __future__ import annotations
 
+from . import constants  # noqa: F401
+from .materials import MATERIALS, Material  # noqa: F401
+
 __version__ = "0.1.0"
 
 
-def create_instance(**pipeline_kwargs):
+def create_instance(game=None, **pipeline_kwargs):
     """Build the renderer and return its ``Pipeline`` (the counterpart of
-    ``raytrace_tpu.create_instance``, ``raytrace_tpu/__init__.py:14-23``)."""
+    ``raytrace_tpu.create_instance``, ``raytrace_tpu/__init__.py:14-23``):
+    ``game`` is ignored, as there; ``pipeline_kwargs`` go to ``Pipeline``,
+    which runs on the card unless given ``device``."""
     from .render.pipeline import Pipeline
 
     return Pipeline(**pipeline_kwargs)

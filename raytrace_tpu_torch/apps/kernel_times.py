@@ -37,7 +37,7 @@ volume_fast pipelines' tables and uniforms):
 - the SASS counts (``measure.sass_counts``) of those kernels.
 
 ``--part dda`` times the exact DDA at the ``volume`` pipeline's view: the
-whole frame eager (``render_frame``, as a parent checkout without D1 runs
+whole frame eager (``render_frame_packed``, as a parent checkout without D1 runs
 it) and, where the checkout has D1 (``trace_dda.march_rays_dda``), the
 graphed ``draw_frame`` and D1 alone (``trace_dda_kernel``) on each
 of the frame's three batches (``dda_batches``: the primaries and the two
@@ -49,7 +49,10 @@ words it reads (``dda_census``) and its bound (``dda_work``).
 checkout's ``build_hf_tables`` takes a ``key``, skipping them; G1
 (``worldgen_kernel``) on a streamed slab and a teleport's region, and its
 box mode (``worldgen_box_kernel``) on a 64³ chunk, a 512x64x64 row and a
-256³ box; O1 on the generated world around the origin, in place as
+256³ box, and, where the checkout's ``generate_box`` takes
+``with_minefield``, its form for any box without the minefield
+(``worldgen_box_kernel<false>``; each call launches one form) on a chunk,
+an unaligned 100x77x45 box and the 256³ box; O1 on the generated world around the origin, in place as
 ``Pipeline.vol_tables`` calls it: a slab update at texel 240 on array axes 0
 and 2 and at texel 8 on axis 2, and a full build (``vol_tables_kernel``, one
 launch a call; in a checkout of the two-launch O1 its ``vol_bricks_kernel``
@@ -79,7 +82,7 @@ from .. import _build
 from ..ops import (
     denoise, finalize, integrate, lighting, path_vol, rays, shading, trace_dda, trace_vol)
 from ..render.camera import Camera
-from ..render.pipeline import Pipeline, render_frame, unpack_uniforms
+from ..render.pipeline import Pipeline, render_frame_packed, unpack_uniforms
 from ..testing.gbuffers import random_gbuffers
 from ..testing.measure import call_ms, card, denoise_pass_ms, kernel_ms, same, sass_counts
 
@@ -144,7 +147,8 @@ def _volume(reps: int, size: int) -> dict:
             return trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"],
                                             pipe.max_steps, active=active)
 
-        integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size, pipe.bounces)
+        integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size,
+                                     bounces=pipe.bounces)
         per_batch = [kernel_ms(lambda: trace_vol.trace_rays_vol(
             tables, volume, o, d, uniforms["lr"], pipe.max_steps, active=a), reps,
             "trace_rays_vol_kernel") for o, d, a in batches]
@@ -218,7 +222,10 @@ def _glue(reps: int, size: int) -> dict:
 G1_BOXES = [("slab", "into", 2), ("region", "into", -2),
             ("chunk", "box", ((0, 0, 0), (64, 64, 64))),
             ("row_512", "box", ((-256, 64, 0), (512, 64, 64))),
-            ("box_256", "box", ((-128, -128, -128), (256, 256, 256)))]
+            ("box_256", "box", ((-128, -128, -128), (256, 256, 256))),
+            ("chunk_bare", "bare", ((0, 0, 0), (64, 64, 64))),
+            ("unaligned_bare", "bare", ((-37, 21, -5), (100, 77, 45))),
+            ("box_256_bare", "bare", ((-128, -128, -128), (256, 256, 256)))]
 
 
 def _tiles(reps: int) -> dict:
@@ -245,15 +252,22 @@ def _tiles(reps: int) -> dict:
         t1["parent_grid_floor_ms"] = measure.launch_floor_ms((64, 1), 1024, False, reps)
     g1 = {}
     volume = torch.zeros(256 ** 3, dtype=torch.int32, device=dev)
+    bare = "with_minefield" in inspect.signature(generate_box).parameters
     for label, mode, box in G1_BOXES:
+        if mode == "bare" and not bare:  # a checkout without the form for any box
+            continue
         if mode == "into":
             _, origin, ns, axis, seed = enclosure.STREAM_CASES[box]
             w0, shape = enclosure.stream_box(origin, ns, axis)
             call, name = lambda: worldgen.generate_into(volume, w0, shape, seed), \
                 "worldgen_kernel"
-        else:
+        elif mode == "box":
             w0, shape = box
             call, name = lambda: generate_box(w0, shape, seed=0, device=dev), \
+                "worldgen_box_kernel"
+        else:
+            w0, shape = box
+            call, name = lambda: generate_box(w0, shape, 0, False, device=dev), \
                 "worldgen_box_kernel"
         g1[label] = dict(w0=list(w0), shape=list(shape), kernel_ms=kernel_ms(call, reps, name))
         if floors:
@@ -368,8 +382,8 @@ def _dda(reps: int, size: int) -> dict:
     pipe, uniforms = _pipeline(size, "volume")
     volume = pipe.world()
     packed = torch.from_numpy(pipe.uniforms.packed()).to(pipe.device)
-    eager = lambda: render_frame(volume, pipe.blue_noise, packed, size, size, pipe.max_steps,
-                                 pipe.seed, pipe.bounces, "volume")
+    eager = lambda: render_frame_packed(volume, pipe.blue_noise, packed, size, size,
+                                        pipe.max_steps, pipe.seed, pipe.bounces, "volume")
     res = dict(frame_eager_ms=call_ms(eager, reps))
     if not hasattr(trace_dda, "march_rays_dda"):  # a checkout without D1: eager only
         return dict(dda=res)

@@ -183,9 +183,10 @@ def _k4_items(size: int):
                         None if active is None else active.reshape(-1)))
         caps = () if active is None else trace_hf.COMPACT_CAPS
         return trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], pipe.max_steps,
-                                      pipe.seed, caps, active)
+                                      pipe.seed, caps=caps, active=active)
 
-    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size, pipe.bounces)
+    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size,
+                                 bounces=pipe.bounces)
     out = []
     for o, d, active in batches:
         caps = () if active is None else trace_hf.COMPACT_CAPS
@@ -197,7 +198,8 @@ def _k4_items(size: int):
                 o, d = o[items].contiguous(), d[items].contiguous()
                 active = None if active is None else active[items].contiguous()
             return trace_hf.trace_rays_hf(tables, o, d, uniforms["lr"], pipe.max_steps,
-                                          pipe.seed, caps, active, census=census)
+                                          pipe.seed, caps=caps, active=active,
+                                          census=census)
 
         out.append((call, moves))
     return out
@@ -221,7 +223,8 @@ def _k3s_items(size: int):
         return trace_vol.trace_rays_vol(tables, volume, o, d, uniforms["lr"], pipe.max_steps,
                                         active=active)
 
-    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size, pipe.bounces)
+    integrate.integrate_gbuffers(trace, pipe.blue_noise, uniforms, size, size,
+                                 bounces=pipe.bounces)
     out = []
     for o, d, active in batches:
         moves = trace_vol.trace_rays_vol_plain(tables, volume, o, d, uniforms["lr"],

@@ -15,13 +15,19 @@ prints for the steady frame:
   ``kernel_activities_per_frame``) and
   everything else PyTorch launches, its glue and copies (``glue_ms``,
   ``glue_activities_per_frame``);
-- the device activities that take the most time.
+- the device activities that take the most time;
+- the path of the ``torch.profiler`` trace of each path's profiled frames,
+  written to OUT_DIR (``--out``; Chrome's trace format, one file a path),
+  as JAX's writes its device trace there.  OUT_DIR defaults to
+  ``raytrace_tpu_trace`` under ``tempfile.gettempdir()`` (``TMPDIR``), not
+  to JAX's fixed ``/tmp`` path, so that two checkouts profiled with their
+  own ``TMPDIR`` do not write over each other's traces.
 
 ``draw_frame`` renders every tracer ("fused", "hf", "volume",
 "volume_fast") through a CUDA graph, so it measures two paths on the same
 pipeline, in turns (graphed, eager, eager, graphed): ``graphed``,
 ``draw_frame`` itself, and ``eager``, the same frame through
-``render_frame`` op by op (``eager_frame``).  Each printed key then
+``render_frame_packed`` op by op (``eager_frame``).  Each printed key then
 carries its path's prefix.  It then times, in the same turns, CROSSINGS
 frames that each cross a slice (on the volume tracers each streams a slab:
 G1, and on "volume_fast" O1), each alone and synced (``crossing_ms``), and
@@ -39,9 +45,9 @@ then S2) and the denoise chain on the
 volume_fast pipeline's volume and tables, uniforms filled as draw_frame
 fills them.
 
-Usage: python -m raytrace_tpu_torch.apps.profile [--frames 30]
-[--tracer fused|hf|volume|volume_fast|volume_staged] [--size 1024x1024]
-(needs a CUDA GPU)
+Usage: python -m raytrace_tpu_torch.apps.profile [--out DIR]
+[--frames 5] [--tracer fused|hf|volume|volume_fast|volume_staged]
+[--size 1024x1024] (needs a CUDA GPU; ``--frames 30`` for steadier medians)
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from __future__ import annotations
 import argparse
 import re
 import statistics
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,7 +65,7 @@ from ..ops.denoise import denoise_finalize
 from ..ops.hf_tables import build_hf_tables
 from ..ops.trace_vol import render_gbuffers_vol
 from ..render.camera import Camera
-from ..render.pipeline import TRACERS, Pipeline, render_frame, unpack_uniforms
+from ..render.pipeline import TRACERS, Pipeline, render_frame_packed, unpack_uniforms
 from ..testing.measure import kernel_ms, synced_ms
 
 PROFILED_FRAMES = 10
@@ -75,8 +82,9 @@ def port_kernels() -> frozenset:
     ``csrc/``."""
     names = set()
     for src in CSRC.glob("*.cu"):
-        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
-                                src.read_text()))
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__(?:launch_bounds|cluster_dims)__\([^)]*\)\s+)*(\w+)",
+            src.read_text()))
     return frozenset(names)
 
 
@@ -95,31 +103,39 @@ def staged_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tens
     volume, tables = pipe.world()
     pipe.gbuffers = render_gbuffers_vol(volume, tables, pipe.blue_noise,
                                         unpack_uniforms(packed), pipe.width, pipe.height,
-                                        pipe.max_steps, pipe.bounces)
+                                        pipe.max_steps, bounces=pipe.bounces)
     return denoise_finalize(pipe.gbuffers, pipe.blue_noise)
 
 
 def eager_frame(pipe: Pipeline, camera: Camera, sun_angle: float) -> torch.Tensor:
     """``draw_frame``'s frame rendered eagerly, op by op: the streaming
-    step and the uniforms as draw_frame makes them, then ``render_frame``
-    on the pipeline's world."""
+    step and the uniforms as draw_frame makes them, then
+    ``render_frame_packed`` on the pipeline's world."""
     pipe.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
     pipe.streamer.setup_next_request()
     pipe.fill_uniforms(camera, sun_angle)
     packed = torch.from_numpy(pipe.uniforms.packed())
     if pipe.device.type == "cuda":
         packed = packed.pin_memory()
-    frame, pipe.gbuffers = render_frame(
+    frame, pipe.gbuffers = render_frame_packed(
         pipe.world(), pipe.blue_noise, packed.to(pipe.device, non_blocking=True), pipe.width, pipe.height, pipe.max_steps,
         pipe.seed, pipe.bounces, pipe.tracer)
     return frame
 
 
-def run(frames: int = 30, width: int = 1024, height: int = 1024,
-        tracer: str = "fused") -> dict:
+def default_out_dir() -> Path:
+    """The traces' directory when none is given: ``raytrace_tpu_trace``
+    under the temporary directory (``TMPDIR``)."""
+    return Path(tempfile.gettempdir()) / "raytrace_tpu_trace"
+
+
+def run(out_dir: str | None = None, frames: int = 5, width: int = 1024,
+        height: int = 1024, tracer: str = "fused") -> dict:
     """Profile the tracer's frame -> ``{path: results}`` (paths
     ``graphed`` and ``eager`` for the tracers, ``eager`` for the staged
-    volume frame)."""
+    volume frame); each path's ``trace`` is the file under ``out_dir``
+    (None: ``default_out_dir()``) that holds its profiled frames'
+    ``torch.profiler`` trace."""
     if not torch.cuda.is_available():
         raise RuntimeError("the profile needs a CUDA GPU")
     staged = tracer == STAGED
@@ -138,8 +154,11 @@ def run(frames: int = 30, width: int = 1024, height: int = 1024,
     torch.cuda.synchronize()
     order = list(paths) + list(reversed(paths))
     res = {}
+    out_dir = Path(default_out_dir() if out_dir is None else out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
     for turn, name in enumerate(order):
-        got = _measure(paths[name], cam, frames, profiled=turn >= len(paths))
+        trace = out_dir / f"{tracer}_{name}.json" if turn >= len(paths) else None
+        got = _measure(paths[name], cam, frames, trace)
         acc = res.setdefault(name, dict(synced=[], train=[]))
         acc["synced"] += got.pop("synced")
         acc["train"] += got.pop("train")
@@ -196,10 +215,10 @@ def _tables(pipe: Pipeline) -> dict:
                 t1_kernel_ms=kernel_ms(build, 20, "hf_tables_kernel"))
 
 
-def _measure(draw, cam: Camera, frames: int, profiled: bool) -> dict:
-    """One turn of a path: its synced frames and its train, and the
-    profile when ``profiled``.  A path's two turns each add their samples
-    (``synced``, ``train``), so its medians span both."""
+def _measure(draw, cam: Camera, frames: int, trace: Path | None) -> dict:
+    """One turn of a path: its synced frames and its train, and with a
+    ``trace`` path the profile, written there.  A path's two turns each add
+    their samples (``synced``, ``train``), so its medians span both."""
     sun = lambda i: 0.6 + 0.01 * i
     synced = []
     for i in range(frames):
@@ -215,7 +234,7 @@ def _measure(draw, cam: Camera, frames: int, profiled: bool) -> dict:
     train_ms = (time.perf_counter() - t0) * 1e3 / frames
     enqueue_ms = (t_enqueued - t0) * 1e3 / frames
     got = dict(synced=synced, train=[(train_ms, enqueue_ms)])
-    if not profiled:
+    if trace is None:
         return got
 
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -230,7 +249,9 @@ def _measure(draw, cam: Camera, frames: int, profiled: bool) -> dict:
             entry = per_name.setdefault(e.name, [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
-    return dict(got, per_name=per_name)
+    prof.export_chrome_trace(str(trace))
+    print(f"{PROFILED_FRAMES} profiled frames; trace written to {trace}")
+    return dict(got, per_name=per_name, trace=str(trace))
 
 
 def _report(name: str, got: dict, tracer: str, width: int, height: int,
@@ -272,12 +293,14 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--out", default=None, help="directory of the torch.profiler traces "
+                    "(default: raytrace_tpu_trace under TMPDIR)")
+    ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--tracer", choices=TRACERS + (STAGED,), default="fused")
     ap.add_argument("--size", default="1024x1024", help="WxH, e.g. 3840x2160 (config 5)")
     args = ap.parse_args()
     width, height = (int(v) for v in args.size.split("x"))
-    run(args.frames, width, height, tracer=args.tracer)
+    run(args.out, args.frames, width, height, tracer=args.tracer)
 
 
 if __name__ == "__main__":

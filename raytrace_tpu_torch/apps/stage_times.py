@@ -11,7 +11,7 @@ around ``frames`` calls of each stage instead of a jitted ``fori_loop``:
   F1), each apart as JAX times them (``:120-137``), and the chain with
   finalize fused into its last pass as the frame runs it
   (``denoise_finalize``);
-- the whole frame (``render_frame``), and the Mrays/s it implies.
+- the whole frame (``render_frame_packed``), and the Mrays/s it implies.
 
 Each call varies the camera, sun and seed by its index, as in JAX.  The
 JAX app's ``--unified`` and ``--caps`` select TPU round schedules of its
@@ -34,7 +34,7 @@ from ..ops.finalize import finalize_frame
 from ..ops.lighting import render_gbuffers_fused
 from ..ops.trace_hf import render_gbuffers_hf
 from ..render.camera import Camera
-from ..render.pipeline import Pipeline, render_frame, unpack_uniforms
+from ..render.pipeline import Pipeline, render_frame_packed, unpack_uniforms
 
 TRACERS = ("fused", "hf")
 # Per call i the packed uniforms move by i times this: origin += 0.03 in x
@@ -76,10 +76,11 @@ def run(tracer: str = "fused", frames: int = 10, width: int = DEFAULT_WIDTH,
     packed = torch.from_numpy(pipeline.uniforms.packed()).to(pipeline.device)
     vary = torch.tensor(_VARY, dtype=torch.float32, device=pipeline.device)
     gbuffers = render_gbuffers_fused if tracer == "fused" else render_gbuffers_hf
-    args = (width, height, pipeline.max_steps, pipeline.seed, pipeline.bounces)
+    args = (width, height, pipeline.max_steps, pipeline.seed)
 
     def gb_fn(i):
-        return gbuffers(world, bn, unpack_uniforms(packed + i * vary), *args)
+        return gbuffers(world, bn, unpack_uniforms(packed + i * vary), *args,
+                        bounces=pipeline.bounces)
 
     t_gb = _time(gb_fn, frames, f"gbuffers ({tracer})")
     gb0 = gb_fn(0)
@@ -90,7 +91,8 @@ def run(tracer: str = "fused", frames: int = 10, width: int = DEFAULT_WIDTH,
                                            gb0["depth"], bn), frames, "finalize")
     t_dn = _time(lambda i: denoise_finalize(gb0, bn), frames,
                  "denoise chain, finalize fused (6 passes)")
-    t_full = _time(lambda i: render_frame(world, bn, packed + i * vary, *args, tracer),
+    t_full = _time(lambda i: render_frame_packed(world, bn, packed + i * vary, *args,
+                                                 pipeline.bounces, tracer),
                    frames, "full frame (render_frame)")
     print(f"{'sum of stages':44s} {t_gb + t_dn:8.3f} ms (full {t_full:.3f})")
     rays = width * height * (1 + 2 * pipeline.bounces)

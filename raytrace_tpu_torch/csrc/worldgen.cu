@@ -18,6 +18,12 @@
 // (one x-row of chunks) and the benchmark's worlds call it.  Three dense
 // (Z, Y, X) outputs: `materials` (int32, the packed word where solid, else
 // 0), `minefield` (uint8, 0 where solid, else the step) and `solid` (bool).
+// Without a minefield buffer it is `generate_box(..., with_minefield=False)`,
+// which takes any box (extents >= 1 at any integer origin) and writes
+// `materials` and `solid` only (`worldgen_box_kernel<false>`): its column
+// cover is 32-aligned, as the slab mode's, so the tile stage sees aligned
+// strips whatever the box, and the columns and planes of the cover that lie
+// outside the box (its partial strips and its last z chunk) store nothing.
 //
 // Both modes compute one formulation, each voxel from its column:
 //   - a voxel is solid iff z < H = max(h(x, y), 0) (below the terrain or
@@ -60,7 +66,8 @@
 // What bounds it on the H100: the bytes it writes, 4 B a voxel in slab
 // mode (4 MB for a 256 x 256 x 16 slab, 67 MB for a 256^3 region: 1.3 us
 // and 20 us at 3.35 TB/s) and 6 B a voxel in box mode (a 64^3 chunk 1.57
-// MB, 0.47 us; a 512 x 64 x 64 row 3.8 us; a 256^3 box 30 us).  A small
+// MB, 0.47 us; a 512 x 64 x 64 row 3.8 us; a 256^3 box 30 us), 5 B a voxel
+// without the minefield (a 256^3 box 25 us).  A small
 // box's launch is short of that: the launch, the tile stage's latency (one
 // perlin octave, the lattice fold, one column height, the cluster's
 // barrier) and a few planes a thread set its time.
@@ -112,30 +119,40 @@ __global__ void __cluster_dims__(kStrips, 1, 1) __launch_bounds__(kStripThreads)
   }
 }
 
-// The box is 64-aligned with 64-multiple extents, so its column cover is
-// the box itself and every block's zc planes lie in it.
+// The box mode, in two instances.  With the minefield (kMinefield) the box
+// is 64-aligned with 64-multiple extents, so its column cover is the box
+// itself and every block's zc planes lie in it: no guard, and three stores
+// a voxel.  Without it, any box: the cover is 32-aligned, a column of it
+// outside the box and the planes of a block past the box's end store
+// nothing, and a voxel stores materials and solid.
+template <bool kMinefield>
 __global__ void __cluster_dims__(kStrips, 1, 1) __launch_bounds__(kStripThreads)
     worldgen_box_kernel(int32_t* __restrict__ materials,
                         uint8_t* __restrict__ minefield,
                         bool* __restrict__ solid, int32_t x0, int32_t y0,
-                        int32_t z0, int32_t sx, int32_t sy, int32_t tiles_x,
-                        int32_t zc, int32_t seed, int32_t grass, int32_t rock,
+                        int32_t z0, int32_t sx, int32_t sy, int32_t sz,
+                        int32_t ax0, int32_t ay0, int32_t tiles_x, int32_t zc,
+                        int32_t seed, int32_t grass, int32_t rock,
                         int32_t snow) {
   __shared__ StripStage stage;
   const long long tile = blockIdx.x / kStrips;
   const Column c = strip_column(
-      stage, x0 + kTile * (int32_t)(tile % tiles_x),
-      y0 + kTile * (int32_t)(tile / tiles_x), seed);
+      stage, (kMinefield ? x0 : ax0) + kTile * (int32_t)(tile % tiles_x),
+      (kMinefield ? y0 : ay0) + kTile * (int32_t)(tile / tiles_x), seed);
+  if (!kMinefield &&
+      (c.wx < x0 || c.wx - x0 >= sx || c.wy < y0 || c.wy - y0 >= sy))
+    return;
   const size_t plane = (size_t)sx * sy;
   size_t i = (size_t)zc * blockIdx.y * plane + (size_t)(c.wy - y0) * sx +
              (c.wx - x0);
   const int32_t zs = z0 + zc * (int32_t)blockIdx.y;
+  const int32_t ze = kMinefield ? zs + zc : min(zs + zc, z0 + sz);
 #pragma unroll 4
-  for (int32_t z = zs; z < zs + zc; ++z, i += plane) {
+  for (int32_t z = zs; z < ze; ++z, i += plane) {
     const int32_t word = voxel_word(c, z, seed, grass, rock, snow);
     const uint32_t step = (uint32_t)word >> 24;
     materials[i] = word & kMaterialMask;
-    minefield[i] = (uint8_t)step;
+    if (kMinefield) minefield[i] = (uint8_t)step;
     solid[i] = step == 0;
   }
 }
@@ -214,23 +231,34 @@ extern "C" int rt_worldgen(int32_t* volume, int x0, int y0, int z0, int sx,
 // minefield (uint8) and solid (bool); seed and the packed grass, rock and
 // snow words.  One launch, every value a launch argument.  A box that is
 // not 64-aligned, or whose grid exceeds the launch limits, is refused.
+// With `minefield` null, any box of extents >= 1 into materials and solid
+// alone (`worldgen_box_kernel<false>`), one launch as well.
 extern "C" int rt_worldgen_box(int32_t* materials, uint8_t* minefield,
                                bool* solid, int x0, int y0, int z0, int sx,
                                int sy, int sz, int seed, int grass, int rock,
                                int snow, void* stream) {
   if (sx < 1 || sy < 1 || sz < 1 ||
-      ((x0 | y0 | z0 | sx | sy | sz) & (kChunk - 1)) != 0)
+      (minefield != nullptr &&
+       ((x0 | y0 | z0 | sx | sy | sz) & (kChunk - 1)) != 0))
     return (int)cudaErrorInvalidValue;
   Grid g;
   cudaError_t err = grid_of(x0, y0, sx, sy, sz, &g);
   if (err != cudaSuccess) return (int)err;
-  worldgen_box_kernel<<<g.blocks, kStripThreads, 0, (cudaStream_t)stream>>>(
-      materials, minefield, solid, x0, y0, z0, sx, sy, g.tiles_x, g.zc, seed,
-      grass, rock, snow);
+  if (minefield == nullptr)
+    worldgen_box_kernel<false><<<g.blocks, kStripThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        materials, nullptr, solid, x0, y0, z0, sx, sy, sz, g.ax0, g.ay0,
+        g.tiles_x, g.zc, seed, grass, rock, snow);
+  else
+    worldgen_box_kernel<true><<<g.blocks, kStripThreads, 0,
+                                (cudaStream_t)stream>>>(
+        materials, minefield, solid, x0, y0, z0, sx, sy, sz, g.ax0, g.ay0,
+        g.tiles_x, g.zc, seed, grass, rock, snow);
   return (int)cudaGetLastError();
 }
 
-// The grid either mode launches for a box (the box mode's is 64-aligned):
+// The grid every form launches for a box (the box mode's with the
+// minefield is 64-aligned):
 // blocks in x and z chunks into grid[0..1], and the planes a block takes
 // into grid[2].  For the measurement scripts: an empty kernel on the same
 // grid is the launch's floor.

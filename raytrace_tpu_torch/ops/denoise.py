@@ -278,7 +278,7 @@ def chain_passes(gb: dict, blue_noise: torch.Tensor, window=None, dither_row0=0)
     return frame, passes
 
 
-def denoise_finalize(gb: dict, blue_noise: torch.Tensor, window=None,
+def denoise_finalize(gb: dict, blue_noise: torch.Tensor, *, window=None,
                      dither_row0=0) -> torch.Tensor:
     """Six-pass denoise + finalize -> (H, W, 3) frame in window orientation
     (vertically flipped, finalize.comp:59).  ``gb``'s lighting, depth and
@@ -287,7 +287,10 @@ def denoise_finalize(gb: dict, blue_noise: torch.Tensor, window=None,
     cover, dithered as image rows ``dither_row0 ..``: the result is then
     (count, W, 3), flipped over those rows.  CPU tensors take the plain
     chain; CUDA tensors launch K2 once per pass and allocate the two working
-    planes and the frame, nothing else.  Other devices raise."""
+    planes and the frame, nothing else.  Other devices raise.  The
+    counterpart of JAX's ``denoise_finalize_pallas``, whose third parameter
+    (``interpret``) has none, so ``window`` and ``dither_row0`` are
+    keyword-only."""
     dev = gb["lighting"].device
     if dev.type == "cpu":
         return denoise_finalize_plain(gb, blue_noise, window, dither_row0)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import ROOT_BLOCK_SIZE, WORLDGEN_SCALE
+from .._device import default_device
 from .._f32 import fdiv
 from ..world.heightmap import (
     LATTICE_SPACING,
@@ -80,7 +81,8 @@ def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
 
     ``lr`` is a host sequence, an int32 (3,) tensor, or the packed (16,)
     float32 frame uniforms (``host_lr``).  A tensor's device is where the
-    tables are built; else ``device`` (the CPU by default).  On the CPU the
+    tables are built; else ``device`` (the current CUDA device when None:
+    with no GPU it raises).  On the CPU the
     plain version builds them; on the card T1 (``csrc/hf_tables.cu``)
     builds them in one launch on the current stream, reading ``lr`` on the
     device (a host ``lr`` is uploaded from pinned memory without a wait),
@@ -99,9 +101,8 @@ def build_hf_tables(lr, seed: int = 0, device=None, out: dict | None = None,
     host compares and skips the plain build.  A writer of ``out`` other than
     this function must set the key's valid word to 0.
     """
-    if isinstance(lr, torch.Tensor):
-        device = lr.device
-    device = torch.device("cpu" if device is None else device)
+    device = lr.device if isinstance(lr, torch.Tensor) else \
+        default_device(device, "build_hf_tables")
     if key is not None and out is None:
         raise ValueError("build_hf_tables: a key says what out= holds; pass out=")
     if device.type == "cpu":
@@ -157,13 +158,14 @@ build_hf_tables.launches = 0
 
 def build_hf_tables_plain(lr, seed: int = 0, device=None) -> dict:
     """T1's plain version: the tables for the region centred at integer
-    ``lr`` (x, y, z), a host sequence, on ``device``.
+    ``lr`` (x, y, z), a host sequence, on ``device`` (the CPU when None).
 
     Returns ``h3`` (8/16/32-block maxima, +1 margin, packed 9 bits each),
     ``hsub`` (four 4-block deltas, one byte each), ``cA``..``cD`` (the
     block's lattice-corner words ``r16 | e16 << 16``) and ``r0`` (2,) int32,
     the region origin ``lr[:2] - 128``.
     """
+    device = torch.device("cpu" if device is None else device)
     r0x, r0y = int(lr[0]) - _HALF, int(lr[1]) - _HALF
     n = ROOT_BLOCK_SIZE
     h = heightmap_grid(r0x, r0y, (n, n), seed=seed, device=device)

@@ -466,8 +466,8 @@ def stage_gbuffers(trace, mode: str, front: dict, noise, cam, bounces: int, shap
 
 
 def integrate_gbuffers(trace, blue_noise: torch.Tensor, uniforms: dict,
-                       width: int, height: int, bounces: int = 2, row0: int = 0,
-                       rows: int | None = None) -> dict:
+                       width: int, height: int, row0: int = 0,
+                       rows: int | None = None, bounces: int = 2) -> dict:
     """The full lighting pass producing the six G-buffers, of the whole
     frame or of its image rows ``row0 .. row0 + rows`` (a band of the tile
     split; ``trace_jax.py:268-297``), in plain PyTorch around ``trace(origin,

@@ -374,9 +374,9 @@ march_paths.launches = 0
 
 def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           uniforms: dict, width: int, height: int,
-                          max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
-                          bounces: int = 2, row0: int = 0,
-                          rows: int | None = None) -> dict:
+                          max_steps: int = MAX_TRACE_STEPS, seed: int = 0, *,
+                          row0: int = 0, rows: int | None = None,
+                          bounces: int = 2) -> dict:
     """G-buffers of one frame, or of its image rows ``row0 .. row0 + rows``
     (a band of the tile split): the frame's rays (R1), every pixel's path
     (K1), then the shade (S1); three launches on the card.
@@ -393,7 +393,10 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
     fog (rows, W, 3) f32, depth (rows, W) uint16 and normal (rows, W) uint8;
     a band's equal the same rows of the whole frame's bit for bit (on CPU
     tensors when ``width * rows`` and ``width * height`` are multiples of
-    32: see ``integrate.integrate_gbuffers``).
+    32: see ``integrate.integrate_gbuffers``).  JAX's TPU knobs after
+    ``seed`` (``tile_rows``, ``interpret``, the cascade's ``caps``,
+    ``unified``, ``unroll``, ``lazy_t``, ``tail_rows``, ``ref_state``) have
+    no counterpart, so ``row0``, ``rows`` and ``bounces`` are keyword-only.
     """
     check_material_codes()
     if "hcol" not in tables:

@@ -38,13 +38,13 @@ def legs_of(bounces: int) -> int:
     return {0: 1, 1: 3, 2: 5}[bounces]
 
 
-def render_gbuffers_path(volume: torch.Tensor, tables: dict,
+def render_gbuffers_path(fused_flat: torch.Tensor, tables: dict,
                          blue_noise: torch.Tensor, uniforms: dict, width: int,
                          height: int, max_steps: int = MAX_TRACE_STEPS,
-                         bounces: int = 2, row0: int = 0,
-                         rows: int | None = None) -> dict:
-    """G-buffers of one frame of the resident ``volume`` (fused (256^3,)
-    int32) with its ``build_vol_tables`` tables, or of the frame's image
+                         row0: int = 0, rows: int | None = None, *,
+                         bounces: int = 2) -> dict:
+    """G-buffers of one frame of the resident volume ``fused_flat`` (fused
+    (256^3,) int32) with its ``build_vol_tables`` tables, or of the frame's image
     rows ``row0 .. row0 + rows`` (a band of the tile split): the frame's
     rays (R1), every pixel's path (K3), then the shade (S3); three launches
     on the card.
@@ -55,12 +55,16 @@ def render_gbuffers_path(volume: torch.Tensor, tables: dict,
     (rows, W) uint16 and normal (rows, W) uint8; a band's equal the same
     rows of the whole frame's bit for bit (on CPU tensors when
     ``width * rows`` and ``width * height`` are multiples of 32: see
-    ``integrate.integrate_gbuffers``).
+    ``integrate.integrate_gbuffers``).  JAX's TPU knobs after ``rows``
+    (``interpret``, the round schedule's ``cap``, ``rounds`` and
+    ``levels``, ``tile_rows``, ``resolve``, ``safety``, ``safety_R``) have
+    no counterpart (each path has its own budget, ``trace_vol.path_budget``),
+    so ``bounces`` is keyword-only.
     """
     legs = legs_of(bounces)
     frame = march_inputs(tables, blue_noise, uniforms, width, height, row0, rows)
     marched = march_paths_vol(*frame["march"], max_steps, legs)
-    return shade(volume, *marched, legs=legs, **frame["shade"])
+    return shade(fused_flat, *marched, legs=legs, **frame["shade"])
 
 
 def march_inputs(tables: dict, blue_noise: torch.Tensor, uniforms: dict,

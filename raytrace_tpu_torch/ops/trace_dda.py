@@ -199,8 +199,8 @@ def trace_rays(fused_flat: torch.Tensor, origin: torch.Tensor,
 
 def render_gbuffers(fused_flat: torch.Tensor, blue_noise: torch.Tensor,
                     uniforms: dict, width: int, height: int,
-                    max_steps: int = MAX_TRACE_STEPS, bounces: int = 2,
-                    row0: int = 0, rows: int | None = None) -> dict:
+                    max_steps: int = MAX_TRACE_STEPS, row0: int = 0,
+                    rows: int | None = None, bounces: int = 2) -> dict:
     """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
     through the exact DDA: ``integrate.stage_gbuffers`` over D1's raw hits.
     On the card R1 (its dda form: the rays, the noise words and the sun),

@@ -241,7 +241,7 @@ def trace_rays_hf_plain(tables: dict, origin, direction, lr,
 
 
 def trace_rays_hf(tables: dict, origin, direction, lr,
-                  max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
+                  max_steps: int = MAX_TRACE_STEPS, seed: int = 0, *,
                   caps: tuple = COMPACT_CAPS, active=None, census=None) -> dict:
     """Trace rays over the heightfield of the region centred at ``lr``.
 
@@ -250,7 +250,9 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
     None.  Returns the hit dict of ``integrate.hit_result``.  CPU tensors
     take the plain march (``trace_rays_hf_plain``); CUDA tensors launch K4
     through ``march_rays_hf`` (counted on ``march_rays_hf.launches``).  Any
-    other device raises.  ``census`` as for ``march_rays_hf``.
+    other device raises.  ``census`` as for ``march_rays_hf``.  As JAX's
+    ``tile_rows`` and ``interpret`` follow ``seed``, what follows it is
+    keyword-only.
     """
     if origin.device.type == "cpu":
         return trace_rays_hf_plain(tables, origin, direction, lr, max_steps, seed,
@@ -265,17 +267,19 @@ def trace_rays_hf(tables: dict, origin, direction, lr,
 
 def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
                        width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                       seed: int = 0, bounces: int = 2, row0: int = 0,
-                       rows: int | None = None) -> dict:
+                       seed: int = 0, row0: int = 0, rows: int | None = None, *,
+                       bounces: int = 2, caps: tuple = COMPACT_CAPS) -> dict:
     """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
     through the staged heightfield tracer (``trace_pallas.py:709-753``):
     ``integrate.stage_gbuffers`` over K4's raw hits.  On the card R1 (its
     hf form: the rays, the noise word, the sun and K4's scalars), K4, then
     P1 and K4 for each bounce, then S2: 3 + 2 * ``bounces`` launches.
-    Primaries run without the cascade's budget, bounce batches with it, as
-    in JAX (``trace_pallas.py:740-749``); ``tables`` from
-    ``build_hf_tables`` for the region at ``uniforms["lr"]``.  The result
-    equals ``integrate_gbuffers`` with ``trace_rays_hf`` bit for bit."""
+    Primaries run without the cascade's budget, bounce batches with
+    ``caps``' (``hf_budget``), as in JAX (``trace_pallas.py:740-749``);
+    ``tables`` from ``build_hf_tables`` for the region at
+    ``uniforms["lr"]``.  The result equals ``integrate_gbuffers`` with
+    ``trace_rays_hf`` bit for bit.  JAX's ``interpret`` follows ``rows``, so
+    ``bounces`` and ``caps`` are keyword-only."""
     rows = height if rows is None else rows
     f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
                    form="hf")
@@ -285,9 +289,8 @@ def render_gbuffers_hf(tables: dict, blue_noise: torch.Tensor, uniforms: dict,
 
     def trace(o, d, active):
         k = next(batch)
-        caps = () if active is None else COMPACT_CAPS
-        return Record(*march_rays_hf(o, d, active, f["iscal"], tables,
-                                     hf_budget(max_steps, caps), seed,
+        budget = hf_budget(max_steps, () if active is None else caps)
+        return Record(*march_rays_hf(o, d, active, f["iscal"], tables, budget, seed,
                                      counter=counters[k:k + 1]))
 
     return stage_gbuffers(trace, HF, f, f["nw"], uniforms["origin"], bounces,

@@ -576,15 +576,15 @@ def trace_rays_vol_plain(tables: dict, volume, origin, direction, lr,
     return res
 
 
-def trace_rays_vol(tables: dict, volume, origin, direction, lr,
-                   max_steps: int = MAX_TRACE_STEPS, rounds: int | None = None,
+def trace_rays_vol(tables: dict, fused_flat, origin, direction, lr,
+                   max_steps: int = MAX_TRACE_STEPS, *, rounds: int | None = None,
                    cap: int = RAYS_CAP, active=None, escape: bool = True,
                    census=None) -> dict:
     """Trace independent rays through the resident volume (the JAX
     package's ``trace_rays_vol``, a drop-in for the exact DDA).
 
-    ``tables`` from ``build_vol_tables`` for ``volume`` (fused (256^3,)
-    int32); origin, direction (..., 3) f32 (directions need not be unit);
+    ``tables`` from ``build_vol_tables`` for ``fused_flat``, the resident
+    volume (fused (256^3,) int32); origin, direction (..., 3) f32 (directions need not be unit);
     ``lr`` (3,) the region centre; ``active`` (...,) bool or None.  Each
     ray gets ``rounds`` rounds (default ``rays_vol_rounds(max_steps,
     cap)``) of up to ``round_steps(cap)`` coarse steps and one brick
@@ -612,10 +612,11 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
     rays, lane-shuffle lookups, round ``while_loop`` with its early exit,
     ``interpret`` and ``cascade`` have no counterpart, and the one-pass
     ``resolve_mixed_parallel`` (``resolve=``) is not ported: the serial
-    resolve is JAX's default.
+    resolve is JAX's default.  As JAX's ``tile_rows`` and ``interpret``
+    follow ``max_steps``, what follows it is keyword-only.
     """
     if origin.device.type == "cpu":
-        return trace_rays_vol_plain(tables, volume, origin, direction, lr, max_steps,
+        return trace_rays_vol_plain(tables, fused_flat, origin, direction, lr, max_steps,
                                     rounds, cap, active, escape)
     if origin.device.type != "cuda":
         raise RuntimeError(f"trace_rays_vol: no kernel for device {origin.device}")
@@ -623,24 +624,25 @@ def trace_rays_vol(tables: dict, volume, origin, direction, lr,
     rounds = rays_vol_rounds(max_steps, cap) if rounds is None else rounds
     out = march_rays_vol(o, d, a, rays_vol_iscal(tables, lr, escape), tables, rounds, cap,
                          census)
-    return record_hits(VOLUME, origin, Record(*out), volume)
+    return record_hits(VOLUME, origin, Record(*out), fused_flat)
 
 
-def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Tensor,
+def render_gbuffers_vol(fused_flat: torch.Tensor, tables: dict, blue_noise: torch.Tensor,
                         uniforms: dict, width: int, height: int,
-                        max_steps: int = MAX_TRACE_STEPS, bounces: int = 2,
-                        escape: bool = True, row0: int = 0,
-                        rows: int | None = None) -> dict:
+                        max_steps: int = MAX_TRACE_STEPS, row0: int = 0,
+                        rows: int | None = None, *, bounces: int = 2,
+                        escape: bool = True) -> dict:
     """G-buffers of one frame (or of its rows ``row0 .. row0 + rows``)
     through the staged volume tracer (``trace_vol_pallas.py:1203-1246``):
     ``integrate.stage_gbuffers`` over K3s's raw hits.  On the card R1 (its
     volume form: the rays, the invariants sd1, sp1, sd2, sp2, the sun and
     K3s's scalars with the escape bounds), K3s, then P1 and K3s for each
-    bounce, then S2: 3 + 2 * ``bounces`` launches.  ``volume`` and
+    bounce, then S2: 3 + 2 * ``bounces`` launches.  ``fused_flat`` and
     ``tables`` as for ``trace_rays_vol``, the region centre
     ``uniforms["lr"]``; ``escape`` False takes the never-reached bounds
     (``rays_vol_iscal``).  The result equals ``integrate_gbuffers`` with
-    ``trace_rays_vol`` bit for bit."""
+    ``trace_rays_vol`` bit for bit.  JAX's ``interpret`` follows ``rows``,
+    so ``bounces`` and ``escape`` are keyword-only."""
     rows = height if rows is None else rows
     f = frame_rays(uniforms, blue_noise, width, height, row0, rows, tables=tables,
                    form="volume")
@@ -651,4 +653,4 @@ def render_gbuffers_vol(volume: torch.Tensor, tables: dict, blue_noise: torch.Te
         return Record(*march_rays_vol(o, d, active, iscal, tables, rounds))
 
     return stage_gbuffers(trace, VOLUME, f, f["inv"], uniforms["origin"], bounces,
-                          (rows, width), volume)
+                          (rows, width), fused_flat)

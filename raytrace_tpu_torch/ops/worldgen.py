@@ -97,6 +97,7 @@ def box_words_plain(w0, shape_xyz, seed: int = 0, device=None) -> torch.Tensor:
     box's 32-aligned column tiles (``heightmap_grid``), their maxima over
     2- to 32-column blocks, then each voxel's step and material."""
     (x0, y0, z0), (sx, sy, sz) = w0, shape_xyz
+    device = torch.device("cpu" if device is None else device)
     ax0, ay0 = x0 & -_TILE, y0 & -_TILE  # floor to the tile grid
     nx = ((x0 + sx + _TILE - 1) & -_TILE) - ax0
     ny = ((y0 + sy + _TILE - 1) & -_TILE) - ay0

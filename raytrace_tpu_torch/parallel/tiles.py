@@ -170,7 +170,7 @@ def _ranks(group) -> tuple:
 
 
 def render_frame_tiled(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
-                       height: int, group=None, max_steps: int = MAX_TRACE_STEPS,
+                       height: int, *, group=None, max_steps: int = MAX_TRACE_STEPS,
                        tracer: str = "volume", seed: int = 0,
                        bounces: int = 2) -> torch.Tensor:
     """The (H, W, 3) frame in window orientation, rendered as row bands
@@ -185,7 +185,9 @@ def render_frame_tiled(world, blue_noise: torch.Tensor, uniforms: dict, width: i
     for CUDA tensors, the plain versions for CPU ones.  Equals
     ``denoise_finalize`` of the whole frame's G-buffers bit for bit (on
     CPU tensors when the band's and the frame's pixel counts are multiples
-    of 32: see the module's docstring).
+    of 32: see the module's docstring).  ``group`` stands where JAX's
+    ``mesh`` does, which has no counterpart, so it and what follows are
+    keyword-only.
     """
     gb = band_gbuffers(world, blue_noise, uniforms, width, height, group, max_steps,
                        tracer, seed, bounces)

@@ -15,7 +15,7 @@ A ``FrameProgram`` holds one configuration (tracer, width, height,
 max_steps, seed, bounces) and its static buffers on the pipeline's device:
 
 - inputs: the packed (16,) f32 uniforms, the blue-noise texture and, for
-  "hf", "volume_fast" and "volume", the world ``render_frame`` reads (the
+  "hf", "volume_fast" and "volume", the world ``render_frame_packed`` reads (the
   ``build_hf_tables`` dict; the fused (256^3,) volume and the
   ``build_vol_tables`` dict, which the streamer (G1) and the pipeline (O1)
   then write in place; the fused volume alone, which the streamer writes
@@ -60,7 +60,7 @@ from ..ops import (
     denoise, finalize, hf_tables, integrate, lighting, path_vol, rays, trace_dda, trace_hf,
     trace_vol, vol_tables, worldgen)
 from ..world import generate
-from .pipeline import TRACERS, render_frame
+from .pipeline import TRACERS, render_frame_packed
 
 # Every kernel wrapper's launch counter.
 COUNTED = (hf_tables.build_hf_tables, rays.frame_rays, lighting.march_paths, lighting.shade,
@@ -212,7 +212,7 @@ class FrameProgram:
     def _render(self):
         if self.config[-1] == "fused":
             self._build_tables()
-        return render_frame(self.world, self.blue_noise, self.packed, *self.config)
+        return render_frame_packed(self.world, self.blue_noise, self.packed, *self.config)
 
     def _build_tables(self) -> None:
         """The fused tables of the packed uniforms' ``lr``, in place: on the

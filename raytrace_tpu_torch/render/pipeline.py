@@ -19,7 +19,10 @@ debug-only ``_validate_frame`` and the terrain ``source``/``storage`` of
 - ``volume``: the streamed resident volume itself, traced leg by leg by the
   exact DDA (``ops/trace_dda.py``, kernel D1: the reference).
 
-Then the denoise chain K2 with finalize fused into its last pass.  One
+Then the denoise chain K2 with finalize fused into its last pass.
+``render_frame`` takes JAX's arguments (a uniforms dict, ``with_gbuffers``)
+and returns what JAX's returns; ``render_frame_packed`` is the same frame
+from the packed (16,) uniform vector, what the frame program replays.  One
 packed uniform vector is uploaded per frame.  ``Pipeline.draw_frame``
 renders every tracer through a frame program (``frame_graph.FrameProgram``:
 on the card one CUDA graph replay a frame, the counterpart of JAX's jitted
@@ -36,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..constants import (
     BLUE_NOISE_SIZE,
     DEFAULT_HEIGHT,
@@ -69,7 +73,23 @@ class FrameUniforms:
     forward: tuple = (0.0, 1.0, 0.0)
     up: tuple = (0.0, 0.0, 0.4)
     right: tuple = (0.4, 0.0, 0.0)
+    # The reference's reprojection fields (structs.rs:17-24): draw_frame
+    # keeps them, as JAX's does; no frame reads them.
+    old_origin: tuple = (0.0, 0.0, 0.0)
+    old_transform: tuple = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
     lr: tuple = (0, 0, 0)
+
+    def as_device_dict(self, device=None) -> dict:
+        """JAX's seven uniforms as tensors on ``device`` (the current CUDA
+        device when None; with no GPU it raises): origin, forward, up, right
+        and lr (3,) f32, sun_angle () f32 and seed () int32, what
+        ``render_frame`` and the G-buffer passes take."""
+        dev = default_device(device, "FrameUniforms.as_device_dict")
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        return dict(origin=f32(self.origin), forward=f32(self.forward), up=f32(self.up),
+                    right=f32(self.right), sun_angle=f32(self.sun_angle),
+                    seed=torch.tensor(self.seed, dtype=torch.int32, device=dev),
+                    lr=f32(self.lr))
 
     def packed(self) -> np.ndarray:
         """(16,) f32: origin 0:3, forward 3:6, up 6:9, right 9:12, sun 12,
@@ -95,22 +115,39 @@ def unpack_uniforms(packed: torch.Tensor) -> dict:
     )
 
 
-def render_frame(world, blue_noise: torch.Tensor, packed: torch.Tensor,
-                 width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                 seed: int = 0, bounces: int = 2, tracer: str = "volume"):
-    """One frame from packed uniforms -> ``(frame (H, W, 3), gbuffers)``.
+def render_frame(world, blue_noise: torch.Tensor, uniforms: dict,
+                 width: int = DEFAULT_WIDTH, height: int = DEFAULT_HEIGHT,
+                 max_steps: int = MAX_TRACE_STEPS, with_gbuffers: bool = False,
+                 tracer: str = "volume", seed: int = 0, bounces: int = 2):
+    """One frame -> the (H, W, 3) frame, or ``(frame, gbuffers)`` with
+    ``with_gbuffers``: JAX's ``render_frame`` (``_render_frame_impl``), the
+    G-buffer pass of ``tracer`` and then the denoise chain with finalize.
 
-    ``world`` is the ``build_hf_tables`` dict for ``tracer="fused"`` and
-    ``"hf"`` (for "fused" on the card, with the column table:
-    ``with_column_heights``), the (fused volume, ``build_vol_tables`` dict) pair for
-    ``"volume_fast"`` and the fused volume for ``"volume"``.  The
-    counterpart of the JAX package's frame program (``_render_frame_impl``,
-    ``_rffp_impl``): the G-buffer pass, then the denoise chain with
-    finalize.  ``tracer`` defaults to the exact DDA, as JAX's does.
+    ``uniforms`` is JAX's dict (``FrameUniforms.as_device_dict``): tensors
+    origin, forward, up, right and lr (3,) f32, sun_angle () f32 and seed
+    () int32 on ``blue_noise``'s device; every component of ``lr`` is read,
+    as JAX reads it.  ``world`` is the ``build_hf_tables`` dict for
+    ``tracer="fused"`` and ``"hf"`` (for "fused" on the card, with the
+    column table: ``with_column_heights``), the (fused volume,
+    ``build_vol_tables`` dict) pair for ``"volume_fast"`` and the fused
+    volume for ``"volume"``.  ``tracer`` defaults to the exact DDA, as
+    JAX's does.
     """
-    gb = frame_gbuffers(world, blue_noise, unpack_uniforms(packed), width, height,
-                        max_steps, seed, bounces, tracer)
-    return denoise_finalize(gb, blue_noise), gb
+    gb = frame_gbuffers(world, blue_noise, uniforms, width, height, max_steps, seed,
+                        bounces, tracer)
+    frame = denoise_finalize(gb, blue_noise)
+    return (frame, gb) if with_gbuffers else frame
+
+
+def render_frame_packed(world, blue_noise: torch.Tensor, packed: torch.Tensor,
+                        width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
+                        seed: int = 0, bounces: int = 2, tracer: str = "volume"):
+    """``render_frame`` of the packed (16,) f32 uniforms (``unpack_uniforms``:
+    lr.y is 0) -> ``(frame (H, W, 3), gbuffers)``: the counterpart of JAX's
+    packed frame program (``_rffp_impl``), what the frame program runs and
+    its CUDA graph replays."""
+    return render_frame(world, blue_noise, unpack_uniforms(packed), width, height,
+                        max_steps, True, tracer, seed, bounces)
 
 
 def frame_gbuffers(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
@@ -119,20 +156,20 @@ def frame_gbuffers(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
                    rows: int | None = None) -> dict:
     """The G-buffer pass of ``tracer`` (``world`` as for ``render_frame``)
     for the whole frame or its image rows ``row0 .. row0 + rows``."""
-    band = dict(row0=row0, rows=rows)
+    kw = dict(row0=row0, rows=rows, bounces=bounces)
     if tracer == "fused":
         return render_gbuffers_fused(world, blue_noise, uniforms, width, height,
-                                     max_steps, seed, bounces, **band)
+                                     max_steps, seed, **kw)
     if tracer == "hf":
         return render_gbuffers_hf(world, blue_noise, uniforms, width, height,
-                                  max_steps, seed, bounces, **band)
+                                  max_steps, seed, **kw)
     if tracer == "volume_fast":
         volume, tables = world
         return render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
-                                    height, max_steps, bounces, **band)
+                                    height, max_steps, **kw)
     if tracer == "volume":
         return render_gbuffers(world, blue_noise, uniforms, width, height,
-                               max_steps, bounces, **band)
+                               max_steps, **kw)
     raise ValueError(f"unknown tracer {tracer!r}; expected one of {TRACERS}")
 
 
@@ -145,13 +182,14 @@ class Pipeline:
         height: int = DEFAULT_HEIGHT,
         seed: int = 0,
         max_steps: int = MAX_TRACE_STEPS,
-        tracer: str | None = None,
-        bounces: int = 2,
-        device="cuda",
-        preloaded_volume=None,
-        validate: bool | None = None,
         source: str = "device",
         storage=None,
+        tracer: str | None = None,
+        preloaded_volume=None,
+        validate: bool | None = None,
+        bounces: int = 2,
+        *,
+        device="cuda",
     ):
         """``tracer``: "fused" (the whole-path heightfield march of the
         generated world), "hf" (the same world traced leg by leg by the
@@ -161,9 +199,12 @@ class Pipeline:
         the reference); None picks "volume_fast" when
         ``preloaded_volume`` is given, else "fused", as the JAX package
         does.  ``preloaded_volume``: a fused (256^3,) volume (uint32 bits
-        in any integer dtype) to start from instead of generating one; only
-        the volume tracers read it.  ``device``: "cuda" runs the kernels
-        and raises when no GPU is present; "cpu" runs the plain versions.
+        in any integer dtype) for the streamer to start from instead of
+        generating one; only the volume tracers render it (with "fused" or
+        "hf" the streamer holds and streams it, as JAX's does, and the
+        frame is the heightfield's).  ``device`` (after JAX's parameters):
+        "cuda" runs the kernels and raises when no GPU is present; "cpu"
+        runs the plain versions.
         ``validate``: after every frame, report non-finite frame or
         lighting values and the pixels whose primary ray exhausted its
         budget (the JAX package's debug-build checks); it waits for each
@@ -177,13 +218,7 @@ class Pipeline:
             tracer = "volume_fast" if preloaded_volume is not None else "fused"
         if tracer not in TRACERS:
             raise ValueError(f"unknown tracer {tracer!r}")
-        if preloaded_volume is not None and tracer not in VOLUME_TRACERS:
-            raise ValueError(
-                f"tracer={tracer!r} renders from worldgen-derived heightfields "
-                "and would ignore preloaded_volume; use tracer='volume_fast'")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Pipeline(device='cuda') needs a CUDA GPU")
+        self.device = default_device(device, "Pipeline")
         self.width = width
         self.height = height
         self.max_steps = max_steps
@@ -194,9 +229,11 @@ class Pipeline:
             validate = bool(int(os.environ.get("RAYTRACE_TPU_VALIDATE", "0")))
         self.validate = validate
         self.uniforms = FrameUniforms()
-        self.streamer = TerrainStreamer(seed=seed, device=self.device, source=source,
-                                        storage=storage)
-        if tracer in VOLUME_TRACERS:
+        self.streamer = TerrainStreamer(seed=seed, source=source, storage=storage,
+                                        device=self.device)
+        # The heightfield tracers read no volume: their streamer holds one
+        # only when given one.
+        if tracer in VOLUME_TRACERS or preloaded_volume is not None:
             self.streamer.initialize(volume=preloaded_volume)
         self.blue_noise = torch.from_numpy(get_blue_noise_f32()).to(self.device)
         self._tables = None
@@ -302,7 +339,8 @@ class Pipeline:
         of this configuration (``frame_program``: on the card one CUDA
         graph replay); ``self.gbuffers`` are then the program's,
         overwritten by the next frame.  ``validate`` frames run
-        ``render_frame`` eagerly."""
+        ``render_frame_packed`` eagerly.  Then the uniforms' ``old_origin``
+        and ``old_transform`` take this frame's camera, as in JAX."""
         self.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
         self.streamer.setup_next_request()
         self.fill_uniforms(camera, sun_angle)
@@ -313,13 +351,17 @@ class Pipeline:
             packed = packed.pin_memory()
         if not self.validate:
             frame, self.gbuffers = self.frame_program().run(packed)
-            return frame
-        frame, self.gbuffers = render_frame(
-            self.world(), self.blue_noise, packed.to(self.device, non_blocking=True),
-            self.width, self.height, self.max_steps, self.seed, self.bounces, self.tracer,
-        )
-        if self.validate:
+        else:
+            frame, self.gbuffers = render_frame_packed(
+                self.world(), self.blue_noise, packed.to(self.device, non_blocking=True),
+                self.width, self.height, self.max_steps, self.seed, self.bounces,
+                self.tracer,
+            )
             self._validate_frame(frame, self.gbuffers)
+        # Post-submit reprojection bookkeeping (pipeline.rs:214-227), as JAX's.
+        u = self.uniforms
+        u.old_origin = u.origin
+        u.old_transform = _invert3(tuple(zip(*(u.right, u.up, u.forward))))
         return frame
 
     def frame_program(self):
@@ -369,3 +411,9 @@ class Pipeline:
         if bad_light:
             print("[validate] non-finite lighting buffer values")
         return dict(nonfinite=bad, exhausted=exhausted, nonfinite_lighting=bad_light)
+
+
+def _invert3(m):
+    """Inverse of a 3x3 matrix given as rows; plain python floats."""
+    a = np.array(m, np.float64)
+    return tuple(tuple(row) for row in np.linalg.inv(a).astype(np.float32))

@@ -39,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..constants import (
     CHUNK_SIZE,
     ROOT_BLOCK_SIZE,
@@ -141,8 +142,8 @@ class TerrainStreamer:
     the voxels on ``device``; "cache" reads them from ``storage``, a
     ``ChunkStorage``."""
 
-    def __init__(self, seed: int = 0, device="cuda", source: str = "device",
-                 storage=None):
+    def __init__(self, seed: int = 0, source: str = "device", storage=None, *,
+                 device="cuda"):
         if source not in ("device", "cache"):
             raise ValueError(f"unknown terrain source {source!r}")
         if source == "cache" and storage is None:
@@ -150,9 +151,7 @@ class TerrainStreamer:
         self.seed = seed
         self.source = source
         self.storage = storage
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TerrainStreamer(device='cuda') needs a CUDA GPU")
+        self.device = default_device(device, "TerrainStreamer")
         self.cpu_position = Position()
         self.gpu_position = Position()
         self.request_queue: list[SliceRequest] = []

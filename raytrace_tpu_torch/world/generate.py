@@ -8,13 +8,14 @@ their height band.  Packed materials are uint32 bits held in int32 tensors
 (all below 2^24).
 
 ``generate_box`` is the jitted JAX ``generate_box`` (with
-``minefield_from_solid``) as one program: on a CUDA device one launch of
-kernel G1's box mode (``csrc/worldgen.cu``, counted on
-``generate_box.launches``), on the CPU its plain version
-``generate_box_plain``, the op-by-op formulation of JAX's program.  The
-chunk cache's misses, ``generate_world``'s x-rows and the benchmark's worlds
-call it; the streamer writes its slabs and regions in place with
-``ops/worldgen.generate_into`` (G1's slab mode) instead.
+``minefield_from_solid``, or without it for any box) as one program: on a
+CUDA device one launch of kernel G1's box mode (``csrc/worldgen.cu``,
+counted on ``generate_box.launches``), on the CPU its plain version
+``generate_box_plain``, the op-by-op formulation of JAX's program.  Both
+run on the card unless given a device, as JAX's run on its default
+device.  The chunk cache's misses, ``generate_world``'s x-rows and the
+benchmark's worlds call it; the streamer writes its slabs and regions in
+place with ``ops/worldgen.generate_into`` (G1's slab mode) instead.
 ``generate_box_plain`` fills its materials a block of z planes at a time,
 so the int64 temporaries of the band's unsigned modulo stay a few MB even
 for a 256^3 box (16.7M voxels).
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import default_device
 from ..constants import BAND_HIGH, BAND_LOW, BAND_MID, CHUNK_SIZE
 from ..materials import PACKED_MATERIALS
 from .chunk import minefield_from_solid
@@ -63,33 +65,42 @@ def packed_for_band(m: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def _check_box(origin, shape) -> tuple:
+def _check_box(origin, shape, with_minefield: bool) -> tuple:
+    """``origin`` and ``shape`` as int triples; the minefield's LOD blocks
+    bind the box to 64-aligned origins and 64-multiple extents, without it
+    any box of extents >= 1 is taken (``ValueError`` otherwise)."""
     origin = tuple(int(o) for o in origin)
     shape = tuple(int(s) for s in shape)
-    if len(origin) != 3 or len(shape) != 3 or any(s < 1 for s in shape) \
-            or any(v % CHUNK_SIZE for v in origin + shape):
+    if len(origin) != 3 or len(shape) != 3 or any(s < 1 for s in shape):
+        raise ValueError(f"generate_box: want a 3-d origin and extents >= 1"
+                         f"{f' in a {CHUNK_SIZE}-aligned box' if with_minefield else ''}, "
+                         f"got origin {origin}, shape {shape}")
+    if with_minefield and any(v % CHUNK_SIZE for v in origin + shape):
         raise ValueError(f"generate_box: want a {CHUNK_SIZE}-aligned origin and "
-                         f"{CHUNK_SIZE}-multiple extents, got origin {origin}, "
-                         f"shape {shape}")
+                         f"{CHUNK_SIZE}-multiple extents for the minefield, got "
+                         f"origin {origin}, shape {shape}")
     return origin, shape
 
 
-def generate_box(origin, shape, seed: int = 0, device=None) -> dict:
+def generate_box(origin, shape, seed: int = 0, with_minefield: bool = True, *,
+                 device=None) -> dict:
     """Terrain of the world box at integer ``origin`` (x0, y0, z0) with
-    extents ``shape`` (X, Y, Z) on ``device`` (the CPU when None); the box
-    must be 64-aligned with 64-multiple extents, as the minefield's LOD
-    blocks are (``ValueError`` otherwise).
+    extents ``shape`` (X, Y, Z) on ``device`` (the current CUDA device when
+    None: with no GPU it raises).  With ``with_minefield`` the box must be
+    64-aligned with 64-multiple extents, as the minefield's LOD blocks are;
+    without it any box of extents >= 1 at any integer origin is taken
+    (``ValueError`` otherwise).
 
     Returns ``materials`` (Z, Y, X) int32 packed materials, ``solid``
-    (Z, Y, X) bool and ``minefield`` (Z, Y, X) uint8.  A CUDA device gets
-    kernel G1's box mode, one launch on the current stream writing all
-    three (``generate_box.launches`` counts them); a CPU device the plain
-    version.  Any other device raises.
+    (Z, Y, X) bool and, with ``with_minefield``, ``minefield`` (Z, Y, X)
+    uint8.  A CUDA device gets kernel G1's box mode, one launch on the
+    current stream writing all of them (``generate_box.launches`` counts
+    them); a CPU device the plain version.  Any other device raises.
     """
-    origin, shape = _check_box(origin, shape)
-    dev = torch.device("cpu" if device is None else device)
+    origin, shape = _check_box(origin, shape, with_minefield)
+    dev = default_device(device, "generate_box")
     if dev.type == "cpu":
-        return generate_box_plain(origin, shape, seed, dev)
+        return generate_box_plain(origin, shape, seed, with_minefield, device=dev)
     if dev.type != "cuda":
         raise RuntimeError(f"generate_box: no kernel for device {dev}")
     from .._build import check_launch, kernels
@@ -98,10 +109,13 @@ def generate_box(origin, shape, seed: int = 0, device=None) -> dict:
         dev = torch.device("cuda", torch.cuda.current_device())
     zyx = tuple(reversed(shape))
     out = {"materials": torch.empty(zyx, dtype=torch.int32, device=dev),
-           "solid": torch.empty(zyx, dtype=torch.bool, device=dev),
-           "minefield": torch.empty(zyx, dtype=torch.uint8, device=dev)}
+           "solid": torch.empty(zyx, dtype=torch.bool, device=dev)}
+    if with_minefield:
+        out["minefield"] = torch.empty(zyx, dtype=torch.uint8, device=dev)
+    # No minefield buffer: G1's form for any box, which writes none.
     err = kernels().rt_worldgen_box(
-        out["materials"].data_ptr(), out["minefield"].data_ptr(), out["solid"].data_ptr(),
+        out["materials"].data_ptr(),
+        out["minefield"].data_ptr() if with_minefield else None, out["solid"].data_ptr(),
         *origin, *shape, seed, PACKED_GRASS, PACKED_ROCK, PACKED_SNOW,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -113,10 +127,13 @@ def generate_box(origin, shape, seed: int = 0, device=None) -> dict:
 generate_box.launches = 0
 
 
-def generate_box_plain(origin, shape, seed: int = 0, device=None) -> dict:
-    """``generate_box``'s plain version on ``device``: the JAX program op
-    by op (heights, solidity, materials, then ``minefield_from_solid``)."""
-    origin, shape = _check_box(origin, shape)
+def generate_box_plain(origin, shape, seed: int = 0, with_minefield: bool = True, *,
+                       device=None) -> dict:
+    """``generate_box``'s plain version on ``device`` (the CPU when None):
+    the JAX program op by op (heights, solidity, materials, then, with
+    ``with_minefield``, ``minefield_from_solid``)."""
+    origin, shape = _check_box(origin, shape, with_minefield)
+    device = torch.device("cpu" if device is None else device)
     nx, ny, nz = shape
     x0, y0, z0 = origin
     heights = heightmap_grid(x0, y0, (ny, nx), seed=seed, device=device)
@@ -131,12 +148,15 @@ def generate_box_plain(origin, shape, seed: int = 0, device=None) -> dict:
         band = material_band(z, hash3_u32(wx, wy, z, seed + 1))
         materials[k:k + _Z_BLOCK] = torch.where(
             solid[k:k + _Z_BLOCK], packed_for_band(band), 0)
-    return {"materials": materials, "solid": solid,
-            "minefield": minefield_from_solid(solid)}
+    out = {"materials": materials, "solid": solid}
+    if with_minefield:
+        out["minefield"] = minefield_from_solid(solid)
+    return out
 
 
 def generate_chunk(chunk_coord, seed: int = 0, device=None):
-    """One 64^3 chunk -> (materials int32, minefield uint8), each (Z, Y, X)."""
+    """One 64^3 chunk -> (materials int32, minefield uint8), each (Z, Y, X),
+    on ``device`` (the current CUDA device when None, as ``generate_box``)."""
     origin = tuple(int(c) * CHUNK_SIZE for c in chunk_coord)
     box = generate_box(origin, (CHUNK_SIZE,) * 3, seed=seed, device=device)
     return box["materials"], box["minefield"]

@@ -19,6 +19,7 @@ from ..constants import (
     WORLDGEN_HEIGHT_OFFSET,
     WORLDGEN_SCALE,
 )
+from .._device import default_device
 from .._f32 import fdiv
 from .noise import (
     DEFAULT_LACUNARITY,
@@ -117,15 +118,17 @@ def height_at(x: torch.Tensor, y: torch.Tensor, seed: int = 0) -> torch.Tensor:
                                seed)
 
 
-def heightmap_grid(origin_x: int, origin_y: int, shape, seed: int = 0,
-                   device=None) -> torch.Tensor:
+def heightmap_grid(origin_x: int, origin_y: int, shape=(CHUNK_SIZE, CHUNK_SIZE),
+                   seed: int = 0, device=None) -> torch.Tensor:
     """Heights over an integer grid -> (Y, X) int32, ``[y, x]`` is world
-    column ``(origin_x + x, origin_y + y)``.
+    column ``(origin_x + x, origin_y + y)``, on ``device`` (the current
+    CUDA device when None; with no GPU it raises).
 
     Each covered lattice point is evaluated once; per column only the
     bilinear blend and the analytic top octave run.  The corner gather by
     cell index equals the JAX ``repeat`` + ``dynamic_slice`` expansion.
     """
+    device = default_device(device, "heightmap_grid")
     ny, nx = shape
     gx0 = (origin_x >> 3) << 3
     gy0 = (origin_y >> 3) << 3
@@ -156,7 +159,8 @@ def heightmap_grid(origin_x: int, origin_y: int, shape, seed: int = 0,
 
 
 def generate_heightmap(chunk_coord_xy, seed: int = 0, device=None) -> torch.Tensor:
-    """The 64 x 64 heights of chunk column ``(cx, cy)`` -> (Y, X) int32."""
+    """The 64 x 64 heights of chunk column ``(cx, cy)`` -> (Y, X) int32, on
+    ``device`` (the current CUDA device when None)."""
     cx, cy = chunk_coord_xy
     return heightmap_grid(cx * CHUNK_SIZE, cy * CHUNK_SIZE, (CHUNK_SIZE, CHUNK_SIZE), seed,
-                          device)
+                          default_device(device, "generate_heightmap"))

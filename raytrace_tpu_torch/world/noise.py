@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import default_device
 from .._f32 import fdiv
 
 DEFAULT_OCTAVES = 6
@@ -276,7 +277,9 @@ def mountain_noise2(x: torch.Tensor, y: torch.Tensor, seed: int = 0) -> torch.Te
 def mountain_noise2_grid(origin_x: int, origin_y: int, shape, seed: int = 0,
                          device=None) -> torch.Tensor:
     """``mountain_noise2`` on the integer grid of world columns
-    ``(origin_x + x, origin_y + y)`` -> (Y, X) float32."""
+    ``(origin_x + x, origin_y + y)`` -> (Y, X) float32, on ``device`` (the
+    current CUDA device when None; with no GPU it raises)."""
+    device = default_device(device, "mountain_noise2_grid")
     ny, nx = shape
     gx = origin_x + torch.arange(nx, dtype=torch.int32, device=device)[None, :]
     gy = origin_y + torch.arange(ny, dtype=torch.int32, device=device)[:, None]

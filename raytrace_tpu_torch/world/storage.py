@@ -24,8 +24,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
-import torch
 
+from .._device import default_device
 from ..constants import CHUNK_SIZE, CHUNK_VOLUME
 from ..native import lz4_available, lz4_compress, lz4_decompress
 
@@ -63,9 +63,7 @@ class ChunkStorage:
 
     def __init__(self, storage_dir: str | Path | None = None, seed: int = 0,
                  device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ChunkStorage(device='cuda') needs a CUDA GPU")
+        self.device = default_device(device, "ChunkStorage")
         self.storage_dir = Path(storage_dir) if storage_dir else default_storage_dir()
         self.storage_dir.mkdir(parents=True, exist_ok=True)
         self.seed = seed

@@ -24,8 +24,9 @@ form (``rays.frame_rays_plain``) and the frame program of
   reports them hit (not exhausted, albedo 0), as JAX does; the HF mode's
   rule would call them exhausted.
 - A band of rows against the same rows of the whole frame, the frame
-  program of ``tracer="volume"`` against ``render_frame``, and the default
-  tracer of ``render_frame`` and the tile split (the exact DDA, as JAX's).
+  program of ``tracer="volume"`` against ``render_frame_packed``, and the
+  default tracer of ``render_frame_packed`` and the tile split (the exact
+  DDA, as JAX's).
 - Each wrapper refuses a tensor on a device with no kernel.
 
 Frames are 32² (bands of 16 rows; at most 2,048 rays a batch) and torch
@@ -204,7 +205,7 @@ def _frames(vol_pair, blue, monkeypatch, view, bounces, max_steps=2048):
                          jnp.asarray(blue[0]), u, SIZE, SIZE, max_steps=max_steps,
                          bounces=bounces)
     got = trace_dda.render_gbuffers(vol, blue[1], convert.uniforms_from_jax(_as_np(u), "cpu"),
-                                    SIZE, SIZE, max_steps, bounces)
+                                    SIZE, SIZE, max_steps, bounces=bounces)
     return {k: v.numpy() for k, v in got.items()}, want
 
 
@@ -293,7 +294,7 @@ def _staged(vol, blue, u, bounces, raw, band=None):
 def _integrated(blue, u, bounces, hit, band=None):
     row0, rows = band or (0, SIZE)
     recorded, batches = _recorded(hit)
-    gb = integrate.integrate_gbuffers(recorded, blue[1], u, SIZE, SIZE, bounces, row0, rows)
+    gb = integrate.integrate_gbuffers(recorded, blue[1], u, SIZE, SIZE, row0, rows, bounces)
     return gb, batches
 
 
@@ -408,8 +409,8 @@ def test_band_equals_the_whole_frames_rows(world, blue):
 
 def test_frame_program_equals_render_frame_and_the_default_tracer(world, blue):
     """The frame program of ``tracer="volume"`` takes the volume itself as
-    its world and renders ``render_frame``'s frame; ``render_frame`` and
-    the tile split default to the exact DDA, as JAX's do."""
+    its world and renders ``render_frame_packed``'s frame; that and the tile
+    split default to the exact DDA, as JAX's ``render_frame`` does."""
     _, vol = world
     bn = blue[1]
     u = pipeline.FrameUniforms(origin=VIEW["origin"], sun_angle=0.6, seed=3,
@@ -418,10 +419,10 @@ def test_frame_program_equals_render_frame_and_the_default_tracer(world, blue):
     program = frame_graph.FrameProgram(vol, bn, "volume", SIZE, SIZE)
     assert program.world is vol
     frame, gb = program.run(packed)
-    want, gb_want = pipeline.render_frame(vol, bn, packed, SIZE, SIZE, tracer="volume")
+    want, gb_want = pipeline.render_frame_packed(vol, bn, packed, SIZE, SIZE, tracer="volume")
     assert torch.equal(frame, want)
     assert all(torch.equal(gb[k], gb_want[k]) for k in gb_want)
-    default, _ = pipeline.render_frame(vol, bn, packed, SIZE, SIZE)
+    default, _ = pipeline.render_frame_packed(vol, bn, packed, SIZE, SIZE)
     assert torch.equal(default, want)
     tiled = tiles.render_frame_tiled(vol, bn, pipeline.unpack_uniforms(packed), SIZE, SIZE)
     assert torch.equal(tiled, want)

@@ -267,7 +267,7 @@ def test_fused_gbuffers_match_jax(blue, hf_tables, case):
         hf_tables[0], jnp.asarray(bn), u, w, h, max_steps=2048, seed=0, interpret=True,
         bounces=bounces, row0=row0, rows=rows)
     got = lighting.render_gbuffers_fused(hf_tables[1], bn_t, _port(u), w, h, 2048, 0,
-                                         bounces, row0, rows)
+                                         row0=row0, rows=rows, bounces=bounces)
     assert tuple(got["depth"].shape) == (rows or h, w)
     _assert_gbuffers_close({k: v.numpy() for k, v in got.items()}, _as_np(want))
 
@@ -282,8 +282,8 @@ def test_volume_fast_gbuffers_match_jax(blue, weird_world, case):
     want = jax_path_vol.render_gbuffers_path(fused, tables, jnp.asarray(bn), u, w, h, 4096,
                                              row0=row0, rows=rows, bounces=bounces,
                                              interpret=True)
-    got = path_vol.render_gbuffers_path(volume, ptables, bn_t, _port(u), w, h, 4096, bounces,
-                                        row0, rows)
+    got = path_vol.render_gbuffers_path(volume, ptables, bn_t, _port(u), w, h, 4096, row0,
+                                        rows, bounces=bounces)
     _assert_gbuffers_close({k: v.numpy() for k, v in got.items()}, _as_np(want))
 
 

@@ -5,7 +5,7 @@ every tracer ("fused", "hf", "volume" and "volume_fast"); on a CPU pipeline the 
 runs its function eagerly over the same static buffers, so the buffer
 handling (what each world event copies in, what the pipeline keeps) is held
 here against a twin pipeline that renders every frame through
-``render_frame`` on its own world (``apps.profile.eager_frame``), bit for
+``render_frame_packed`` on its own world (``apps.profile.eager_frame``), bit for
 bit.  The capture itself, and the launch counters' replay, need the card
 (``chip_smoke.py``'s ``graph_frames_*`` phases).
 """
@@ -24,7 +24,7 @@ from raytrace_tpu_torch.ops import hf_tables
 from raytrace_tpu_torch.ops.hf_tables import build_hf_tables, with_column_heights
 from raytrace_tpu_torch.render import frame_graph
 from raytrace_tpu_torch.render.camera import Camera
-from raytrace_tpu_torch.render.pipeline import TRACERS, VOLUME_TRACERS, Pipeline, render_frame
+from raytrace_tpu_torch.render.pipeline import TRACERS, VOLUME_TRACERS, Pipeline, render_frame_packed
 from raytrace_tpu_torch.testing.golden import compare_images
 from raytrace_tpu_torch.utils.blue_noise import get_blue_noise_f32
 
@@ -102,13 +102,13 @@ def test_refresh_copies_a_new_world_in():
     once refreshed with them, and its buffers are the first world's
     tensors, not copies ("hf": the fused program builds its own)."""
     bn = torch.from_numpy(get_blue_noise_f32())
-    a = build_hf_tables((0, 0, 0))
-    b = build_hf_tables((64, 0, -48))
+    a = build_hf_tables((0, 0, 0), device="cpu")
+    b = build_hf_tables((64, 0, -48), device="cpu")
     program = frame_graph.FrameProgram(a, bn, "hf", SIZE, SIZE)
     assert all(program.world[k] is a[k] for k in a)
-    want_a = render_frame(a, bn, _packed((0, 0, 0)), SIZE, SIZE, tracer="hf")[0]
+    want_a = render_frame_packed(a, bn, _packed((0, 0, 0)), SIZE, SIZE, tracer="hf")[0]
     assert torch.equal(program.run(_packed((0, 0, 0)))[0], want_a)
-    want_b = render_frame(b, bn, _packed((64, 0, -48)), SIZE, SIZE, tracer="hf")[0]
+    want_b = render_frame_packed(b, bn, _packed((64, 0, -48)), SIZE, SIZE, tracer="hf")[0]
     program.refresh(b)
     assert all(torch.equal(program.world[k], b[k]) for k in b)
     got_b = program.run(_packed((64, 0, -48)))[0]
@@ -117,7 +117,7 @@ def test_refresh_copies_a_new_world_in():
 
 def test_refresh_raises_on_a_changed_layout():
     bn = torch.from_numpy(get_blue_noise_f32())
-    tables = build_hf_tables((0, 0, 0))
+    tables = build_hf_tables((0, 0, 0), device="cpu")
     program = frame_graph.FrameProgram(tables, bn, "hf", SIZE, SIZE)
     with pytest.raises(ValueError, match="layout changed"):
         program.refresh(dict(tables, h3=tables["h3"][:-1]))
@@ -141,8 +141,8 @@ def test_refresh_raises_on_a_changed_layout():
 
 
 def test_validate_and_the_exact_dda_stay_eager(capsys):
-    """``validate`` frames, the exact DDA's among them, run ``render_frame``
-    op by op: no frame program is built for them.  Without ``validate``
+    """``validate`` frames, the exact DDA's among them, run
+    ``render_frame_packed`` op by op: no frame program is built for them.  Without ``validate``
     every tracer, the exact DDA too, has its frame program."""
     cam = _camera()
     checked = Pipeline(width=16, height=16, device="cpu", tracer="hf", validate=True)
@@ -186,7 +186,7 @@ def test_fused_program_rebuilds_its_tables_across_a_crossing(monkeypatch):
     word.  On the CPU the plain rebuild runs once per lr: the program's key
     says which region its buffers hold."""
     regions = [(0, 0, 0), (16, 0, 0)]
-    want_tables = [with_column_heights(build_hf_tables(lr)) for lr in regions]
+    want_tables = [with_column_heights(build_hf_tables(lr, device="cpu")) for lr in regions]
     built = []
     plain = hf_tables.build_hf_tables_plain
     monkeypatch.setattr(hf_tables, "build_hf_tables_plain",
@@ -221,7 +221,8 @@ def test_fused_program_builds_its_tables_on_each_change(monkeypatch):
     ``(lr.x, lr.y, seed, 1)``."""
     a, b = (0, 0, 0), (16, 0, 0)
     steps = [(a, 0), (a, 0), (b, 0), (a, 0), (a, 7)]
-    fresh = {step: with_column_heights(build_hf_tables(*step), step[1]) for step in steps}
+    fresh = {step: with_column_heights(build_hf_tables(*step, device="cpu"), step[1])
+             for step in steps}
     built = []
     plain = hf_tables.build_hf_tables_plain
     monkeypatch.setattr(hf_tables, "build_hf_tables_plain",

@@ -70,7 +70,8 @@ def test_keyed_builds_run_exactly_on_each_change(monkeypatch, form):
             key[3] = 0  # another writer touched the buffers
             lr = A
         before = {k: v.clone() for k, v in out.items()}
-        got = hf_tables.build_hf_tables(as_form(lr), seed, out=out, hcol=True, key=key)
+        got = hf_tables.build_hf_tables(as_form(lr), seed, out=out, hcol=True, key=key,
+                                        device="cpu")
         assert got is out
         if builds:
             want_built.append((lr, seed))
@@ -91,7 +92,7 @@ def test_unkeyed_builds_always_run(monkeypatch):
     out = hf_tables.empty_tables("cpu")
     built = _counting(monkeypatch)
     for _ in range(2):
-        hf_tables.build_hf_tables(A, out=out)
+        hf_tables.build_hf_tables(A, out=out, device="cpu")
     assert built == [(A, 0), (A, 0)]
 
 
@@ -107,7 +108,7 @@ def test_a_bad_key_is_refused(bad):
                device=torch.zeros(4, dtype=torch.int32, device="meta"),
                no_out=torch.zeros(4, dtype=torch.int32))[bad]
     with pytest.raises(ValueError, match="key"):
-        hf_tables.build_hf_tables(A, out=None if bad == "no_out" else out, key=key)
+        hf_tables.build_hf_tables(A, out=None if bad == "no_out" else out, key=key, device="cpu")
     assert all(torch.equal(out[k], before[k]) for k in out)
     if bad != "device":
         assert not key.any()

@@ -54,7 +54,7 @@ def test_tables_equal_jax(jax_region, form):
     """Every word equals JAX run op by op; against jitted JAX the pyramid
     and r0 are equal and a lattice field is at most one quantum apart."""
     lr, eager, jitted = jax_region
-    got = hf_tables.build_hf_tables(_lr_forms(lr)[form], seed=0)
+    got = hf_tables.build_hf_tables(_lr_forms(lr)[form], seed=0, device="cpu")
     assert set(got) == set(eager) == set(hf_tables.TABLE_KEYS) | {"r0"}
     for key in eager:
         assert got[key].dtype == torch.int32, key
@@ -84,16 +84,18 @@ def test_out_and_column_table_fill_in_place(seed):
     what a fresh build gives, ``hcol=True`` with the column table of
     ``with_column_heights``; without ``hcol`` the table is left alone."""
     lr = (-48, 0, 16)
-    want = hf_tables.with_column_heights(hf_tables.build_hf_tables(lr, seed=seed), seed)
+    want = hf_tables.with_column_heights(
+        hf_tables.build_hf_tables(lr, seed=seed, device="cpu"), seed)
     out = hf_tables.empty_tables("cpu", hcol=True)
     assert {k: (v.dtype, tuple(v.shape)) for k, v in out.items()} == hf_tables.LAYOUT
     kept = dict(out)
-    got = hf_tables.build_hf_tables(_lr_forms(lr)["packed"], seed=seed, out=out, hcol=True)
+    got = hf_tables.build_hf_tables(_lr_forms(lr)["packed"], seed=seed, out=out, hcol=True,
+                                    device="cpu")
     assert got is out and all(got[k] is kept[k] for k in kept)
     assert all(torch.equal(got[k], want[k]) for k in want)
     bare = hf_tables.empty_tables("cpu")
     assert "hcol" not in bare
-    hf_tables.build_hf_tables(lr, seed=seed, out=bare)
+    hf_tables.build_hf_tables(lr, seed=seed, out=bare, device="cpu")
     assert all(torch.equal(bare[k], want[k]) for k in bare)
 
 

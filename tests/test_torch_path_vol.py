@@ -88,7 +88,7 @@ def frame_pair(request):
         convert.vol_tables_from_jax(as_np(tables), "cpu"),
         convert.blue_noise_from_jax(bn, "cpu"),
         convert.uniforms_from_jax(as_np(u), "cpu"),
-        size, size, steps, bounces,
+        size, size, steps, bounces=bounces,
     )
     return {k: v.numpy() for k, v in got.items()}, as_np(want)
 
@@ -138,11 +138,11 @@ def test_cut_paths_report_pink(weird_world, monkeypatch):
     vol = convert.volume_from_jax(fused, "cpu")
     tabs = convert.vol_tables_from_jax(as_np(tables), "cpu")
     bn = convert.blue_noise_from_jax(get_blue_noise_f32(), "cpu")
-    full = path_vol.render_gbuffers_path(vol, tabs, bn, u, 24, 24, 2048, 2)
+    full = path_vol.render_gbuffers_path(vol, tabs, bn, u, 24, 24, 2048, bounces=2)
     assert int((full["depth"].to(torch.int32) == EXHAUSTED_DEPTH).sum()) == 0
     # Three coarse steps and bricks per path.
     monkeypatch.setattr(trace_vol, "path_budget", lambda max_steps, legs: 3)
-    gb = path_vol.render_gbuffers_path(vol, tabs, bn, u, 24, 24, 2048, 2)
+    gb = path_vol.render_gbuffers_path(vol, tabs, bn, u, 24, 24, 2048, bounces=2)
     pink = gb["depth"].to(torch.int32) == EXHAUSTED_DEPTH
     assert pink.any() and not pink.all()
     done = ~pink

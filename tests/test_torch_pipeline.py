@@ -48,8 +48,8 @@ def _canonical(cls):
 @pytest.fixture(scope="module")
 def port_frame():
     u = _canonical(pipeline.FrameUniforms)
-    frame, gb = pipeline.render_frame(
-        build_hf_tables((0, 0, 0), seed=0),
+    frame, gb = pipeline.render_frame_packed(
+        build_hf_tables((0, 0, 0), seed=0, device="cpu"),
         torch.from_numpy(get_blue_noise_f32()), torch.from_numpy(u.packed()),
         64, 64, tracer="fused",
     )
@@ -136,13 +136,25 @@ def test_draw_frame_streams_and_advances_seed():
 
 
 def test_pipeline_refuses_what_it_cannot_run():
+    """An unknown tracer and a pipeline on the card without a GPU are
+    refused.  A preloaded volume with a heightfield tracer is not, as in
+    JAX: the streamer holds the volume JAX's holds, and the frame is the one
+    rendered without it, bit for bit."""
     assert pipeline.TRACERS == ("fused", "hf", "volume", "volume_fast")
     with pytest.raises(ValueError, match="unknown tracer"):
         pipeline.Pipeline(tracer="raster", device="cpu")
+    words = np.arange(256 ** 3, dtype=np.uint32) * np.uint32(2654435761)
+    jax_held = np.asarray(jax_pipeline.Pipeline(
+        width=16, height=16, tracer="fused", preloaded_volume=words).streamer.volume)
+    cam = Camera(origin=[8.0, -100.0, 14.0], pitch=-0.3)  # no slice to stream
     for tracer in ("fused", "hf"):
-        with pytest.raises(ValueError, match="would ignore preloaded_volume"):
-            pipeline.Pipeline(tracer=tracer, device="cpu",
-                              preloaded_volume=torch.zeros(256 ** 3, dtype=torch.int32))
+        held = pipeline.Pipeline(width=16, height=16, tracer=tracer, device="cpu",
+                                 preloaded_volume=torch.from_numpy(words.view(np.int32)))
+        bare = pipeline.Pipeline(width=16, height=16, tracer=tracer, device="cpu")
+        assert bare.streamer.volume is None
+        np.testing.assert_array_equal(held.streamer.volume.numpy().view(np.uint32), jax_held)
+        for sun in (0.6, 0.7):
+            assert torch.equal(held.draw_frame(cam, sun), bare.draw_frame(cam, sun))
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present; the no-GPU refusal cannot be shown")
     for tracer in pipeline.TRACERS:
@@ -335,7 +347,7 @@ def test_fused_frame_takes_bare_tables(monkeypatch):
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.ops.hf_tables import column_heights, with_column_heights
 
-    bare = build_hf_tables((0, 0, 0), seed=0)
+    bare = build_hf_tables((0, 0, 0), seed=0, device="cpu")
     u = pipeline.unpack_uniforms(torch.from_numpy(_canonical(pipeline.FrameUniforms).packed()))
     bn = torch.from_numpy(get_blue_noise_f32())
     seen = []
@@ -363,7 +375,7 @@ def test_pipeline_tables_carry_the_column_table():
     p = pipeline.Pipeline(width=16, height=16, device="cpu")
     p.uniforms.lr = (32, 0, -16)
     tables = p.tables()
-    want = build_hf_tables((32, 0, -16), seed=0)
+    want = build_hf_tables((32, 0, -16), seed=0, device="cpu")
     assert torch.equal(tables["r0"], want["r0"])
     assert torch.equal(tables["hcol"], column_heights(want, 0))
 
@@ -374,6 +386,6 @@ def test_hf_pipeline_tables_have_no_column_table():
     p = pipeline.Pipeline(width=16, height=16, device="cpu", tracer="hf")
     p.uniforms.lr = (32, 0, -16)
     tables = p.tables()
-    want = build_hf_tables((32, 0, -16), seed=0)
+    want = build_hf_tables((32, 0, -16), seed=0, device="cpu")
     assert set(tables) == set(want)
     assert all(torch.equal(tables[k], want[k]) for k in want)

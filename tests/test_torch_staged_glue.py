@@ -122,7 +122,8 @@ class _Case:
 
             def hit(o, d, active=None):
                 caps = () if active is None else trace_hf.COMPACT_CAPS
-                return trace_hf.trace_rays_hf(tables, o, d, lr, HF_STEPS, 0, caps, active)
+                return trace_hf.trace_rays_hf(tables, o, d, lr, HF_STEPS, 0, caps=caps,
+                                              active=active)
 
             self.front = rays.frame_rays(self.u, self.bn, w, h, self.row0, self.rows,
                                          tables=tables, form="hf")
@@ -161,8 +162,8 @@ class _Case:
                             None if active is None else active.reshape(-1)))
             return trace(o, d, active)
 
-        gb = integrate.integrate_gbuffers(recorded, self.bn, self.u, self.w, self.h, bounces,
-                                          self.row0, self.rows)
+        gb = integrate.integrate_gbuffers(recorded, self.bn, self.u, self.w, self.h,
+                                          self.row0, self.rows, bounces)
         return gb, batches
 
     def staged(self, bounces, raw=None):
@@ -325,7 +326,7 @@ def test_render_gbuffers_hf_band_matches_jax(blue, hf_world):
                                             max_steps=HF_STEPS, seed=0, row0=BAND[0],
                                             rows=BAND[1], interpret=True, bounces=2))
     got = trace_hf.render_gbuffers_hf(pt, blue[1], convert.uniforms_from_jax(_as_np(u), "cpu"),
-                                      32, 32, HF_STEPS, 0, 2, *BAND)
+                                      32, 32, HF_STEPS, 0, *BAND, bounces=2)
     got = {k: v.numpy() for k, v in got.items()}
     np.testing.assert_array_equal(got["normal"], want["normal"])
     np.testing.assert_array_equal(got["albedo"], want["albedo"])
@@ -348,7 +349,7 @@ def test_render_gbuffers_vol_band_matches_jax(blue, vol_world):
                                               bounces=2, interpret=True, cascade=False))
     got = trace_vol.render_gbuffers_vol(vol, tables, blue[1],
                                         convert.uniforms_from_jax(_as_np(u), "cpu"), 32, 32,
-                                        VOL_STEPS, 2, True, *BAND)
+                                        VOL_STEPS, *BAND, bounces=2, escape=True)
     got = {k: v.numpy() for k, v in got.items()}
     normal_ok = got["normal"] == want["normal"]
     albedo_ok = (got["albedo"] == want["albedo"]).all(-1)

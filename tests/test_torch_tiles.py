@@ -101,7 +101,7 @@ def volume_world(full_world_volume):
 
 @pytest.fixture(scope="module")
 def hf_world():
-    return build_hf_tables((0, 0, 0), seed=0)
+    return build_hf_tables((0, 0, 0), seed=0, device="cpu")
 
 
 # --- Bands against JAX ---------------------------------------------------

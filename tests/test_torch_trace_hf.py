@@ -180,17 +180,22 @@ def test_budget_cut_rays_are_exhausted(tables):
     np.testing.assert_array_equal(got["albedo"].numpy(), 0.0)
 
 
-def _gbuffer_pair(tables, size, bounces):
+def _port_gbuffers(pt, size, bounces, caps=jax_hf.COMPACT_CAPS, max_steps=2048):
+    u = _canonical_uniforms()
+    got = trace_hf.render_gbuffers_hf(
+        pt, convert.blue_noise_from_jax(get_blue_noise_f32(), "cpu"),
+        convert.uniforms_from_jax({k: np.asarray(v) for k, v in u.items()}, "cpu"),
+        size, size, max_steps=max_steps, seed=0, bounces=bounces, caps=caps)
+    return {k: v.numpy() for k, v in got.items()}
+
+
+def _gbuffer_pair(tables, size, bounces, caps=jax_hf.COMPACT_CAPS):
     jt, pt = tables
     bn = get_blue_noise_f32()
-    u = _canonical_uniforms()
-    want = jax_hf.render_gbuffers_hf(jt, jnp.asarray(bn), u, size, size, max_steps=2048,
-                                     seed=0, interpret=True, bounces=bounces)
-    got = trace_hf.render_gbuffers_hf(
-        pt, convert.blue_noise_from_jax(bn, "cpu"),
-        convert.uniforms_from_jax({k: np.asarray(v) for k, v in u.items()}, "cpu"),
-        size, size, max_steps=2048, seed=0, bounces=bounces)
-    return {k: v.numpy() for k, v in got.items()}, {k: np.asarray(v) for k, v in want.items()}
+    want = jax_hf.render_gbuffers_hf(jt, jnp.asarray(bn), _canonical_uniforms(), size, size,
+                                     max_steps=2048, seed=0, interpret=True, bounces=bounces,
+                                     caps=caps)
+    return _port_gbuffers(pt, size, bounces, caps), {k: np.asarray(v) for k, v in want.items()}
 
 
 def _assert_gbuffers_close(got, want):
@@ -212,10 +217,28 @@ def test_render_gbuffers_hf_matches_jax(tables, bounces):
     _assert_gbuffers_close(got, want)
 
 
+@pytest.mark.parametrize("caps", [(), (8,)], ids=["no_cascade", "caps_8"])
+def test_render_gbuffers_hf_caps_match_jax(tables, caps):
+    """``render_gbuffers_hf``'s ``caps``, as JAX's: the bounce batches'
+    cascade, whose levels add to their budget (``hf_budget``; K4 takes the
+    budget whole).  Against JAX at b2 with the cascade off and at a cap JAX
+    does not default to, at max_steps 2048, where no ray is cut: at budgets
+    that cut bounce rays JAX traces them with its phased body (its
+    ``unified``, a TPU knob the port leaves out), which counts steps
+    otherwise.  At max_steps 24 the port's bounce rays are cut, and ``caps``
+    changes the lighting: the parameter is live."""
+    got, want = _gbuffer_pair(tables, 32, 2, caps)
+    _assert_gbuffers_close(got, want)
+    tight = _port_gbuffers(tables[1], 32, 2, caps, max_steps=24)
+    wider = _port_gbuffers(tables[1], 32, 2, jax_hf.COMPACT_CAPS, max_steps=24)
+    assert trace_hf.hf_budget(24, caps) < trace_hf.hf_budget(24, jax_hf.COMPACT_CAPS)
+    assert (tight["lighting"] != wider["lighting"]).any()
+
+
 def test_hf_matches_fused_gbuffers():
     """The port's two heightfield tracers agree at 64², as the JAX
     package's do (tests/test_lighting_fused.py:46-63)."""
-    pt = build_hf_tables((0, 0, 0), seed=0)
+    pt = build_hf_tables((0, 0, 0), seed=0, device="cpu")
     bn = torch.from_numpy(get_blue_noise_f32())
     u = convert.uniforms_from_jax(
         {k: np.asarray(v) for k, v in _canonical_uniforms().items()}, "cpu")

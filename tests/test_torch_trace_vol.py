@@ -267,9 +267,9 @@ def gbuffer_pair(request, weird_world):
     want = jax_vol.render_gbuffers_vol(jfused, jtables, jnp.asarray(bn), u, 32, 32, STEPS,
                                        bounces=bounces, interpret=True, cascade=False)
     args = (vol, tables, convert.blue_noise_from_jax(bn, "cpu"),
-            convert.uniforms_from_jax(_as_np(u), "cpu"), 32, 32, STEPS, bounces)
-    got = trace_vol.render_gbuffers_vol(*args)
-    path = path_vol.render_gbuffers_path(*args)
+            convert.uniforms_from_jax(_as_np(u), "cpu"), 32, 32, STEPS)
+    got = trace_vol.render_gbuffers_vol(*args, bounces=bounces)
+    path = path_vol.render_gbuffers_path(*args, bounces=bounces)
     as_np = lambda gb: {k: v.numpy() for k, v in gb.items()}
     return as_np(got), _as_np(want), as_np(path)
 

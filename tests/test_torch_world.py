@@ -69,7 +69,7 @@ def test_lattice_fields_q_equal(off):
 
 @pytest.mark.parametrize("lr", OFFSETS)
 def test_heightmap_grid(lr):
-    got = heightmap.heightmap_grid(lr[0], lr[1], (256, 256), seed=0).numpy()
+    got = heightmap.heightmap_grid(lr[0], lr[1], (256, 256), seed=0, device="cpu").numpy()
     with jax.disable_jit():
         eager = np.asarray(jax_hm.heightmap_grid(lr[0], lr[1], (256, 256), seed=0))
     np.testing.assert_array_equal(got, eager)
@@ -87,7 +87,7 @@ def tables_lr0():
     with jax.disable_jit():
         eager = jax_tables.build_hf_tables(lr, seed=0)
     jitted = jax_tables.build_hf_tables(lr, seed=0)
-    port = hf_tables.build_hf_tables((0, 0, 0), seed=0)
+    port = hf_tables.build_hf_tables((0, 0, 0), seed=0, device="cpu")
     np_ = lambda t: {k: np.asarray(v).reshape(-1) for k, v in t.items()}
     return np_(eager), np_(jitted), {k: v.numpy() for k, v in port.items()}
 
@@ -125,7 +125,7 @@ def test_column_heights_equal_height_from_corners(lr, seed):
     """The column table K1 reads: the port's height_from_corners of every
     column (clamped at 0), and JAX's _height_from_corners run op by op,
     bit for bit."""
-    tables = hf_tables.build_hf_tables(lr, seed=seed)
+    tables = hf_tables.build_hf_tables(lr, seed=seed, device="cpu")
     got = hf_tables.column_heights(tables, seed)
     assert got.dtype == torch.int16 and got.shape == (256 * 256,)
     i3, xi, yi = _corner_words(tables)
@@ -143,7 +143,7 @@ def test_column_heights_equal_height_from_corners(lr, seed):
 def test_with_column_heights_keeps_the_tables():
     """The column table goes beside the six words and r0, which stay as
     build_hf_tables gives them."""
-    tables = hf_tables.build_hf_tables((-300, 517, 0), seed=7)
+    tables = hf_tables.build_hf_tables((-300, 517, 0), seed=7, device="cpu")
     both = hf_tables.with_column_heights(tables, 7)
     assert set(both) == set(tables) | {"hcol"}
     assert all(both[k] is tables[k] for k in tables)
@@ -181,7 +181,7 @@ def test_noise_api_matches_jax(name, scale):
 
 @pytest.mark.parametrize("origin", [(0, 0), (-1000, 500), (40960, -37888)])
 def test_mountain_noise2_grid_matches_jax(origin):
-    got = noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), seed=0).numpy()
+    got = noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), seed=0, device="cpu").numpy()
     with jax.disable_jit():
         eager = np.asarray(jax_noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), 0))
     jitted = np.asarray(jax_noise.mountain_noise2_grid(origin[0], origin[1], (40, 48), 0))
@@ -208,7 +208,7 @@ def test_height_at_equal():
 def test_generate_heightmap_equal(chunk):
     """A chunk's 64 x 64 heights equal JAX's, jitted and op by op, and
     ``height_at`` of each column."""
-    got = heightmap.generate_heightmap(chunk, seed=0)
+    got = heightmap.generate_heightmap(chunk, seed=0, device="cpu")
     with jax.disable_jit():
         eager = np.asarray(jax_hm.generate_heightmap(chunk, seed=0))
     np.testing.assert_array_equal(got.numpy(), eager)
