@@ -69,12 +69,18 @@ eager twin pipeline, bit for bit, across a slice crossing, a slab, an edit
 and a teleport, with its launch counts (on the volume tracers G1 once a
 slab and a teleport, on volume_fast O1 once a table rebuild or slab
 update), its kernels by name
-in a profiler trace, and host ms/frame graphed and eager in turns.  It times the kernels alone
+in a profiler trace, and host ms/frame graphed and eager in turns; the
+march's counters that every replay of the frame graph adds to
+(``frame_census_fused``, ``frame_census_volume_fast``): the moves its
+recorded ``replay`` spans carry (and K1's warp iterations) against the
+march's census alone on the same frames.  It times the kernels alone
 (with the profiler records kept of those asked for, ``kept``) and against
 their plain versions (K2 per pass of its chain), and prints
 each kernel's least possible time on the card (``bound_ms``) beside its
 own, the lane-use census of K1, K3, K3s and K4 (``warp_iterations``,
-``lane_use``), and each kernel's ptxas line and SASS instruction counts.
+``lane_use``; K1's and K3's count their moves, which must be the plain
+version's: ``moves_equal``), and each kernel's ptxas line and SASS
+instruction counts.
 It imports no JAX and nothing of the JAX package.  Any failure
 raises and the script exits non-zero; with no CUDA GPU, or outside a
 checkout, it exits non-zero before printing any result.  The last line is
@@ -188,17 +194,22 @@ def _bound(bytes_moved: float, ops: float) -> dict:
 
 
 def _census(torch, moves, census) -> dict:
-    """Lane use of a kernel run (its census counter) beside that of one
-    thread per index, 32 consecutive indices to a warp (the launch order
-    of the kernels before persistent lanes), from the plain version's
-    per-index moves."""
+    """Lane use of a kernel run (its census counter: warp iterations in
+    ``census[0]``) beside that of one thread per index, 32 consecutive
+    indices to a warp (the launch order of the kernels before persistent
+    lanes), from the plain version's per-index moves.  K1's and K3's census
+    counts the moves too (``census[1]``): ``kernel_moves``, and
+    ``moves_equal``, whether they are the plain version's."""
     from raytrace_tpu_torch.testing.census import lane_use, static_warp_iterations
 
     total = int(moves.sum(dtype=torch.int64))
-    warp_iterations = int(census.item())
+    warp_iterations = int(census[0])
     static = static_warp_iterations(moves)
-    return dict(warp_iterations=warp_iterations, lane_use=lane_use(total, warp_iterations),
-                static_warp_iterations=static, static_lane_use=lane_use(total, static))
+    res = dict(warp_iterations=warp_iterations, lane_use=lane_use(total, warp_iterations),
+               static_warp_iterations=static, static_lane_use=lane_use(total, static))
+    if census.numel() == 2:
+        res.update(kernel_moves=int(census[1]), moves_equal=int(census[1]) == total)
+    return res
 
 
 def _timed_once(torch, fn):
@@ -246,16 +257,19 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
     Both are built without FMA contraction, so every meta word must be
     equal, and with it the normal, albedo and shaded lighting.  K1 reads
     the column heights from the tables' column table, the plain version
-    evaluates them.  Reports K1's lane-use census; ``timed``: also K1
-    alone (torch.profiler, 10 calls) and the plain version (once).
+    evaluates them.  Reports K1's lane-use census, whose moves must be the
+    plain version's and whose warp iterations its warps' most steps (one
+    thread per pixel: ``warp_iterations_equal``); ``timed``: also K1 alone
+    (torch.profiler, 10 calls) and the plain version (once).
     -> (ok, res, the kernel's G-buffers)."""
     from raytrace_tpu_torch.ops import lighting
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.testing.census import static_warp_iterations
 
     frame = lighting.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
                                   *(band or ()))
     budget = (max_steps, seed, 1 + 2 * bounces)
-    census = torch.zeros(1, dtype=torch.int64, device=packed.device)
+    census = torch.zeros(2, dtype=torch.int64, device=packed.device)
     meta_k, pd_k = lighting.march_paths(*frame["march"], *budget, census=census)
     (meta_p, pd_p, work), t_p = _timed_once(
         torch, lambda: lighting.march_paths_plain(*frame["march"], *budget))
@@ -272,9 +286,11 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
         exhausted_plain=_exhausted(gp, torch, lighting),
     )
     n = meta_k.shape[0]
-    moves, heights = (int(v) for v in work.sum(0, dtype=torch.int64))
+    moves, heights, _ = (int(v) for v in work.sum(0, dtype=torch.int64))
     res["work"] = dict(moves=moves, heights=heights)
     res["census"] = _census(torch, work[:, 0], census)
+    res["census"]["warp_iterations_equal"] = (
+        res["census"]["warp_iterations"] == static_warp_iterations(work[:, 2]))
     # K1 reads a fine step's height from the column table (no float work)
     # and takes the pyramid's two words, the column table and the sphere
     # table as inputs.  Building the column table is work once per region,
@@ -291,6 +307,7 @@ def phase_k1(torch, tables, blue, packed, size, max_steps, seed, bounces, timed=
         res.update(**_alone(lambda: lighting.march_paths(*frame["march"], *budget), 10,
                             "march_paths_kernel"), plain_ms=t_p)
     ok = (res["meta_equal"] == 1.0 and res["max_abs_err"] <= K1_ATOL
+          and res["census"]["moves_equal"] and res["census"]["warp_iterations_equal"]
           and res["max_depth_diff"] <= 1
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
     return ok, res, gk
@@ -304,16 +321,18 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
 
     Both are built without FMA contraction, so the four outputs (meta word,
     primary and dif1 hit voxels, primary distance) must be equal on every
-    pixel, and neither may cut a primary.  Reports K3's lane-use census;
-    ``timed``: also K3 alone (torch.profiler, 10 calls) and the plain
-    version (once)."""
+    pixel, and neither may cut a primary.  Reports K3's lane-use census,
+    whose moves must be the plain version's (its warp iterations depend on
+    the order in which the persistent lanes draw their windows, so nothing
+    else gives them); ``timed``: also K3 alone (torch.profiler, 10 calls)
+    and the plain version (once)."""
     from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
     from raytrace_tpu_torch.render.pipeline import unpack_uniforms
 
     legs = path_vol.legs_of(bounces)
     frame = path_vol.march_inputs(tables, blue, unpack_uniforms(packed), *_wh(size),
                                   *(band or ()))
-    census = torch.zeros(1, dtype=torch.int64, device=packed.device)
+    census = torch.zeros(2, dtype=torch.int64, device=packed.device)
     got = trace_vol.march_paths_vol(*frame["march"], max_steps, legs, census=census)
     (*want, moves), t_p = _timed_once(
         torch, lambda: trace_vol.march_paths_vol_plain(*frame["march"], max_steps, legs))
@@ -338,6 +357,7 @@ def phase_k3(torch, volume, tables, blue, packed, size, max_steps, bounces, time
         res.update(**_alone(lambda: trace_vol.march_paths_vol(
             *frame["march"], max_steps, legs), 10, "march_paths_vol_kernel"), plain_ms=t_p)
     ok = (all(v == 1.0 for v in res["equal"].values()) and res["max_abs_err"] == 0.0
+          and res["census"]["moves_equal"] and 0.0 < res["census"]["lane_use"] <= 1.0
           and res["exhausted_kernel"] == 0 and res["exhausted_plain"] == 0)
     return ok, res
 
@@ -2733,6 +2753,52 @@ def phase_graph_frames(rt, torch, tracer):
     return ok, res
 
 
+COUNTED_FRAMES = 3  # frames drawn under the profiler in frame_census
+
+
+def phase_frame_census(rt, torch, tracer):
+    """The march's counters in the frame program's graph, which every
+    replay adds to, against the march's census on the same frames run
+    alone: the moves each recorded ``replay`` span carries, and on one
+    thread per pixel (K1) the warp iterations too.  The frames cross
+    slices (on volume_fast each streams a slab)."""
+    from raytrace_tpu_torch.ops import lighting, path_vol, trace_vol
+    from raytrace_tpu_torch.render.camera import Camera
+    from raytrace_tpu_torch.render.pipeline import unpack_uniforms
+    from raytrace_tpu_torch.utils import perf
+
+    pipe = rt.create_instance(width=W, height=H, tracer=tracer)
+    cam = Camera(origin=list(CANON["origin"]))
+    cam.pitch = CANON["pitch"]
+    pipe.teleport(cam)
+    pipe.draw_frame(cam, CANON["sun"])  # the warm-up, which captures the graph
+    want = []
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        for t in range(COUNTED_FRAMES):
+            cam.origin = [CANON["origin"][0] + 12.0 * (t + 1), *CANON["origin"][1:]]
+            pipe.draw_frame(cam, CANON["sun"])
+            uniforms = unpack_uniforms(torch.from_numpy(pipe.uniforms.packed()).to(pipe.device))
+            census = torch.zeros(2, dtype=torch.int64, device=pipe.device)
+            if tracer == "fused":
+                march = lighting.march_inputs(pipe.tables(), pipe.blue_noise, uniforms, W,
+                                              H)["march"]
+                lighting.march_paths(*march, pipe.max_steps, pipe.seed, 1 + 2 * pipe.bounces,
+                                     census=census)
+            else:
+                march = path_vol.march_inputs(pipe.world()[1], pipe.blue_noise, uniforms, W,
+                                              H)["march"]
+                trace_vol.march_paths_vol(*march, pipe.max_steps,
+                                          path_vol.legs_of(pipe.bounces), census=census)
+            want.append(dict(zip(("warp_iterations", "moves"), census.tolist())))
+    got = [s.counts for s in perf.recorded() if s.name == "replay"]
+    res = dict(tracer=tracer, recorded=got, alone=want)
+    same = ("warp_iterations", "moves") if tracer == "fused" else ("moves",)
+    ok = len(got) == COUNTED_FRAMES and all(
+        g[k] == w[k] for g, w in zip(got, want) for k in same)
+    return ok, res
+
+
 def _scratch_dir(name: str) -> Path:
     """An empty directory inside the checkout's build directory (which
     ``.gitignore`` lists) for the files a phase writes."""
@@ -3587,6 +3653,9 @@ def main() -> int:
         graph_ms[tracer] = res.pop("ms")
         report(f"graph_frames_{tracer}", ok, res)
     print(f"[graph_frames_ms] {json.dumps(dict(card=card, **graph_ms))}", flush=True)
+    for tracer in ("fused", "volume_fast"):
+        ok, res = phase_frame_census(rt, torch, tracer)
+        report(f"frame_census_{tracer}", ok, res)
     ok, exact_res, epipe = phase_volume_exact(rt, torch)
     report("volume_exact", ok, exact_res)
     # D1 against its plain version on the exact path's own batches, and on

@@ -44,6 +44,13 @@ of the frame's three batches (``dda_batches``: the primaries and the two
 bounce pairs) beside the launch floor of its grid, its moves, lane use and the volume
 words it reads (``dda_census``) and its bound (``dda_work``).
 
+``--part counters`` times K1 and K3 alone on the fused and volume_fast
+frames' march inputs without and with their census (warp iterations and
+moves, taken as each warp exits: what the frame program counts in every
+frame), in turns (without, with, with, without, twice over): ``null_ms``
+and ``set_ms``, and ``cost_pct``, the median with over the median
+without, less 1, in %.
+
 ``--part tiles`` times the tile stage's two kernels alone: T1
 (``hf_tables_kernel``) building the tables of a packed lr and, where the
 checkout's ``build_hf_tables`` takes a ``key``, skipping them; G1
@@ -67,7 +74,7 @@ these (copy this file, ``testing/measure.py`` and ``testing/gbuffers.py``
 into it).
 
 Usage: python -m raytrace_tpu_torch.apps.kernel_times [--reps 10]
-[--part fused|volume|glue|tiles|dda|all]   (needs a CUDA GPU)
+[--part fused|volume|counters|glue|tiles|dda|all]   (needs a CUDA GPU)
 """
 
 from __future__ import annotations
@@ -106,6 +113,8 @@ def run(reps: int = 10, size: int = 1024, part: str = "all") -> dict:
         res.update(_fused(reps, size))
     if part in ("volume", "all"):
         res.update(_volume(reps, size))
+    if part in ("counters", "all"):
+        res.update(_counters(reps, size))
     if part in ("glue", "all"):
         res.update(_glue(reps, size))
     if part in ("tiles", "all"):
@@ -154,6 +163,41 @@ def _volume(reps: int, size: int) -> dict:
             "trace_rays_vol_kernel") for o, d, a in batches]
         res["k3s"] = dict(kernel_ms=per_batch, frame_kernel_ms=sum(per_batch))
     return res
+
+
+COUNTER_TURNS = 4  # rounds of (without, with) or (with, without)
+
+
+def _census_cost(call, reps: int, kernel: str) -> dict:
+    """``kernel`` alone, launched by ``call(census)`` with no census and with
+    a (2,) one, in turns."""
+    import statistics
+
+    census = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = dict(null_ms=[], set_ms=[])
+    for k in range(COUNTER_TURNS):
+        for which in (("null", "set") if k % 2 == 0 else ("set", "null")):
+            arg = census if which == "set" else None
+            got[f"{which}_ms"].append(kernel_ms(lambda: call(arg), reps, kernel))
+    got["cost_pct"] = 100.0 * (statistics.median(got["set_ms"])
+                               / statistics.median(got["null_ms"]) - 1.0)
+    return got
+
+
+def _counters(reps: int, size: int) -> dict:
+    pipe, uniforms = _pipeline(size, "fused")
+    march = lighting.march_inputs(pipe.tables(), pipe.blue_noise, uniforms, size, size)["march"]
+    budget = (pipe.max_steps, pipe.seed, 1 + 2 * pipe.bounces)
+    k1 = _census_cost(lambda census: lighting.march_paths(*march, *budget, census=census),
+                      reps, "march_paths_kernel")
+    del pipe, march
+    vpipe, vuniforms = _pipeline(size, "volume_fast")
+    vmarch = path_vol.march_inputs(vpipe.world()[1], vpipe.blue_noise, vuniforms, size,
+                                   size)["march"]
+    legs = path_vol.legs_of(vpipe.bounces)
+    k3 = _census_cost(lambda census: trace_vol.march_paths_vol(
+        *vmarch, vpipe.max_steps, legs, census=census), reps, "march_paths_vol_kernel")
+    return dict(counters=dict(k1=k1, k3=k3))
 
 
 # R1's shapes: label -> (width, height, row0, rows).
@@ -409,7 +453,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--part", choices=("fused", "volume", "glue", "tiles", "dda", "all"),
+    ap.add_argument("--part", choices=("fused", "volume", "counters", "glue", "tiles", "dda",
+                                       "all"),
                     default="all")
     args = ap.parse_args()
     run(args.reps, args.size, args.part)

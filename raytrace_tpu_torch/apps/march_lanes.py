@@ -267,10 +267,12 @@ def _rule_part(label, size, items, rounds, reps) -> dict:
             call, moves = items[name]
             r = res[rule][name]
             if "lane_use" not in r:
-                census = torch.zeros(1, dtype=torch.int64, device="cuda")
+                # K3's census also counts its moves (census[1]); K4's is one word.
+                census = torch.zeros(2 if name == "k3" else 1, dtype=torch.int64,
+                                     device="cuda")
                 if not all(same(a, b) for a, b in zip(_flat(call(census=census)), want[name])):
                     raise RuntimeError(f"rule {rule}: {name} differs from the shipped kernel")
-                total, iters = int(moves.sum(dtype=torch.int64)), int(census.item())
+                total, iters = int(moves.sum(dtype=torch.int64)), int(census[0])
                 r.update(warp_iterations=iters, lane_use=lane_use(total, iters))
             r["call_ms"].append(call_ms(call, reps))
             r["kernel_ms"].append(kernel_ms(call, reps, _kernel(name)))
@@ -298,7 +300,7 @@ def _order_part(label, size, items, reps) -> dict:
 def _split_part(label, size, k1_call, k1_work, reps) -> dict:
     split = {}
     for legs in (1, 3, 5):
-        moves, heights = (int(v) for v in k1_work(legs).sum(0, dtype=torch.int64))
+        moves, heights, _ = (int(v) for v in k1_work(legs).sum(0, dtype=torch.int64))
         split[f"legs_{legs}"] = dict(
             kernel_ms=kernel_ms(lambda: k1_call(legs=legs), reps, _KERNEL["k1"]),
             moves=moves, fine_steps=heights)

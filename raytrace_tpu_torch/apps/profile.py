@@ -8,8 +8,8 @@ prints for the steady frame:
 - host ms/frame with a sync after every frame (median, p10, p90);
 - host ms/frame over a train of frames with one sync at its end, and the
   host's enqueue time per frame within it;
-- device ms/frame (the sum of the profiled device activities), device
-  activities per frame, and the idle share ``1 - device / train``;
+- device ms/frame (the sum of the profiled device activities) and device
+  activities per frame;
 - the same split in two: the port's own kernels (``csrc/``: K1-K4, K3s,
   D1, T1, G1, O1, R1, S1, S3, P1, S2; ``kernels_ms``,
   ``kernel_activities_per_frame``) and
@@ -280,7 +280,6 @@ def _report(name: str, got: dict, tracer: str, width: int, height: int,
         device_ms=device_ms, device_activities_per_frame=launches,
         kernels_ms=kernels_ms, kernel_activities_per_frame=kernel_launches,
         glue_ms=device_ms - kernels_ms, glue_activities_per_frame=launches - kernel_launches,
-        idle_share=1.0 - device_ms / train_ms,
         mrays_per_s=width * height * (1 + 2 * bounces) / (train_ms * 1e3),
     )
     for key, val in got.items():

@@ -88,6 +88,23 @@ __device__ __forceinline__ void add_census(long long* census,
               static_cast<unsigned long long>(iterations));
 }
 
+// The census of K1 and K3, (2,) int64, if any: the warp's loop iterations
+// to census[0] and the moves of its lanes, each counted in the lane's own
+// register, to census[1]; once per warp, at its exit, where every lane of
+// the warp calls it together.  A warp's moves fit 32 bits: K3's 1024²
+// frame makes 73M moves over its ~4,000 persistent warps.
+__device__ __forceinline__ void add_census(long long* census,
+                                           long long iterations,
+                                           unsigned moves) {
+  if (census == nullptr) return;
+  const unsigned warp_moves = __reduce_add_sync(kFullMask, moves);
+  if ((threadIdx.x & 31) == 0) {
+    auto* words = reinterpret_cast<unsigned long long*>(census);
+    atomicAdd(words, static_cast<unsigned long long>(iterations));
+    atomicAdd(words + 1, static_cast<unsigned long long>(warp_moves));
+  }
+}
+
 // The persistent grid of `kernel` at `threads` per block: SMs x resident
 // blocks per SM, computed at the first launch; no more blocks than `n`
 // items need.  -> 0 on success, else the CUDA error.

@@ -65,11 +65,12 @@ __device__ int32_t mat_code(int32_t xi, int32_t yi, int32_t zi, int32_t seed) {
 // A path: the current ray (position, direction and its per-leg move terms:
 // 1/|d|, the sign multiplier and the entry-face normal ids packed 3 bits
 // apart), the bounce anchor q, the primary distance, the leg, the normals,
-// the accumulated meta bits and the steps taken.
+// the accumulated meta bits, the steps taken and those of them that did not
+// move (a leg's completion, the step past the budget).
 struct Path {
   float px, py, pz, dx, dy, dz, qx, qy, qz, pd;
   float lpx, lpy, lpz, mulx, muly, mulz;
-  int32_t nids, leg, cn, pn, nn, acc, it;
+  int32_t nids, leg, cn, pn, nn, acc, it, still;
 };
 
 struct Scalars {
@@ -100,7 +101,8 @@ __device__ __forceinline__ void set_leg_terms(Path& s) {
 
 // One step of the path.  Returns with the path either transitioned (its
 // ray completed: air out of the region or by the sky-escape rule, or a hit
-// inside a column) or, when `allow_move`, moved to the next boundary.
+// inside a column) or, when `allow_move`, moved to the next boundary.  A
+// step that does not move adds one to `still`.
 __device__ __forceinline__ void step(Path& s, const Pyramid& t,
                                      const int16_t* __restrict__ hc,
                                      const Scalars& c, const Hoisted& hz,
@@ -172,9 +174,13 @@ __device__ __forceinline__ void step(Path& s, const Pyramid& t,
       set_leg_terms(s);
     }
     s.leg = next;
+    ++s.still;
     return;
   }
-  if (!allow_move) return;
+  if (!allow_move) {
+    ++s.still;
+    return;
+  }
 
   float lx, ly, lz;
   if (fine) {
@@ -226,7 +232,7 @@ __device__ __forceinline__ void start_path(int i, Path& s, Hoisted& hz,
   s.dz = direction[3 * i + 2];
   set_leg_terms(s);
   s.qx = s.qy = s.qz = s.pd = 0.0f;
-  s.leg = s.cn = s.pn = s.nn = s.acc = s.it = 0;
+  s.leg = s.cn = s.pn = s.nn = s.acc = s.it = s.still = 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -265,11 +271,9 @@ __global__ void __launch_bounds__(kThreads)
   Path s;
   Hoisted hz;
   if (live) start_path(i, s, hz, origin, direction, nw, trig, sunx, suny, sunz);
-  // Every lane stays in the loop until its warp is done, so that the warp
-  // counts its iterations for the census.
-  long long iterations = 0;
+  // Every lane stays in the loop until its warp is done, so the warp runs
+  // as many iterations as its lanes' most steps.
   while (__any_sync(kFullMask, live)) {
-    ++iterations;
     if (!live) continue;
     // Budget spent: one more step without a move, so that completions from
     // the last move still count.
@@ -282,7 +286,10 @@ __global__ void __launch_bounds__(kThreads)
       live = false;
     }
   }
-  add_census(census, iterations);
+  // The census, taken at exit: nothing in the loop counts for it.
+  const bool path = i < n;
+  add_census(census, __reduce_max_sync(kFullMask, path ? (unsigned)s.it : 0u),
+             path ? (unsigned)(s.it - s.still) : 0u);
 }
 
 }  // namespace

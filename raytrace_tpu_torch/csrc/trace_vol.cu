@@ -192,12 +192,15 @@ __device__ __forceinline__ bool transition(Ray& r, Path& s, bool air,
 // order of tests is that of the per-path loop
 //   while (leg < done) { coarse step; if parked: resolve (<= 23 crossings);
 //                        if completed: transition }
-// with the budgets spent where it spends them.  -> true when the path is
-// finished: done, or halted by its budget.
+// with the budgets spent where it spends them.  An iteration that makes no
+// move (a leg completed without one, a budget's halt) takes one from
+// `moves`.  -> true when the path is finished: done, or halted by its
+// budget.
 __device__ __forceinline__ bool step_path(Ray& r, Path& s, const Tables& t,
                                           const int32_t* __restrict__ detail,
                                           const float* __restrict__ inv,
-                                          const Scalars& c, int legs) {
+                                          const Scalars& c, int legs,
+                                          unsigned& moves) {
   const int32_t tx = texel(r.px), ty = texel(r.py), tz = texel(r.pz);
   const int32_t b = brick_of(tx, ty, tz);
   int status = 0;
@@ -215,11 +218,17 @@ __device__ __forceinline__ bool step_path(Ray& r, Path& s, const Tables& t,
   }
   int32_t step = 0;  // the move: 0 none, 1 a voxel crossing, 8-64 a coarse step
   if (s.b0 < 0 && status == 0) {
-    if (s.coarse_left == 0) return true;
+    if (s.coarse_left == 0) {
+      --moves;
+      return true;
+    }
     --s.coarse_left;
     status = coarse_classify(r, t, c, tx, ty, tz, b, step);
     if (status == kParked) {
-      if (s.bricks_left == 0) return true;
+      if (s.bricks_left == 0) {
+        --moves;
+        return true;
+      }
       --s.bricks_left;
       s.b0 = b;
       s.crossings = 0;
@@ -239,7 +248,10 @@ __device__ __forceinline__ bool step_path(Ray& r, Path& s, const Tables& t,
     move_to_boundary(r, step);
     if (s.b0 < 0 && out_of_window(r, c)) status = kDone | kAir;
   }
-  if (status & kDone) return transition(r, s, (status & kAir) != 0, inv, c, legs);
+  if (status & kDone) {
+    if (step == 0) --moves;
+    return transition(r, s, (status & kAir) != 0, inv, c, legs);
+  }
   return false;
 }
 
@@ -291,23 +303,33 @@ __global__ void __launch_bounds__(kThreads)
   Window w;
   int i = -1;  // this lane's path, -1 while idle
   long long iterations = 0;
+  // This lane's moves, counted only where a path starts or ends and where
+  // an iteration makes none: a path adds the warp's iterations while it
+  // held the lane, less those without a move (step_path); unsigned, so the
+  // sums wrap to the count.
+  unsigned moves = 0;
   for (;;) {
     if (refill_now(__ballot_sync(kFullMask, i < 0))) {
       const int held = i;
       i = refill(i, w, next, n, [](int) { return true; }, [](int) {});
-      if (held < 0 && i >= 0) start_path(i, r, s, origin, direction, budget);
+      if (held < 0 && i >= 0) {
+        start_path(i, r, s, origin, direction, budget);
+        moves -= (unsigned)iterations;
+      }
     }
     if (!__any_sync(kFullMask, i >= 0)) break;
     ++iterations;
-    if (i >= 0 && step_path(r, s, t, detail, inv_in + (size_t)kInv * i, c, legs)) {
+    if (i >= 0 &&
+        step_path(r, s, t, detail, inv_in + (size_t)kInv * i, c, legs, moves)) {
       meta_out[i] = s.meta;
       prim_lin_out[i] = s.prim_lin;
       dif1_lin_out[i] = s.dif1_lin;
       prim_dist_out[i] = s.prim_dist;
+      moves += (unsigned)iterations;
       i = -1;
     }
   }
-  add_census(census, iterations);
+  add_census(census, iterations, moves);
 }
 
 int grid_cache = 0;

@@ -255,10 +255,13 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
 
     origin, direction: (N, 3) f32; nw: (N,) int32 packed noise bytes;
     iscal: (8,) int32 (r0x, r0y, lr xyz, maxh); fscal: (8,) f32 (sun xyz).
-    Returns ``(meta (N,) int32, pd (N,) f32, work (N, 2) int32)``: ``work``
-    counts each path's moves and exact column-height evaluations, the work
-    K1 does for it.  Lanes whose path is done are compacted away every few
-    steps (a speed device only: a done lane's step changes nothing).
+    Returns ``(meta (N,) int32, pd (N,) f32, work (N, 3) int32)``: ``work``
+    counts each path's moves, exact column-height evaluations and steps
+    (moves, the steps that complete a leg, and the step without a move
+    where the budget ran out), the work K1 does for it: a warp of K1 runs
+    as many loop iterations as its lanes' most steps.  Lanes whose path is
+    done are compacted away every few steps (a speed device only: a done
+    lane's step changes nothing).
     """
     c = _Ctx(iscal, tables, seed, legs)
     n = origin.shape[0]
@@ -268,18 +271,18 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
     s = dict(px=origin[:, 0], py=origin[:, 1], pz=origin[:, 2],
              dx=direction[:, 0], dy=direction[:, 1], dz=direction[:, 2],
              qx=zf, qy=zf, qz=zf, pd=zf,
-             leg=zi, cn=zi, pn=zi, nn=zi, acc=zi, moves=zi, heights=zi)
+             leg=zi, cn=zi, pn=zi, nn=zi, acc=zi, moves=zi, heights=zi, steps=zi)
     hoisted = _noise_terms(nw, fscal)
     meta = torch.empty(n, dtype=torch.int32, device=dev)
     pd = torch.empty(n, dtype=torch.float32, device=dev)
-    work = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    work = torch.empty((n, 3), dtype=torch.int32, device=dev)
     idx = torch.arange(n, device=dev)
 
     def flush(s, idx):
         meta[idx] = (s["leg"] | (s["cn"] << 3) | (s["pn"] << 6)
                      | (s["nn"] << 9) | (s["acc"] << 12))
         pd[idx] = s["pd"]
-        work[idx] = torch.stack([s["moves"], s["heights"]], -1)
+        work[idx] = torch.stack([s["moves"], s["heights"], s["steps"]], -1)
 
     def take(s, hoisted, keep):
         s = {k: v[keep] for k, v in s.items()}
@@ -292,6 +295,7 @@ def march_paths_plain(origin, direction, nw, iscal, fscal, tables,
         # region and its step is fine.
         live = s["leg"] < LEG_DONE
         s["heights"] = s["heights"] + (live & ~d["air"] & d["fine"]).to(torch.int32)
+        s["steps"] = s["steps"] + live.to(torch.int32)
         return d
 
     for i in range(max_steps):
@@ -325,9 +329,12 @@ def march_paths(origin, direction, nw, iscal, fscal, tables,
     counts those launches.  Any other device raises.  K1 reads the column
     heights from ``tables["hcol"]`` (``hf_tables.with_column_heights``,
     built with ``seed`` for the region of ``iscal``) and the pyramid words.
-    ``census``, a (1,) int64 tensor on the same device, or None: K1 adds the
-    loop iterations of each of its warps to it (the lane-use census of
-    ``testing/census.py``).
+    ``census``, a (2,) int64 tensor on the same device, or None: K1 adds
+    the loop iterations of each of its warps to ``census[0]`` and the moves
+    of its paths to ``census[1]`` (the lane-use census of
+    ``testing/census.py``; moves as ``march_paths_plain`` counts them).
+    K1 counts as each warp exits, so a census costs its loop nothing; the
+    plain version leaves it as it is.
     """
     if origin.device.type == "cpu":
         return march_paths_plain(origin, direction, nw, iscal, fscal, tables,
@@ -350,7 +357,7 @@ def march_paths(origin, direction, nw, iscal, fscal, tables,
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("march_paths", t, dtype, shape, dev)
     if census is not None:
-        check_tensor("march_paths", census, torch.int64, (1,), dev)
+        check_tensor("march_paths", census, torch.int64, (2,), dev)
     meta = torch.empty(n, dtype=torch.int32, device=dev)
     pd = torch.empty(n, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -376,7 +383,7 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
                           uniforms: dict, width: int, height: int,
                           max_steps: int = MAX_TRACE_STEPS, seed: int = 0, *,
                           row0: int = 0, rows: int | None = None,
-                          bounces: int = 2) -> dict:
+                          bounces: int = 2, census=None) -> dict:
     """G-buffers of one frame, or of its image rows ``row0 .. row0 + rows``
     (a band of the tile split): the frame's rays (R1), every pixel's path
     (K1), then the shade (S1); three launches on the card.
@@ -397,12 +404,13 @@ def render_gbuffers_fused(tables: dict, blue_noise: torch.Tensor,
     ``seed`` (``tile_rows``, ``interpret``, the cascade's ``caps``,
     ``unified``, ``unroll``, ``lazy_t``, ``tail_rows``, ``ref_state``) have
     no counterpart, so ``row0``, ``rows`` and ``bounces`` are keyword-only.
+    ``census``: K1's, as ``march_paths`` takes it.
     """
     check_material_codes()
     if "hcol" not in tables:
         tables = with_column_heights(tables, seed)
     frame = march_inputs(tables, blue_noise, uniforms, width, height, row0, rows)
-    meta, pdist = march_paths(*frame["march"], max_steps, seed, 1 + 2 * bounces)
+    meta, pdist = march_paths(*frame["march"], max_steps, seed, 1 + 2 * bounces, census)
     return shade(meta, pdist, **frame["shade"])
 
 

@@ -42,7 +42,7 @@ def render_gbuffers_path(fused_flat: torch.Tensor, tables: dict,
                          blue_noise: torch.Tensor, uniforms: dict, width: int,
                          height: int, max_steps: int = MAX_TRACE_STEPS,
                          row0: int = 0, rows: int | None = None, *,
-                         bounces: int = 2) -> dict:
+                         bounces: int = 2, census=None) -> dict:
     """G-buffers of one frame of the resident volume ``fused_flat`` (fused
     (256^3,) int32) with its ``build_vol_tables`` tables, or of the frame's image
     rows ``row0 .. row0 + rows`` (a band of the tile split): the frame's
@@ -59,11 +59,12 @@ def render_gbuffers_path(fused_flat: torch.Tensor, tables: dict,
     (``interpret``, the round schedule's ``cap``, ``rounds`` and
     ``levels``, ``tile_rows``, ``resolve``, ``safety``, ``safety_R``) have
     no counterpart (each path has its own budget, ``trace_vol.path_budget``),
-    so ``bounces`` is keyword-only.
+    so ``bounces`` is keyword-only.  ``census``: K3's, as
+    ``trace_vol.march_paths_vol`` takes it.
     """
     legs = legs_of(bounces)
     frame = march_inputs(tables, blue_noise, uniforms, width, height, row0, rows)
-    marched = march_paths_vol(*frame["march"], max_steps, legs)
+    marched = march_paths_vol(*frame["march"], max_steps, legs, census)
     return shade(fused_flat, *marched, legs=legs, **frame["shade"])
 
 

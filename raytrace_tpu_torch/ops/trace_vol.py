@@ -372,9 +372,12 @@ def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
     CPU tensors take ``march_paths_vol_plain``; CUDA tensors launch K3
     (``csrc/trace_vol.cu``) on the current stream, and
     ``march_paths_vol.launches`` counts those launches.  Any other device
-    raises.  ``census``, a (1,) int64 tensor on the same device, or None:
-    K3 adds the loop iterations of each of its warps to it (the lane-use
-    census of ``testing/census.py``).
+    raises.  ``census``, a (2,) int64 tensor on the same device, or None:
+    K3 adds the loop iterations of each of its warps to ``census[0]`` and
+    the moves of its paths to ``census[1]`` (the lane-use census of
+    ``testing/census.py``; moves as ``march_paths_vol_plain`` counts them).
+    K3 counts as each warp exits, so a census costs its loop nothing; the
+    plain version leaves it as it is.
     """
     if origin.device.type == "cpu":
         return march_paths_vol_plain(origin, direction, inv, iscal, fscal, tables,
@@ -394,7 +397,7 @@ def march_paths_vol(origin, direction, inv, iscal, fscal, tables,
     for t, (dtype, shape) in zip(ins, want):
         check_tensor("march_paths_vol", t, dtype, shape, dev)
     if census is not None:
-        check_tensor("march_paths_vol", census, torch.int64, (1,), dev)
+        check_tensor("march_paths_vol", census, torch.int64, (2,), dev)
     outs = [torch.empty(n, dtype=dt, device=dev)
             for dt in (torch.int32, torch.int32, torch.int32, torch.float32)]
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' path counter

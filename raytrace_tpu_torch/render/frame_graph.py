@@ -28,7 +28,11 @@ max_steps, seed, bounces) and its static buffers on the pipeline's device:
   so a slice crossing or a teleport changes nothing but the uniforms; the
   program's ``key`` (int32 (4,): lr.x, lr.y, seed, valid) says which
   region they hold, and T1 builds only when ``lr`` moved;
-- outputs: the frame and the G-buffers.
+- outputs: the frame and the G-buffers;
+- on the card, for "fused" and "volume_fast", the march's counters
+  (``counters``, (2,) int64: ``COUNTERS``), which K1 or K3 adds to in
+  every frame (their census, taken as each warp exits:
+  ``lighting.march_paths``, ``trace_vol.march_paths_vol``).
 
 The program takes the tensors of the world it is built with as its input
 buffers, without a copy, and ``refresh`` copies a later world into them
@@ -171,6 +175,10 @@ class FrameProgram:
     captured graph (see the module docstring).  ``world`` is None for
     "fused", whose program builds its own tables."""
 
+    # The words of ``counters``, in order: the march's warp loop iterations
+    # and its moves, summed over the frames the program ran.
+    COUNTERS = ("warp_iterations", "moves")
+
     def __init__(self, world, blue_noise: torch.Tensor, tracer: str, width: int,
                  height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
                  bounces: int = 2):
@@ -193,6 +201,10 @@ class FrameProgram:
         self._layout = _layout(self.world)
         self.blue_noise = blue_noise
         self.packed = torch.zeros(16, dtype=torch.float32, device=self.device)
+        self.counters = None
+        if tracer in ("fused", "volume_fast") and self.device.type == "cuda":
+            self.counters = torch.zeros(len(self.COUNTERS), dtype=torch.int64,
+                                        device=self.device)
         self.call = CapturedCall(self._render, self.device)
 
     def refresh(self, world) -> None:
@@ -212,7 +224,8 @@ class FrameProgram:
     def _render(self):
         if self.config[-1] == "fused":
             self._build_tables()
-        return render_frame_packed(self.world, self.blue_noise, self.packed, *self.config)
+        return render_frame_packed(self.world, self.blue_noise, self.packed, *self.config,
+                                   census=self.counters)
 
     def _build_tables(self) -> None:
         """The fused tables of the packed uniforms' ``lr``, in place: on the

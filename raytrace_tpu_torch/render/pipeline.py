@@ -53,6 +53,7 @@ from ..ops.path_vol import render_gbuffers_path
 from ..ops.trace_dda import render_gbuffers
 from ..ops.trace_hf import render_gbuffers_hf
 from ..ops.vol_tables import build_vol_tables, update_vol_tables
+from ..utils import perf
 from ..utils.blue_noise import get_blue_noise_f32
 from .camera import Camera
 from .streaming import TerrainStreamer
@@ -141,32 +142,42 @@ def render_frame(world, blue_noise: torch.Tensor, uniforms: dict,
 
 def render_frame_packed(world, blue_noise: torch.Tensor, packed: torch.Tensor,
                         width: int, height: int, max_steps: int = MAX_TRACE_STEPS,
-                        seed: int = 0, bounces: int = 2, tracer: str = "volume"):
+                        seed: int = 0, bounces: int = 2, tracer: str = "volume",
+                        census=None):
     """``render_frame`` of the packed (16,) f32 uniforms (``unpack_uniforms``:
     lr.y is 0) -> ``(frame (H, W, 3), gbuffers)``: the counterpart of JAX's
     packed frame program (``_rffp_impl``), what the frame program runs and
-    its CUDA graph replays."""
-    return render_frame(world, blue_noise, unpack_uniforms(packed), width, height,
-                        max_steps, True, tracer, seed, bounces)
+    its CUDA graph replays.  ``census``: the march's counters, as
+    ``frame_gbuffers`` takes them."""
+    gb = frame_gbuffers(world, blue_noise, unpack_uniforms(packed), width, height,
+                        max_steps, seed, bounces, tracer, census=census)
+    return denoise_finalize(gb, blue_noise), gb
 
 
 def frame_gbuffers(world, blue_noise: torch.Tensor, uniforms: dict, width: int,
                    height: int, max_steps: int = MAX_TRACE_STEPS, seed: int = 0,
                    bounces: int = 2, tracer: str = "fused", row0: int = 0,
-                   rows: int | None = None) -> dict:
+                   rows: int | None = None, *, census=None) -> dict:
     """The G-buffer pass of ``tracer`` (``world`` as for ``render_frame``)
-    for the whole frame or its image rows ``row0 .. row0 + rows``."""
+    for the whole frame or its image rows ``row0 .. row0 + rows``.
+    ``census``: a (2,) int64 tensor of the march's counters (warp
+    iterations, moves) that the path marches K1 ("fused") and K3
+    ("volume_fast") add to on the card, or None; the other tracers take
+    none."""
     kw = dict(row0=row0, rows=rows, bounces=bounces)
     if tracer == "fused":
         return render_gbuffers_fused(world, blue_noise, uniforms, width, height,
-                                     max_steps, seed, **kw)
-    if tracer == "hf":
-        return render_gbuffers_hf(world, blue_noise, uniforms, width, height,
-                                  max_steps, seed, **kw)
+                                     max_steps, seed, census=census, **kw)
     if tracer == "volume_fast":
         volume, tables = world
         return render_gbuffers_path(volume, tables, blue_noise, uniforms, width,
-                                    height, max_steps, **kw)
+                                    height, max_steps, census=census, **kw)
+    if census is not None:
+        raise ValueError(f"census: only the fused and volume_fast marches count, "
+                         f"not {tracer!r}")
+    if tracer == "hf":
+        return render_gbuffers_hf(world, blue_noise, uniforms, width, height,
+                                  max_steps, seed, **kw)
     if tracer == "volume":
         return render_gbuffers(world, blue_noise, uniforms, width, height,
                                max_steps, **kw)
@@ -340,9 +351,24 @@ class Pipeline:
         graph replay); ``self.gbuffers`` are then the program's,
         overwritten by the next frame.  ``validate`` frames run
         ``render_frame_packed`` eagerly.  Then the uniforms' ``old_origin``
-        and ``old_transform`` take this frame's camera, as in JAX."""
+        and ``old_transform`` take this frame's camera, as in JAX.
+
+        While a ``torch.profiler`` session records, the frame records its
+        spans (``utils.perf.SPANS``): ``draw_frame``, the whole call;
+        inside it ``stream``, the streaming step (with ``slices``, the
+        slices it applied: 0 or 1), and on the frame program's path
+        ``world``, ``frame_program()``, and ``replay``, the program's run
+        (with the march's counts, ``FrameProgram.COUNTERS``, where the
+        program counts).  The uniforms' fill and upload are the root's own
+        time."""
+        spans = perf.SPANS
+        traced = spans.open_frame()
+        if traced:
+            spans.open("stream")
         self.streamer.request_move_towards((camera.origin[0], 0, camera.origin[2]))
-        self.streamer.setup_next_request()
+        moved = self.streamer.setup_next_request()
+        if traced:
+            spans.close(slices=int(moved))
         self.fill_uniforms(camera, sun_angle)
         packed = torch.from_numpy(self.uniforms.packed())
         if self.device.type == "cuda":
@@ -350,7 +376,15 @@ class Pipeline:
             # previous frame before queuing this one.
             packed = packed.pin_memory()
         if not self.validate:
-            frame, self.gbuffers = self.frame_program().run(packed)
+            if traced:
+                spans.open("world")
+            program = self.frame_program()
+            if traced:
+                spans.close()
+                spans.open("replay", program.counters, program.COUNTERS)
+            frame, self.gbuffers = program.run(packed)
+            if traced:
+                spans.close()
         else:
             frame, self.gbuffers = render_frame_packed(
                 self.world(), self.blue_noise, packed.to(self.device, non_blocking=True),
@@ -362,6 +396,8 @@ class Pipeline:
         u = self.uniforms
         u.old_origin = u.origin
         u.old_transform = _invert3(tuple(zip(*(u.right, u.up, u.forward))))
+        if traced:
+            spans.close()
         return frame
 
     def frame_program(self):
